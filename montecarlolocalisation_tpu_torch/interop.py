@@ -1,0 +1,84 @@
+"""Moving maps and filter states between the JAX package and the port.
+
+Everything crosses as numpy arrays: `maze_from_numpy` and
+`state_from_numpy` read the fields of the JAX package's MazeMap and
+MCLState (any object with those attribute names, so this module never
+imports JAX) into the port's dataclasses; `state_to_numpy` goes back.
+The JAX PRNG key cannot become a torch stream; it seeds the state's
+torch.Generator instead.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .maps.grid import MazeMap, is_gridline_structured
+from .models import motion, resample
+from .models.filter import MCLState
+
+
+def _t(a, dtype, device):
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def maze_from_numpy(src, device="cpu") -> MazeMap:
+    occ = np.asarray(src.occ).astype(bool)
+    return MazeMap(
+        occ=_t(occ, torch.bool, device),
+        occ_dilated=_t(src.occ_dilated, torch.bool, device),
+        walls=_t(src.walls, torch.bool, device),
+        row_lengths=_t(src.row_lengths, torch.int32, device),
+        resolution=float(src.resolution), origin_x=float(src.origin_x),
+        origin_y=float(src.origin_y), cell_meters=float(src.cell_meters),
+        gridline=is_gridline_structured(occ))
+
+
+def key_to_seed(key) -> int:
+    """A 64-bit generator seed from a raw uint32[2] PRNG key."""
+    words = np.asarray(key).astype(np.uint64).reshape(-1)
+    seed = 0
+    for w in words:
+        seed = ((seed << 32) | int(w)) & (2**64 - 1)
+    return seed
+
+
+def state_from_numpy(src, device="cpu") -> MCLState:
+    f32 = torch.float32
+    gen = torch.Generator(device=device)
+    gen.manual_seed(key_to_seed(src.key))
+    o = src.odom
+    return MCLState(
+        particles=_t(src.particles, f32, device),
+        weights=_t(src.weights, f32, device),
+        odom=motion.OdometryState(
+            x=_t(o.x, f32, device), y=_t(o.y, f32, device),
+            theta=_t(o.theta, f32, device),
+            encoder_left=_t(o.encoder_left, f32, device),
+            encoder_right=_t(o.encoder_right, f32, device)),
+        inj=resample.InjectionState(w_slow=_t(src.inj.w_slow, f32, device),
+                                    w_fast=_t(src.inj.w_fast, f32, device)),
+        confidence=_t(src.confidence, f32, device),
+        was_lost=_t(src.was_lost, torch.bool, device),
+        cluster_threshold=_t(src.cluster_threshold, f32, device),
+        confident_threshold=_t(src.confident_threshold, f32, device),
+        best_pose=_t(src.best_pose, f32, device),
+        gen=gen)
+
+
+def state_to_numpy(state: MCLState) -> dict:
+    """The state's tensors as numpy arrays, nested like the JAX MCLState
+    (odom and inj as dicts); `seed` is the generator's initial seed."""
+    def n(t):
+        return t.detach().cpu().numpy()
+
+    o = state.odom
+    return dict(
+        particles=n(state.particles), weights=n(state.weights),
+        odom=dict(x=n(o.x), y=n(o.y), theta=n(o.theta),
+                  encoder_left=n(o.encoder_left),
+                  encoder_right=n(o.encoder_right)),
+        inj=dict(w_slow=n(state.inj.w_slow), w_fast=n(state.inj.w_fast)),
+        confidence=n(state.confidence), was_lost=n(state.was_lost),
+        cluster_threshold=n(state.cluster_threshold),
+        confident_threshold=n(state.confident_threshold),
+        best_pose=n(state.best_pose), seed=state.gen.initial_seed())

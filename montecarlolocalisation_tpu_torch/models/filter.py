@@ -1,0 +1,244 @@
+"""The MCL filter: state, one tick, and the episode loop.
+
+Torch counterpart of montecarlolocalisation_tpu/models/filter.py.  One
+10 Hz tick (monte_carlo.cpp:1025-1098 executeParticleFilter), in the
+reference's order:
+  1. hysteresis on the PREVIOUS tick's confidence -> events, thresholds
+  2. publish the previous best pose (exact + quantized cell pose)
+  3. diffDriveModel + sampleMotionModelOdometry (odometry + noise)
+  4. updateParticlePos (propagation)
+  5. resampleParticles (weights inside; jitter regime = was_lost AFTER 1)
+  6. k-means confidence with the post-hysteresis thresholds
+
+A tick's random numbers come from the state's torch.Generator, or from
+`draws` (TickDraws), which lets a caller replay another implementation's
+exact draws.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import FilterConfig
+from ..maps.grid import MazeMap, is_valid_pos, world_to_cell
+from ..utils.angles import quantize_orientation
+from . import cluster, motion, resample, sensor
+
+# Wanderer command codes emitted per tick.
+WANDERER_NOOP = -1
+WANDERER_STOP = 0
+WANDERER_START = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MCLState:
+    """Carried filter state; scalars are 0-d tensors on the map's device."""
+
+    particles: torch.Tensor            # [N, 3] x, y, theta
+    weights: torch.Tensor              # [N]
+    odom: motion.OdometryState
+    inj: resample.InjectionState
+    confidence: torch.Tensor           # f32
+    was_lost: torch.Tensor             # bool
+    cluster_threshold: torch.Tensor    # f32 (dynamic, monte_carlo.cpp:78)
+    confident_threshold: torch.Tensor  # f32 (dynamic, :80)
+    best_pose: torch.Tensor            # [3] or the (-1,-1,-1) sentinel
+    gen: torch.Generator               # the filter's random stream
+
+
+@dataclasses.dataclass(frozen=True)
+class MCLOutput:
+    """Per-tick outputs, the stand-in for the reference's ROS topics."""
+
+    exact_pose: torch.Tensor     # [3] (/exact_pose)
+    cell_pose: torch.Tensor      # [3] int32 row, col, orientation (/pose)
+    confidence: torch.Tensor
+    song: torch.Tensor           # int32: 0 none, 1 lost, 2 recovered
+    wanderer_cmd: torch.Tensor   # int32: -1 noop, 0 stop, 1 start
+    n_injected: torch.Tensor
+    p_inject: torch.Tensor
+    total_weight: torch.Tensor   # sum of this tick's beam likelihoods
+
+
+@dataclasses.dataclass(frozen=True)
+class TickDraws:
+    """All random numbers of one tick: motion normals ([3], or [3, N]
+    with per-particle noise), the resampling draws, and the k-means
+    init [K] and reseed [I, K] particle indices."""
+
+    motion_normals: torch.Tensor
+    resample: resample.ResampleDraws
+    kmeans_init: torch.Tensor
+    kmeans_reseed: torch.Tensor
+
+
+def draw_tick(gen: torch.Generator, m: MazeMap, n: int,
+              cfg: FilterConfig) -> TickDraws:
+    normals = motion.draw_motion_normals(gen, n, cfg.motion, m.device)
+    rs = resample.draw_resample(gen, m, n, cfg)
+    init, reseed = cluster.draw_kmeans(gen, n, cfg.cluster, m.device)
+    return TickDraws(motion_normals=normals, resample=rs, kmeans_init=init,
+                     kmeans_reseed=reseed)
+
+
+def _scalar(v, dtype, device):
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
+def init_state(m: MazeMap, cfg: FilterConfig, seed: int = 0) -> MCLState:
+    """Startup state (monte_carlo.cpp:1198-1209): uniform particles,
+    zeroed odometry/injection accumulators, lost-side thresholds."""
+    dev = m.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    particles = resample.sample_uniform_particles(gen, m, cfg.num_particles,
+                                                  cfg.init)
+    h = cfg.hysteresis
+    return MCLState(
+        particles=particles,
+        weights=torch.full((cfg.num_particles,), cfg.init.init_weight,
+                           dtype=torch.float32, device=dev),
+        odom=motion.OdometryState.zero(dev),
+        inj=resample.InjectionState.zero(dev),
+        confidence=_scalar(0.0, torch.float32, dev),
+        was_lost=_scalar(False, torch.bool, dev),
+        cluster_threshold=_scalar(h.init_cluster_threshold, torch.float32,
+                                  dev),
+        confident_threshold=_scalar(h.init_confident_threshold,
+                                    torch.float32, dev),
+        best_pose=torch.full((3,), -1.0, dtype=torch.float32, device=dev),
+        gen=gen)
+
+
+def _hysteresis(state: MCLState, m: MazeMap, cfg: FilterConfig):
+    """Lost/recovered state machine (monte_carlo.cpp:1030-1081).
+    Returns (was_lost, cluster_thr, conf_thr, song, wanderer_cmd)."""
+    h = cfg.hysteresis
+    conf = state.confidence
+    thr = state.confident_threshold
+    lost_cond = conf < thr
+    conf_cond = conf > thr
+    to_lost = lost_cond & ~state.was_lost
+    recovered = conf_cond & state.was_lost
+    best_valid = is_valid_pos(m, state.best_pose[0], state.best_pose[1],
+                              cfg.valid_pos_offset)
+    conf_to_conf = conf_cond & ~state.was_lost & best_valid
+
+    cluster_thr = torch.where(
+        to_lost, h.lost_cluster_threshold,
+        torch.where(conf_cond, h.conf_cluster_threshold,
+                    state.cluster_threshold))
+    conf_thr = torch.where(
+        to_lost, h.lost_confident_threshold,
+        torch.where(conf_cond, h.conf_confident_threshold, thr))
+    was_lost = torch.where(to_lost, True,
+                           torch.where(recovered, False, state.was_lost))
+    song = torch.where(to_lost, h.song_lost,
+                       torch.where(recovered, h.song_recovered, 0)
+                       ).to(torch.int32)
+    wanderer = torch.where(
+        to_lost, WANDERER_START,
+        torch.where(recovered | conf_to_conf, WANDERER_STOP, WANDERER_NOOP),
+    ).to(torch.int32)
+    return was_lost, cluster_thr, conf_thr, song, wanderer
+
+
+def cell_pose_msg(best_pose, cell_meters: float = 0.8):
+    """World pose -> (row, col, orientation) int32, with the (-1,-1,-1)
+    sentinel (monte_carlo.cpp:958-1008 publishPosMsg)."""
+    wx, wy, theta = best_pose[0], best_pose[1], best_pose[2]
+    row, col = world_to_cell(wx, wy, cell_meters)
+    orient = quantize_orientation(theta)
+    invalid = (wx < 0) | (wy < 0)
+    return torch.where(invalid, -1, torch.stack([row, col, orient])
+                       ).to(torch.int32)
+
+
+def mcl_step(
+    state: MCLState,
+    encoder_left,
+    encoder_right,
+    scan: sensor.Scan,
+    m: MazeMap,
+    cfg: FilterConfig,
+    draws: Optional[TickDraws] = None,
+) -> Tuple[MCLState, MCLOutput]:
+    """One 10 Hz filter tick."""
+    if cfg.resample.ess_threshold is not None:
+        raise NotImplementedError(
+            "ESS-gated resampling (resample.ess_threshold) is not ported")
+    if cfg.refine.iters > 0:
+        raise NotImplementedError(
+            "gradient refinement (refine.iters > 0) is not ported")
+    if draws is None:
+        draws = draw_tick(state.gen, m, state.particles.shape[0], cfg)
+
+    # 1. Hysteresis on previous confidence.
+    was_lost, cluster_thr, conf_thr, song, wanderer = _hysteresis(
+        state, m, cfg)
+
+    # 2. Publish previous best pose.
+    exact_pose = state.best_pose
+    cell_pose = cell_pose_msg(state.best_pose, m.cell_meters)
+
+    # 3-4. Odometry + propagate.
+    odom, particles = motion.motion_update(
+        state.particles, state.odom, encoder_left, encoder_right,
+        cfg.motion, draws.motion_normals)
+
+    # 5. Weights + resample (jitter regime = was_lost after hysteresis,
+    #    monte_carlo.cpp:1087).
+    weights = sensor.beam_weights(m, particles, scan, cfg.sensor,
+                                  cfg.valid_pos_offset)
+    particles, weights, inj, info = resample.resample(
+        particles, weights, state.inj, was_lost, m, cfg, draws.resample)
+
+    # 6. Cluster confidence with the post-hysteresis threshold.
+    confidence, best_pose = cluster.cluster_confidence(
+        particles, weights, conf_thr, cfg.cluster, draws.kmeans_init,
+        draws.kmeans_reseed)
+
+    new_state = MCLState(
+        particles=particles, weights=weights, odom=odom, inj=inj,
+        confidence=confidence, was_lost=was_lost,
+        cluster_threshold=cluster_thr, confident_threshold=conf_thr,
+        best_pose=best_pose, gen=state.gen)
+    out = MCLOutput(
+        exact_pose=exact_pose, cell_pose=cell_pose, confidence=confidence,
+        song=song, wanderer_cmd=wanderer,
+        n_injected=info["n_injected"].to(torch.int32),
+        p_inject=info["p_inject"], total_weight=info["total_weight"])
+    return new_state, out
+
+
+def run_episode(
+    state: MCLState,
+    encoders,            # [T, 2] encoder_left/right (radians)
+    scan_ranges,         # [T, B]
+    scan_angles,         # [B] static beam table, or [T, B] per tick
+    m: MazeMap,
+    cfg: FilterConfig,
+    scan_mask=None,      # [T, B] optional
+) -> Tuple[MCLState, MCLOutput]:
+    """Run the filter over a recorded episode; the outputs are stacked
+    over ticks."""
+    dev = m.device
+    encoders = torch.as_tensor(encoders, dtype=torch.float32, device=dev)
+    ranges = torch.as_tensor(scan_ranges, dtype=torch.float32, device=dev)
+    angles = torch.as_tensor(scan_angles, dtype=torch.float32, device=dev)
+    mask = (torch.ones(ranges.shape, dtype=torch.bool, device=dev)
+            if scan_mask is None
+            else torch.as_tensor(scan_mask, device=dev).to(torch.bool))
+    outs = []
+    for t in range(ranges.shape[0]):
+        ang = angles[t] if angles.dim() == 2 else angles
+        sc = sensor.Scan(angles=ang, ranges=ranges[t], mask=mask[t])
+        state, out = mcl_step(state, encoders[t, 0], encoders[t, 1], sc, m,
+                              cfg)
+        outs.append(out)
+    stacked = MCLOutput(**{
+        f.name: torch.stack([getattr(o, f.name) for o in outs])
+        for f in dataclasses.fields(MCLOutput)})
+    return state, stacked

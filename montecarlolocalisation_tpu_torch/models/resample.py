@@ -1,0 +1,199 @@
+"""Resampling with AMCL-style adaptive injection.
+
+Torch counterpart of montecarlolocalisation_tpu/models/resample.py
+(reference: monte_carlo.cpp:457-561 resampleParticles, :415-450
+sampleParticles):
+  * dual-timescale averages: w_slow += a_slow*(w_avg - w_slow),
+    w_fast += a_fast*(w_avg - w_fast); p_inject = max(0, 1 - w_fast/w_slow);
+  * multinomial: the SAME uniform r decides injection (r < p_inject) and,
+    when not injecting, indexes the CDF via lower_bound; systematic: one
+    u0 for the draw (ops/expand) and separate injection uniforms;
+  * the first-come injection cap is "first k Bernoulli successes" via a
+    cumulative-sum mask;
+  * jitter by regime (lost: xy +-0.05, theta +-pi/12; confident: xy +-0.01,
+    theta unchanged), theta re-wrapped via atan2.
+
+The random draws are arguments (ResampleDraws), so a caller can hand in
+another implementation's exact draws; `draw_resample` makes them from a
+torch.Generator.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import FilterConfig, InitConfig, ResampleConfig
+from ..maps.grid import MazeMap, cell_center, f32_reciprocal
+from ..ops import expand
+from ..utils.angles import normalize_angle
+
+
+@dataclasses.dataclass(frozen=True)
+class InjectionState:
+    """Dual-timescale weight averages (monte_carlo.cpp:125-128)."""
+
+    w_slow: torch.Tensor
+    w_fast: torch.Tensor
+
+    @staticmethod
+    def zero(device="cpu") -> "InjectionState":
+        z = torch.zeros((), dtype=torch.float32, device=device)
+        return InjectionState(w_slow=z, w_fast=z)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResampleDraws:
+    """One resampling pass's random numbers.
+
+    u         [N] multinomial uniforms in [0, 1) (also the injection test)
+    u0        []  systematic offset in [0, 1)
+    inject_r  [N] systematic injection uniforms in [0, 1)
+    jitter    [3, N] uniforms in [-1, 1) for x, y, theta
+    fresh     [N, 3] uniformly drawn particles for injected slots
+    Fields the configured method does not read are None.
+    """
+
+    jitter: torch.Tensor
+    fresh: torch.Tensor
+    u: Optional[torch.Tensor] = None
+    u0: Optional[torch.Tensor] = None
+    inject_r: Optional[torch.Tensor] = None
+
+
+def sample_uniform_particles(gen: torch.Generator, m: MazeMap, n: int,
+                             cfg: InitConfig = InitConfig()):
+    """Uniform global particles (monte_carlo.cpp:415-450 sampleParticles):
+    random maze cell, uniform in-cell offset +-cell_offset, yaw in
+    [-pi, pi), +global_offset on x and y.  Returns [n, 3]."""
+    dev = m.device
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+
+    rows = torch.randint(0, m.n_rows, (n,), generator=gen, device=dev)
+    cols = torch.randint(0, m.n_cols, (n,), generator=gen, device=dev)
+    cx, cy = cell_center(rows.to(torch.float32), cols.to(torch.float32),
+                         m.cell_meters)
+    off = cfg.cell_offset
+    x = cx + uniform(-off, off)
+    y = cy + uniform(-off, off)
+    yaw = uniform(-math.pi, math.pi)
+    return torch.stack([x + cfg.global_offset, y + cfg.global_offset, yaw],
+                       dim=-1).to(torch.float32)
+
+
+def draw_resample(gen: torch.Generator, m: MazeMap, n: int,
+                  cfg: FilterConfig) -> ResampleDraws:
+    """The draws of one resampling pass, from `gen`.  The fresh particles
+    are always drawn (the JAX package skips them when p_inject == 0, where
+    no slot reads them), so the tick needs no host sync."""
+    dev = m.device
+    systematic = cfg.resample.method == "systematic"
+    u = None if systematic else torch.rand(n, generator=gen, device=dev)
+    u0 = (torch.rand((), generator=gen, device=dev) if systematic
+          else None)
+    inject_r = (torch.rand(n, generator=gen, device=dev) if systematic
+                else None)
+    jitter = 2.0 * torch.rand((3, n), generator=gen, device=dev) - 1.0
+    fresh = sample_uniform_particles(gen, m, n, cfg.init)
+    return ResampleDraws(jitter=jitter, fresh=fresh, u=u, u0=u0,
+                         inject_r=inject_r)
+
+
+def systematic_indices(cdf, u0):
+    """Low-variance resampling's source indices, lower_bound(cdf,
+    (k + u0)/N) for k < N, through the offspring counts (resample.py:134
+    of the JAX package)."""
+    return expand.source_indices(expand.offspring_counts(cdf, u0))
+
+
+def _regime(jitter_state, cfg: ResampleConfig):
+    """Lost/confident scalar parameters (monte_carlo.cpp:472-482)."""
+    def sel(a, b):
+        return torch.where(jitter_state, float(a), float(b))
+
+    return dict(
+        max_injection=sel(cfg.lost_max_injection, cfg.conf_max_injection),
+        alpha_slow=sel(cfg.lost_alpha_slow, cfg.conf_alpha_slow),
+        alpha_fast=sel(cfg.lost_alpha_fast, cfg.conf_alpha_fast),
+        jitter_xy=sel(cfg.lost_jitter_xy, cfg.conf_jitter_xy),
+        jitter_theta=sel(cfg.lost_jitter_theta, cfg.conf_jitter_theta),
+    )
+
+
+def update_injection(weights, inj: InjectionState, jitter_state,
+                     cfg: FilterConfig):
+    """Dual-timescale average update (monte_carlo.cpp:487-492).  Returns
+    (new InjectionState, p_inject, w_avg, total_weight)."""
+    p = _regime(jitter_state, cfg.resample)
+    total = torch.sum(weights)
+    w_avg = total * f32_reciprocal(weights.shape[0])
+    w_slow = inj.w_slow + p["alpha_slow"] * (w_avg - inj.w_slow)
+    w_fast = inj.w_fast + p["alpha_fast"] * (w_avg - inj.w_fast)
+    # Guard the 0/0 at startup (C++ std::max(0.0, nan) -> 0.0).
+    p_inject = torch.where(
+        w_slow > 0.0, torch.clamp(1.0 - w_fast / w_slow, min=0.0), 0.0)
+    return InjectionState(w_slow, w_fast), p_inject, w_avg, total
+
+
+def resample(
+    particles,              # [N, 3]
+    weights,                # [N] unnormalized (from beam_weights)
+    inj: InjectionState,
+    jitter_state,           # bool tensor: True = lost regime
+    m: MazeMap,
+    cfg: FilterConfig,
+    draws: ResampleDraws,
+) -> Tuple[torch.Tensor, torch.Tensor, InjectionState, dict]:
+    """One resampling pass.  Returns (particles, weights=1/N, inj, info)."""
+    rcfg = cfg.resample
+    n = particles.shape[0]
+    p = _regime(jitter_state, rcfg)
+    new_inj, p_inject, w_avg, total = update_injection(
+        weights, inj, jitter_state, cfg)
+
+    # Normalized CDF; degenerate all-zero weights fall back to uniform.
+    norm_w = torch.where(total > 0.0, weights / total, 1.0 / n)
+    # Accumulated in float64, rounded to float32: torch's CPU cumsum does
+    # that for float32 by itself, while its CUDA cumsum adds float32 in an
+    # order that changes from run to run, and at 1M particles one ulp of
+    # the CDF moves about 1 % of the draws.
+    cdf = torch.cumsum(norm_w.double(), dim=0).float()
+
+    if rcfg.method == "multinomial":
+        # "sorted" is the JAX package's TPU workaround for the same
+        # multiset; the exact per-slot draw is the semantics.
+        if rcfg.multinomial_impl not in ("auto", "exact", "sorted"):
+            raise ValueError(
+                f"unknown multinomial_impl {rcfg.multinomial_impl!r}")
+        inject_r = draws.u
+        # CDF draw (lower_bound == side='left'), clipped for round-off.
+        idx = torch.searchsorted(cdf, draws.u, side="left").clamp(max=n - 1)
+        drawn = particles[idx]
+    elif rcfg.method == "systematic":
+        inject_r = draws.inject_r
+        if rcfg.expand == "xla":
+            drawn = particles[systematic_indices(cdf, draws.u0)]
+        else:
+            drawn = expand.systematic_expand(particles, cdf, draws.u0)
+    else:
+        raise ValueError(f"unknown resample method {rcfg.method!r}")
+
+    # Injection: Bernoulli successes, capped first-come (monte_carlo.cpp:518).
+    bern = inject_r < p_inject
+    inject = bern & (torch.cumsum(bern, dim=0) <= p["max_injection"])
+    n_injected = torch.sum(inject)
+    jx = draws.jitter[0] * p["jitter_xy"]
+    jy = draws.jitter[1] * p["jitter_xy"]
+    jt = draws.jitter[2] * p["jitter_theta"]
+    drawn = torch.stack([drawn[:, 0] + jx, drawn[:, 1] + jy,
+                         normalize_angle(drawn[:, 2] + jt)], dim=-1)
+    new_particles = torch.where(inject[:, None], draws.fresh, drawn)
+    new_weights = torch.full((n,), 1.0 / n, dtype=torch.float32,
+                             device=particles.device)
+    info = dict(p_inject=p_inject, n_injected=n_injected, w_avg=w_avg,
+                total_weight=total)
+    return new_particles, new_weights, new_inj, info

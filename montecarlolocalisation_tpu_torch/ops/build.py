@@ -1,0 +1,134 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+At first use, nvcc compiles every source in csrc/ for Hopper (sm_90a)
+into one shared library with a plain C interface, under build/ inside
+this package; ctypes loads it.  Each C entry launches its kernel(s) on the
+stream it is given, allocates nothing, and returns cudaGetLastError() as
+an int, which `check` turns into an exception.  A missing nvcc or a
+failed build raises: nothing falls back to another implementation.
+
+The library is named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one is reused.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry -> argtypes.  Every pointer and the stream are c_void_p, so
+# ctypes never passes one as a 32-bit int.
+SIGNATURES = {
+    # particles, n, beam table, B, occ, dil, H, W, fparams, iparams, out,
+    # stream
+    "mcl_beam_weights": [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    # particles, counts, n, d, out, stream
+    "mcl_systematic_expand": [_P, _P, _I, _I, _P, _P],
+    # xy, n, reseed, iters, k, assign, centers, partial, changed, done,
+    # n_blocks, stream
+    "mcl_kmeans": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+}
+
+_lib = None
+build_seconds = None
+
+
+def sources():
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def find_nvcc():
+    """nvcc from PATH, $CUDA_HOME or the default toolkit root; None if
+    there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), DEFAULT_CUDA_HOME):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    return None
+
+
+def _library_path():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libmcl_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile csrc/*.cu into the shared library (if not built yet) and
+    return its path.  Raises RuntimeError without nvcc or on a failed
+    build."""
+    global build_seconds
+    out = _library_path()
+    if os.path.isfile(out):
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): the CUDA "
+            "kernels are compiled from csrc/ at first use")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [s for s in sources() if s.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def library():
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error (a refused launch is
+    reported only by cudaGetLastError)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def floats(values):
+    return (ctypes.c_float * len(values))(*values)
+
+
+def ints(values):
+    return (ctypes.c_int * len(values))(*values)

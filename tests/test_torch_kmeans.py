@@ -1,0 +1,108 @@
+"""K3's plain version (ops/kmeans) vs the JAX package: its dense path
+`_kmeans_dense` (the rule, early-exit latch included) and its Pallas kernel
+`kmeans_pallas(..., interpret=True)` on clouds where the latch cannot
+matter.  Same centers0/reseed; centers within 1e-4 and > 99.9 % of
+assignments equal (partial sums reassociate, so boundary particles may
+flip)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from montecarlolocalisation_tpu.config import ClusterConfig
+from montecarlolocalisation_tpu.models import cluster as jcluster
+from montecarlolocalisation_tpu.ops.kmeans_pallas import kmeans_pallas
+from montecarlolocalisation_tpu_torch.models import cluster as tcluster
+from montecarlolocalisation_tpu_torch.ops import kmeans as tkmeans
+
+from torch_parity import jax_kmeans_indices, t
+
+torch.set_num_threads(1)
+
+
+def _mixture(seed, n=6000):
+    """Three well-separated blobs + uniform background."""
+    rng = np.random.default_rng(seed)
+    blobs = [c + 0.15 * rng.normal(size=(n // 3, 2))
+             for c in ([1.0, 1.0], [4.0, 1.5], [2.5, 4.0])]
+    bg = rng.uniform(size=(n - 3 * (n // 3), 2)) * 5.0
+    return np.concatenate(blobs + [bg]).astype(np.float32)
+
+
+def _inputs(seed, xy):
+    cfg = ClusterConfig()
+    init, reseed = jax_kmeans_indices(jax.random.PRNGKey(seed), xy.shape[0],
+                                      cfg)
+    return cfg, xy[init], xy[reseed]
+
+
+def _close(c_got, a_got, c_want, a_want):
+    np.testing.assert_allclose(c_got, c_want, rtol=1e-4, atol=1e-4)
+    assert (a_got == a_want).mean() > 0.999
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("n", [6000, 5001])
+def test_plain_matches_dense(seed, n):
+    xy = _mixture(seed + 10, n)
+    cfg, c0, rs = _inputs(seed, xy)
+    cw, aw = jax.jit(lambda a, b, c: jcluster._kmeans_dense(a, b, c, cfg))(
+        xy, c0, rs)
+    cg, ag = tkmeans.kmeans(t(xy), t(c0), t(rs))
+    assert ag.dtype == torch.int32
+    _close(cg.numpy(), ag.numpy(), np.asarray(cw), np.asarray(aw))
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_plain_matches_pallas_kernel(seed):
+    xy = _mixture(seed + 20)
+    cfg, c0, rs = _inputs(seed, xy)
+    cw, aw = kmeans_pallas(jnp.asarray(xy), jnp.asarray(c0), jnp.asarray(rs),
+                           cfg.max_iters, interpret=True)
+    cg, ag = tkmeans.kmeans_plain(t(xy), t(c0), t(rs))
+    _close(cg.numpy(), ag.numpy(), np.asarray(cw), np.asarray(aw))
+
+
+def test_latch_freezes_like_dense():
+    # Converges in a few iterations: the latch stops updates after that.
+    xy = _mixture(4, 3000)
+    cfg, c0, rs = _inputs(4, xy)
+    cw, aw = jax.jit(lambda a, b, c: jcluster._kmeans_dense(a, b, c, cfg))(
+        xy, c0, rs)
+    cg, ag = tkmeans.kmeans_plain(t(xy), t(c0), t(rs))
+    _close(cg.numpy(), ag.numpy(), np.asarray(cw), np.asarray(aw))
+
+
+def test_empty_cluster_reseeds():
+    # Two centers far from the data: every particle joins the third, the
+    # assignments change, and the two empty clusters must take reseed
+    # candidates, not NaN.
+    xy = _mixture(5)
+    cfg = ClusterConfig()
+    c0 = np.float32([[100.0, 100.0], [100.0, 100.0], [1.0, 1.0]])
+    rs = np.broadcast_to(xy[:3][None], (cfg.max_iters, 3, 2)).copy()
+    cw, aw = jax.jit(lambda a, b, c: jcluster._kmeans_dense(a, b, c, cfg))(
+        xy, c0, rs)
+    cg, ag = tkmeans.kmeans_plain(t(xy), t(c0), t(rs))
+    assert np.isfinite(cg.numpy()).all() and (cg.numpy() < 10.0).all()
+    _close(cg.numpy(), ag.numpy(), np.asarray(cw), np.asarray(aw))
+
+
+def test_cluster_confidence_matches():
+    xy = _mixture(6, 4000)
+    rng = np.random.default_rng(6)
+    parts = np.concatenate([xy, rng.uniform(-3, 3, (4000, 1))], 1).astype(
+        np.float32)
+    w = np.full(4000, 1.0 / 4000, np.float32)
+    cfg = ClusterConfig()
+    key = jax.random.PRNGKey(8)
+    init, reseed = jax_kmeans_indices(key, 4000, cfg)
+    for thr in (0.1, 0.9):
+        jr, jp = jax.jit(lambda p: jcluster.cluster_confidence(
+            key, p, w, jnp.float32(thr), cfg))(parts)
+        tr, tp = tcluster.cluster_confidence(
+            t(parts), t(w), t(thr), cfg, t(init, torch.int64),
+            t(reseed, torch.int64))
+        np.testing.assert_allclose(float(tr), float(jr), atol=1e-3)
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-3)

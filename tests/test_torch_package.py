@@ -1,0 +1,114 @@
+"""The port's ground rules: it never imports JAX, a kernel entry never
+falls back to the CPU, a build without nvcc (or a failed one) raises, and
+chip_smoke.py refuses to run without a CUDA card."""
+import os
+import os.path as osp
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from montecarlolocalisation_tpu_torch import presets
+from montecarlolocalisation_tpu_torch.config import SensorModelConfig
+from montecarlolocalisation_tpu_torch.models import sensor
+from montecarlolocalisation_tpu_torch.ops import build, expand, kmeans
+from montecarlolocalisation_tpu_torch.ops import weights
+
+torch.set_num_threads(1)
+
+ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import montecarlolocalisation_tpu_torch as pkg
+for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(mod.name)
+jax = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
+print("jax modules:", jax)
+"""
+
+
+def test_port_never_imports_jax():
+    r = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "jax modules: []" in r.stdout, r.stdout
+
+
+def _cpu_calls():
+    tm = presets.make_world().maze
+    parts = torch.rand(64, 3)
+    scan = sensor.make_scan(np.zeros(4, np.float32), np.ones(4, np.float32))
+    counts = torch.arange(1, 65, dtype=torch.int32)
+    xy = torch.rand(64, 2)
+    return {
+        "beam_weights": lambda: weights.beam_weights_cuda(
+            tm, parts, scan, SensorModelConfig()),
+        "systematic_expand": lambda: expand.systematic_expand_cuda(
+            parts, counts),
+        "kmeans": lambda: kmeans.kmeans_cuda(xy, xy[:3],
+                                             xy[:60].reshape(20, 3, 2)),
+    }
+
+
+@pytest.mark.parametrize("entry", ["beam_weights", "systematic_expand",
+                                   "kmeans"])
+def test_kernel_entry_refuses_cpu_tensors(entry):
+    fn = {"beam_weights": weights.beam_weights_cuda,
+          "systematic_expand": expand.systematic_expand_cuda,
+          "kmeans": kmeans.kmeans_cuda}[entry]
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        _cpu_calls()[entry]()
+    assert fn.launches == before
+
+
+def _isolate_build(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(build, "DEFAULT_CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setenv("PATH", str(tmp_path / "bin"))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    _isolate_build(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.library()
+    assert build._lib is None
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    _isolate_build(monkeypatch, tmp_path)
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text("#!/bin/sh\necho 'error: no card here' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build.library()
+    assert build._lib is None
+    assert not [f for f in os.listdir(tmp_path / "build")
+                if f.endswith(".so")]
+
+
+def _smoke(cwd):
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+    return r
+
+
+def test_chip_smoke_fails_without_a_card():
+    r = _smoke(ROOT)
+    assert "CUDA" in r.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(osp.join(ROOT, "chip_smoke.py"), tmp_path)
+    r = _smoke(tmp_path)
+    assert "ModuleNotFoundError" in r.stderr

@@ -1,0 +1,80 @@
+"""Shared inputs for the torch-port parity tests (tests/test_torch_*.py).
+
+Both packages get the same numpy arrays.  JAX runs on the CPU under jit
+(its Pallas kernels in interpret mode, as the JAX suite runs them); the
+port runs on CPU tensors, where every kernel wrapper takes its plain
+version.  `jax_tick_draws` rebuilds the JAX package's key-split tree for
+one filter tick (filter.py:193, motion.py:80, resample.py:388,
+cluster.py:40-47), so the port can replay JAX's exact random numbers.
+"""
+from __future__ import annotations
+
+import os.path as osp
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from montecarlolocalisation_tpu.maps import from_map_file
+from montecarlolocalisation_tpu.models import resample as jresample
+from montecarlolocalisation_tpu_torch import interop
+from montecarlolocalisation_tpu_torch.models import filter as tfilter
+from montecarlolocalisation_tpu_torch.models import resample as tresample
+
+MAP_PATH = osp.join(osp.dirname(__file__), "..", "montecarlolocalisation_tpu",
+                    "maps", "default_map.txt")
+
+
+def maps():
+    """(JAX map, port map on the CPU) of the default maze."""
+    jm = from_map_file(MAP_PATH)
+    return jm, interop.maze_from_numpy(jm)
+
+
+def t(a, dtype=torch.float32):
+    return torch.as_tensor(np.array(a), dtype=dtype)
+
+
+def uniform_particles(jm, n, seed):
+    """JAX's reference sampler, as numpy [n, 3]."""
+    return np.asarray(jresample.sample_uniform_particles(
+        jax.random.PRNGKey(seed), jm, n))
+
+
+def jax_tick_draws(key, jm, n, cfg) -> tfilter.TickDraws:
+    """The random numbers JAX's mcl_step draws from state key `key`."""
+    _, k_motion, k_resample, k_cluster = jax.random.split(key, 4)
+    shape = () if cfg.motion.shared_noise else (n,)
+    normals = jnp.stack([jax.random.normal(k, shape)
+                         for k in jax.random.split(k_motion, 3)])
+    init, reseed = jax_kmeans_indices(k_cluster, n, cfg.cluster)
+    return tfilter.TickDraws(
+        motion_normals=t(normals),
+        resample=jax_resample_draws(k_resample, jm, n, cfg),
+        kmeans_init=t(init, torch.int64),
+        kmeans_reseed=t(reseed, torch.int64))
+
+
+def jax_resample_draws(key, jm, n, cfg) -> tresample.ResampleDraws:
+    """The random numbers of resample.resample(key, ...) (:388-444)."""
+    k_draw, k_inj, k_jx, k_jy, k_jt, k_fresh = jax.random.split(key, 6)
+    jitter = jnp.stack([jax.random.uniform(k, (n,), minval=-1.0, maxval=1.0)
+                        for k in (k_jx, k_jy, k_jt)])
+    fresh = jresample.sample_uniform_particles(k_fresh, jm, n, cfg.init)
+    if cfg.resample.method == "systematic":
+        return tresample.ResampleDraws(
+            jitter=t(jitter), fresh=t(fresh),
+            u0=t(jax.random.uniform(k_draw, ())),
+            inject_r=t(jax.random.uniform(k_inj, (n,))))
+    return tresample.ResampleDraws(jitter=t(jitter), fresh=t(fresh),
+                                   u=t(jax.random.uniform(k_draw, (n,))))
+
+
+def jax_kmeans_indices(key, n, ccfg):
+    """cluster.kmeans's init [K] and reseed [I, K] particle indices."""
+    k_init, k_iters = jax.random.split(key)
+    init = jax.random.randint(k_init, (ccfg.k,), 0, n)
+    reseed = jax.vmap(lambda kk: jax.random.randint(kk, (ccfg.k,), 0, n))(
+        jax.random.split(k_iters, ccfg.max_iters))
+    return np.asarray(init), np.asarray(reseed)
