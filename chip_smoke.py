@@ -3,17 +3,29 @@
 
 Builds the port's hand-written kernels from montecarlolocalisation_tpu_torch/
 csrc, holds each against its plain PyTorch version on the card, then drives
-the filter through the entry points a user calls: the JSONL server
-(MCLServer) at 1,048,576 particles x 34 beams with the closed-form caster
-and systematic resampling, and run_episode at 65,536 x 12 with the fixed
-march and multinomial resampling.  Every phase prints one line; any failure
-raises, so the exit code is non-zero and no result line appears.  It needs
-one CUDA card and fails without one.
+the filter through the entry points a user calls:
+
+- one filter: the JSONL server (MCLServer) at 1,048,576 particles x 34
+  beams with the closed-form caster and systematic resampling, and
+  run_episode at 65,536 x 12 with the fixed march and multinomial
+  resampling;
+- a batch of episodes: the sweep preset (presets.run_sweep) at 1024
+  episodes x 500 particles x 24 beams x 300 ticks, fixed march, systematic
+  resampling, and the fleet server (MCLFleetServer) at 64 robots x 1500 x
+  34 for 20 frames;
+- the layout A/B of the two episode-batched beam weight kernels (K1
+  batched against K4), the port's counterpart of tools/ab_beamsub.py.
+
+Every phase prints one JSON line; any failure raises, so the exit code is
+non-zero and no result line appears.  It needs one CUDA card and fails
+without one.
 
 Output, in order: the card (nvidia-smi name and power limit), the build,
 the kernel checks, the serve phase, the entry config, the kernel-vs-plain
-tick, the kernel times, a {"kernels": [...]} line, and last
-{"ok": true, "device": {...}}.
+tick, the kernel times, the sweep, the fleet, a device profile of one
+batched tick at the sweep's and the fleet's shapes, the layout A/B, the
+batched kernels' times, a {"kernels": [...]} line, the card again, and
+last {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py
 """
@@ -31,35 +43,73 @@ import torch
 from montecarlolocalisation_tpu_torch import presets
 from montecarlolocalisation_tpu_torch.bench import card
 from montecarlolocalisation_tpu_torch.config import (
-    WALL_LEFT, WALL_TOP, SensorModelConfig,
+    WALL_LEFT, WALL_TOP, FilterConfig, SensorModelConfig,
 )
+from montecarlolocalisation_tpu_torch.io.fleet import MCLFleetServer
 from montecarlolocalisation_tpu_torch.io.server import MCLServer
 from montecarlolocalisation_tpu_torch.maps import from_walls
+from montecarlolocalisation_tpu_torch.maps.grid import lookup, world_to_map
 from montecarlolocalisation_tpu_torch.models import filter as mcl
-from montecarlolocalisation_tpu_torch.models import motion, sensor
-from montecarlolocalisation_tpu_torch.ops import build, expand, kmeans
-from montecarlolocalisation_tpu_torch.ops import weights
+from montecarlolocalisation_tpu_torch.models import motion, resample, sensor
+from montecarlolocalisation_tpu_torch.models.raycast import march_steps
+from montecarlolocalisation_tpu_torch.ops import analytic, build, expand
+from montecarlolocalisation_tpu_torch.ops import kmeans, weights
+from montecarlolocalisation_tpu_torch.sim import robot
 
 SERVE_N, SERVE_B, SERVE_TICKS = 1_048_576, 34, 20
 ENTRY_N, ENTRY_B, ENTRY_TICKS = 65_536, 12, 50
+SWEEP_E, SWEEP_N, SWEEP_B, SWEEP_T = 1024, 500, 24, 300
+FLEET_R, FLEET_N, FLEET_B, FLEET_TICKS = 64, 1500, 34, 20
+AB_E, AB_SIZES, AB_B = 64, (500, 768, 2000), 24
+K4_TIME_N = 768               # K4's time in the kernels line: an A/B shape
+# The kernels of one filter's tick, and the batched checks' grids.
+SINGLE = ("beam_weights", "systematic_expand", "kmeans")
+CHECK_EPISODES, CHECK_SIZES, CHECK_BEAMS = (1, 64, 1024), (1, 500, 1500,
+                                                          2000), (24, 34)
+K2_BATCHED_SHAPES = ((1024, 500), (8, 65_536))
 START = (1.25, 1.25, 0.0)     # the bench's pose, a free spot of the maze
 WHEELS = (0.5, 0.45)          # encoder step per tick (rad): a gentle arc
 PKG = "montecarlolocalisation_tpu_torch"
+TPU = "montecarlolocalisation_tpu/ops"
+# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): device
+# memory rate and float32 outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 KERNELS = {
     "beam_weights": dict(
         fn=weights.beam_weights_cuda, source=f"{PKG}/csrc/weights.cu",
-        replaces="montecarlolocalisation_tpu/ops/weights_pallas.py:277"),
+        replaces=f"{TPU}/weights_pallas.py:277"),
+    "beam_weights_batched": dict(
+        fn=weights.beam_weights_batched_cuda,
+        source=f"{PKG}/csrc/weights.cu",
+        replaces=f"{TPU}/weights_pallas.py:371"),
     "systematic_expand": dict(
         fn=expand.systematic_expand_cuda, source=f"{PKG}/csrc/expand.cu",
-        replaces="montecarlolocalisation_tpu/ops/expand_pallas.py:220"),
+        replaces=f"{TPU}/expand_pallas.py:220"),
+    "systematic_expand_batched": dict(
+        fn=expand.systematic_expand_batched_cuda,
+        source=f"{PKG}/csrc/expand.cu",
+        replaces=f"{TPU}/expand_pallas.py:220"),
     "kmeans": dict(
         fn=kmeans.kmeans_cuda, source=f"{PKG}/csrc/kmeans.cu",
-        replaces="montecarlolocalisation_tpu/ops/kmeans_pallas.py:133"),
+        replaces=f"{TPU}/kmeans_pallas.py:133"),
+    "kmeans_batched": dict(
+        fn=kmeans.kmeans_batched_cuda, source=f"{PKG}/csrc/kmeans.cu",
+        replaces=f"{TPU}/kmeans_pallas.py:133"),
+    "beam_weights_beamsub": dict(
+        fn=weights.beamsub_cuda, source=f"{PKG}/csrc/weights.cu",
+        replaces=f"{TPU}/weights_pallas.py:576"),
 }
 
 
+def _finite(v):
+    return None if isinstance(v, float) and not math.isfinite(v) else v
+
+
 def say(phase: str, **fields) -> None:
-    print(json.dumps(dict(phase=phase, **fields)), flush=True)
+    print(json.dumps(dict(phase=phase, **{k: _finite(v)
+                                          for k, v in fields.items()})),
+          flush=True)
 
 
 def reset_counts() -> None:
@@ -74,7 +124,7 @@ def counts() -> dict:
 def drive(n_ticks: int):
     """Encoder readings [T, 2] and true poses [T, 3] of a short drive from
     START; the truth follows the encoders through diff_drive_update."""
-    cfg = presets.make_world().cfg.motion
+    cfg = FilterConfig().motion
     f32 = torch.float32
     odom = motion.OdometryState(
         x=torch.tensor(START[0], dtype=f32), y=torch.tensor(START[1], dtype=f32),
@@ -116,8 +166,6 @@ def cuda_ms(fn, reps: int = 10) -> float:
 # -- phase 3: each kernel against its plain version ------------------------
 
 def k1_inputs(m, n, nb, cfg, gen):
-    from montecarlolocalisation_tpu_torch.models import resample
-
     parts = resample.sample_uniform_particles(gen, m, n)
     angles = np.deg2rad(np.linspace(-118.0, 118.0, nb)).astype(np.float32)
     scan = sensor.simulate_scan(m, START, angles, cfg)
@@ -169,12 +217,15 @@ def check_k1(m, gen) -> dict:
     return dict(max_abs_err=worst)
 
 
-def skewed_cdf(n, gen, dev):
-    w = torch.rand(n, generator=gen, device=dev) ** 8     # heavy skew
-    w[torch.rand(n, generator=gen, device=dev) < 0.5] = 0.0
-    total = w.sum()
+def skewed_cdf(n, gen, dev, batch=()):
+    """Heavily skewed CDFs [*batch, n], half the weights zero, accumulated
+    in float64 as the filter accumulates them."""
+    shape = tuple(batch) + (n,)
+    w = torch.rand(shape, generator=gen, device=dev) ** 8
+    w[torch.rand(shape, generator=gen, device=dev) < 0.5] = 0.0
+    total = w.sum(-1, keepdim=True)
     w = torch.where(total > 0, w / total, 1.0 / n)
-    return torch.cumsum(w, 0)
+    return torch.cumsum(w.double(), -1).float()
 
 
 def check_k2(dev, gen) -> dict:
@@ -286,7 +337,7 @@ def serve_phase(dev):
             raise AssertionError(f"serve: non-finite reply {r}")
     if replies[-2].get("tick") != SERVE_TICKS or replies[-1] != {"ok": True}:
         raise AssertionError(f"serve: stats/shutdown replies {replies[-2:]}")
-    short = {k: v for k, v in launched.items() if v < SERVE_TICKS}
+    short = {k: launched[k] for k in SINGLE if launched[k] < SERVE_TICKS}
     if short:
         raise AssertionError(f"serve: kernels launched < {SERVE_TICKS} "
                              f"times: {short}")
@@ -370,7 +421,7 @@ def tick_phase(world, state):
     after = counts()
     again, _ = mcl.mcl_step(state, el, er, scan, m, cfg, draws=draws)
     repeat = (again.particles == k_state.particles).all(1).float().mean()
-    if after != mid or any(mid[k] <= before[k] for k in mid):
+    if after != mid or any(mid[k] <= before[k] for k in SINGLE):
         raise AssertionError(f"tick: launches {before} -> {mid} -> {after}")
     rows = ((k_state.particles - p_state.particles).abs() <= 1e-5).all(1)
     share = rows.float().mean().item()
@@ -414,15 +465,18 @@ def time_phase(world, state, gen) -> dict:
         "kmeans": (lambda: kmeans.kmeans_cuda(xy, c0, rs),
                    lambda: kmeans.kmeans_plain(xy, c0, rs)),
     }
+    bounds = {
+        "beam_weights": dict(**k1_bound(m, parts, scan.angles, cfg.sensor),
+                             library_ms=None),
+        "systematic_expand": dict(**k2_bound(parts), library_ms=cuda_ms(
+            repeat_rows(parts, counts_))),
+        "kmeans": dict(**k3_bound(xy, c0, rs), library_ms=None),
+    }
     times = {}
     for name, (kernel, plain) in pairs.items():
-        # plain, kernel, kernel, plain: the two sides share the card's state
-        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel),
-                          cuda_ms(plain))
-        times[name] = dict(ms=float(np.median([k1, k2])),
-                           plain_ms=float(np.median([p1, p2])))
+        times[name] = dict(**turns(kernel, plain), **bounds[name])
         say("time", kernel=name, particles=SERVE_N, beams=SERVE_B,
-            ms=[k1, k2], plain_ms=[p1, p2])
+            **times[name])
     tick_cfg = (cfg, plain_config(cfg))
     tick_ms = [cuda_ms(lambda c=c: mcl.mcl_step(state, 0.1, 0.1, scan, m, c))
                for c in tick_cfg]
@@ -431,10 +485,513 @@ def time_phase(world, state, gen) -> dict:
     return times
 
 
+# -- bounds: the least time the card could take for a call's work -------
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The larger of bytes over the memory rate and float32 operations
+    over the peak float32 rate, in ms, and which of the two it is."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+# Float operations each beam weight needs whatever the cast: the ray angle,
+# its cosine and sine, and the likelihood tail (difference, Gaussian with
+# its exp, the max-range term, the masked accumulate); and each particle:
+# the laser origin and its pixel coordinates, and the validity gate.
+BEAM_FLOPS, PARTICLE_FLOPS = 15, 16
+MARCH_SAMPLE_FLOPS = 8     # a sample's world point and its pixel
+SLAB_FLOPS = 10            # one candidate slab of one axis (analytic)
+
+
+def march_samples(m, parts, angles, cfg) -> int:
+    """March samples the data needs: every beam samples up to its first
+    hit, or its first sample off the map, or num_ray_steps."""
+    x, y, th = parts[..., 0], parts[..., 1], parts[..., 2]
+    ox = (x + cfg.laser_offset * torch.cos(th))[..., None]
+    oy = (y + cfg.laser_offset * torch.sin(th))[..., None]
+    sign = -1.0 if cfg.negate_beam_angle else 1.0
+    ray = th[..., None] + sign * angles
+    dx, dy = torch.cos(ray), torch.sin(ray)
+    alive = torch.ones(ray.shape, dtype=torch.bool, device=parts.device)
+    count = torch.zeros(ray.shape, dtype=torch.int32, device=parts.device)
+    for r in march_steps(cfg):
+        count += alive.to(torch.int32)
+        mx, my, inb = world_to_map(m, ox + r * dx, oy + r * dy)
+        alive = alive & inb & ~lookup(m.occ, mx, my)
+    return int(count.sum())
+
+
+def k1_bound(m, parts, angles, cfg) -> dict:
+    """K1 (and K1 batched, K4: the same function): each input read once,
+    each output written once; operations per beam and per particle, the
+    cast counted by what this data needs (march samples), or by the slab
+    candidates every analytic cast visits."""
+    n = parts.numel() // 3
+    nb = angles.shape[-1]
+    n_ep = n // parts.shape[-2]
+    n_bytes = (12 * n + 4 * n + 4 * nb + 8 * n_ep * nb
+               + 2 * m.height * m.width)
+    if cfg.ray_mode == "fixed":
+        cast = MARCH_SAMPLE_FLOPS * march_samples(m, parts, angles, cfg)
+    else:
+        n_cand = analytic.cast_constants(m, cfg.max_range)[1]
+        cast = n * nb * 2 * n_cand * SLAB_FLOPS
+    flops = n * nb * BEAM_FLOPS + n * PARTICLE_FLOPS + cast
+    return bound(n_bytes, flops)
+
+
+def k2_bound(parts) -> dict:
+    """K2: read the rows and the int32 counts, write the rows."""
+    rows, d = parts.numel() // parts.shape[-1], parts.shape[-1]
+    return bound(rows * (4 * d + 4) + rows * 4 * d, 0.0)
+
+
+KMEANS_POINT_FLOPS = 26    # a point's K=3 distances, argmin and sums
+
+
+def kmeans_iterations(xy, c0, rs) -> int:
+    """Lloyd iterations the early-exit latch lets run, summed over
+    episodes (a restatement of the dense loop that counts)."""
+    k = c0.shape[-2]
+    centers = c0
+    assign = torch.zeros(xy.shape[:-1], dtype=torch.long, device=xy.device)
+    done = torch.zeros(xy.shape[:-2], dtype=torch.bool, device=xy.device)
+    runs = torch.zeros_like(done, dtype=torch.int64)
+    for t in range(rs.shape[-3]):
+        runs += (~done).to(torch.int64)
+        d2 = ((xy[..., None, :] - centers[..., None, :, :]) ** 2).sum(-1)
+        new = torch.argmin(d2, dim=-1)
+        changed = (new != assign).any(-1)
+        upd = changed & ~done
+        onehot = torch.nn.functional.one_hot(new, k).to(xy.dtype)
+        cnt = onehot.sum(-2)
+        means = (onehot[..., None] * xy[..., None, :]).sum(-3) \
+            / torch.clamp(cnt, min=1.0)[..., None]
+        means = torch.where((cnt > 0)[..., None], means, rs[..., t, :, :])
+        centers = torch.where(upd[..., None, None], means, centers)
+        assign = torch.where(upd[..., None], new, assign)
+        done = done | ~changed
+    return int(runs.sum())
+
+
+def k3_bound(xy, c0, rs) -> dict:
+    """K3: read xy, the start centers and the reseed candidates once,
+    write the assignments and centers; operations per point and
+    iteration that the latch lets run."""
+    n = xy.numel() // 2
+    n_bytes = 8 * n + 4 * n + 2 * c0.numel() * 4 + rs.numel() * 4
+    return bound(n_bytes,
+                 KMEANS_POINT_FLOPS * xy.shape[-2]
+                 * kmeans_iterations(xy, c0, rs))
+
+
+def repeat_rows(parts, counts):
+    """The one PyTorch call that computes K2's function (library_ms):
+    torch.repeat_interleave of the flattened rows by each source's
+    offspring count (differences of the cumulative counts)."""
+    prev = torch.nn.functional.pad(counts[..., :-1], (1, 0))
+    per_source = (counts - prev).reshape(-1)
+    flat = parts.reshape(-1, parts.shape[-1])
+    return lambda: torch.repeat_interleave(flat, per_source, dim=0)
+
+
+# -- phase 3b: the batched kernels against their plain versions -----------
+
+def batched_inputs(m, n_ep, n, nb, cfg, gen):
+    """Episodes [E, n, 3] of uniform particles, one beam table, and each
+    episode's scan from its own true pose, with dead lanes: lane 1 in
+    every episode and lane e mod B in episode e."""
+    dev = m.device
+    parts = resample.sample_uniform_particles(gen, m, n, batch=(n_ep,))
+    truth = resample.sample_uniform_particles(gen, m, n_ep)
+    angles = np.deg2rad(np.linspace(-118.0, 118.0, nb)).astype(np.float32)
+    scan = sensor.simulate_scan(m, truth, angles, cfg)
+    mask = torch.ones((n_ep, nb), dtype=torch.bool, device=dev)
+    mask[:, 1] = False
+    mask[torch.arange(n_ep, device=dev),
+         torch.arange(n_ep, device=dev) % nb] = False
+    return parts, sensor.Scan(angles=scan.angles, ranges=scan.ranges,
+                              mask=mask)
+
+
+def _close_share(got, want, comb):
+    rtol = 1e-4 if comb == "log" else 1e-5
+    return torch.isclose(got, want, rtol=rtol, atol=1e-6).float().mean(
+        ).item()
+
+
+def check_batched_weights(m, gen) -> tuple:
+    """K1 batched and K4 against their plain versions (sum rtol 1e-5, raw
+    log rtol 1e-4; analytic > 99.9 % close), K1 batched against K1 on
+    each episode bit for bit, and K4's max relative difference from K1
+    batched, which sums the beams in another order."""
+    worst = dict(beam_weights_batched=0.0, beam_weights_beamsub=0.0)
+    rel_k4 = 0.0
+    for n_ep in CHECK_EPISODES:
+        for n in CHECK_SIZES:
+            for nb in CHECK_BEAMS:
+                for mode in ("fixed", "analytic"):
+                    for comb in ("sum", "log"):
+                        cfg = SensorModelConfig(ray_mode=mode,
+                                                beam_combine=comb)
+                        parts, scan = batched_inputs(m, n_ep, n, nb, cfg,
+                                                     gen)
+                        got = weights.beam_weights_batched_cuda(
+                            m, parts, scan, cfg)
+                        want = weights.beam_weights_plain(m, parts, scan,
+                                                          cfg)
+                        single = torch.stack([weights.beam_weights_cuda(
+                            m, parts[e], sensor.Scan(
+                                scan.angles, scan.ranges[e], scan.mask[e]),
+                            cfg) for e in range(n_ep)])
+                        sub = weights.beamsub_cuda(m, parts, scan, cfg)
+                        sub_want = weights.beamsub_plain(m, parts, scan,
+                                                         cfg)
+                        torch.cuda.synchronize()
+                        need = 0.999 if mode == "analytic" else 1.0
+                        rows = dict(
+                            beam_weights_batched=(got, want),
+                            beam_weights_beamsub=(sub, sub_want))
+                        shares = {}
+                        for name, (a, b) in rows.items():
+                            err = (a - b).abs().max().item()
+                            worst[name] = max(worst[name], err)
+                            shares[name] = _close_share(a, b, comb)
+                        same = torch.equal(got, single)
+                        # Raw log-sums sit near 0 where every beam fits,
+                        # so log mode is relative to max(|w|, 1).
+                        floor = 1.0 if comb == "log" else 1e-6
+                        rel = ((sub - got).abs()
+                               / torch.clamp(got.abs(), min=floor)).max(
+                                   ).item()
+                        rel_k4 = max(rel_k4, rel)
+                        say("check", kernel="beam_weights_batched+beamsub",
+                            episodes=n_ep, n=n, beams=nb, ray_mode=mode,
+                            combine=comb,
+                            max_abs_err=(got - want).abs().max().item(),
+                            share_close=shares["beam_weights_batched"],
+                            equals_single_k1=same,
+                            k4_max_abs_err=(sub - sub_want).abs().max(
+                                ).item(),
+                            k4_share_close=shares["beam_weights_beamsub"],
+                            k4_max_rel_diff_from_k1_batched=rel)
+                        finite = bool(torch.isfinite(got).all()
+                                      and torch.isfinite(sub).all())
+                        if not (same and finite and all(
+                                v >= need for v in shares.values())):
+                            raise AssertionError(
+                                f"K1 batched / K4 E={n_ep} n={n} b={nb} "
+                                f"{mode}/{comb}: {shares}, same={same}")
+    return (dict(max_abs_err=worst["beam_weights_batched"]),
+            dict(max_abs_err=worst["beam_weights_beamsub"],
+                 max_rel_diff_from_k1_batched=rel_k4))
+
+
+def check_k2_batched(dev, gen) -> dict:
+    """Bit-exact against the plain version and against K2 per episode."""
+    for n_ep, n in K2_BATCHED_SHAPES:
+        parts = torch.randn((n_ep, n, 3), generator=gen, device=dev)
+        counts_ = expand.offspring_counts(
+            skewed_cdf(n, gen, dev, (n_ep,)),
+            torch.rand(n_ep, generator=gen, device=dev))
+        got = expand.systematic_expand_batched_cuda(parts, counts_)
+        want = expand.systematic_expand_plain(parts, counts_)
+        single = torch.stack([expand.systematic_expand_cuda(
+            parts[e], counts_[e]) for e in range(n_ep)])
+        torch.cuda.synchronize()
+        exact = torch.equal(got, want)
+        same = torch.equal(got, single)
+        say("check", kernel="systematic_expand_batched", episodes=n_ep,
+            n=n, bit_exact=exact, equals_single_k2=same,
+            max_abs_err=(got - want).abs().max().item())
+        if not (exact and same):
+            raise AssertionError(f"K2 batched E={n_ep} n={n}: not exact")
+    return dict(max_abs_err=0.0)
+
+
+def batched_blobs(n_ep, n, gen, dev):
+    """Per-episode three-blob clouds [E, n, 2], each episode's blobs
+    shifted by its own offset."""
+    shift = 2.0 * torch.rand((n_ep, 1, 2), generator=gen, device=dev)
+    return blobs(n_ep * n, gen, dev).reshape(n_ep, n, 2) + shift
+
+
+def kmeans_inputs(xy, gen):
+    n_ep, n = xy.shape[0], xy.shape[1]
+    dev = xy.device
+    init = torch.randint(0, n, (n_ep, 3), generator=gen, device=dev)
+    reseed = torch.randint(0, n, (n_ep, 20, 3), generator=gen, device=dev)
+    c0 = torch.take_along_dim(xy, init[..., None], dim=-2)
+    rs = torch.take_along_dim(xy, reseed.reshape(n_ep, -1)[..., None],
+                              dim=-2).reshape(n_ep, 20, 3, 2)
+    return c0, rs
+
+
+def check_k3_batched(dev, gen) -> dict:
+    """Centers within 1e-4 and > 99.9 % of assignments equal against the
+    plain version; equal to K3 on each episode, bit for bit."""
+    n_ep, n = SWEEP_E, SWEEP_N
+    xy = batched_blobs(n_ep, n, gen, dev)
+    c0, rs = kmeans_inputs(xy, gen)
+    c1, a1 = kmeans.kmeans_batched_cuda(xy, c0, rs)
+    c2, a2 = kmeans.kmeans_plain(xy, c0, rs)
+    singles = [kmeans.kmeans_cuda(xy[e], c0[e], rs[e]) for e in range(n_ep)]
+    torch.cuda.synchronize()
+    err = (c1 - c2).abs().max().item()
+    share = (a1 == a2).float().mean().item()
+    same = (torch.equal(c1, torch.stack([c for c, _ in singles]))
+            and torch.equal(a1, torch.stack([a for _, a in singles])))
+    say("check", kernel="kmeans_batched", episodes=n_ep, n=n,
+        max_abs_err=err, share_close=share, equals_single_k3=same)
+    if not (err <= 1e-4 and share > 0.999 and same):
+        raise AssertionError(f"K3 batched: centers {err}, assign {share}, "
+                             f"same={same}")
+    return dict(max_abs_err=err)
+
+
+# -- phase 8: the sweep preset at full size ---------------------------------
+
+def sweep_phase(dev) -> dict:
+    """The convergence row of BENCH_DETAILS.md:211-218 (500 particles:
+    76.7 % converged, 72.8 % alias-converged on the TPU); a broken filter
+    lands far below the floors 0.65 and 0.60."""
+    world = presets.make_world(num_particles=SWEEP_N, num_beams=SWEEP_B,
+                               ray_mode="fixed",
+                               resample_method="systematic", device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = presets.run_sweep(world, batch=SWEEP_E, num_ticks=SWEEP_T,
+                                seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    short = {k: launched[k] for k in ("beam_weights_batched",
+                                      "systematic_expand_batched",
+                                      "kmeans_batched")
+             if launched[k] < SWEEP_T}
+    say("sweep", episodes=SWEEP_E, particles=SWEEP_N, beams=SWEEP_B,
+        ticks=SWEEP_T, ray_mode="fixed", resample="systematic",
+        launches=launched, wall_s=wall, ticks_per_sec=SWEEP_T / wall,
+        updates_per_sec=SWEEP_E * SWEEP_N * SWEEP_B * SWEEP_T / wall,
+        **metrics)
+    if short:
+        raise AssertionError(f"sweep: kernels launched < {SWEEP_T} times: "
+                             f"{short}")
+    if not (metrics["converged_frac"] >= 0.65
+            and metrics["alias_converged_frac"] >= 0.60):
+        raise AssertionError(f"sweep: convergence below the floors: "
+                             f"{metrics}")
+    return launched
+
+
+# -- phase 9: the fleet server at full size ---------------------------------
+
+def fleet_phase(dev) -> dict:
+    world = presets.make_world(num_particles=FLEET_N, num_beams=FLEET_B,
+                               ray_mode="fixed",
+                               resample_method="multinomial", device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    enc, ranges, _ = robot.generate_wander_episode(
+        gen, world.maze, world.cfg, world.angles, FLEET_TICKS,
+        batch=FLEET_R, start_pose=START)
+    enc, ranges = enc.cpu().numpy(), ranges.cpu().numpy()
+    lines = [json.dumps(dict(encoder_left=enc[:, t, 0].tolist(),
+                             encoder_right=enc[:, t, 1].tolist(),
+                             ranges=ranges[:, t].tolist()))
+             for t in range(FLEET_TICKS)]
+    lines += [json.dumps(dict(cmd="stats")), json.dumps(dict(cmd="shutdown"))]
+    out = Replies()
+    torch.cuda.synchronize()
+    reset_counts()
+    server = MCLFleetServer(world.maze, world.cfg, world.angles,
+                            n_robots=FLEET_R, seed=0)
+    t0 = time.perf_counter()
+    ticks = server.serve(lines, out_stream=out)
+    torch.cuda.synchronize()
+    launched = counts()
+    replies = [json.loads(s) for s in out.lines]
+    errors = [r for r in replies if "error" in r]
+    tick_replies = [r for r in replies if "exact_pose" in r]
+    if errors or ticks != FLEET_TICKS or len(tick_replies) != FLEET_TICKS:
+        raise AssertionError(f"fleet: ticks={ticks}, errors={errors[:3]}")
+    for r in tick_replies:
+        vals = sum(r["exact_pose"], []) + r["confidence"]
+        if len(r["confidence"]) != FLEET_R or not all(
+                math.isfinite(v) for v in vals):
+            raise AssertionError(f"fleet: bad reply at tick {r['tick']}")
+    if replies[-2].get("tick") != FLEET_TICKS or replies[-1] != {"ok": True}:
+        raise AssertionError(f"fleet: stats/shutdown replies "
+                             f"{str(replies[-2:])[:200]}")
+    short = {k: launched[k] for k in ("beam_weights_batched",
+                                      "kmeans_batched")
+             if launched[k] < FLEET_TICKS}
+    if short:
+        raise AssertionError(f"fleet: kernels launched < {FLEET_TICKS} "
+                             f"times: {short}")
+    lat = np.diff(np.array([t0] + out.times[:FLEET_TICKS])) * 1e3
+    conf = np.array(tick_replies[-1]["confidence"])
+    say("fleet", robots=FLEET_R, particles=FLEET_N, beams=FLEET_B,
+        ray_mode="fixed", resample="multinomial", ticks=ticks,
+        error_replies=0, launches=launched,
+        tick_ms_median=float(np.median(lat)),
+        tick_ms_p90=float(np.percentile(lat, 90)),
+        tick_ms_first=float(lat[0]),
+        robot_ticks_per_sec=FLEET_R / (float(np.median(lat)) / 1e3),
+        mean_final_confidence=float(conf.mean()))
+    return launched
+
+
+# -- phase 9b: where a batched tick's time goes ----------------------------
+
+def device_profile(fn, ticks: int) -> dict:
+    """torch.profiler over `ticks` calls of fn: host wall ms per tick, the
+    device time per tick summed over the kernels and copies it ran, their
+    share of the wall time (the profiler's own host cost lowers it), and
+    the five largest device consumers by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        rows.append((us / 1e3 / ticks, ev.key))
+    rows.sort(reverse=True)
+    dev_ms = sum(ms for ms, _ in rows)
+    return dict(wall_ms_per_tick=wall_ms, device_ms_per_tick=dev_ms,
+                device_busy_share=dev_ms / wall_ms,
+                top=[[name[:60], ms] for ms, name in rows[:5]])
+
+
+def profile_phase(dev) -> None:
+    """One batched filter tick at the sweep's shapes (the wander already
+    simulated, as the sweep feeds it) and at the fleet's, 20 ticks each."""
+    for what, n_ep, n, nb, method in (
+            ("sweep_tick", SWEEP_E, SWEEP_N, SWEEP_B, "systematic"),
+            ("fleet_tick", FLEET_R, FLEET_N, FLEET_B, "multinomial")):
+        world = presets.make_world(num_particles=n, num_beams=nb,
+                                   ray_mode="fixed", resample_method=method,
+                                   device=dev)
+        m, cfg = world.maze, world.cfg
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(8)
+        enc, ranges, _ = robot.generate_wander_episode(
+            gen, m, cfg, world.angles, 2, batch=n_ep, start_pose=START)
+        scan = sensor.Scan(angles=torch.as_tensor(world.angles, device=dev),
+                           ranges=ranges[:, -1].contiguous(),
+                           mask=torch.ones((n_ep, nb), dtype=torch.bool,
+                                           device=dev))
+        holder = [mcl.init_state(m, cfg, seed=9, batch=n_ep)]
+
+        def tick():
+            holder[0], _ = mcl.mcl_step(holder[0], enc[:, -1, 0],
+                                        enc[:, -1, 1], scan, m, cfg)
+
+        try:
+            prof = device_profile(tick, 20)
+        except RuntimeError as e:    # a profiler the sandbox refuses
+            prof = dict(not_measured=f"{type(e).__name__}: {e}")
+        say("profile", what=what, episodes=n_ep, particles=n, beams=nb,
+            resample=method, **prof)
+
+
+# -- phase 10: layout A/B of the two batched beam weight kernels -----------
+
+def ab_phase(m, gen) -> dict:
+    """K1 batched (one thread a particle) against K4 (eight threads a
+    particle) at E = 64, analytic, sum, timed in turns (row, beamsub,
+    beamsub, row).  K4 runs only here: the filter never dispatches it."""
+    cfg = SensorModelConfig(ray_mode="analytic")
+    torch.cuda.synchronize()
+    reset_counts()
+    for n in AB_SIZES:
+        parts, scan = batched_inputs(m, AB_E, n, AB_B, cfg, gen)
+        row = lambda: weights.beam_weights_batched_cuda(m, parts, scan, cfg)
+        sub = lambda: weights.beamsub_cuda(m, parts, scan, cfg)
+        r1, s1, s2, r2 = cuda_ms(row), cuda_ms(sub), cuda_ms(sub), cuda_ms(row)
+        a, b = row(), sub()
+        rel = ((b - a).abs() / torch.clamp(a.abs(), min=1e-6)).max().item()
+        say("layout_ab", episodes=AB_E, n=n, beams=AB_B, ray_mode="analytic",
+            row_ms=[r1, r2], beamsub_ms=[s1, s2],
+            beamsub_over_row=float(np.median([s1, s2]) / np.median([r1, r2])),
+            max_rel_diff=rel)
+    torch.cuda.synchronize()
+    return counts()
+
+
+# -- phase 11: the batched kernels' times ------------------------------------
+
+def turns(kernel, plain) -> dict:
+    """plain, kernel, kernel, plain: the two sides share the card's
+    state."""
+    p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel),
+                      cuda_ms(plain))
+    return dict(ms=float(np.median([k1, k2])),
+                plain_ms=float(np.median([p1, p2])), ms_sides=[k1, k2],
+                plain_ms_sides=[p1, p2])
+
+
+def batched_time_phase(m, gen) -> dict:
+    """At the sweep's shapes (E = 1024, n = 500, B = 24, fixed, sum) for
+    K1, K2 and K3 batched, and at E = 64, n = 768, B = 24, analytic for
+    K4."""
+    dev = m.device
+    times = {}
+    cfg = SensorModelConfig(ray_mode="fixed")
+    parts, scan = batched_inputs(m, SWEEP_E, SWEEP_N, SWEEP_B, cfg, gen)
+    times["beam_weights_batched"] = dict(
+        **turns(lambda: weights.beam_weights_batched_cuda(m, parts, scan,
+                                                          cfg),
+                lambda: weights.beam_weights_plain(m, parts, scan, cfg)),
+        **k1_bound(m, parts, scan.angles, cfg), library_ms=None,
+        shape=[SWEEP_E, SWEEP_N, SWEEP_B])
+    counts_ = expand.offspring_counts(
+        skewed_cdf(SWEEP_N, gen, dev, (SWEEP_E,)),
+        torch.rand(SWEEP_E, generator=gen, device=dev))
+    times["systematic_expand_batched"] = dict(
+        **turns(lambda: expand.systematic_expand_batched_cuda(parts,
+                                                              counts_),
+                lambda: expand.systematic_expand_plain(parts, counts_)),
+        **k2_bound(parts), library_ms=cuda_ms(repeat_rows(parts, counts_)),
+        shape=[SWEEP_E, SWEEP_N, 3])
+    xy = parts[..., :2].contiguous()
+    c0, rs = kmeans_inputs(xy, gen)
+    times["kmeans_batched"] = dict(
+        **turns(lambda: kmeans.kmeans_batched_cuda(xy, c0, rs),
+                lambda: kmeans.kmeans_plain(xy, c0, rs)),
+        **k3_bound(xy, c0, rs), library_ms=None, shape=[SWEEP_E, SWEEP_N])
+    acfg = SensorModelConfig(ray_mode="analytic")
+    aparts, ascan = batched_inputs(m, AB_E, K4_TIME_N, AB_B, acfg, gen)
+    times["beam_weights_beamsub"] = dict(
+        **turns(lambda: weights.beamsub_cuda(m, aparts, ascan, acfg),
+                lambda: weights.beamsub_plain(m, aparts, ascan, acfg)),
+        **k1_bound(m, aparts, ascan.angles, acfg), library_ms=None,
+        shape=[AB_E, K4_TIME_N, AB_B])
+    for name, t in times.items():
+        say("time", kernel=name, **t)
+    return times
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
                            "torch.cuda.is_available() is False")
+    started = time.perf_counter()
     print(card(), flush=True)
     kind = torch.cuda.get_device_name(0)
     say("device", kind=kind, count=torch.cuda.device_count(),
@@ -451,20 +1008,46 @@ def main() -> None:
     m = presets.make_world(device=dev).maze
     errs = dict(beam_weights=check_k1(m, gen), systematic_expand=check_k2(
         dev, gen), kmeans=check_k3(dev, gen))
+    errs["beam_weights_batched"], errs["beam_weights_beamsub"] = \
+        check_batched_weights(m, gen)
+    errs["systematic_expand_batched"] = check_k2_batched(dev, gen)
+    errs["kmeans_batched"] = check_k3_batched(dev, gen)
 
+    # Each path is driven with every count set to 0 just before it and
+    # read just after: one filter (serve), a batch (sweep, fleet), K4 (A/B).
     world, server, launched = serve_phase(dev)
     entry_phase(dev)
     tick_phase(world, server.state)
     times = time_phase(world, server.state, gen)
+    sweep_launched = sweep_phase(dev)
+    fleet_phase(dev)
+    profile_phase(dev)
+    ab_launched = ab_phase(m, gen)
+    times.update(batched_time_phase(m, gen))
+    launches = {name: launched[name] for name in
+                ("beam_weights", "systematic_expand", "kmeans")}
+    launches.update({name: sweep_launched[name] for name in
+                     ("beam_weights_batched", "systematic_expand_batched",
+                      "kmeans_batched")})
+    launches["beam_weights_beamsub"] = ab_launched["beam_weights_beamsub"]
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched on its path: "
+                             f"{launches}")
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    if "jax" in sys.modules or any(
+            k == "montecarlolocalisation_tpu"
+            or k.startswith("montecarlolocalisation_tpu.")
+            for k in sys.modules):
+        raise AssertionError("the port imported jax or the JAX package")
+    say("done", seconds=time.perf_counter() - started)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps(dict(kernels=[
         dict(name=name, route="cuda", source=k["source"],
-             replaces=k["replaces"], launches=launched[name],
-             max_abs_err=errs[name]["max_abs_err"], ms=times[name]["ms"],
-             plain_ms=times[name]["plain_ms"])
+             replaces=k["replaces"], launches=launches[name],
+             max_abs_err=errs[name]["max_abs_err"],
+             **{key: times[name][key] for key in keys})
         for name, k in KERNELS.items()])), flush=True)
+    print(card(), flush=True)
     print(json.dumps(dict(ok=True, device=dict(
         platform="gpu", kind=kind, count=torch.cuda.device_count()))),
         flush=True)

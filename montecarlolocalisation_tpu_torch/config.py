@@ -1,12 +1,169 @@
-"""The configuration dataclasses, shared with the JAX package.
+"""The port's configuration dataclasses.
 
-`montecarlolocalisation_tpu.config` imports no JAX, and the JAX package's
-`__init__` imports only that module, so both packages read one set of
-frozen dataclasses: a config means the same thing in both.  This module is
-the port's only import from the JAX package.
+A copy of the filter's part of montecarlolocalisation_tpu/config.py: the
+same class names, fields, defaults and frozen=True, so a config means the
+same thing in both packages (tests/test_torch_config.py holds them equal
+field for field).  Each default is the reference value; the JAX package's
+file cites the reference line of each.  `interop.config_from` rebuilds one
+of these from any object with the same field names.
 """
-from montecarlolocalisation_tpu.config import (  # noqa: F401
-    DEFAULT_CONFIG, WALL_BOTTOM, WALL_LEFT, WALL_RIGHT, WALL_TOP,
-    ClusterConfig, FilterConfig, GridConfig, HysteresisConfig, InitConfig,
-    MotionModelConfig, ResampleConfig, SensorModelConfig,
-)
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+# Wall / direction conventions (reference: msg/Cell.msg).
+WALL_RIGHT, WALL_TOP, WALL_LEFT, WALL_BOTTOM = 0, 1, 2, 3
+
+
+@dataclasses.dataclass(frozen=True)
+class GridConfig:
+    """Maze raster geometry (reference: src/publish_map_rviz.cpp:272-276)."""
+
+    cell_px: int = 8
+    cell_meters: float = 0.8
+    wall_occupied: int = 100
+    free_space: int = 0
+    occupied_threshold: int = 50
+    origin_x: float = 0.0
+    origin_y: float = 0.0
+
+    @property
+    def resolution(self) -> float:
+        """Meters per pixel (0.8 / 8 = 0.1)."""
+        return self.cell_meters / self.cell_px
+
+
+@dataclasses.dataclass(frozen=True)
+class SensorModelConfig:
+    """Beam likelihood model (reference: src/monte_carlo.cpp:623-682)."""
+
+    w_hit: float = 0.8
+    w_rand: float = 0.2
+    sigma: float = 0.1
+    max_range: float = 1.0
+    rand_window: float = 0.01
+    gauss_max_diff: float = 1.1
+    laser_offset: float = 0.1
+    invalid_beam_range: float = 1.05
+    angle_crop_deg: float = 120.0
+    beam_skip: int = 20
+    ray_step: float = 0.1
+    negate_beam_angle: bool = True
+    ray_mode: str = "fixed"          # "fixed" | "dda" | "analytic"
+    lookup_mode: str = "auto"        # "gather" takes the dense path
+    beam_combine: str = "sum"        # "sum" (reference) | "log"
+    log_temperature: float = 1.0
+    quantize_ray_deg: bool = False
+    unknown_credit: float = 0.3
+    unknown_credit_mode: str = "interval"
+
+    @property
+    def num_ray_steps(self) -> int:
+        """Steps r = 0, step, ..., < max_range (monte_carlo.cpp:370-372)."""
+        return int(math.ceil(self.max_range / self.ray_step))
+
+
+@dataclasses.dataclass(frozen=True)
+class MotionModelConfig:
+    """Odometry / motion noise (reference: monte_carlo.cpp:695-739,1198)."""
+
+    wheel_space: float = 0.265
+    wheel_size: float = 0.062
+    alpha_1: float = 0.001
+    alpha_2: float = 0.001
+    alpha_3: float = 0.0001
+    alpha_4: float = 0.0001
+    shared_noise: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ResampleConfig:
+    """Resampling + AMCL-style adaptive injection (monte_carlo.cpp:457-561)."""
+
+    lost_max_injection: int = 200
+    lost_alpha_slow: float = 0.05
+    lost_alpha_fast: float = 0.5
+    lost_jitter_xy: float = 0.05
+    lost_jitter_theta: float = math.pi / 12.0
+    conf_max_injection: int = 50
+    conf_alpha_slow: float = 0.02
+    conf_alpha_fast: float = 2.0
+    conf_jitter_xy: float = 0.01
+    conf_jitter_theta: float = 0.0
+    method: str = "multinomial"      # "multinomial" | "systematic"
+    multinomial_impl: str = "auto"   # "sorted" means "exact" in the port
+    expand: str = "auto"             # "xla" takes the plain gather
+    ess_threshold: Optional[float] = None
+    sharded_exchange: str = "ring"
+
+
+@dataclasses.dataclass(frozen=True)
+class RefineConfig:
+    """Gradient-guided particle refinement (not ported; iters=0 is off)."""
+
+    iters: int = 0
+    step_xy: float = 0.02
+    step_theta: float = 0.01
+    ray_mode: str = "dda"
+    eps: float = 1e-9
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterConfig:
+    """k-means pose clustering / confidence (monte_carlo.cpp:802-949)."""
+
+    k: int = 3
+    max_iters: int = 20
+    near_radius: float = 0.4
+    impl: str = "auto"               # "dense" takes the plain version
+
+
+@dataclasses.dataclass(frozen=True)
+class HysteresisConfig:
+    """Lost/recovered state machine (monte_carlo.cpp:78-81,1030-1081)."""
+
+    init_cluster_threshold: float = 0.1
+    init_confident_threshold: float = 0.80
+    lost_cluster_threshold: float = 0.1
+    lost_confident_threshold: float = 0.8
+    conf_cluster_threshold: float = 0.4
+    conf_confident_threshold: float = 0.5
+    song_lost: int = 1
+    song_recovered: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class InitConfig:
+    """Uniform particle sampler (monte_carlo.cpp:415-450,394-407)."""
+
+    cell_offset: float = 0.2
+    global_offset: float = 0.05
+    init_weight: float = 1.0
+    sampler: str = "auto"            # "packed" means "reference" in the port
+    partial_map_cells: str = "uniform"
+
+
+@dataclasses.dataclass(frozen=True)
+class FilterConfig:
+    """Full MCL configuration; defaults reproduce the reference filter."""
+
+    num_particles: int = 1500
+    tick_dt: float = 0.1
+    grid: GridConfig = GridConfig()
+    sensor: SensorModelConfig = SensorModelConfig()
+    motion: MotionModelConfig = MotionModelConfig()
+    resample: ResampleConfig = ResampleConfig()
+    refine: RefineConfig = RefineConfig()
+    cluster: ClusterConfig = ClusterConfig()
+    hysteresis: HysteresisConfig = HysteresisConfig()
+    init: InitConfig = InitConfig()
+    valid_pos_offset: float = 0.1
+    dtype: str = "float32"
+
+    def replace(self, **kw) -> "FilterConfig":
+        return dataclasses.replace(self, **kw)
+
+
+DEFAULT_CONFIG = FilterConfig()

@@ -1,20 +1,40 @@
-"""Moving maps and filter states between the JAX package and the port.
+"""Moving configs, maps and filter states between the JAX package and the
+port.
 
-Everything crosses as numpy arrays: `maze_from_numpy` and
-`state_from_numpy` read the fields of the JAX package's MazeMap and
-MCLState (any object with those attribute names, so this module never
-imports JAX) into the port's dataclasses; `state_to_numpy` goes back.
-The JAX PRNG key cannot become a torch stream; it seeds the state's
-torch.Generator instead.
+Everything crosses as numpy arrays or plain values: `config_from`,
+`maze_from_numpy` and `state_from_numpy` read the fields of the JAX
+package's configs, MazeMap and MCLState (any object with those attribute
+names, so this module never imports the JAX package) into the port's
+dataclasses; `state_to_numpy` goes back.  A state batched over episodes
+(the JAX package's vmap-ed MCLState) crosses the same way and keeps its
+leading [E] on every field.  The JAX PRNG key cannot become a torch
+stream; it seeds the state's torch.Generator instead.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from . import config as _config
 from .maps.grid import MazeMap, is_gridline_structured
 from .models import motion, resample
 from .models.filter import MCLState
+
+
+def config_from(src):
+    """The port's config of the same class name as `src`, rebuilt field by
+    field from `src`'s attributes; nested configs are rebuilt likewise."""
+    cls = getattr(_config, type(src).__name__, None)
+    if cls is None or not dataclasses.is_dataclass(cls):
+        raise TypeError(f"no port config named {type(src).__name__!r}")
+    values = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(src, f.name)
+        values[f.name] = (config_from(v) if dataclasses.is_dataclass(v)
+                          else v)
+    return cls(**values)
 
 
 def _t(a, dtype, device):
@@ -34,7 +54,8 @@ def maze_from_numpy(src, device="cpu") -> MazeMap:
 
 
 def key_to_seed(key) -> int:
-    """A 64-bit generator seed from a raw uint32[2] PRNG key."""
+    """A 64-bit generator seed from raw uint32 PRNG key words ([2], or
+    [E, 2] for a batch: the last two words)."""
     words = np.asarray(key).astype(np.uint64).reshape(-1)
     seed = 0
     for w in words:

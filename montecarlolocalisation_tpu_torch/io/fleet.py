@@ -1,0 +1,248 @@
+"""Fleet serving: many live filters in one batched tick.
+
+Torch counterpart of MCLFleetServer in montecarlolocalisation_tpu/io/
+fleet.py (fleet.py:65-290).  R robots' filter states live on the device as
+one batch ([R, N, 3] particles, [R] scalars), and every fleet frame runs
+ONE batched `mcl_step`: on the card, one launch of each batched kernel for
+the whole fleet.
+
+Protocol (JSONL; one fleet frame per line, arrays indexed by robot):
+
+  {"encoder_left": [R], "encoder_right": [R], "ranges": [R][B],
+   "mask": [R][B]?}
+  -> {"tick": t, "exact_pose": [R][3], "theta_quaternion": [R],
+      "cell_pose": [R][3], "confidence": [R], "song": [R],
+      "wanderer_cmd": [R], "n_injected": [R]}
+
+  Commands:
+    {"cmd": "reset", "seed": n?}                 whole fleet
+    {"cmd": "reset", "robot": i, "seed": n?}     one robot; the others are
+                                                 untouched
+    {"cmd": "stats"}                             per-robot confidence
+    {"cmd": "shutdown"}
+
+A line that is not JSON, misses keys or fails gets an {"error": ...}
+reply and the session goes on.  Raw LaserScan frames ("raw_scans") and the
+checkpoint/restore commands are not ported yet and get an error reply.
+
+Pipelined mode (`pipeline=True`): each tick enqueues this frame's step on
+the card and returns the PREVIOUS tick's reply, whose outputs were copied
+to pinned host memory behind an event; waiting on that event does not
+wait for the tick just enqueued, so the fetch of tick t-1 overlaps the
+card computing tick t.  Replies lag one tick, each carries its own "tick"
+index, and `flush()` drains the tick in flight.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+from typing import IO, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..config import FilterConfig
+from ..maps.grid import MazeMap
+from ..models import filter as mcl
+from ..models import sensor
+
+# Reply fields and their columns in the packed [R, 12] output.
+_COLUMNS = dict(exact_pose=slice(0, 3), cell_pose=slice(3, 6),
+                confidence=6, song=7, wanderer_cmd=8, n_injected=9)
+
+
+class MCLFleetServer:
+    """R device-resident filters; one batched tick per fleet frame."""
+
+    def __init__(self, m: MazeMap, cfg: FilterConfig, angles,
+                 n_robots: int, seed: int = 0, pipeline: bool = False):
+        if n_robots < 1:
+            raise ValueError("n_robots must be >= 1")
+        self.m = m
+        self.cfg = cfg
+        self.n_robots = n_robots
+        self.angles = np.asarray(angles, np.float32)
+        self._angles_dev = torch.as_tensor(self.angles, device=m.device)
+        self.pipeline = pipeline
+        self._pending = None   # (tick index, staged outputs) in flight
+        # [R, 2 + 2B] f32: ONE upload per fleet tick.
+        self._frame = np.zeros((n_robots, 2 + 2 * len(self.angles)),
+                               np.float32)
+        self.tick_count = 0
+        self.reset(seed)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def reset(self, seed: int = 0) -> None:
+        """Re-init the whole fleet from one generator seeded with `seed`."""
+        self._pending = None
+        self.state = mcl.init_state(self.m, self.cfg, seed,
+                                    batch=self.n_robots)
+        self.tick_count = 0
+
+    def reset_robot(self, robot: int, seed: int = 0) -> None:
+        """Re-init ONE robot's filter (redeploy/kidnap handling) from a
+        generator seeded with (seed, robot); the other robots' states and
+        the fleet's generator are untouched."""
+        if not 0 <= robot < self.n_robots:
+            raise ValueError(f"robot {robot} out of range "
+                             f"[0, {self.n_robots})")
+        fresh = mcl.init_state(self.m, self.cfg,
+                               seed * self.n_robots + robot)
+
+        def put(batch, one):
+            if dataclasses.is_dataclass(batch):
+                return type(batch)(**{
+                    f.name: put(getattr(batch, f.name), getattr(one, f.name))
+                    for f in dataclasses.fields(batch)})
+            if not isinstance(batch, torch.Tensor):
+                return batch          # the fleet's generator
+            out = batch.clone()
+            out[robot] = one
+            return out
+
+        self.state = put(self.state, fresh)
+
+    # -- ticks ---------------------------------------------------------------
+
+    def tick(self, encoder_left, encoder_right, ranges, mask=None):
+        """One fleet update: every robot advances one filter tick.
+
+        Synchronous mode returns this tick's reply.  Pipelined mode returns
+        the PREVIOUS tick's reply (None on the first tick); `flush()`
+        drains the tick in flight."""
+        r, nb = self.n_robots, len(self.angles)
+        ranges = np.asarray(ranges, np.float32)
+        if ranges.shape != (r, nb):
+            raise ValueError(
+                f"ranges has shape {ranges.shape}; fleet expects "
+                f"({r}, {nb}): one row per robot on the beam table")
+        f = self._frame
+        f[:, 0] = np.asarray(encoder_left, np.float32)
+        f[:, 1] = np.asarray(encoder_right, np.float32)
+        f[:, 2:2 + nb] = ranges
+        f[:, 2 + nb:] = (1.0 if mask is None
+                         else np.asarray(mask, np.float32))
+        # One host->device copy for the whole fleet frame; it is taken
+        # before this returns, so the buffer can be refilled next tick.
+        frame = torch.as_tensor(f, device=self.m.device)
+        scan = sensor.Scan(angles=self._angles_dev,
+                           ranges=frame[:, 2:2 + nb].contiguous(),
+                           mask=frame[:, 2 + nb:] > 0.5)
+        self.state, out = mcl.mcl_step(self.state, frame[:, 0], frame[:, 1],
+                                       scan, self.m, self.cfg)
+        self.tick_count += 1
+        staged = self._stage(out)
+        if not self.pipeline:
+            return self._reply(self.tick_count, staged)
+        prev = self.flush()
+        self._pending = (self.tick_count, staged)
+        return prev
+
+    def flush(self) -> Optional[dict]:
+        """The reply of the tick in flight (pipelined mode); None if none."""
+        if self._pending is None:
+            return None
+        t, staged = self._pending
+        self._pending = None
+        return self._reply(t, staged)
+
+    def _stage(self, o: mcl.MCLOutput):
+        """Pack the outputs into one [R, 12] tensor and start its copy to
+        the host; returns (host tensor, event or None)."""
+        v = torch.cat([o.exact_pose, o.cell_pose.to(torch.float32),
+                       torch.stack([o.confidence, o.song.to(torch.float32),
+                                    o.wanderer_cmd.to(torch.float32),
+                                    o.n_injected.to(torch.float32)],
+                                   dim=-1)], dim=-1)
+        if not v.is_cuda:
+            return v, None
+        host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        host.copy_(v, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _reply(self, tick: int, staged) -> dict:
+        host, event = staged
+        if event is not None:
+            event.synchronize()
+        v = host.numpy().astype(np.float64)
+        pose = v[:, _COLUMNS["exact_pose"]]
+        return dict(
+            tick=tick,
+            exact_pose=np.round(pose, 6).tolist(),
+            # ExactPose.thetaQuaternion analog per robot.
+            theta_quaternion=np.round(np.sin(0.5 * pose[:, 2]), 6).tolist(),
+            cell_pose=v[:, _COLUMNS["cell_pose"]].astype(int).tolist(),
+            confidence=np.round(v[:, _COLUMNS["confidence"]], 6).tolist(),
+            song=v[:, _COLUMNS["song"]].astype(int).tolist(),
+            wanderer_cmd=v[:, _COLUMNS["wanderer_cmd"]].astype(int).tolist(),
+            n_injected=v[:, _COLUMNS["n_injected"]].astype(int).tolist(),
+        )
+
+    # -- stream loop ---------------------------------------------------------
+
+    def serve(self, lines: Iterable[str],
+              out_stream: Optional[IO[str]] = None) -> int:
+        """Drain a JSONL stream; returns the number of fleet ticks run."""
+        out_stream = out_stream or sys.stdout
+
+        def reply(obj):
+            if obj is not None:
+                print(json.dumps(obj), file=out_stream, flush=True)
+
+        for line in lines:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                msg = json.loads(line)
+            except json.JSONDecodeError as e:
+                reply(dict(error=f"bad json: {e}"))
+                continue
+            try:
+                if "cmd" in msg:
+                    # Drain the tick in flight first, so replies stay in
+                    # order across commands.
+                    reply(self.flush())
+                    if self._handle_cmd(msg, reply):
+                        return self.tick_count
+                elif "raw_scans" in msg:
+                    raise NotImplementedError(
+                        "raw_scans frames are not ported; send ranges on "
+                        "the beam table")
+                else:
+                    reply(self.tick(msg["encoder_left"],
+                                    msg["encoder_right"], msg["ranges"],
+                                    msg.get("mask")))
+            except Exception as e:  # noqa: BLE001 — a long-lived server
+                # must survive any bad line: reply with the error instead.
+                reply(dict(error=f"{type(e).__name__}: {e}"))
+        reply(self.flush())
+        return self.tick_count
+
+    def _handle_cmd(self, msg: dict, reply) -> bool:
+        cmd = msg["cmd"]
+        if cmd == "reset":
+            if "robot" in msg:
+                self.reset_robot(int(msg["robot"]), int(msg.get("seed", 0)))
+            else:
+                self.reset(int(msg.get("seed", 0)))
+        elif cmd in ("checkpoint", "restore"):
+            raise NotImplementedError(f"{cmd} is not ported")
+        elif cmd == "stats":
+            reply(dict(tick=self.tick_count, n_robots=self.n_robots,
+                       confidence=np.round(
+                           self.state.confidence.cpu().numpy().astype(
+                               np.float64), 6).tolist()))
+            return False
+        elif cmd == "shutdown":
+            reply(dict(ok=True))
+            return True
+        else:
+            reply(dict(error=f"unknown cmd {cmd!r}"))
+            return False
+        reply(dict(ok=True))
+        return False

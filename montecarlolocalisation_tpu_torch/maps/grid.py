@@ -114,7 +114,7 @@ def dilate3x3(occ: np.ndarray) -> np.ndarray:
 def from_walls(
     walls: Sequence[Sequence[Sequence[int]]],
     grid: GridConfig = GridConfig(),
-    device="cpu",
+    device="cuda",
 ) -> MazeMap:
     occ = raster.rasterize_walls(walls, grid) > grid.occupied_threshold
     return MazeMap(
@@ -128,7 +128,7 @@ def from_walls(
 
 
 def from_map_file(path: str, grid: GridConfig = GridConfig(),
-                  device="cpu") -> MazeMap:
+                  device="cuda") -> MazeMap:
     return from_walls(maze.load_map_file(path), grid, device)
 
 

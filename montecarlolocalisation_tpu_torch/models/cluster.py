@@ -8,8 +8,10 @@ by summed weight gives the pose (theta as the circular mean of its
 members) and the confidence is the share of particles within 0.4 m of its
 center.
 
-The random particle indices are arguments (init [K], reseed [I, K]);
-`draw_kmeans` makes them from a torch.Generator.
+The random particle indices are arguments (init [..., K], reseed
+[..., I, K]); `draw_kmeans` makes them from a torch.Generator.  Particles
+carry leading episode dims ([N, 3] one filter, [E, N, 3] a batch); each
+episode clusters on its own, with its own early-exit latch.
 """
 from __future__ import annotations
 
@@ -23,21 +25,31 @@ from ..ops import kmeans as kmeans_op
 from ..utils.angles import circular_mean
 
 
-def draw_kmeans(gen: torch.Generator, n: int, cfg: ClusterConfig, device):
-    """(init [K], reseed [I, K]) particle indices in [0, n)."""
-    init = torch.randint(0, n, (cfg.k,), generator=gen, device=device)
-    reseed = torch.randint(0, n, (cfg.max_iters, cfg.k), generator=gen,
-                           device=device)
+def draw_kmeans(gen: torch.Generator, n: int, cfg: ClusterConfig, device,
+                batch=()):
+    """(init [..., K], reseed [..., I, K]) particle indices in [0, n)."""
+    batch = tuple(batch)
+    init = torch.randint(0, n, batch + (cfg.k,), generator=gen,
+                         device=device)
+    reseed = torch.randint(0, n, batch + (cfg.max_iters, cfg.k),
+                           generator=gen, device=device)
     return init, reseed
 
 
-def kmeans(xy, cfg: ClusterConfig, init_idx, reseed_idx):
-    """xy [N, 2] -> (centers [K, 2], assignments [N] int32).
+def _take(v, idx):
+    """v[..., idx, :] per episode for v [..., N, D] and idx [..., M]."""
+    return torch.take_along_dim(v, idx[..., None], dim=-2)
 
-    impl "auto"/"pallas" take the k-means kernel on CUDA (ops/kmeans) and
-    its plain version on the CPU; "dense" forces the plain version."""
-    centers0 = xy[init_idx]
-    reseed = xy[reseed_idx]
+
+def kmeans(xy, cfg: ClusterConfig, init_idx, reseed_idx):
+    """xy [..., N, 2] -> (centers [..., K, 2], assignments [..., N] int32).
+
+    impl "auto"/"pallas" take the k-means kernels on CUDA (ops/kmeans) and
+    their plain version on the CPU; "dense" forces the plain version."""
+    centers0 = _take(xy, init_idx)
+    lead = reseed_idx.shape[:-2]
+    reseed = _take(xy, reseed_idx.reshape(lead + (-1,))).reshape(
+        reseed_idx.shape + (2,))
     if cfg.impl == "dense":
         return kmeans_op.kmeans_plain(xy, centers0, reseed)
     if cfg.impl not in ("auto", "pallas"):
@@ -45,39 +57,48 @@ def kmeans(xy, cfg: ClusterConfig, init_idx, reseed_idx):
     return kmeans_op.kmeans(xy, centers0, reseed)
 
 
+def _pick(v, best):
+    """v[..., best] for v [..., K] and best [...]."""
+    return torch.take_along_dim(v, best[..., None], dim=-1)[..., 0]
+
+
 def cluster_confidence(
     particles, weights, threshold, cfg: ClusterConfig, init_idx, reseed_idx,
     weighted: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (confidence_ratio, best_pose[3] or the (-1,-1,-1) sentinel).
+    """Returns (confidence_ratio [...], best_pose [..., 3] or the (-1,-1,-1)
+    sentinel).
 
     `threshold` is the dynamic confident-level threshold
     (monte_carlo.cpp:935-943); the counting radius is the fixed
     cfg.near_radius regardless of the cluster threshold, a reference quirk.
     `weighted=True` is the importance-weighted form (weight share near the
     center, weighted mean pose of the best cluster)."""
-    xy = particles[:, :2]
+    xy = particles[..., :2]
+    x, y = xy[..., 0], xy[..., 1]
     centers, assign = kmeans(xy, cfg, init_idx, reseed_idx)
-    cluster_w = torch.stack([torch.sum(torch.where(assign == i, weights, 0.0))
-                             for i in range(cfg.k)])
-    best = torch.argmax(cluster_w)
-    cx, cy = centers[best, 0], centers[best, 1]
-    member = (assign == best).to(torch.float32)
+    cluster_w = torch.stack([torch.sum(torch.where(assign == i, weights, 0.0),
+                                       dim=-1)
+                             for i in range(cfg.k)], dim=-1)
+    best = torch.argmax(cluster_w, dim=-1)
+    cx, cy = _pick(centers[..., 0], best), _pick(centers[..., 1], best)
+    member = (assign == best[..., None]).to(torch.float32)
     r2 = cfg.near_radius ** 2
     if weighted:
-        w_sum = torch.clamp(torch.sum(weights), min=1e-30)
+        w_sum = torch.clamp(torch.sum(weights, dim=-1), min=1e-30)
         mw = member * weights
-        mw_sum = torch.clamp(torch.sum(mw), min=1e-30)
-        cx = torch.sum(mw * xy[:, 0]) / mw_sum
-        cy = torch.sum(mw * xy[:, 1]) / mw_sum
-        theta = circular_mean(particles[:, 2], weights=mw)
-        d2 = (xy[:, 0] - cx) ** 2 + (xy[:, 1] - cy) ** 2
-        ratio = torch.sum(torch.where(d2 <= r2, weights, 0.0)) / w_sum
+        mw_sum = torch.clamp(torch.sum(mw, dim=-1), min=1e-30)
+        cx = torch.sum(mw * x, dim=-1) / mw_sum
+        cy = torch.sum(mw * y, dim=-1) / mw_sum
+        theta = circular_mean(particles[..., 2], weights=mw, dim=-1)
+        d2 = (x - cx[..., None]) ** 2 + (y - cy[..., None]) ** 2
+        ratio = torch.sum(torch.where(d2 <= r2, weights, 0.0),
+                          dim=-1) / w_sum
     else:
-        theta = circular_mean(particles[:, 2], weights=member)
-        d2 = (xy[:, 0] - cx) ** 2 + (xy[:, 1] - cy) ** 2
-        ratio = torch.sum((d2 <= r2).to(torch.float32)) * f32_reciprocal(
-            xy.shape[0])
-    best_pose = torch.where(ratio > threshold, torch.stack([cx, cy, theta]),
-                            -1.0)
+        theta = circular_mean(particles[..., 2], weights=member, dim=-1)
+        d2 = (x - cx[..., None]) ** 2 + (y - cy[..., None]) ** 2
+        ratio = torch.sum((d2 <= r2).to(torch.float32), dim=-1) * \
+            f32_reciprocal(xy.shape[-2])
+    best_pose = torch.where((ratio > threshold)[..., None],
+                            torch.stack([cx, cy, theta], dim=-1), -1.0)
     return ratio, best_pose

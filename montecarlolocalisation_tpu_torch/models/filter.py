@@ -13,11 +13,17 @@ reference's order:
 A tick's random numbers come from the state's torch.Generator, or from
 `draws` (TickDraws), which lets a caller replay another implementation's
 exact draws.
+
+A state may hold one filter (particles [N, 3], scalars []) or a batch of
+independent episodes (particles [E, N, 3], scalars [E]), the JAX
+package's vmap over `mcl_step` written out as a leading dim: the batch
+shares one generator and one beam table, and each episode has its own
+encoders, observations and every per-filter scalar.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -34,26 +40,34 @@ WANDERER_START = 1
 
 @dataclasses.dataclass(frozen=True)
 class MCLState:
-    """Carried filter state; scalars are 0-d tensors on the map's device."""
+    """Carried filter state on the map's device; the per-filter scalars are
+    0-d for one filter and [E] for a batch."""
 
-    particles: torch.Tensor            # [N, 3] x, y, theta
-    weights: torch.Tensor              # [N]
+    particles: torch.Tensor            # [..., N, 3] x, y, theta
+    weights: torch.Tensor              # [..., N]
     odom: motion.OdometryState
     inj: resample.InjectionState
     confidence: torch.Tensor           # f32
     was_lost: torch.Tensor             # bool
     cluster_threshold: torch.Tensor    # f32 (dynamic, monte_carlo.cpp:78)
     confident_threshold: torch.Tensor  # f32 (dynamic, :80)
-    best_pose: torch.Tensor            # [3] or the (-1,-1,-1) sentinel
+    best_pose: torch.Tensor            # [..., 3] or the (-1,-1,-1) sentinel
     gen: torch.Generator               # the filter's random stream
+
+    @property
+    def batch(self) -> tuple:
+        """The leading episode shape: () for one filter, (E,) for a
+        batch."""
+        return tuple(self.particles.shape[:-2])
 
 
 @dataclasses.dataclass(frozen=True)
 class MCLOutput:
-    """Per-tick outputs, the stand-in for the reference's ROS topics."""
+    """Per-tick outputs, the stand-in for the reference's ROS topics; each
+    field has the state's leading episode dims."""
 
-    exact_pose: torch.Tensor     # [3] (/exact_pose)
-    cell_pose: torch.Tensor      # [3] int32 row, col, orientation (/pose)
+    exact_pose: torch.Tensor     # [..., 3] (/exact_pose)
+    cell_pose: torch.Tensor      # [..., 3] int32 row, col, orientation
     confidence: torch.Tensor
     song: torch.Tensor           # int32: 0 none, 1 lost, 2 recovered
     wanderer_cmd: torch.Tensor   # int32: -1 noop, 0 stop, 1 start
@@ -64,9 +78,9 @@ class MCLOutput:
 
 @dataclasses.dataclass(frozen=True)
 class TickDraws:
-    """All random numbers of one tick: motion normals ([3], or [3, N]
-    with per-particle noise), the resampling draws, and the k-means
-    init [K] and reseed [I, K] particle indices."""
+    """All random numbers of one tick: motion normals ([..., 3], or
+    [..., 3, N] with per-particle noise), the resampling draws, and the
+    k-means init [..., K] and reseed [..., I, K] particle indices."""
 
     motion_normals: torch.Tensor
     resample: resample.ResampleDraws
@@ -75,40 +89,44 @@ class TickDraws:
 
 
 def draw_tick(gen: torch.Generator, m: MazeMap, n: int,
-              cfg: FilterConfig) -> TickDraws:
-    normals = motion.draw_motion_normals(gen, n, cfg.motion, m.device)
-    rs = resample.draw_resample(gen, m, n, cfg)
-    init, reseed = cluster.draw_kmeans(gen, n, cfg.cluster, m.device)
+              cfg: FilterConfig, batch=()) -> TickDraws:
+    """One tick's draws from `gen`, with leading episode shape `batch`."""
+    normals = motion.draw_motion_normals(gen, n, cfg.motion, m.device,
+                                         batch)
+    rs = resample.draw_resample(gen, m, n, cfg, batch)
+    init, reseed = cluster.draw_kmeans(gen, n, cfg.cluster, m.device, batch)
     return TickDraws(motion_normals=normals, resample=rs, kmeans_init=init,
                      kmeans_reseed=reseed)
 
 
-def _scalar(v, dtype, device):
-    return torch.tensor(v, dtype=dtype, device=device)
+def _full(batch, v, dtype, device):
+    return torch.full(batch, v, dtype=dtype, device=device)
 
 
-def init_state(m: MazeMap, cfg: FilterConfig, seed: int = 0) -> MCLState:
+def init_state(m: MazeMap, cfg: FilterConfig, seed: int = 0,
+               batch: Optional[int] = None) -> MCLState:
     """Startup state (monte_carlo.cpp:1198-1209): uniform particles,
-    zeroed odometry/injection accumulators, lost-side thresholds."""
+    zeroed odometry/injection accumulators, lost-side thresholds.  With
+    `batch`, E independent episodes drawn from one generator: particles
+    [E, N, 3] and every scalar [E]."""
     dev = m.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    particles = resample.sample_uniform_particles(gen, m, cfg.num_particles,
-                                                  cfg.init)
+    b = () if batch is None else (batch,)
+    n = cfg.num_particles
+    particles = resample.sample_uniform_particles(gen, m, n, cfg.init, b)
     h = cfg.hysteresis
+    f32 = torch.float32
     return MCLState(
         particles=particles,
-        weights=torch.full((cfg.num_particles,), cfg.init.init_weight,
-                           dtype=torch.float32, device=dev),
-        odom=motion.OdometryState.zero(dev),
-        inj=resample.InjectionState.zero(dev),
-        confidence=_scalar(0.0, torch.float32, dev),
-        was_lost=_scalar(False, torch.bool, dev),
-        cluster_threshold=_scalar(h.init_cluster_threshold, torch.float32,
-                                  dev),
-        confident_threshold=_scalar(h.init_confident_threshold,
-                                    torch.float32, dev),
-        best_pose=torch.full((3,), -1.0, dtype=torch.float32, device=dev),
+        weights=_full(b + (n,), cfg.init.init_weight, f32, dev),
+        odom=motion.OdometryState.zero(dev, b),
+        inj=resample.InjectionState.zero(dev, b),
+        confidence=_full(b, 0.0, f32, dev),
+        was_lost=_full(b, False, torch.bool, dev),
+        cluster_threshold=_full(b, h.init_cluster_threshold, f32, dev),
+        confident_threshold=_full(b, h.init_confident_threshold, f32, dev),
+        best_pose=_full(b + (3,), -1.0, f32, dev),
         gen=gen)
 
 
@@ -122,8 +140,8 @@ def _hysteresis(state: MCLState, m: MazeMap, cfg: FilterConfig):
     conf_cond = conf > thr
     to_lost = lost_cond & ~state.was_lost
     recovered = conf_cond & state.was_lost
-    best_valid = is_valid_pos(m, state.best_pose[0], state.best_pose[1],
-                              cfg.valid_pos_offset)
+    best_valid = is_valid_pos(m, state.best_pose[..., 0],
+                              state.best_pose[..., 1], cfg.valid_pos_offset)
     conf_to_conf = conf_cond & ~state.was_lost & best_valid
 
     cluster_thr = torch.where(
@@ -146,13 +164,14 @@ def _hysteresis(state: MCLState, m: MazeMap, cfg: FilterConfig):
 
 
 def cell_pose_msg(best_pose, cell_meters: float = 0.8):
-    """World pose -> (row, col, orientation) int32, with the (-1,-1,-1)
-    sentinel (monte_carlo.cpp:958-1008 publishPosMsg)."""
-    wx, wy, theta = best_pose[0], best_pose[1], best_pose[2]
+    """World poses [..., 3] -> (row, col, orientation) int32, with the
+    (-1,-1,-1) sentinel (monte_carlo.cpp:958-1008 publishPosMsg)."""
+    wx, wy, theta = best_pose[..., 0], best_pose[..., 1], best_pose[..., 2]
     row, col = world_to_cell(wx, wy, cell_meters)
     orient = quantize_orientation(theta)
     invalid = (wx < 0) | (wy < 0)
-    return torch.where(invalid, -1, torch.stack([row, col, orient])
+    return torch.where(invalid[..., None], -1,
+                       torch.stack([row, col, orient], dim=-1)
                        ).to(torch.int32)
 
 
@@ -165,7 +184,8 @@ def mcl_step(
     cfg: FilterConfig,
     draws: Optional[TickDraws] = None,
 ) -> Tuple[MCLState, MCLOutput]:
-    """One 10 Hz filter tick."""
+    """One 10 Hz filter tick, of one filter or of every episode of a batch
+    (encoders [...], scan ranges and mask [..., B])."""
     if cfg.resample.ess_threshold is not None:
         raise NotImplementedError(
             "ESS-gated resampling (resample.ess_threshold) is not ported")
@@ -173,7 +193,8 @@ def mcl_step(
         raise NotImplementedError(
             "gradient refinement (refine.iters > 0) is not ported")
     if draws is None:
-        draws = draw_tick(state.gen, m, state.particles.shape[0], cfg)
+        draws = draw_tick(state.gen, m, state.particles.shape[-2], cfg,
+                          state.batch)
 
     # 1. Hysteresis on previous confidence.
     was_lost, cluster_thr, conf_thr, song, wanderer = _hysteresis(
@@ -215,15 +236,17 @@ def mcl_step(
 
 def run_episode(
     state: MCLState,
-    encoders,            # [T, 2] encoder_left/right (radians)
-    scan_ranges,         # [T, B]
+    encoders,            # [..., T, 2] encoder_left/right (radians)
+    scan_ranges,         # [..., T, B]
     scan_angles,         # [B] static beam table, or [T, B] per tick
     m: MazeMap,
     cfg: FilterConfig,
-    scan_mask=None,      # [T, B] optional
+    scan_mask=None,      # [..., T, B] optional
+    draws: Optional[Sequence[TickDraws]] = None,   # one per tick
 ) -> Tuple[MCLState, MCLOutput]:
-    """Run the filter over a recorded episode; the outputs are stacked
-    over ticks."""
+    """Run the filter over a recorded episode, or over a batch of episodes
+    with the state's leading dims; the outputs are stacked over ticks
+    ([..., T, ...]).  A batch shares one static beam table [B]."""
     dev = m.device
     encoders = torch.as_tensor(encoders, dtype=torch.float32, device=dev)
     ranges = torch.as_tensor(scan_ranges, dtype=torch.float32, device=dev)
@@ -231,14 +254,19 @@ def run_episode(
     mask = (torch.ones(ranges.shape, dtype=torch.bool, device=dev)
             if scan_mask is None
             else torch.as_tensor(scan_mask, device=dev).to(torch.bool))
+    lead = len(state.batch)
+    if lead and angles.dim() != 1:
+        raise ValueError("a batch of episodes shares one beam table [B]")
     outs = []
-    for t in range(ranges.shape[0]):
+    for t in range(ranges.shape[lead]):
         ang = angles[t] if angles.dim() == 2 else angles
-        sc = sensor.Scan(angles=ang, ranges=ranges[t], mask=mask[t])
-        state, out = mcl_step(state, encoders[t, 0], encoders[t, 1], sc, m,
-                              cfg)
+        sc = sensor.Scan(angles=ang, ranges=ranges[..., t, :],
+                         mask=mask[..., t, :])
+        state, out = mcl_step(state, encoders[..., t, 0],
+                              encoders[..., t, 1], sc, m, cfg,
+                              None if draws is None else draws[t])
         outs.append(out)
     stacked = MCLOutput(**{
-        f.name: torch.stack([getattr(o, f.name) for o in outs])
+        f.name: torch.stack([getattr(o, f.name) for o in outs], dim=lead)
         for f in dataclasses.fields(MCLOutput)})
     return state, stacked

@@ -4,6 +4,9 @@ Torch counterpart of montecarlolocalisation_tpu/models/motion.py
 (reference: monte_carlo.cpp:695-761).  The noise normals are an argument,
 so a caller can hand in the exact draws of another implementation;
 `draw_motion_normals` makes them from a torch.Generator.
+
+Every function takes leading episode dims: particles [..., N, 3], the
+odometry fields and encoders [...] ([] for one filter, [E] for a batch).
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ class OdometryState:
     encoder_right: torch.Tensor
 
     @staticmethod
-    def zero(device="cpu") -> "OdometryState":
-        z = torch.zeros((), dtype=torch.float32, device=device)
+    def zero(device="cpu", batch=()) -> "OdometryState":
+        z = torch.zeros(batch, dtype=torch.float32, device=device)
         return OdometryState(x=z, y=z, theta=z, encoder_left=z,
                              encoder_right=z)
 
@@ -59,24 +62,35 @@ def diff_drive_update(
 
 
 def draw_motion_normals(gen: torch.Generator, n: int,
-                        cfg: MotionModelConfig, device) -> torch.Tensor:
-    """The standard normals of one tick: [3] with the reference's shared
-    noise (monte_carlo.cpp:695-715), [3, n] with per-particle noise."""
+                        cfg: MotionModelConfig, device,
+                        batch=()) -> torch.Tensor:
+    """The standard normals of one tick: [..., 3] with the reference's
+    shared noise (monte_carlo.cpp:695-715), [..., 3, n] with per-particle
+    noise; `batch` is the leading episode shape."""
     shape = (3,) if cfg.shared_noise else (3, n)
-    return torch.randn(shape, generator=gen, device=device)
+    return torch.randn(tuple(batch) + shape, generator=gen, device=device)
 
 
 def sample_motion_noise(rot1, trans, rot2, cfg: MotionModelConfig, normals):
     """Noisy (rot1, trans, rot2) per sampleMotionModelOdometry.  The alphas
     parameterize VARIANCE (std = sqrt(alpha-combination),
-    monte_carlo.cpp:410-414)."""
+    monte_carlo.cpp:410-414).  rot1/trans/rot2 are [...]; the results are
+    [...] with shared noise (normals [..., 3]) and [..., N] with
+    per-particle noise (normals [..., 3, N])."""
     var_r1 = cfg.alpha_1 * torch.abs(rot1) + cfg.alpha_2 * trans
     var_tr = cfg.alpha_3 * trans + cfg.alpha_4 * (torch.abs(rot1)
                                                   + torch.abs(rot2))
     var_r2 = cfg.alpha_1 * torch.abs(rot2) + cfg.alpha_2 * trans
-    n_rot1 = rot1 + torch.sqrt(var_r1) * normals[0]
-    n_trans = trans + torch.sqrt(var_tr) * normals[1]
-    n_rot2 = rot2 + torch.sqrt(var_r2) * normals[2]
+    if cfg.shared_noise:
+        n1, n2, n3 = normals.unbind(-1)
+    else:
+        n1, n2, n3 = normals.unbind(-2)
+        rot1, trans, rot2 = rot1[..., None], trans[..., None], rot2[..., None]
+        var_r1, var_tr, var_r2 = (var_r1[..., None], var_tr[..., None],
+                                  var_r2[..., None])
+    n_rot1 = rot1 + torch.sqrt(var_r1) * n1
+    n_trans = trans + torch.sqrt(var_tr) * n2
+    n_rot2 = rot2 + torch.sqrt(var_r2) * n3
     return n_rot1, n_trans, n_rot2
 
 
@@ -100,4 +114,8 @@ def motion_update(particles, state: OdometryState, encoder_left,
         state, encoder_left, encoder_right, cfg)
     n_rot1, n_trans, n_rot2 = sample_motion_noise(rot1, trans, rot2, cfg,
                                                   normals)
+    if cfg.shared_noise:
+        # One noisy triple per episode, broadcast over its particles.
+        n_rot1, n_trans, n_rot2 = (n_rot1[..., None], n_trans[..., None],
+                                   n_rot2[..., None])
     return new_state, propagate_particles(particles, n_rot1, n_trans, n_rot2)

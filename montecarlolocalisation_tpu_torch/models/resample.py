@@ -16,6 +16,12 @@ sampleParticles):
 The random draws are arguments (ResampleDraws), so a caller can hand in
 another implementation's exact draws; `draw_resample` makes them from a
 torch.Generator.
+
+Particles carry leading episode dims ([N, 3] one filter, [E, N, 3] a
+batch); every per-episode scalar (the averages, the regime, p_inject) has
+those dims.  A batched pass syncs nothing to the host: the JAX package's
+`lax.cond` around the fresh draw (resample.py:441) is a select under vmap,
+and here the fresh particles are always drawn.
 """
 from __future__ import annotations
 
@@ -39,8 +45,8 @@ class InjectionState:
     w_fast: torch.Tensor
 
     @staticmethod
-    def zero(device="cpu") -> "InjectionState":
-        z = torch.zeros((), dtype=torch.float32, device=device)
+    def zero(device="cpu", batch=()) -> "InjectionState":
+        z = torch.zeros(batch, dtype=torch.float32, device=device)
         return InjectionState(w_slow=z, w_fast=z)
 
 
@@ -48,11 +54,12 @@ class InjectionState:
 class ResampleDraws:
     """One resampling pass's random numbers.
 
-    u         [N] multinomial uniforms in [0, 1) (also the injection test)
-    u0        []  systematic offset in [0, 1)
-    inject_r  [N] systematic injection uniforms in [0, 1)
-    jitter    [3, N] uniforms in [-1, 1) for x, y, theta
-    fresh     [N, 3] uniformly drawn particles for injected slots
+    u         [..., N] multinomial uniforms in [0, 1) (also the injection
+              test)
+    u0        [...] systematic offset in [0, 1)
+    inject_r  [..., N] systematic injection uniforms in [0, 1)
+    jitter    [..., 3, N] uniforms in [-1, 1) for x, y, theta
+    fresh     [..., N, 3] uniformly drawn particles for injected slots
     Fields the configured method does not read are None.
     """
 
@@ -64,17 +71,18 @@ class ResampleDraws:
 
 
 def sample_uniform_particles(gen: torch.Generator, m: MazeMap, n: int,
-                             cfg: InitConfig = InitConfig()):
+                             cfg: InitConfig = InitConfig(), batch=()):
     """Uniform global particles (monte_carlo.cpp:415-450 sampleParticles):
     random maze cell, uniform in-cell offset +-cell_offset, yaw in
-    [-pi, pi), +global_offset on x and y.  Returns [n, 3]."""
+    [-pi, pi), +global_offset on x and y.  Returns [*batch, n, 3]."""
     dev = m.device
+    shape = tuple(batch) + (n,)
 
     def uniform(lo, hi):
-        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
 
-    rows = torch.randint(0, m.n_rows, (n,), generator=gen, device=dev)
-    cols = torch.randint(0, m.n_cols, (n,), generator=gen, device=dev)
+    rows = torch.randint(0, m.n_rows, shape, generator=gen, device=dev)
+    cols = torch.randint(0, m.n_cols, shape, generator=gen, device=dev)
     cx, cy = cell_center(rows.to(torch.float32), cols.to(torch.float32),
                          m.cell_meters)
     off = cfg.cell_offset
@@ -86,19 +94,23 @@ def sample_uniform_particles(gen: torch.Generator, m: MazeMap, n: int,
 
 
 def draw_resample(gen: torch.Generator, m: MazeMap, n: int,
-                  cfg: FilterConfig) -> ResampleDraws:
-    """The draws of one resampling pass, from `gen`.  The fresh particles
-    are always drawn (the JAX package skips them when p_inject == 0, where
-    no slot reads them), so the tick needs no host sync."""
+                  cfg: FilterConfig, batch=()) -> ResampleDraws:
+    """The draws of one resampling pass, from `gen`, with leading episode
+    shape `batch`.  The fresh particles are always drawn (the JAX package
+    skips them when p_inject == 0, where no slot reads them), so the tick
+    needs no host sync."""
     dev = m.device
+    batch = tuple(batch)
+
+    def rand(*shape):
+        return torch.rand(batch + shape, generator=gen, device=dev)
+
     systematic = cfg.resample.method == "systematic"
-    u = None if systematic else torch.rand(n, generator=gen, device=dev)
-    u0 = (torch.rand((), generator=gen, device=dev) if systematic
-          else None)
-    inject_r = (torch.rand(n, generator=gen, device=dev) if systematic
-                else None)
-    jitter = 2.0 * torch.rand((3, n), generator=gen, device=dev) - 1.0
-    fresh = sample_uniform_particles(gen, m, n, cfg.init)
+    u = None if systematic else rand(n)
+    u0 = rand() if systematic else None
+    inject_r = rand(n) if systematic else None
+    jitter = 2.0 * rand(3, n) - 1.0
+    fresh = sample_uniform_particles(gen, m, n, cfg.init, batch)
     return ResampleDraws(jitter=jitter, fresh=fresh, u=u, u0=u0,
                          inject_r=inject_r)
 
@@ -129,8 +141,8 @@ def update_injection(weights, inj: InjectionState, jitter_state,
     """Dual-timescale average update (monte_carlo.cpp:487-492).  Returns
     (new InjectionState, p_inject, w_avg, total_weight)."""
     p = _regime(jitter_state, cfg.resample)
-    total = torch.sum(weights)
-    w_avg = total * f32_reciprocal(weights.shape[0])
+    total = torch.sum(weights, dim=-1)
+    w_avg = total * f32_reciprocal(weights.shape[-1])
     w_slow = inj.w_slow + p["alpha_slow"] * (w_avg - inj.w_slow)
     w_fast = inj.w_fast + p["alpha_fast"] * (w_avg - inj.w_fast)
     # Guard the 0/0 at startup (C++ std::max(0.0, nan) -> 0.0).
@@ -140,28 +152,30 @@ def update_injection(weights, inj: InjectionState, jitter_state,
 
 
 def resample(
-    particles,              # [N, 3]
-    weights,                # [N] unnormalized (from beam_weights)
+    particles,              # [..., N, 3]
+    weights,                # [..., N] unnormalized (from beam_weights)
     inj: InjectionState,
-    jitter_state,           # bool tensor: True = lost regime
+    jitter_state,           # bool tensor [...]: True = lost regime
     m: MazeMap,
     cfg: FilterConfig,
     draws: ResampleDraws,
 ) -> Tuple[torch.Tensor, torch.Tensor, InjectionState, dict]:
-    """One resampling pass.  Returns (particles, weights=1/N, inj, info)."""
+    """One resampling pass per episode.  Returns (particles, weights=1/N,
+    inj, info)."""
     rcfg = cfg.resample
-    n = particles.shape[0]
-    p = _regime(jitter_state, rcfg)
+    n = particles.shape[-2]
+    p = {k: v[..., None] for k, v in _regime(jitter_state, rcfg).items()}
     new_inj, p_inject, w_avg, total = update_injection(
         weights, inj, jitter_state, cfg)
 
     # Normalized CDF; degenerate all-zero weights fall back to uniform.
-    norm_w = torch.where(total > 0.0, weights / total, 1.0 / n)
+    norm_w = torch.where(total[..., None] > 0.0, weights / total[..., None],
+                         1.0 / n)
     # Accumulated in float64, rounded to float32: torch's CPU cumsum does
     # that for float32 by itself, while its CUDA cumsum adds float32 in an
     # order that changes from run to run, and at 1M particles one ulp of
     # the CDF moves about 1 % of the draws.
-    cdf = torch.cumsum(norm_w.double(), dim=0).float()
+    cdf = torch.cumsum(norm_w.double(), dim=-1).float()
 
     if rcfg.method == "multinomial":
         # "sorted" is the JAX package's TPU workaround for the same
@@ -171,29 +185,31 @@ def resample(
                 f"unknown multinomial_impl {rcfg.multinomial_impl!r}")
         inject_r = draws.u
         # CDF draw (lower_bound == side='left'), clipped for round-off.
-        idx = torch.searchsorted(cdf, draws.u, side="left").clamp(max=n - 1)
-        drawn = particles[idx]
+        idx = torch.searchsorted(cdf, draws.u.contiguous(),
+                                 side="left").clamp(max=n - 1)
+        drawn = expand.gather_rows(particles, idx)
     elif rcfg.method == "systematic":
         inject_r = draws.inject_r
         if rcfg.expand == "xla":
-            drawn = particles[systematic_indices(cdf, draws.u0)]
+            drawn = expand.gather_rows(particles,
+                                       systematic_indices(cdf, draws.u0))
         else:
             drawn = expand.systematic_expand(particles, cdf, draws.u0)
     else:
         raise ValueError(f"unknown resample method {rcfg.method!r}")
 
     # Injection: Bernoulli successes, capped first-come (monte_carlo.cpp:518).
-    bern = inject_r < p_inject
-    inject = bern & (torch.cumsum(bern, dim=0) <= p["max_injection"])
-    n_injected = torch.sum(inject)
-    jx = draws.jitter[0] * p["jitter_xy"]
-    jy = draws.jitter[1] * p["jitter_xy"]
-    jt = draws.jitter[2] * p["jitter_theta"]
-    drawn = torch.stack([drawn[:, 0] + jx, drawn[:, 1] + jy,
-                         normalize_angle(drawn[:, 2] + jt)], dim=-1)
-    new_particles = torch.where(inject[:, None], draws.fresh, drawn)
-    new_weights = torch.full((n,), 1.0 / n, dtype=torch.float32,
-                             device=particles.device)
+    bern = inject_r < p_inject[..., None]
+    inject = bern & (torch.cumsum(bern, dim=-1) <= p["max_injection"])
+    n_injected = torch.sum(inject, dim=-1)
+    jx = draws.jitter[..., 0, :] * p["jitter_xy"]
+    jy = draws.jitter[..., 1, :] * p["jitter_xy"]
+    jt = draws.jitter[..., 2, :] * p["jitter_theta"]
+    drawn = torch.stack([drawn[..., 0] + jx, drawn[..., 1] + jy,
+                         normalize_angle(drawn[..., 2] + jt)], dim=-1)
+    new_particles = torch.where(inject[..., None], draws.fresh, drawn)
+    new_weights = torch.full(particles.shape[:-1], 1.0 / n,
+                             dtype=torch.float32, device=particles.device)
     info = dict(p_inject=p_inject, n_injected=n_injected, w_avg=w_avg,
                 total_weight=total)
     return new_particles, new_weights, new_inj, info

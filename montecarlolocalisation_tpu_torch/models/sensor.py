@@ -9,7 +9,10 @@ per-beam prob = w_hit * TruncGauss(|obs - exp|; sigma)
 beam_combine="log", the product via summed logs); particles failing
 isValidPos weigh 0.
 
-Beams are fixed-size tensors (angles [B], ranges [B], mask [B]).
+Beams are fixed-size tensors (angles [B], ranges [..., B], mask [..., B]).
+Particles carry leading episode dims: [N, 3] is one filter and [E, N, 3]
+a batch of episodes, which shares one beam table `angles` [B] and has its
+own observations, ranges and mask [E, B].
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ class Scan:
     """Fixed-size filtered scan: the observation fed to the filter step."""
 
     angles: torch.Tensor  # [B] beam angles (radians, LIDAR frame)
-    ranges: torch.Tensor  # [B] observed radii (m)
-    mask: torch.Tensor    # [B] bool — False lanes contribute nothing
+    ranges: torch.Tensor  # [..., B] observed radii (m)
+    mask: torch.Tensor    # [..., B] bool — False lanes contribute nothing
 
 
 def default_beam_angles(
@@ -58,9 +61,10 @@ def _tensor(x, dtype, device):
 def make_scan(angles, ranges, mask=None, device="cpu") -> Scan:
     angles = _tensor(angles, torch.float32, device)
     ranges = _tensor(ranges, torch.float32, device)
+    ranges = ranges.expand(torch.broadcast_shapes(ranges.shape, angles.shape))
     if mask is None:
-        mask = torch.ones(angles.shape, dtype=torch.bool, device=device)
-    return Scan(angles=angles, ranges=ranges.expand(angles.shape),
+        mask = torch.ones(ranges.shape, dtype=torch.bool, device=device)
+    return Scan(angles=angles, ranges=ranges,
                 mask=_tensor(mask, torch.bool, device))
 
 
@@ -88,9 +92,9 @@ def expected_ranges(m: MazeMap, poses, scan_angles, cfg: SensorModelConfig):
 
 def per_beam_likelihood(m: MazeMap, particles, scan: Scan,
                         cfg: SensorModelConfig):
-    """[N, B] per-beam probabilities p_hit + p_rand."""
+    """[..., N, B] per-beam probabilities p_hit + p_rand."""
     expected = expected_ranges(m, particles, scan.angles, cfg)
-    observed = scan.ranges
+    observed = scan.ranges[..., None, :]
     p_hit = cfg.w_hit * gauss_pdf(torch.abs(observed - expected), cfg)
     p_rand = cfg.w_rand * (torch.abs(observed - cfg.max_range)
                            < cfg.rand_window).to(torch.float32)
@@ -111,11 +115,12 @@ def beam_sum(terms):
 
 def finish_log_weights(m: MazeMap, cfg: SensorModelConfig, particles,
                        raw_logs):
-    """Log-combine epilogue (sensor.py:293): temperature, global max-log
-    shift, validity gate.  The kernel emits raw log-sums because one thread
-    cannot see the global max."""
+    """Log-combine epilogue (sensor.py:293): temperature, max-log shift,
+    validity gate.  The shift is each episode's own max (the last dim of
+    raw_logs [..., N]).  The kernel emits raw log-sums because one thread
+    cannot see the max."""
     logs = raw_logs * f32_reciprocal(cfg.log_temperature)
-    prob = torch.exp(logs - torch.max(logs))
+    prob = torch.exp(logs - torch.amax(logs, dim=-1, keepdim=True))
     return torch.where(
         is_valid_pos(m, particles[..., 0], particles[..., 1], m.resolution),
         prob, 0.0)
@@ -124,12 +129,14 @@ def finish_log_weights(m: MazeMap, cfg: SensorModelConfig, particles,
 def kernel_eligible(m: MazeMap, particles, cfg: SensorModelConfig,
                     valid_offset: float) -> bool:
     """The JAX package's dispatch rule (sensor.py:154-179) with "on a TPU"
-    read as "on CUDA": the fused kernel takes one filter's particles at
-    one pixel of validity offset, for the fixed march on any raster and
-    the analytic caster on gridline rasters."""
+    read as "on CUDA": the fused kernel takes particles at one pixel of
+    validity offset, for the fixed march on any raster and the analytic
+    caster on gridline rasters; one filter [N, 3] or a batch of episodes
+    [..., N, 3] (the JAX package's episode-batched launch, sensor.py:
+    328-371, without its TPU tile-padding gate)."""
     if cfg.lookup_mode not in ("auto", "pallas"):
         return False
-    if not (particles.is_cuda and particles.dim() == 2
+    if not (particles.is_cuda and particles.dim() >= 2
             and abs(valid_offset - m.resolution) < 1e-9
             and cfg.beam_combine in ("sum", "log")):
         return False
@@ -140,16 +147,29 @@ def kernel_eligible(m: MazeMap, particles, cfg: SensorModelConfig,
 
 def beam_weights(m: MazeMap, particles, scan: Scan, cfg: SensorModelConfig,
                  valid_offset: float = 0.1):
-    """computeWeight: unnormalized weights [N] for particles [N, 3]
-    (monte_carlo.cpp:623-682).  Invalid positions get exactly 0.
+    """computeWeight: unnormalized weights [..., N] for particles
+    [..., N, 3] (monte_carlo.cpp:623-682).  Invalid positions get
+    exactly 0.
 
-    CUDA tensors go through the beam weight kernel (ops/weights) where the
-    JAX package would launch its Pallas kernel; everything else, including
-    ray_mode="dda" on the card, runs the dense torch path."""
+    CUDA tensors go through the beam weight kernel (ops/weights: K1 for
+    one filter, K1 batched for episodes) where the JAX package would launch
+    its Pallas kernel; everything else, including ray_mode="dda" on the
+    card, runs the dense torch path."""
     if kernel_eligible(m, particles, cfg, valid_offset):
         from ..ops import weights
 
-        out = weights.beam_weights(m, particles, scan, cfg)
+        if particles.dim() == 2:
+            out = weights.beam_weights(m, particles, scan, cfg)
+        else:
+            lead = particles.shape[:-2]
+            nb = scan.angles.shape[-1]
+            flat = Scan(angles=scan.angles,
+                        ranges=scan.ranges.expand(lead + (nb,)).reshape(
+                            -1, nb),
+                        mask=scan.mask.expand(lead + (nb,)).reshape(-1, nb))
+            out = weights.beam_weights_batched(
+                m, particles.reshape(-1, *particles.shape[-2:]), flat,
+                cfg).reshape(particles.shape[:-1])
         if cfg.beam_combine == "log":
             out = finish_log_weights(m, cfg, particles, out)
         return out
@@ -160,11 +180,11 @@ def beam_weights_dense(m: MazeMap, particles, scan: Scan,
                        cfg: SensorModelConfig, valid_offset: float = 0.1):
     """The dense torch path (sensor.py:193 _beam_weights_dense)."""
     per_beam = per_beam_likelihood(m, particles, scan, cfg)
-    mask = scan.mask.to(torch.float32)
+    mask = scan.mask.to(torch.float32)[..., None, :]
     if cfg.beam_combine == "log":
         logs = beam_sum(torch.log(torch.clamp(per_beam, min=1e-6))
                         * mask) * f32_reciprocal(cfg.log_temperature)
-        prob = torch.exp(logs - torch.max(logs))
+        prob = torch.exp(logs - torch.amax(logs, dim=-1, keepdim=True))
     else:
         prob = beam_sum(per_beam * mask)
     valid = is_valid_pos(m, particles[..., 0], particles[..., 1],
@@ -172,19 +192,88 @@ def beam_weights_dense(m: MazeMap, particles, scan: Scan,
     return torch.where(valid, prob, 0.0)
 
 
+def ray_disc_distance(ox, oy, angle, cx, cy, radius, max_range):
+    """Distance along the ray to a disc obstacle, max_range if it misses
+    (sensor.py:413): the closed-form ray/circle hit of an UNMAPPED disc,
+    which the scan sees and the map raster does not."""
+    dx = torch.cos(angle)
+    dy = torch.sin(angle)
+    fx = ox - cx
+    fy = oy - cy
+    b = fx * dx + fy * dy
+    c = fx * fx + fy * fy - radius * radius
+    disc = b * b - c
+    t = -b - torch.sqrt(torch.clamp(disc, min=0.0))
+    hit = (disc >= 0.0) & (t >= 0.0) & (t < max_range)
+    return torch.where(hit, t, max_range)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanDraws:
+    """The random numbers of one simulated scan, each shaped like its
+    ranges [..., B]: standard normals for the range noise, and uniforms
+    in [0, 1) for the dropout test, the outlier test and the outlier value
+    (scaled by max_range).  Fields a scan does not read may be None."""
+
+    noise: torch.Tensor
+    drop: Optional[torch.Tensor] = None
+    out: Optional[torch.Tensor] = None
+    outv: Optional[torch.Tensor] = None
+
+
+def draw_scan(gen: torch.Generator, shape, device, dropout_p: float = 0.0,
+              outlier_p: float = 0.0) -> ScanDraws:
+    """A scan's draws from `gen`; the stressors that are off draw
+    nothing."""
+    def u():
+        return torch.rand(shape, generator=gen, device=device)
+
+    noise = torch.randn(shape, generator=gen, device=device)
+    out, outv = (u(), u()) if outlier_p > 0.0 else (None, None)
+    drop = u() if dropout_p > 0.0 else None
+    return ScanDraws(noise=noise, drop=drop, out=out, outv=outv)
+
+
 def simulate_scan(m: MazeMap, pose, scan_angles, cfg: SensorModelConfig,
                   gen: Optional[torch.Generator] = None,
-                  noise_sigma: Optional[float] = None) -> Scan:
-    """Observed scan from a ground-truth pose, with the geometry the filter
-    predicts with; with `gen`, Gaussian range noise (sigma defaults to the
-    sensor's).  Ranges clamp to [0, max_range]."""
+                  noise_sigma: Optional[float] = None,
+                  dropout_p: float = 0.0, outlier_p: float = 0.0,
+                  obstacle=None, draws: Optional[ScanDraws] = None) -> Scan:
+    """Observed scan from ground-truth poses [..., 3], with the geometry
+    the filter predicts with (sensor.py:432).  Ranges clamp to
+    [0, max_range].
+
+    With `gen` or `draws`: Gaussian range noise (sigma defaults to the
+    sensor's), then the stressors: `outlier_p`, the per-beam chance of a
+    uniform [0, max_range) spurious return, and `dropout_p`, the per-beam
+    chance of the dead-beam radius cfg.invalid_beam_range.  `obstacle` =
+    (cx, cy, radius) is an unmapped disc the rays hit first."""
     pose = torch.as_tensor(pose, dtype=torch.float32, device=m.device)
     angles = torch.as_tensor(scan_angles, dtype=torch.float32,
                              device=m.device)
     ranges = expected_ranges(m, pose, angles, cfg)
-    if gen is not None:
+    if obstacle is not None:
+        cx, cy, radius = obstacle
+        x, y, theta = pose[..., 0], pose[..., 1], pose[..., 2]
+        ox = x + cfg.laser_offset * torch.cos(theta)
+        oy = y + cfg.laser_offset * torch.sin(theta)
+        sign = -1.0 if cfg.negate_beam_angle else 1.0
+        ray_angle = theta[..., None] + sign * angles
+        d_obs = ray_disc_distance(ox[..., None], oy[..., None], ray_angle,
+                                  cx, cy, radius, cfg.max_range)
+        ranges = torch.minimum(ranges, d_obs)
+    if draws is None and gen is not None:
+        draws = draw_scan(gen, ranges.shape, m.device, dropout_p, outlier_p)
+    if draws is not None:
         sigma = cfg.sigma if noise_sigma is None else noise_sigma
-        ranges = ranges + sigma * torch.randn(
-            ranges.shape, generator=gen, device=m.device)
-    ranges = torch.clamp(ranges, 0.0, cfg.max_range)
+        ranges = ranges + sigma * draws.noise
+        ranges = torch.clamp(ranges, 0.0, cfg.max_range)
+        if outlier_p > 0.0:
+            ranges = torch.where(draws.out < outlier_p,
+                                 draws.outv * cfg.max_range, ranges)
+        if dropout_p > 0.0:
+            ranges = torch.where(draws.drop < dropout_p,
+                                 cfg.invalid_beam_range, ranges)
+    else:
+        ranges = torch.clamp(ranges, 0.0, cfg.max_range)
     return make_scan(angles, ranges, device=m.device)

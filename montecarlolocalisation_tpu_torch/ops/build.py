@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-At first use, nvcc compiles every source in csrc/ for Hopper (sm_90a)
-into one shared library with a plain C interface, under build/ inside
-this package; ctypes loads it.  Each C entry launches its kernel(s) on the
+At first use, nvcc compiles every source in csrc/ for Hopper (sm_90a),
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, under build/ inside this
+package; ctypes loads it.  Each C entry launches its kernel(s) on the
 stream it is given, allocates nothing, and returns cudaGetLastError() as
 an int, which `check` turns into an exception.  A missing nvcc or a
 failed build raises: nothing falls back to another implementation.
@@ -25,7 +26,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
+
+# The most episodes one batched launch takes: its grid's y dimension.
+MAX_EPISODES = 65_535
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,11 +39,17 @@ SIGNATURES = {
     # particles, n, beam table, B, occ, dil, H, W, fparams, iparams, out,
     # stream
     "mcl_beam_weights": [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
-    # particles, counts, n, d, out, stream
-    "mcl_systematic_expand": [_P, _P, _I, _I, _P, _P],
-    # xy, n, reseed, iters, k, assign, centers, partial, changed, done,
+    # particles, E, N, angles, ranges, mask, B, occ, dil, H, W, fparams,
+    # iparams, out, stream
+    "mcl_beam_weights_batched": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
+                                 _I, _P, _P, _P, _P],
+    "mcl_beam_weights_beamsub": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
+                                 _I, _P, _P, _P, _P],
+    # particles, counts, E, n, d, out, stream
+    "mcl_systematic_expand": [_P, _P, _I, _I, _I, _P, _P],
+    # xy, E, n, reseed, iters, k, assign, centers, partial, changed, done,
     # n_blocks, stream
-    "mcl_kmeans": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    "mcl_kmeans": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
 }
 
 _lib = None
@@ -71,6 +81,21 @@ def _library_path():
     return os.path.join(BUILD_DIR, f"libmcl_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the first failure's
+    output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failed = None
+    for p in procs:
+        out, err = p.communicate()
+        if p.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({p.returncode}):\n{out}\n{err}"
+    if failed is not None:
+        raise RuntimeError(failed)
+
+
 def build() -> str:
     """Compile csrc/*.cu into the shared library (if not built yet) and
     return its path.  Raises RuntimeError without nvcc or on a failed
@@ -86,16 +111,14 @@ def build() -> str:
             "kernels are compiled from csrc/ at first use")
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [s for s in sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(c) + ".o") for c in cu]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, c]
+                  for c, o in zip(cu, objs)])
+        tmp = os.path.join(tmpdir, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -1,11 +1,23 @@
-"""K1: the beam weight kernel's wrapper, its plain version and launch count.
+"""K1, K1 batched and K4: the beam weight kernels' wrappers, their plain
+versions and launch counts.
 
-`beam_weights` takes the plain torch version for a tensor on the CPU and
+Each wrapper takes the plain torch version for a tensor on the CPU and
 launches csrc/weights.cu for a CUDA tensor; any other device raises.  Sum
-mode returns validity-gated weights; log mode returns the RAW per-particle
-log-sums, which models/sensor.finish_log_weights finishes (temperature,
-global max shift, validity), as the JAX package does after its Pallas
-kernel (ops/weights_pallas.py:330).
+mode returns validity-gated weights; log mode returns the RAW
+per-particle log-sums, which models/sensor.finish_log_weights finishes
+(temperature, per-episode max shift, validity), as the JAX package does
+after its Pallas kernels (ops/weights_pallas.py:330, :371).
+
+- K1 (`beam_weights`): one filter, particles [N, 3], one scan.
+- K1 batched (`beam_weights_batched`): episodes [E, N, 3] with one shared
+  beam table angles [B] and per-episode ranges and mask [E, B]; per
+  episode the same arithmetic as K1, bit for bit.
+- K4 (`beam_weights_beamsub`): the same function as K1 batched in the
+  beam-per-sublane layout of weights_pallas.py:432: eight threads share a
+  particle and thread s sums beams s, s+8, ...; the eight lane sums are
+  then added in lane order.  Its public form finishes log mode per
+  episode, as the JAX launcher does (weights_pallas.py:590-593).  The
+  filter never dispatches it.
 """
 from __future__ import annotations
 
@@ -20,19 +32,51 @@ from ..models import sensor
 from . import analytic, build
 
 MAX_BEAMS = 1024   # beam table in shared memory next to a <= 32 KB raster
+SUBLANES = 8   # K4: threads per particle, each summing every 8th beam
+
+
+def _beam_terms(m: MazeMap, particles, scan: sensor.Scan,
+                cfg: SensorModelConfig):
+    """Masked per-beam terms [..., N, B]: p_b, or log(max(p_b, 1e-6)) in
+    log mode, times the beam mask."""
+    per_beam = sensor.per_beam_likelihood(m, particles, scan, cfg)
+    mask = scan.mask.to(torch.float32)[..., None, :]
+    if cfg.beam_combine == "log":
+        return torch.log(torch.clamp(per_beam, min=1e-6)) * mask
+    return per_beam * mask
+
+
+def _gate(m: MazeMap, cfg: SensorModelConfig, particles, prob):
+    if cfg.beam_combine == "log":
+        return prob
+    valid = is_valid_pos(m, particles[..., 0], particles[..., 1],
+                         m.resolution)
+    return torch.where(valid, prob, 0.0)
 
 
 def beam_weights_plain(m: MazeMap, particles, scan: sensor.Scan,
                        cfg: SensorModelConfig):
-    """What the kernel computes, in plain torch."""
-    per_beam = sensor.per_beam_likelihood(m, particles, scan, cfg)
-    mask = scan.mask.to(torch.float32)
-    if cfg.beam_combine == "log":
-        return sensor.beam_sum(torch.log(torch.clamp(per_beam, min=1e-6))
-                               * mask)
-    prob = sensor.beam_sum(per_beam * mask)
-    valid = is_valid_pos(m, particles[:, 0], particles[:, 1], m.resolution)
-    return torch.where(valid, prob, 0.0)
+    """What K1 and K1 batched compute, in plain torch: particles
+    [..., N, 3] with ranges and mask [..., B] -> [..., N]."""
+    return _gate(m, cfg, particles,
+                 sensor.beam_sum(_beam_terms(m, particles, scan, cfg)))
+
+
+def beamsub_plain(m: MazeMap, particles, scan: sensor.Scan,
+                  cfg: SensorModelConfig):
+    """What K4 computes, in plain torch, raw in log mode: the beams padded
+    with dead lanes to a multiple of 8 and split as [..., G, 8]; lane s
+    sums its G beams one after another, then the 8 lane sums are added in
+    lane order."""
+    terms = _beam_terms(m, particles, scan, cfg)
+    pad = (-terms.shape[-1]) % SUBLANES
+    terms = torch.nn.functional.pad(terms, (0, pad))
+    groups = terms.reshape(*terms.shape[:-1], -1, SUBLANES)
+    lanes = torch.zeros(groups.shape[:-2] + (SUBLANES,), dtype=terms.dtype,
+                        device=terms.device)
+    for g in range(groups.shape[-2]):
+        lanes = lanes + groups[..., g, :]
+    return _gate(m, cfg, particles, sensor.beam_sum(lanes))
 
 
 def _params(m: MazeMap, cfg: SensorModelConfig):
@@ -51,26 +95,34 @@ def _params(m: MazeMap, cfg: SensorModelConfig):
     return build.floats(fp), build.ints(ip)
 
 
-def beam_weights_cuda(m: MazeMap, particles, scan: sensor.Scan,
-                      cfg: SensorModelConfig):
-    """Launch the beam weight kernel on CUDA tensors."""
+def _check_particles(m: MazeMap, particles, rank: int, what: str):
     if not particles.is_cuda or m.device != particles.device:
-        raise ValueError("beam_weights_cuda needs particles and map on the "
-                         f"same CUDA device, got {particles.device} and "
-                         f"{m.device}")
-    if particles.dtype != torch.float32 or particles.dim() != 2 \
-            or particles.shape[1] != 3:
-        raise ValueError(f"particles must be float32 [N, 3], got "
+        raise ValueError(f"{what} needs particles and map on the same CUDA "
+                         f"device, got {particles.device} and {m.device}")
+    shape = "[N, 3]" if rank == 2 else "[E, N, 3]"
+    if particles.dtype != torch.float32 or particles.dim() != rank \
+            or particles.shape[-1] != 3:
+        raise ValueError(f"particles must be float32 {shape}, got "
                          f"{particles.dtype} {tuple(particles.shape)}")
+
+
+def _check_config(m: MazeMap, cfg: SensorModelConfig, nb: int):
     if cfg.ray_mode not in ("fixed", "analytic") or cfg.beam_combine not in (
             "sum", "log"):
         raise ValueError(f"no kernel for ray_mode={cfg.ray_mode!r}, "
                          f"beam_combine={cfg.beam_combine!r}")
     if cfg.ray_mode == "analytic" and not m.gridline:
         raise ValueError("the analytic cast needs a gridline raster")
-    nb = scan.angles.shape[0]
     if nb > MAX_BEAMS:
         raise ValueError(f"{nb} beams > {MAX_BEAMS}")
+
+
+def beam_weights_cuda(m: MazeMap, particles, scan: sensor.Scan,
+                      cfg: SensorModelConfig):
+    """Launch K1 on CUDA tensors: particles [N, 3], one scan."""
+    _check_particles(m, particles, 2, "beam_weights_cuda")
+    nb = scan.angles.shape[0]
+    _check_config(m, cfg, nb)
     lib = build.library()
     sign = -1.0 if cfg.negate_beam_angle else 1.0
     table = torch.stack([sign * scan.angles, scan.ranges.expand(nb),
@@ -94,12 +146,95 @@ def beam_weights_cuda(m: MazeMap, particles, scan: sensor.Scan,
 beam_weights_cuda.launches = 0
 
 
+def _batched_launch(entry: str, m: MazeMap, particles, scan: sensor.Scan,
+                    cfg: SensorModelConfig):
+    """Launch a batched C entry (K1 batched or K4): particles [E, N, 3],
+    angles [B], ranges and mask [E, B] -> [E, N]."""
+    _check_particles(m, particles, 3, entry)
+    n_ep, n = particles.shape[0], particles.shape[1]
+    nb = scan.angles.shape[0]
+    _check_config(m, cfg, nb)
+    if n_ep > build.MAX_EPISODES:
+        raise ValueError(f"{n_ep} episodes > {build.MAX_EPISODES}, the most one "
+                         "launch's grid holds")
+    if scan.angles.dim() != 1 or scan.ranges.shape != (n_ep, nb) \
+            or scan.mask.shape != (n_ep, nb):
+        raise ValueError("need one beam table angles [B] and ranges, mask "
+                         f"[E, B] = [{n_ep}, {nb}]")
+    lib = build.library()
+    sign = -1.0 if cfg.negate_beam_angle else 1.0
+    angles = (sign * scan.angles).to(torch.float32).contiguous()
+    ranges = scan.ranges.to(torch.float32).contiguous()
+    mask = scan.mask.to(torch.float32).contiguous()
+    parts = particles.contiguous()
+    occ = m.occ.contiguous()
+    dil = m.occ_dilated.contiguous()
+    out = torch.empty((n_ep, n), dtype=torch.float32, device=parts.device)
+    fp, ip = _params(m, cfg)
+    err = getattr(lib, entry)(
+        parts.data_ptr(), n_ep, n, angles.data_ptr(), ranges.data_ptr(),
+        mask.data_ptr(), nb, occ.data_ptr(), dil.data_ptr(), m.height,
+        m.width, ctypes.addressof(fp), ctypes.addressof(ip), out.data_ptr(),
+        build.stream_handle(parts.device))
+    build.check(err, entry)
+    return out
+
+
+def beam_weights_batched_cuda(m: MazeMap, particles, scan: sensor.Scan,
+                              cfg: SensorModelConfig):
+    """Launch K1 batched on CUDA tensors."""
+    out = _batched_launch("mcl_beam_weights_batched", m, particles, scan,
+                          cfg)
+    beam_weights_batched_cuda.launches += 1
+    return out
+
+
+beam_weights_batched_cuda.launches = 0
+
+
+def beamsub_cuda(m: MazeMap, particles, scan: sensor.Scan,
+                 cfg: SensorModelConfig):
+    """Launch K4 on CUDA tensors (raw log-sums in log mode)."""
+    out = _batched_launch("mcl_beam_weights_beamsub", m, particles, scan,
+                          cfg)
+    beamsub_cuda.launches += 1
+    return out
+
+
+beamsub_cuda.launches = 0
+
+
+def _dispatch(plain, cuda, particles, *args):
+    if particles.device.type == "cpu":
+        return plain(*args)
+    if particles.is_cuda:
+        return cuda(*args)
+    raise ValueError(f"no beam weight path for device {particles.device}")
+
+
 def beam_weights(m: MazeMap, particles, scan: sensor.Scan,
                  cfg: SensorModelConfig):
-    """Beam weights [N] for particles [N, 3]: plain torch on the CPU, the
-    kernel on CUDA."""
-    if particles.device.type == "cpu":
-        return beam_weights_plain(m, particles, scan, cfg)
-    if particles.is_cuda:
-        return beam_weights_cuda(m, particles, scan, cfg)
-    raise ValueError(f"no beam weight path for device {particles.device}")
+    """Beam weights [N] for particles [N, 3]: plain torch on the CPU, K1 on
+    CUDA."""
+    return _dispatch(beam_weights_plain, beam_weights_cuda, particles, m,
+                     particles, scan, cfg)
+
+
+def beam_weights_batched(m: MazeMap, particles, scan: sensor.Scan,
+                         cfg: SensorModelConfig):
+    """Beam weights [E, N] for episodes [E, N, 3]: plain torch on the CPU,
+    K1 batched on CUDA."""
+    return _dispatch(beam_weights_plain, beam_weights_batched_cuda,
+                     particles, m, particles, scan, cfg)
+
+
+def beam_weights_beamsub(m: MazeMap, particles, scan: sensor.Scan,
+                         cfg: SensorModelConfig):
+    """K4's launcher (weights_pallas.py:540): weights [E, N] for episodes
+    [E, N, 3], log mode finished per episode; plain torch on the CPU, K4 on
+    CUDA."""
+    out = _dispatch(beamsub_plain, beamsub_cuda, particles, m, particles,
+                    scan, cfg)
+    if cfg.beam_combine == "log":
+        out = sensor.finish_log_weights(m, cfg, particles, out)
+    return out

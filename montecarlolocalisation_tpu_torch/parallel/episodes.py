@@ -1,0 +1,162 @@
+"""Episode-batched sweeps and evidence-raced replicas.
+
+Torch counterpart of montecarlolocalisation_tpu/parallel/episodes.py.  The
+JAX package runs a batch as vmap(init + lax.scan); here a batch of E
+episodes is the filter's leading episode dim ([E, N, 3] particles, [E]
+scalars), stepped tick by tick by models/filter.run_episode, so every
+tick is one batched launch of each kernel on the card.  Replicas are more
+episodes of the same batch ([R*E], replica-major), not a loop of R runs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import FilterConfig
+from ..maps import symmetry as _sym
+from ..maps.grid import MazeMap
+from ..models import filter as mcl
+from ..sim import robot
+
+
+def simulate_episode_batch(gen: torch.Generator, m: MazeMap,
+                           cfg: FilterConfig, scan_angles, num_ticks: int,
+                           batch: int, start_pose=(1.25, 1.25, 0.0)):
+    """The scripted wanderer for `batch` robots -> (encoders [E, T, 2],
+    scan ranges [E, T, B], poses [E, T, 3])."""
+    return robot.generate_wander_episode(gen, m, cfg, scan_angles,
+                                         num_ticks, batch=batch,
+                                         start_pose=start_pose)
+
+
+def run_episode_batch(
+    seed: int, m: MazeMap, cfg: FilterConfig, encoders, scan_ranges,
+    scan_angles, tick_chunk: Optional[int] = None,
+    state: Optional[mcl.MCLState] = None,
+    draws: Optional[Sequence[mcl.TickDraws]] = None,
+) -> Tuple[mcl.MCLState, mcl.MCLOutput]:
+    """Run the filter over a batch of episodes: encoders [E, T, 2],
+    scan_ranges [E, T, B], one beam table [B].  The start state is
+    init_state(seed, batch=E) unless `state` is given; `draws` (one
+    TickDraws [E, ...] per tick) replays given random numbers.
+
+    `tick_chunk` is accepted for the JAX package's signature and changes
+    nothing: the JAX package splits the tick scan to bound one device
+    execution, and here every tick is its own launches already."""
+    if tick_chunk is not None and tick_chunk < 1:
+        raise ValueError("tick_chunk must be >= 1")
+    encoders = torch.as_tensor(encoders, dtype=torch.float32,
+                               device=m.device)
+    if state is None:
+        state = mcl.init_state(m, cfg, seed, batch=encoders.shape[0])
+    return mcl.run_episode(state, encoders, scan_ranges, scan_angles, m, cfg,
+                           draws=draws)
+
+
+def _nanmean(v):
+    return float(torch.nanmean(v.to(torch.float64)))
+
+
+def sweep_rmse(final_states: mcl.MCLState, true_poses, sym=None,
+               tol_xy: float = 0.4) -> dict:
+    """Convergence metrics of a sweep on its final tick (episodes.py:153):
+    converged_frac, rmse_xy, rmse_theta and, with `sym` (a
+    maps.symmetry.SymmetryGroup), the alias-aware metrics, which score the
+    best alias of the truth, and the cloud-as-mixture metrics.  Returns
+    floats."""
+    best = final_states.best_pose                              # [E, 3]
+    truth = torch.as_tensor(true_poses, dtype=torch.float32,
+                            device=best.device)[:, -1, :]      # [E, 3]
+    ok = best[:, 0] >= 0
+    err = torch.where(ok, torch.hypot(best[:, 0] - truth[:, 0],
+                                      best[:, 1] - truth[:, 1]), torch.nan)
+    dth = torch.atan2(torch.sin(best[:, 2] - truth[:, 2]),
+                      torch.cos(best[:, 2] - truth[:, 2]))
+    out = dict(
+        converged_frac=float(torch.mean(ok.to(torch.float32))),
+        rmse_xy=math.sqrt(_nanmean(err ** 2)),
+        rmse_theta=math.sqrt(_nanmean(torch.where(ok, dth, torch.nan) ** 2)),
+    )
+    if sym is not None:
+        ae = _sym.alias_errors(best, truth, sym)
+        a_err = torch.where(ok, ae["err_xy"], torch.nan)
+        near = ok & (ae["err_xy"] < tol_xy)
+        out.update(
+            alias_rmse_xy=math.sqrt(_nanmean(a_err ** 2)),
+            alias_rmse_theta=math.sqrt(_nanmean(
+                torch.where(ok, ae["err_theta"], torch.nan) ** 2)),
+            alias_converged_frac=float(torch.mean(near.to(torch.float32))),
+            true_mode_frac=float(torch.mean(
+                (near & (ae["alias_idx"] == 0)).to(torch.float32))),
+        )
+        mt = _sym.mixture_tracking(final_states.particles,
+                                   final_states.weights, truth, sym,
+                                   stray_radius=tol_xy)
+        tr = mt["tracking_rmse_xy"]
+        out.update(
+            dominant_mass_mean=float(torch.mean(mt["dominant_mass"])),
+            stray_mass_mean=float(torch.mean(mt["stray_mass"])),
+            tracking_rmse_xy=math.sqrt(_nanmean(tr ** 2)),
+            tracked_episodes_frac=float(torch.mean(
+                torch.isfinite(tr).to(torch.float32))),
+        )
+    return out
+
+
+def replica_evidence(total_weight, replicas: int) -> np.ndarray:
+    """Accumulated log evidence [R, E] of a replica-major batch's
+    total_weight [R*E, T]: sum over ticks of log max(total, 1e-30), in
+    float64 (episodes.py:239-241)."""
+    tw = np.asarray(total_weight.detach().cpu(), np.float64)
+    ev = np.log(np.maximum(tw, 1e-30)).sum(axis=-1)
+    return ev.reshape(replicas, -1)
+
+
+def pick_replicas(final: mcl.MCLState, outs: mcl.MCLOutput, replicas: int):
+    """Keep, per episode, the replica with the highest log evidence.
+    final and outs hold a replica-major batch [R*E, ...].  Returns
+    (final [E, ...], outs [E, ...], dict(chosen [E], log_evidence
+    [R, E]))."""
+    ev = replica_evidence(outs.total_weight, replicas)
+    chosen = np.argmax(ev, axis=0)
+    n_ep = chosen.shape[0]
+    rows = torch.as_tensor(chosen * n_ep + np.arange(n_ep),
+                           device=final.particles.device)
+
+    def pick(cls, obj):
+        return cls(**{f.name: (getattr(obj, f.name)[rows]
+                               if isinstance(getattr(obj, f.name),
+                                             torch.Tensor)
+                               else getattr(obj, f.name))
+                      for f in dataclasses.fields(cls)})
+
+    state = dataclasses.replace(
+        pick(mcl.MCLState, final), odom=pick(type(final.odom), final.odom),
+        inj=pick(type(final.inj), final.inj))
+    return state, pick(mcl.MCLOutput, outs), dict(chosen=chosen,
+                                                  log_evidence=ev)
+
+
+def run_episode_replicas(seed: int, m: MazeMap, cfg: FilterConfig, encoders,
+                         scan_ranges, scan_angles, replicas: int = 4,
+                         tick_chunk: Optional[int] = None):
+    """Evidence-selected filter replicas over an episode batch
+    (episodes.py:211): every episode runs `replicas` times with
+    independent filter draws, in ONE batch of replicas x episodes, and
+    keeps the replica with the highest accumulated log total weight.
+    Returns (final state of the winners, their outputs, info with
+    `chosen` [E] and the [R, E] evidence)."""
+    if replicas < 1:
+        raise ValueError("replicas must be >= 1")
+    dev = m.device
+    enc = torch.as_tensor(encoders, dtype=torch.float32, device=dev)
+    rng = torch.as_tensor(scan_ranges, dtype=torch.float32, device=dev)
+    rep = (replicas,) + (1,) * (enc.dim() - 1)
+    final, outs = run_episode_batch(seed, m, cfg, enc.repeat(rep),
+                                    rng.repeat(rep), scan_angles,
+                                    tick_chunk=tick_chunk)
+    return pick_replicas(final, outs, replicas)

@@ -1,5 +1,5 @@
-"""World construction for the CLI presets (the JAX package's
-presets.make_world, presets.py:46-72)."""
+"""World construction and the sweep preset (the JAX package's
+presets.make_world and run_sweep, presets.py:46-72 and :151-172)."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,7 +30,7 @@ class World:
 def make_world(map_path: str = DEFAULT_MAP, num_particles: int = 1500,
                num_beams: int = 24, ray_mode: str = "fixed",
                resample_method: str = "multinomial",
-               device="cpu") -> World:
+               device="cuda") -> World:
     """World from a reference map.txt wall list: the maze on `device`, the
     filter config and an evenly spread beam table over +-118 degrees."""
     maze = from_map_file(map_path, device=device)
@@ -40,3 +40,28 @@ def make_world(map_path: str = DEFAULT_MAP, num_particles: int = 1500,
     angles = np.deg2rad(
         np.linspace(-118.0, 118.0, num_beams)).astype(np.float32)
     return World(maze=maze, walls=maze.walls, cfg=cfg, angles=angles)
+
+
+def run_sweep(world: World, batch: int = 64, num_ticks: int = 150,
+              seed: int = 0, tick_chunk=None) -> dict:
+    """Multi-episode localization sweep: `batch` wander episodes from
+    (2.05, 2.05, 0), the filter over all of them as one batch, and the
+    alias-aware convergence metrics of the final tick (floats).  The
+    simulation and the filter draw from two seeds derived from `seed`;
+    `tick_chunk` changes nothing (parallel.episodes.run_episode_batch)."""
+    from .maps import symmetry
+    from .parallel import episodes
+
+    sim_seed, filter_seed = (int(v) for v in
+                             np.random.SeedSequence(seed).generate_state(2))
+    gen = torch.Generator(device=world.maze.device)
+    gen.manual_seed(sim_seed)
+    enc, scans, truth = episodes.simulate_episode_batch(
+        gen, world.maze, world.cfg, world.angles, num_ticks, batch,
+        start_pose=(2.05, 2.05, 0.0))
+    final, _ = episodes.run_episode_batch(
+        filter_seed, world.maze, world.cfg, enc, scans, world.angles,
+        tick_chunk=tick_chunk)
+    sym = symmetry.maze_symmetries(world.maze.walls.cpu().numpy(),
+                                   float(world.maze.cell_meters))
+    return episodes.sweep_rmse(final, truth, sym=sym)

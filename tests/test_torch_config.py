@@ -1,0 +1,64 @@
+"""The port's own config dataclasses against the JAX package's: the same
+classes, fields, defaults and frozen=True; and interop.config_from, which
+rebuilds a port config from a JAX one, round-trips."""
+import dataclasses
+
+import pytest
+import torch
+
+from montecarlolocalisation_tpu import config as jconfig
+from montecarlolocalisation_tpu_torch import config as tconfig
+from montecarlolocalisation_tpu_torch import interop
+
+torch.set_num_threads(1)
+
+CLASSES = ["GridConfig", "SensorModelConfig", "MotionModelConfig",
+           "ResampleConfig", "RefineConfig", "ClusterConfig",
+           "HysteresisConfig", "InitConfig", "FilterConfig"]
+
+
+@pytest.mark.parametrize("name", CLASSES)
+def test_dataclass_matches_jax_field_for_field(name):
+    jcls, tcls = getattr(jconfig, name), getattr(tconfig, name)
+
+    def fields(cls):
+        # A nested config's default is compared by its values: the two
+        # packages' classes differ, so their instances never compare equal.
+        return [(f.name, dataclasses.asdict(f.default)
+                 if dataclasses.is_dataclass(f.default) else f.default)
+                for f in dataclasses.fields(cls)]
+
+    jf, tf = fields(jcls), fields(tcls)
+    assert tf == jf
+    assert tcls.__dataclass_params__.frozen
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        setattr(tcls(), jf[0][0], jf[0][1])
+
+
+def test_constants_match_jax():
+    for name in ("WALL_RIGHT", "WALL_TOP", "WALL_LEFT", "WALL_BOTTOM"):
+        assert getattr(tconfig, name) == getattr(jconfig, name)
+    assert interop.config_from(jconfig.DEFAULT_CONFIG) == \
+        tconfig.DEFAULT_CONFIG
+    assert tconfig.SensorModelConfig().num_ray_steps == \
+        jconfig.SensorModelConfig().num_ray_steps
+    assert tconfig.GridConfig().resolution == jconfig.GridConfig().resolution
+
+
+def test_config_from_round_trips():
+    jcfg = jconfig.FilterConfig(
+        num_particles=777,
+        sensor=jconfig.SensorModelConfig(ray_mode="analytic",
+                                         beam_combine="log",
+                                         log_temperature=2.0),
+        resample=jconfig.ResampleConfig(method="systematic",
+                                        ess_threshold=0.5),
+        cluster=jconfig.ClusterConfig(impl="dense"))
+    tcfg = interop.config_from(jcfg)
+    assert type(tcfg) is tconfig.FilterConfig
+    assert type(tcfg.sensor) is tconfig.SensorModelConfig
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert interop.config_from(tcfg) == tcfg
+    assert interop.config_from(jcfg.motion) == tconfig.MotionModelConfig()
+    with pytest.raises(TypeError):
+        interop.config_from(jconfig.SLAMConfig())

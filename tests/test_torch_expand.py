@@ -80,3 +80,42 @@ def test_one_particle_takes_all():
     parts = np.stack([np.arange(n, dtype=np.float32)] * 3, -1)
     got = texpand.systematic_expand(t(parts), t(np.cumsum(w)), t(0.5))
     assert bool((got == 777.0).all())
+
+
+def _batch(n_ep, n, seed):
+    cases = [_case(n, 1 + e % 7, seed + e) for e in range(n_ep)]
+    parts = np.stack([c[0] for c in cases])
+    cdf = np.stack([c[1] for c in cases])
+    u0 = np.random.default_rng(seed).uniform(size=n_ep).astype(np.float32)
+    return parts, cdf, u0
+
+
+@pytest.mark.parametrize("n_ep,n", [(5, 500), (3, 1500), (4, 1)])
+def test_batched_expansion_equals_each_episode_bit_exact(n_ep, n):
+    parts, cdf, u0 = _batch(n_ep, n, 30)
+    got = texpand.systematic_expand(t(parts), t(cdf), t(u0))
+    assert got.shape == (n_ep, n, 3)
+    before = texpand.systematic_expand_batched_cuda.launches
+    for e in range(n_ep):
+        assert torch.equal(got[e], texpand.systematic_expand(
+            t(parts[e]), t(cdf[e]), t(u0[e])))
+    assert texpand.systematic_expand_batched_cuda.launches == before
+
+
+def test_batched_expansion_matches_jax_onehot_bit_exact():
+    # The JAX package's batched systematic expansion under vmap
+    # (resample.py:284 _expand_onehot_batched) and its per-episode XLA path.
+    from montecarlolocalisation_tpu.models.resample import (
+        _expand_onehot_batched,
+    )
+
+    parts, cdf, u0 = _batch(6, 500, 40)
+    want = np.asarray(_expand_onehot_batched(jnp.asarray(parts),
+                                             jnp.asarray(cdf),
+                                             jnp.asarray(u0)))
+    got = texpand.systematic_expand(t(parts), t(cdf), t(u0)).numpy()
+    np.testing.assert_array_equal(got, want)
+    for e in range(6):
+        np.testing.assert_array_equal(got[e], np.asarray(
+            jnp.asarray(parts[e])[systematic_indices(jnp.asarray(cdf[e]),
+                                                     u0[e])]))

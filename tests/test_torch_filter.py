@@ -21,6 +21,7 @@ from montecarlolocalisation_tpu.models import filter as jfilter
 from montecarlolocalisation_tpu.models import resample as jres
 from montecarlolocalisation_tpu.models import sensor as jsensor
 from montecarlolocalisation_tpu_torch import interop
+from montecarlolocalisation_tpu_torch.interop import config_from
 from montecarlolocalisation_tpu_torch.models import filter as tfilter
 from montecarlolocalisation_tpu_torch.models import sensor as tsensor
 
@@ -70,7 +71,7 @@ def test_ticks_match_jax(ray_mode, method, lost):
         new, out = step(state, *enc, ranges)
         tnew, tout = tfilter.mcl_step(tstate, *enc,
                                       tsensor.make_scan(angles, ranges),
-                                      tm, cfg, draws=draws)
+                                      tm, config_from(cfg), draws=draws)
         rows = np.all(np.abs(tnew.particles.numpy()
                              - np.asarray(new.particles)) <= 1e-5, axis=1)
         assert rows.mean() >= 0.999, (tick, rows.mean())
@@ -92,7 +93,7 @@ def test_ticks_match_jax(ray_mode, method, lost):
 
 def test_run_episode_shapes_and_per_tick_angles():
     _, tm = maps()
-    cfg = _cfg("fixed", "multinomial")
+    cfg = config_from(_cfg("fixed", "multinomial"))
     t_ticks = 4
     angles = np.deg2rad(np.linspace(-118, 118, BEAMS)).astype(np.float32)
     enc = np.cumsum(np.full((t_ticks, 2), 0.1, np.float32), axis=0)
@@ -116,13 +117,13 @@ def test_run_episode_shapes_and_per_tick_angles():
 
 def test_init_state_and_unported_options_raise():
     _, tm = maps()
-    cfg = _cfg("fixed", "multinomial")
+    cfg = config_from(_cfg("fixed", "multinomial"))
     s = tfilter.init_state(tm, cfg, seed=3)
     assert s.particles.shape == (N, 3) and bool(s.was_lost) is False
     assert s.best_pose.tolist() == [-1.0, -1.0, -1.0]
     scan = tsensor.make_scan(np.zeros(BEAMS, np.float32),
                              np.ones(BEAMS, np.float32))
-    ess = dataclasses.replace(cfg, resample=ResampleConfig(
-        ess_threshold=0.5))
+    ess = dataclasses.replace(cfg, resample=config_from(ResampleConfig(
+        ess_threshold=0.5)))
     with pytest.raises(NotImplementedError):
         tfilter.mcl_step(s, 0.0, 0.0, scan, tm, ess)

@@ -13,6 +13,7 @@ import torch
 from montecarlolocalisation_tpu.config import ClusterConfig
 from montecarlolocalisation_tpu.models import cluster as jcluster
 from montecarlolocalisation_tpu.ops.kmeans_pallas import kmeans_pallas
+from montecarlolocalisation_tpu_torch.interop import config_from
 from montecarlolocalisation_tpu_torch.models import cluster as tcluster
 from montecarlolocalisation_tpu_torch.ops import kmeans as tkmeans
 
@@ -102,7 +103,52 @@ def test_cluster_confidence_matches():
         jr, jp = jax.jit(lambda p: jcluster.cluster_confidence(
             key, p, w, jnp.float32(thr), cfg))(parts)
         tr, tp = tcluster.cluster_confidence(
-            t(parts), t(w), t(thr), cfg, t(init, torch.int64),
+            t(parts), t(w), t(thr), config_from(cfg), t(init, torch.int64),
             t(reseed, torch.int64))
         np.testing.assert_allclose(float(tr), float(jr), atol=1e-3)
         np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-3)
+
+
+def _episodes(n_ep, n, seed):
+    xys = [_mixture(seed + e, n) + np.float32(0.3 * e) for e in range(n_ep)]
+    ins = [_inputs(seed + e, xy) for e, xy in enumerate(xys)]
+    return (ins[0][0], np.stack(xys), np.stack([i[1] for i in ins]),
+            np.stack([i[2] for i in ins]))
+
+
+def test_batched_plain_equals_each_episode_bit_exact():
+    # Each episode keeps its own early-exit latch: the batch is its
+    # episodes run one by one.
+    _, xy, c0, rs = _episodes(4, 1500, 50)
+    cg, ag = tkmeans.kmeans(t(xy), t(c0), t(rs))
+    assert cg.shape == (4, 3, 2) and ag.shape == (4, 1500)
+    for e in range(4):
+        ce, ae = tkmeans.kmeans(t(xy[e]), t(c0[e]), t(rs[e]))
+        assert torch.equal(cg[e], ce) and torch.equal(ag[e], ae)
+
+
+def test_batched_plain_matches_jax_vmapped_dense():
+    cfg, xy, c0, rs = _episodes(5, 2000, 60)
+    cw, aw = jax.jit(jax.vmap(
+        lambda a, b, c: jcluster._kmeans_dense(a, b, c, cfg)))(xy, c0, rs)
+    cg, ag = tkmeans.kmeans_plain(t(xy), t(c0), t(rs))
+    _close(cg.numpy(), ag.numpy(), np.asarray(cw), np.asarray(aw))
+
+
+def test_batched_cluster_confidence_matches_jax_vmapped():
+    cfg, xy, _, _ = _episodes(3, 1200, 70)
+    rng = np.random.default_rng(7)
+    parts = np.concatenate([xy, rng.uniform(-3, 3, (3, 1200, 1))],
+                           -1).astype(np.float32)
+    w = np.full((3, 1200), 1.0 / 1200, np.float32)
+    thr = np.float32([0.1, 0.9, 0.3])
+    keys = jax.random.split(jax.random.PRNGKey(9), 3)
+    jr, jp = jax.jit(jax.vmap(lambda k, p, ww, th: jcluster.cluster_confidence(
+        k, p, ww, th, cfg)))(keys, parts, w, thr)
+    idx = [jax_kmeans_indices(k, 1200, cfg) for k in keys]
+    tr, tp = tcluster.cluster_confidence(
+        t(parts), t(w), t(thr), config_from(cfg),
+        t(np.stack([i[0] for i in idx]), torch.int64),
+        t(np.stack([i[1] for i in idx]), torch.int64))
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-3)
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-3)

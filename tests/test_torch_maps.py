@@ -18,7 +18,7 @@ torch.set_num_threads(1)
                                    "row_lengths"])
 def test_map_fields_bit_exact(field):
     jm = jgrid.from_map_file(MAP_PATH)
-    tm = tgrid.from_map_file(MAP_PATH)
+    tm = tgrid.from_map_file(MAP_PATH, device="cpu")
     np.testing.assert_array_equal(getattr(tm, field).numpy(),
                                   np.asarray(getattr(jm, field)))
     assert tm.gridline

@@ -12,6 +12,7 @@ import torch
 
 from montecarlolocalisation_tpu.config import MotionModelConfig
 from montecarlolocalisation_tpu.models import motion as jmotion
+from montecarlolocalisation_tpu_torch.interop import config_from
 from montecarlolocalisation_tpu_torch.models import motion as tmotion
 
 from torch_parity import t
@@ -32,7 +33,7 @@ def test_diff_drive_update(enc):
     j, o = _odom_pair(1.2, 2.1, 0.4, 0.1, -0.05)
     jn, *jr = jax.jit(lambda s, a, b: jmotion.diff_drive_update(s, a, b, cfg))(
         j, jnp.float32(enc[0]), jnp.float32(enc[1]))
-    tn, *tr = tmotion.diff_drive_update(o, enc[0], enc[1], cfg)
+    tn, *tr = tmotion.diff_drive_update(o, enc[0], enc[1], config_from(cfg))
     for f in ("x", "y", "theta", "encoder_left", "encoder_right"):
         np.testing.assert_allclose(float(getattr(tn, f)),
                                    float(getattr(jn, f)), rtol=1e-6,
@@ -55,7 +56,8 @@ def test_motion_update_with_jax_normals(shared):
     shape = () if shared else (n,)
     normals = np.stack([np.asarray(jax.random.normal(k, shape))
                         for k in jax.random.split(key, 3)])
-    tn, tp = tmotion.motion_update(t(parts), o, 0.4, 0.25, cfg, t(normals))
+    tn, tp = tmotion.motion_update(t(parts), o, 0.4, 0.25, config_from(cfg),
+                                   t(normals))
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6,
                                atol=2e-6)
     np.testing.assert_allclose(float(tn.theta), float(jn.theta), rtol=1e-6)

@@ -1,5 +1,6 @@
-"""The port's ground rules: it never imports JAX, a kernel entry never
-falls back to the CPU, a build without nvcc (or a failed one) raises, and
+"""The port's ground rules: it never imports JAX or the JAX package, a
+kernel entry never falls back to the CPU, an entry point asks for the card
+unless told otherwise, a build without nvcc (or a failed one) raises, and
 chip_smoke.py refuses to run without a CUDA card."""
 import os
 import os.path as osp
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from montecarlolocalisation_tpu_torch import presets
+from montecarlolocalisation_tpu_torch import maps, presets
 from montecarlolocalisation_tpu_torch.config import SensorModelConfig
 from montecarlolocalisation_tpu_torch.models import sensor
 from montecarlolocalisation_tpu_torch.ops import build, expand, kmeans
@@ -20,6 +21,7 @@ from montecarlolocalisation_tpu_torch.ops import weights
 torch.set_num_threads(1)
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+PKG = "montecarlolocalisation_tpu_torch"
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -28,6 +30,9 @@ for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 jax = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 print("jax modules:", jax)
+ref = sorted(k for k in sys.modules if k == "montecarlolocalisation_tpu"
+             or k.startswith("montecarlolocalisation_tpu."))
+print("JAX package modules:", ref)
 """
 
 
@@ -36,34 +41,68 @@ def test_port_never_imports_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "jax modules: []" in r.stdout, r.stdout
+    assert "JAX package modules: []" in r.stdout, r.stdout
 
 
 def _cpu_calls():
-    tm = presets.make_world().maze
+    tm = presets.make_world(device="cpu").maze
     parts = torch.rand(64, 3)
     scan = sensor.make_scan(np.zeros(4, np.float32), np.ones(4, np.float32))
     counts = torch.arange(1, 65, dtype=torch.int32)
     xy = torch.rand(64, 2)
+    bparts = torch.rand(2, 64, 3)
+    bscan = sensor.make_scan(np.zeros(4, np.float32),
+                             np.ones((2, 4), np.float32))
+    cfg = SensorModelConfig()
     return {
         "beam_weights": lambda: weights.beam_weights_cuda(
-            tm, parts, scan, SensorModelConfig()),
+            tm, parts, scan, cfg),
+        "beam_weights_batched": lambda: weights.beam_weights_batched_cuda(
+            tm, bparts, bscan, cfg),
+        "beamsub": lambda: weights.beamsub_cuda(tm, bparts, bscan, cfg),
         "systematic_expand": lambda: expand.systematic_expand_cuda(
             parts, counts),
+        "systematic_expand_batched":
+            lambda: expand.systematic_expand_batched_cuda(
+                bparts, counts.expand(2, 64)),
         "kmeans": lambda: kmeans.kmeans_cuda(xy, xy[:3],
                                              xy[:60].reshape(20, 3, 2)),
+        "kmeans_batched": lambda: kmeans.kmeans_batched_cuda(
+            bparts[..., :2], bparts[:, :3, :2],
+            bparts[:, :60, :2].reshape(2, 20, 3, 2)),
     }
 
 
-@pytest.mark.parametrize("entry", ["beam_weights", "systematic_expand",
-                                   "kmeans"])
+ENTRIES = {"beam_weights": weights.beam_weights_cuda,
+           "beam_weights_batched": weights.beam_weights_batched_cuda,
+           "beamsub": weights.beamsub_cuda,
+           "systematic_expand": expand.systematic_expand_cuda,
+           "systematic_expand_batched": expand.systematic_expand_batched_cuda,
+           "kmeans": kmeans.kmeans_cuda,
+           "kmeans_batched": kmeans.kmeans_batched_cuda}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
 def test_kernel_entry_refuses_cpu_tensors(entry):
-    fn = {"beam_weights": weights.beam_weights_cuda,
-          "systematic_expand": expand.systematic_expand_cuda,
-          "kmeans": kmeans.kmeans_cuda}[entry]
+    fn = ENTRIES[entry]
     before = fn.launches
     with pytest.raises(ValueError, match="CUDA"):
         _cpu_calls()[entry]()
     assert fn.launches == before
+
+
+def test_entry_points_ask_for_the_card_by_default():
+    # This box has no CUDA: a world on the default device cannot be made.
+    with pytest.raises((RuntimeError, AssertionError)):
+        presets.make_world()
+    with pytest.raises((RuntimeError, AssertionError)):
+        maps.from_map_file(presets.DEFAULT_MAP)
+    with pytest.raises((RuntimeError, AssertionError)):
+        maps.from_walls([[[0, 1, 2, 3]]])
+    r = subprocess.run([sys.executable, "-m", PKG, "sweep", "--batch", "2",
+                        "--ticks", "2", "--particles", "16"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "CUDA" in r.stderr
 
 
 def _isolate_build(monkeypatch, tmp_path):

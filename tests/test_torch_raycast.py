@@ -35,7 +35,7 @@ def _rays(n, seed, lo=0.0, hi=4.9):
 def _both(jm, tm, cfg, ox, oy, ang):
     want = jax.jit(lambda a, b, c: jraycast.raycast(jm, a, b, c, cfg))(
         ox, oy, ang)
-    got = traycast.raycast(tm, t(ox), t(oy), t(ang), cfg)
+    got = traycast.raycast(tm, t(ox), t(oy), t(ang), interop.config_from(cfg))
     return got.numpy(), np.asarray(want)
 
 
@@ -110,5 +110,6 @@ def test_analytic_falls_back_to_dda_off_gridlines():
     got, want = _both(jm, tm, cfg, *_rays(3000, 7, hi=1.7))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     dda = traycast.raycast(tm, *(t(a) for a in _rays(3000, 7, hi=1.7)),
-                           SensorModelConfig(ray_mode="dda"))
+                           interop.config_from(
+                               SensorModelConfig(ray_mode="dda")))
     np.testing.assert_array_equal(got, dda.numpy())

@@ -14,6 +14,7 @@ from montecarlolocalisation_tpu.config import (
     FilterConfig, InitConfig, ResampleConfig,
 )
 from montecarlolocalisation_tpu.models import resample as jres
+from montecarlolocalisation_tpu_torch.interop import config_from
 from montecarlolocalisation_tpu_torch.models import resample as tres
 
 from torch_parity import jax_resample_draws, maps, t, uniform_particles
@@ -35,7 +36,7 @@ def test_update_injection(lost, inj):
     jn, jp, ja, jt = jax.jit(lambda w: jres.update_injection(
         w, ji, jnp.bool_(lost), cfg))(w)
     tn, tp, ta, tt = tres.update_injection(t(w), ti, t(lost, torch.bool),
-                                           cfg)
+                                           config_from(cfg))
     for a, b in ((tn.w_slow, jn.w_slow), (tn.w_fast, jn.w_fast), (tp, jp),
                  (ta, ja), (tt, jt)):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-5, atol=1e-7)
@@ -52,7 +53,8 @@ def _run(cfg, n, lost, inj, seed):
         key, p, w, ji, jnp.bool_(lost), jm, cfg))(parts, w)
     draws = jax_resample_draws(key, jm, n, cfg)
     tp, tw, tinj, tinfo = tres.resample(t(parts), t(w), ti,
-                                        t(lost, torch.bool), tm, cfg, draws)
+                                        t(lost, torch.bool), tm,
+                                        config_from(cfg), draws)
     rows = np.all(np.abs(tp.numpy() - np.asarray(jp)) <= 1e-5, axis=1)
     assert rows.mean() >= 0.999, rows.mean()
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw))
@@ -95,8 +97,10 @@ def test_sorted_multinomial_means_exact():
     w = t(np.random.default_rng(3).uniform(size=n))
     draws = jax_resample_draws(jax.random.PRNGKey(3), jm, n, cfg)
     inj = tres.InjectionState.zero()
-    a = tres.resample(parts, w, inj, t(True, torch.bool), tm, cfg, draws)
-    b = tres.resample(parts, w, inj, t(True, torch.bool), tm, exact, draws)
+    a = tres.resample(parts, w, inj, t(True, torch.bool), tm,
+                      config_from(cfg), draws)
+    b = tres.resample(parts, w, inj, t(True, torch.bool), tm,
+                      config_from(exact), draws)
     torch.testing.assert_close(a[0], b[0], rtol=0, atol=0)
 
 
@@ -108,6 +112,7 @@ def test_all_zero_weights_draw_uniformly():
     draws = jax_resample_draws(jax.random.PRNGKey(4), jm, n, cfg)
     out, w, _, info = tres.resample(parts, torch.zeros(n),
                                     tres.InjectionState.zero(),
-                                    t(False, torch.bool), tm, cfg, draws)
+                                    t(False, torch.bool), tm,
+                                    config_from(cfg), draws)
     assert torch.isfinite(out).all() and int(info["n_injected"]) == 0
     assert float(w.sum()) == pytest.approx(1.0, rel=1e-5)

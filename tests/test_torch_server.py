@@ -23,7 +23,8 @@ N, BEAMS = 256, 8
 
 
 def _session():
-    world = presets.make_world(num_particles=N, num_beams=BEAMS)
+    world = presets.make_world(num_particles=N, num_beams=BEAMS,
+                               device="cpu")
     lines = []
     for k in range(3):
         ranges = sensor.simulate_scan(world.maze, [1.25 + 0.02 * k, 1.25, 0.0],

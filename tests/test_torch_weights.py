@@ -13,6 +13,7 @@ import torch
 from montecarlolocalisation_tpu.config import SensorModelConfig
 from montecarlolocalisation_tpu.models import sensor as jsensor
 from montecarlolocalisation_tpu.ops.weights_pallas import beam_weights_pallas
+from montecarlolocalisation_tpu_torch.interop import config_from
 from montecarlolocalisation_tpu_torch.models import sensor as tsensor
 from montecarlolocalisation_tpu_torch.ops import weights as tweights
 
@@ -58,10 +59,11 @@ def test_plain_matches_jax_kernel_and_dense(ray_mode, combine, n):
         raw = jsensor.finish_log_weights(jm, cfg, jnp.asarray(parts), raw)
     dense = jax.jit(lambda p: jsensor._beam_weights_dense(
         jm, p, jscan, cfg, 0.1, "gather"))(parts)
-    plain = tweights.beam_weights_plain(tm, t(parts), tscan, cfg)
+    tcfg = config_from(cfg)
+    plain = tweights.beam_weights_plain(tm, t(parts), tscan, tcfg)
     if combine == "log":
-        plain = tsensor.finish_log_weights(tm, cfg, t(parts), plain)
-    got = tsensor.beam_weights(tm, t(parts), tscan, cfg).numpy()
+        plain = tsensor.finish_log_weights(tm, tcfg, t(parts), plain)
+    got = tsensor.beam_weights(tm, t(parts), tscan, tcfg).numpy()
     np.testing.assert_array_equal(plain.numpy(), got)
     _check(got, np.asarray(raw), cfg)
     _check(got, np.asarray(dense), cfg)
@@ -73,13 +75,14 @@ def test_quantized_march_matches(quantize):
     jm, tm, parts, jscan, tscan = _fixture(700, beams=12, seed=3)
     cfg = SensorModelConfig(quantize_ray_deg=quantize)
     want = jax.jit(lambda p: jsensor.beam_weights(jm, p, jscan, cfg))(parts)
-    got = tsensor.beam_weights(tm, t(parts), tscan, cfg).numpy()
+    got = tsensor.beam_weights(tm, t(parts), tscan,
+                               config_from(cfg)).numpy()
     _check(got, np.asarray(want), cfg)
 
 
 def test_wrapper_takes_plain_version_on_cpu():
     _, tm, parts, _, tscan = _fixture(64)
-    cfg = SensorModelConfig()
+    cfg = config_from(SensorModelConfig())
     before = tweights.beam_weights_cuda.launches
     out = tweights.beam_weights(tm, t(parts), tscan, cfg)
     assert out.shape == (64,) and out.device.type == "cpu"

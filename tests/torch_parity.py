@@ -5,10 +5,12 @@ Both packages get the same numpy arrays.  JAX runs on the CPU under jit
 port runs on CPU tensors, where every kernel wrapper takes its plain
 version.  `jax_tick_draws` rebuilds the JAX package's key-split tree for
 one filter tick (filter.py:193, motion.py:80, resample.py:388,
-cluster.py:40-47), so the port can replay JAX's exact random numbers.
+cluster.py:40-47), so the port can replay JAX's exact random numbers;
+`jax_episode_draws` does so for every tick of a batch of episodes.
 """
 from __future__ import annotations
 
+import dataclasses
 import os.path as osp
 
 import jax
@@ -78,3 +80,42 @@ def jax_kmeans_indices(key, n, ccfg):
     reseed = jax.vmap(lambda kk: jax.random.randint(kk, (ccfg.k,), 0, n))(
         jax.random.split(k_iters, ccfg.max_iters))
     return np.asarray(init), np.asarray(reseed)
+
+
+def _slice(obj, idx):
+    """A dataclass of tensors (nested dataclasses, None and generators kept
+    as they are) with every tensor indexed by `idx`."""
+    if dataclasses.is_dataclass(obj):
+        return type(obj)(**{f.name: _slice(getattr(obj, f.name), idx)
+                            for f in dataclasses.fields(obj)})
+    return obj[idx] if isinstance(obj, torch.Tensor) else obj
+
+
+def episode(obj, e):
+    """Episode e of a batched state, output or TickDraws."""
+    return _slice(obj, e)
+
+
+def stack(objs):
+    """Batch a list of per-episode dataclasses of tensors along a new
+    leading dim (generators and None taken from the first)."""
+    first = objs[0]
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{f.name: stack([getattr(o, f.name)
+                                             for o in objs])
+                              for f in dataclasses.fields(first)})
+    if isinstance(first, torch.Tensor):
+        return torch.stack(objs)
+    return first
+
+
+def jax_episode_draws(states, jm, n, cfg, num_ticks):
+    """Per tick, the [E]-batched TickDraws that JAX's vmapped run_episode
+    draws from each episode's state key (filter.py:193): the tick's draws
+    come from the state key, and the next state key is its first split."""
+    keys = [states.key[e] for e in range(states.key.shape[0])]
+    out = []
+    for _ in range(num_ticks):
+        out.append(stack([jax_tick_draws(k, jm, n, cfg) for k in keys]))
+        keys = [jax.random.split(k, 4)[0] for k in keys]
+    return out
