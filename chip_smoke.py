@@ -20,6 +20,12 @@ Every phase prints one JSON line; any failure raises, so the exit code is
 non-zero and no result line appears.  It needs one CUDA card and fails
 without one.
 
+The kernel checks hold K1, K1 batched and K4 to 0.0 max-abs error (also on
+rays parallel to the gridlines, bands across a 32-bit word boundary, a
+241 x 241 px maze and, for K1, a 4 m range), and K3 and K3 batched to 1e-4 on the centers at odd
+sizes on both of their paths, as one device launch a call that repeats
+itself bit for bit, with a batch equal to its episodes run one by one.
+
 Output, in order: the card (nvidia-smi name and power limit), the build,
 the kernel checks, the serve phase, the entry config, the kernel-vs-plain
 tick, the kernel times, the sweep, the fleet, a device profile of one
@@ -165,9 +171,43 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 # -- phase 3: each kernel against its plain version ------------------------
 
-def k1_inputs(m, n, nb, cfg, gen):
-    parts = resample.sample_uniform_particles(gen, m, n)
+def steer(parts, kind: str, m, gen):
+    """Particles [..., N, 3] set up in place for one of the casts' hard
+    cases.  "parallel": headings 0, pi/2, pi, -pi/2 in turn, so that with
+    beams at 0 and +-pi/2 some rays run exactly along a gridline axis (the
+    |du| < eps branch) and others nearly so.  "word_boundary": origins in
+    or beside a gridline at a multiple of 32 px along it, heading nearly
+    along it, so the band crosses from one 32-bit word to the next."""
+    if kind == "uniform":
+        return parts
+    n = parts.shape[-2]
+    dev = parts.device
+    if kind == "parallel":
+        turns = torch.tensor([0.0, math.pi / 2, math.pi, -math.pi / 2],
+                             device=dev)
+        parts[..., 2] = turns[torch.arange(n, device=dev) % 4]
+        return parts
+    u = lambda: torch.rand(parts.shape[:-1], generator=gen, device=dev)
+    span = min(m.height, m.width)
+    seams = max(1, (span - 1) // 32)
+    cross = (8 * torch.floor(u() * ((span - 1) // 8 + 1)) + 1.5 * u()) \
+        * m.resolution
+    seam = (32 * torch.floor(1 + u() * seams) + 8 * (u() - 0.5)) \
+        * m.resolution
+    vertical = u() < 0.5
+    parts[..., 0] = torch.where(vertical, cross, seam) + m.origin_x
+    parts[..., 1] = torch.where(vertical, seam, cross) + m.origin_y
+    parts[..., 2] = (torch.where(vertical, math.pi / 2, 0.0)
+                     + torch.where(u() < 0.5, 0.0, math.pi)
+                     + 0.6 * (u() - 0.5))
+    return parts
+
+
+def k1_inputs(m, n, nb, cfg, gen, kind: str = "uniform"):
+    parts = steer(resample.sample_uniform_particles(gen, m, n), kind, m, gen)
     angles = np.deg2rad(np.linspace(-118.0, 118.0, nb)).astype(np.float32)
+    if kind == "parallel":
+        angles[:4] = np.float32([0.0, math.pi / 2, -math.pi / 2, math.pi])
     scan = sensor.simulate_scan(m, START, angles, cfg)
     # Two dead lanes: the mask must scale the terms away.
     mask = torch.ones(nb, dtype=torch.bool, device=m.device)
@@ -177,9 +217,9 @@ def k1_inputs(m, n, nb, cfg, gen):
 
 
 def big_maze(dev):
-    """A random 30 x 30-cell maze.  Its 241 x 241 px raster is past the
-    32 KB that the beam weight kernel keeps in shared memory, so the kernel
-    reads it from device memory."""
+    """A random 30 x 30-cell maze.  Its 241 x 241 px gridlines take 8
+    32-bit words each in the beam weight kernel (the default maze's 49 px
+    take 2), and its one-bit raster 7.3 KB."""
     rng = np.random.default_rng(7)
     walls = [[[w for w in (WALL_TOP, WALL_LEFT) if rng.random() < 0.4]
               for _ in range(30)] for _ in range(30)]
@@ -187,33 +227,43 @@ def big_maze(dev):
 
 
 def check_k1(m, gen) -> dict:
-    """Sum rtol 1e-5; log (raw log-sums) rtol 1e-4; analytic > 99.9 %
-    close, since a pixel-boundary tie moves a beam's whole Gaussian (the
-    tolerances the JAX suite holds its kernel to)."""
-    cases = [(m, n, nb, mode, comb)
+    """0.0 max-abs error in every case: the kernel repeats the plain
+    version's float operations in its order (-fmad=false), and its bit-word
+    search returns the pixel loop's row.  Cases: both maze sizes, both ray
+    modes and both combines, uniform particles, rays parallel to the
+    gridlines, bands across a 32-bit word boundary, and a 4 m range, whose
+    bands of up to 42 px the kernel searches word by word."""
+    cases = [(m, n, nb, mode, comb, "uniform", 1.0)
              for n in (1000, 65_536, 1_048_576) for nb in (12, 34)
              for mode in ("fixed", "analytic") for comb in ("sum", "log")]
     big = big_maze(m.device)
-    cases += [(big, 65_536, 34, mode, "sum") for mode in ("fixed", "analytic")]
+    cases += [(big, 65_536, 34, mode, comb, "uniform", 1.0)
+              for mode in ("fixed", "analytic") for comb in ("sum", "log")]
+    cases += [(maze, 65_536, 34, mode, comb, kind, 1.0)
+              for maze in (m, big) for kind in ("parallel", "word_boundary")
+              for mode in ("fixed", "analytic") for comb in ("sum", "log")]
+    cases += [(maze, 65_536, 34, mode, comb, "uniform", 4.0)
+              for maze in (m, big) for mode in ("fixed", "analytic")
+              for comb in ("sum", "log")]
     worst = 0.0
-    for maze, n, nb, mode, comb in cases:
-        cfg = SensorModelConfig(ray_mode=mode, beam_combine=comb)
-        parts, scan = k1_inputs(maze, n, nb, cfg, gen)
+    for maze, n, nb, mode, comb, kind, max_range in cases:
+        cfg = SensorModelConfig(ray_mode=mode, beam_combine=comb,
+                                max_range=max_range)
+        parts, scan = k1_inputs(maze, n, nb, cfg, gen, kind)
         got = weights.beam_weights_cuda(maze, parts, scan, cfg)
         want = weights.beam_weights_plain(maze, parts, scan, cfg)
         torch.cuda.synchronize()
-        rtol = 1e-4 if comb == "log" else 1e-5
-        close = torch.isclose(got, want, rtol=rtol, atol=1e-6)
-        share = close.float().mean().item()
         err = (got - want).abs().max().item()
         worst = max(worst, err)
         say("check", kernel="beam_weights", raster=list(maze.occ.shape),
-            n=n, beams=nb, ray_mode=mode, combine=comb, max_abs_err=err,
-            share_close=share)
-        need = 0.999 if mode == "analytic" else 1.0
-        if not (share >= need and torch.isfinite(got).all()):
-            raise AssertionError(f"K1 {mode}/{comb} n={n} b={nb} raster "
-                                 f"{tuple(maze.occ.shape)}: {share} close")
+            n=n, beams=nb, ray_mode=mode, combine=comb, particles=kind,
+            max_range=max_range, max_abs_err=err,
+            share_close=_close_share(got, want, comb))
+        if not (err == 0.0 and torch.isfinite(got).all()):
+            raise AssertionError(f"K1 {mode}/{comb} {kind} n={n} b={nb} "
+                                 f"max_range={max_range} "
+                                 f"raster {tuple(maze.occ.shape)}: "
+                                 f"max-abs error {err}")
     return dict(max_abs_err=worst)
 
 
@@ -255,35 +305,93 @@ def blobs(n, gen, dev):
                                              device=dev)
 
 
-def check_k3(dev, gen) -> dict:
+def run_k3(fn, xy, c0, rs):
+    """One K3 call, checked to be one device launch and to repeat itself
+    bit for bit: (centers, assignments)."""
+    before = kmeans.device_launches()
+    c1, a1 = fn(xy, c0, rs)
+    launched = kmeans.device_launches() - before
+    c2, a2 = fn(xy, c0, rs)
+    torch.cuda.synchronize()
+    if launched != 1:
+        raise AssertionError(f"K3: {launched} device launches in one call")
+    if not (torch.equal(c1, c2) and torch.equal(a1, a2)):
+        raise AssertionError("K3: two runs of one call differ")
+    return c1, a1
+
+
+def k3_against_plain(fn, xy, c0, rs, **case) -> float:
     """Centers within 1e-4; > 99.9 % of assignments equal (float sums in
     another order can move a point that sits on a boundary)."""
-    worst = 0.0
-    for n in (1000, 65_536, 1_048_576):
-        xy = blobs(n, gen, dev)
+    c1, a1 = run_k3(fn, xy, c0, rs)
+    c2, a2 = kmeans.kmeans_plain(xy, c0, rs)
+    torch.cuda.synchronize()
+    err = (c1 - c2).abs().max().item()
+    share = (a1 == a2).float().mean().item()
+    plan = kmeans.launch_plan(xy.shape[-2], xy.shape[0] if xy.dim() == 3
+                              else 1)
+    say("check", kernel=fn.__name__.replace("_cuda", ""), **case,
+        one_block=plan.one_block, device_launches=1, repeats=True,
+        max_abs_err=err, share_close=share)
+    if not (err <= 1e-4 and share > 0.999):
+        raise AssertionError(f"K3 {case}: centers {err}, assign {share}")
+    return err
+
+
+# K3 sizes: odd ones, both sides of the one-block limit, and the serve and
+# bench sizes; xy is the [:, :2] view of [n, 3] rows, as the filter passes.
+K3_SIZES = (1, 255, 1000, kmeans.BLOCK_MAX_N, kmeans.BLOCK_MAX_N + 1, 65_536,
+            1_048_576, 4_194_304)
+
+
+def check_k3(dev, gen) -> tuple:
+    """K3 and K3 batched (one episode) at every size of K3_SIZES, the latch
+    firing at iteration 0, and the empty-cluster reseed, on both paths."""
+    worst = dict(kmeans=0.0, kmeans_batched=0.0)
+    for n in K3_SIZES:
+        rows = torch.cat([blobs(n, gen, dev),
+                          torch.randn((n, 1), generator=gen, device=dev)], 1)
+        xy = rows[:, :2]
         c0 = xy[torch.randint(0, n, (3,), generator=gen, device=dev)]
         rs = xy[torch.randint(0, n, (20, 3), generator=gen, device=dev)]
-        c1, a1 = kmeans.kmeans_cuda(xy, c0, rs)
-        c2, a2 = kmeans.kmeans_plain(xy, c0, rs)
-        torch.cuda.synchronize()
-        err = (c1 - c2).abs().max().item()
-        share = (a1 == a2).float().mean().item()
-        worst = max(worst, err)
-        say("check", kernel="kmeans", n=n, max_abs_err=err,
-            share_close=share)
-        if not (err <= 1e-4 and share > 0.999):
-            raise AssertionError(f"K3 n={n}: centers {err}, assign {share}")
-    # An empty cluster takes its reseed candidate: a center far from every
-    # point owns nothing in the first iteration.
-    xy = blobs(4096, gen, dev)
-    c0 = torch.tensor([[1.2, 1.2], [3.6, 2.0], [90.0, 90.0]], device=dev)
-    rs = xy[torch.randint(0, 4096, (20, 3), generator=gen, device=dev)]
-    c1, _ = kmeans.kmeans_cuda(xy, c0, rs)
-    c2, _ = kmeans.kmeans_plain(xy, c0, rs)
-    reseeded = c1[2, 0].item() < 50.0
-    if (c1 - c2).abs().max().item() > 1e-4 or not reseeded:
-        raise AssertionError("K3 empty-cluster reseed differs")
-    return dict(max_abs_err=worst)
+        worst["kmeans"] = max(worst["kmeans"], k3_against_plain(
+            kmeans.kmeans_cuda, xy, c0, rs, n=n))
+        worst["kmeans_batched"] = max(worst["kmeans_batched"],
+                                      k3_against_plain(
+            kmeans.kmeans_batched_cuda, xy[None], c0[None], rs[None],
+            episodes=1, n=n))
+    for n in (4096, 100_000):
+        xy = blobs(n, gen, dev)
+        rs = xy[torch.randint(0, n, (20, 3), generator=gen, device=dev)]
+        # Every point is nearest center 0, as the zeroed assignments say:
+        # nothing changes in iteration 0 and the centers stay as given.
+        c0 = torch.tensor([[2.0, 2.0], [100.0, 100.0], [-100.0, 50.0]],
+                          device=dev)
+        for fn, lead in ((kmeans.kmeans_cuda, ()),
+                         (kmeans.kmeans_batched_cuda, (1,))):
+            c1, _ = run_k3(fn, xy.reshape(lead + xy.shape),
+                           c0.reshape(lead + c0.shape),
+                           rs.reshape(lead + rs.shape))
+            if not torch.equal(c1.reshape(c0.shape), c0):
+                raise AssertionError(f"K3 n={n}: the latch did not fire at "
+                                     "iteration 0")
+        # An empty cluster takes its reseed candidate: a center far from
+        # every point owns nothing in the first iteration.
+        c0 = torch.tensor([[1.2, 1.2], [3.6, 2.0], [90.0, 90.0]], device=dev)
+        for fn, lead in ((kmeans.kmeans_cuda, ()),
+                         (kmeans.kmeans_batched_cuda, (1,))):
+            c1, _ = run_k3(fn, xy.reshape(lead + xy.shape),
+                           c0.reshape(lead + c0.shape),
+                           rs.reshape(lead + rs.shape))
+            c2, _ = kmeans.kmeans_plain(xy, c0, rs)
+            c1 = c1.reshape(c0.shape)
+            if (c1 - c2).abs().max().item() > 1e-4 or c1[2, 0].item() > 50.0:
+                raise AssertionError(f"K3 n={n}: empty-cluster reseed "
+                                     "differs")
+        say("check", kernel="kmeans+kmeans_batched", n=n,
+            latch_at_iteration_0=True, empty_cluster_reseeded=True)
+    return (dict(max_abs_err=worst["kmeans"]),
+            dict(max_abs_err=worst["kmeans_batched"]))
 
 
 # -- phase 4: the server at full size --------------------------------------
@@ -452,7 +560,7 @@ def time_phase(world, state, gen) -> dict:
     counts_ = expand.offspring_counts(
         skewed_cdf(SERVE_N, gen, dev), torch.rand((), generator=gen,
                                                   device=dev))
-    xy = parts[:, :2].contiguous()
+    xy = parts[:, :2]            # the strided view the tick passes
     c0 = xy[torch.randint(0, SERVE_N, (3,), generator=gen, device=dev)]
     rs = xy[torch.randint(0, SERVE_N, (20, 3), generator=gen, device=dev)]
     pairs = {
@@ -523,23 +631,83 @@ def march_samples(m, parts, angles, cfg) -> int:
     return int(count.sum())
 
 
+def slab_candidates(m, parts, angles, cfg) -> int:
+    """Candidate slabs the analytic casts of this data need: per beam and
+    axis, the slabs in ray order up to the first hit, all ceil(smax/8)+1
+    where there is none, one where the ray runs along the axis's lines,
+    and none where the origin is off the map or on an occupied gridline
+    pixel (ops/analytic._axis_hits, restated to count)."""
+    smax, n_cand, span = analytic.cast_constants(m, cfg.max_range)
+    x, y, th = parts[..., 0], parts[..., 1], parts[..., 2]
+    gx = (x + cfg.laser_offset * torch.cos(th) - m.origin_x) \
+        * m.inv_resolution
+    gy = (y + cfg.laser_offset * torch.sin(th) - m.origin_y) \
+        * m.inv_resolution
+    inb = (gx >= 0.0) & (gy >= 0.0) & (gx < float(m.width)) & (
+        gy < float(m.height))
+    sign = -1.0 if cfg.negate_beam_angle else 1.0
+    ray = th[..., None] + sign * angles
+    dx, dy = torch.cos(ray), torch.sin(ray)
+    total = 0
+    for vertical, gu, gv, du, dv in ((True, gx, gy, dx, dy),
+                                     (False, gy, gx, dy, dx)):
+        ax = analytic._Axis(m, vertical)
+        k0, inside0, origin0 = (v[..., None] for v in
+                                analytic._axis_prepare(gu, gv, ax))
+        gu, gv = gu[..., None], gv[..., None]
+        small = torch.abs(du) < analytic.EPS
+        inv_du = 1.0 / torch.where(small, analytic.EPS, du)
+        sgn = torch.where(du >= 0, 1, -1).to(torch.int32)
+        fwd = dv >= 0
+        inv_dv = 1.0 / torch.where(torch.abs(dv) < analytic.EPS,
+                                   analytic.EPS, dv)
+        done = ~inb[..., None] | origin0
+        for c in range(n_cand):
+            total += int((~done).sum())
+            k = k0 + sgn * c
+            line_u = (k * analytic.CELL_PX).to(torch.float32)
+            t_near, t_far = (line_u - gu) * inv_du, (line_u + 1.0 - gu) \
+                * inv_du
+            t_in = torch.clamp(torch.minimum(t_near, t_far), min=0.0)
+            t_out = torch.clamp(torch.maximum(t_near, t_far), max=smax)
+            if c == 0:
+                t_in = torch.where(small, torch.where(inside0, 0.0, 3e38),
+                                   t_in)
+                t_out = torch.where(small, torch.where(inside0, smax, -3e38),
+                                    t_out)
+            r_in = torch.floor(gv + t_in * dv).to(torch.int32)
+            r_out = torch.floor(gv + t_out * dv).to(torch.int32)
+            hit, rr = analytic._band_scan(ax, k, torch.minimum(r_in, r_out),
+                                          torch.maximum(r_in, r_out), fwd,
+                                          span)
+            edge = torch.where(fwd, rr, rr + 1).to(torch.float32)
+            s_hit = torch.maximum(t_in, (edge - gv) * inv_dv)
+            ok = (t_in < t_out) & (k >= 0) & (k < ax.n_lines) & hit & (
+                s_hit < smax)
+            done = done | ok | small | (t_in >= smax)
+    return total
+
+
 def k1_bound(m, parts, angles, cfg) -> dict:
     """K1 (and K1 batched, K4: the same function): each input read once,
     each output written once; operations per beam and per particle, the
-    cast counted by what this data needs (march samples), or by the slab
-    candidates every analytic cast visits."""
+    cast counted by what this data needs: march samples, or the analytic
+    cast's slab candidates up to each axis's first hit.  bound_ms_all_slabs
+    counts every candidate slab of both axes for every beam instead, the
+    most the data could need."""
     n = parts.numel() // 3
     nb = angles.shape[-1]
     n_ep = n // parts.shape[-2]
     n_bytes = (12 * n + 4 * n + 4 * nb + 8 * n_ep * nb
                + 2 * m.height * m.width)
+    base = n * nb * BEAM_FLOPS + n * PARTICLE_FLOPS
     if cfg.ray_mode == "fixed":
-        cast = MARCH_SAMPLE_FLOPS * march_samples(m, parts, angles, cfg)
-    else:
-        n_cand = analytic.cast_constants(m, cfg.max_range)[1]
-        cast = n * nb * 2 * n_cand * SLAB_FLOPS
-    flops = n * nb * BEAM_FLOPS + n * PARTICLE_FLOPS + cast
-    return bound(n_bytes, flops)
+        return bound(n_bytes, base + MARCH_SAMPLE_FLOPS
+                     * march_samples(m, parts, angles, cfg))
+    n_cand = analytic.cast_constants(m, cfg.max_range)[1]
+    every = bound(n_bytes, base + n * nb * 2 * n_cand * SLAB_FLOPS)
+    return dict(**bound(n_bytes, base + SLAB_FLOPS * slab_candidates(
+        m, parts, angles, cfg)), bound_ms_all_slabs=every["bound_ms"])
 
 
 def k2_bound(parts) -> dict:
@@ -599,14 +767,19 @@ def repeat_rows(parts, counts):
 
 # -- phase 3b: the batched kernels against their plain versions -----------
 
-def batched_inputs(m, n_ep, n, nb, cfg, gen):
-    """Episodes [E, n, 3] of uniform particles, one beam table, and each
-    episode's scan from its own true pose, with dead lanes: lane 1 in
-    every episode and lane e mod B in episode e."""
+def batched_inputs(m, n_ep, n, nb, cfg, gen, kind: str = "uniform"):
+    """Episodes [E, n, 3] of particles (uniform, or steered to a hard case
+    of the casts), one beam table, and each episode's scan from its own
+    true pose, with dead lanes: lane 1 in every episode and lane e mod B in
+    episode e."""
     dev = m.device
-    parts = resample.sample_uniform_particles(gen, m, n, batch=(n_ep,))
+    parts = steer(resample.sample_uniform_particles(gen, m, n,
+                                                    batch=(n_ep,)),
+                  kind, m, gen)
     truth = resample.sample_uniform_particles(gen, m, n_ep)
     angles = np.deg2rad(np.linspace(-118.0, 118.0, nb)).astype(np.float32)
+    if kind == "parallel":
+        angles[:4] = np.float32([0.0, math.pi / 2, -math.pi / 2, math.pi])
     scan = sensor.simulate_scan(m, truth, angles, cfg)
     mask = torch.ones((n_ep, nb), dtype=torch.bool, device=dev)
     mask[:, 1] = False
@@ -622,68 +795,68 @@ def _close_share(got, want, comb):
         ).item()
 
 
-def check_batched_weights(m, gen) -> tuple:
-    """K1 batched and K4 against their plain versions (sum rtol 1e-5, raw
-    log rtol 1e-4; analytic > 99.9 % close), K1 batched against K1 on
-    each episode bit for bit, and K4's max relative difference from K1
-    batched, which sums the beams in another order."""
-    worst = dict(beam_weights_batched=0.0, beam_weights_beamsub=0.0)
-    rel_k4 = 0.0
+def batched_cases(m):
+    """(maze, E, n, B, ray mode, combine, particles) of the batched checks:
+    the grid of episodes, sizes, beams, modes and combines on uniform
+    particles, then the casts' hard cases on both maze sizes."""
     for n_ep in CHECK_EPISODES:
         for n in CHECK_SIZES:
             for nb in CHECK_BEAMS:
                 for mode in ("fixed", "analytic"):
                     for comb in ("sum", "log"):
-                        cfg = SensorModelConfig(ray_mode=mode,
-                                                beam_combine=comb)
-                        parts, scan = batched_inputs(m, n_ep, n, nb, cfg,
-                                                     gen)
-                        got = weights.beam_weights_batched_cuda(
-                            m, parts, scan, cfg)
-                        want = weights.beam_weights_plain(m, parts, scan,
-                                                          cfg)
-                        single = torch.stack([weights.beam_weights_cuda(
-                            m, parts[e], sensor.Scan(
-                                scan.angles, scan.ranges[e], scan.mask[e]),
-                            cfg) for e in range(n_ep)])
-                        sub = weights.beamsub_cuda(m, parts, scan, cfg)
-                        sub_want = weights.beamsub_plain(m, parts, scan,
-                                                         cfg)
-                        torch.cuda.synchronize()
-                        need = 0.999 if mode == "analytic" else 1.0
-                        rows = dict(
-                            beam_weights_batched=(got, want),
-                            beam_weights_beamsub=(sub, sub_want))
-                        shares = {}
-                        for name, (a, b) in rows.items():
-                            err = (a - b).abs().max().item()
-                            worst[name] = max(worst[name], err)
-                            shares[name] = _close_share(a, b, comb)
-                        same = torch.equal(got, single)
-                        # Raw log-sums sit near 0 where every beam fits,
-                        # so log mode is relative to max(|w|, 1).
-                        floor = 1.0 if comb == "log" else 1e-6
-                        rel = ((sub - got).abs()
-                               / torch.clamp(got.abs(), min=floor)).max(
-                                   ).item()
-                        rel_k4 = max(rel_k4, rel)
-                        say("check", kernel="beam_weights_batched+beamsub",
-                            episodes=n_ep, n=n, beams=nb, ray_mode=mode,
-                            combine=comb,
-                            max_abs_err=(got - want).abs().max().item(),
-                            share_close=shares["beam_weights_batched"],
-                            equals_single_k1=same,
-                            k4_max_abs_err=(sub - sub_want).abs().max(
-                                ).item(),
-                            k4_share_close=shares["beam_weights_beamsub"],
-                            k4_max_rel_diff_from_k1_batched=rel)
-                        finite = bool(torch.isfinite(got).all()
-                                      and torch.isfinite(sub).all())
-                        if not (same and finite and all(
-                                v >= need for v in shares.values())):
-                            raise AssertionError(
-                                f"K1 batched / K4 E={n_ep} n={n} b={nb} "
-                                f"{mode}/{comb}: {shares}, same={same}")
+                        yield m, n_ep, n, nb, mode, comb, "uniform"
+    for maze in (m, big_maze(m.device)):
+        for kind in ("parallel", "word_boundary"):
+            for mode in ("fixed", "analytic"):
+                for comb in ("sum", "log"):
+                    yield maze, 64, 500, 24, mode, comb, kind
+
+
+def check_batched_weights(m, gen) -> tuple:
+    """K1 batched and K4 against their plain versions at 0.0 max-abs error
+    in every case, K1 batched against K1 on each episode bit for bit, and
+    K4's max relative difference from K1 batched, which sums the beams in
+    another order."""
+    worst = dict(beam_weights_batched=0.0, beam_weights_beamsub=0.0)
+    rel_k4 = 0.0
+    for maze, n_ep, n, nb, mode, comb, kind in batched_cases(m):
+        cfg = SensorModelConfig(ray_mode=mode, beam_combine=comb)
+        parts, scan = batched_inputs(maze, n_ep, n, nb, cfg, gen, kind)
+        got = weights.beam_weights_batched_cuda(maze, parts, scan, cfg)
+        want = weights.beam_weights_plain(maze, parts, scan, cfg)
+        single = torch.stack([weights.beam_weights_cuda(
+            maze, parts[e], sensor.Scan(scan.angles, scan.ranges[e],
+                                        scan.mask[e]), cfg)
+            for e in range(n_ep)])
+        sub = weights.beamsub_cuda(maze, parts, scan, cfg)
+        sub_want = weights.beamsub_plain(maze, parts, scan, cfg)
+        torch.cuda.synchronize()
+        errs = dict(beam_weights_batched=(got - want).abs().max().item(),
+                    beam_weights_beamsub=(sub - sub_want).abs().max().item())
+        for name, err in errs.items():
+            worst[name] = max(worst[name], err)
+        same = torch.equal(got, single)
+        # Raw log-sums sit near 0 where every beam fits, so log mode is
+        # relative to max(|w|, 1).
+        floor = 1.0 if comb == "log" else 1e-6
+        rel = ((sub - got).abs() / torch.clamp(got.abs(), min=floor)).max(
+            ).item()
+        rel_k4 = max(rel_k4, rel)
+        say("check", kernel="beam_weights_batched+beamsub",
+            raster=list(maze.occ.shape), episodes=n_ep, n=n, beams=nb,
+            ray_mode=mode, combine=comb, particles=kind,
+            max_abs_err=errs["beam_weights_batched"],
+            share_close=_close_share(got, want, comb),
+            equals_single_k1=same,
+            k4_max_abs_err=errs["beam_weights_beamsub"],
+            k4_share_close=_close_share(sub, sub_want, comb),
+            k4_max_rel_diff_from_k1_batched=rel)
+        finite = bool(torch.isfinite(got).all()
+                      and torch.isfinite(sub).all())
+        if not (same and finite and max(errs.values()) == 0.0):
+            raise AssertionError(
+                f"K1 batched / K4 E={n_ep} n={n} b={nb} {mode}/{comb} "
+                f"{kind}: {errs}, same={same}")
     return (dict(max_abs_err=worst["beam_weights_batched"]),
             dict(max_abs_err=worst["beam_weights_beamsub"],
                  max_rel_diff_from_k1_batched=rel_k4))
@@ -729,26 +902,34 @@ def kmeans_inputs(xy, gen):
     return c0, rs
 
 
-def check_k3_batched(dev, gen) -> dict:
-    """Centers within 1e-4 and > 99.9 % of assignments equal against the
-    plain version; equal to K3 on each episode, bit for bit."""
-    n_ep, n = SWEEP_E, SWEEP_N
-    xy = batched_blobs(n_ep, n, gen, dev)
-    c0, rs = kmeans_inputs(xy, gen)
-    c1, a1 = kmeans.kmeans_batched_cuda(xy, c0, rs)
-    c2, a2 = kmeans.kmeans_plain(xy, c0, rs)
-    singles = [kmeans.kmeans_cuda(xy[e], c0[e], rs[e]) for e in range(n_ep)]
-    torch.cuda.synchronize()
-    err = (c1 - c2).abs().max().item()
-    share = (a1 == a2).float().mean().item()
-    same = (torch.equal(c1, torch.stack([c for c, _ in singles]))
-            and torch.equal(a1, torch.stack([a for _, a in singles])))
-    say("check", kernel="kmeans_batched", episodes=n_ep, n=n,
-        max_abs_err=err, share_close=share, equals_single_k3=same)
-    if not (err <= 1e-4 and share > 0.999 and same):
-        raise AssertionError(f"K3 batched: centers {err}, assign {share}, "
-                             f"same={same}")
-    return dict(max_abs_err=err)
+K3_BATCHED_SHAPES = ((SWEEP_E, SWEEP_N), (FLEET_R, FLEET_N), (4, 65_536))
+
+
+def check_k3_batched(dev, gen) -> float:
+    """At the sweep's and the fleet's shapes and at 4 x 65,536 (the grid
+    path): against the plain version, and equal to K3 on each episode, bit
+    for bit.  Returns the worst center error."""
+    worst = 0.0
+    for n_ep, n in K3_BATCHED_SHAPES:
+        rows = torch.cat([batched_blobs(n_ep, n, gen, dev),
+                          torch.randn((n_ep, n, 1), generator=gen,
+                                      device=dev)], -1)
+        xy = rows[..., :2]
+        c0, rs = kmeans_inputs(xy, gen)
+        worst = max(worst, k3_against_plain(
+            kmeans.kmeans_batched_cuda, xy, c0, rs, episodes=n_ep, n=n))
+        c1, a1 = kmeans.kmeans_batched_cuda(xy, c0, rs)
+        singles = [kmeans.kmeans_cuda(xy[e], c0[e], rs[e])
+                   for e in range(n_ep)]
+        torch.cuda.synchronize()
+        same = (torch.equal(c1, torch.stack([c for c, _ in singles]))
+                and torch.equal(a1, torch.stack([a for _, a in singles])))
+        say("check", kernel="kmeans_batched", episodes=n_ep, n=n,
+            equals_single_k3=same)
+        if not same:
+            raise AssertionError(f"K3 batched E={n_ep} n={n}: differs from "
+                                 "K3 per episode")
+    return worst
 
 
 # -- phase 8: the sweep preset at full size ---------------------------------
@@ -969,7 +1150,7 @@ def batched_time_phase(m, gen) -> dict:
                 lambda: expand.systematic_expand_plain(parts, counts_)),
         **k2_bound(parts), library_ms=cuda_ms(repeat_rows(parts, counts_)),
         shape=[SWEEP_E, SWEEP_N, 3])
-    xy = parts[..., :2].contiguous()
+    xy = parts[..., :2]
     c0, rs = kmeans_inputs(xy, gen)
     times["kmeans_batched"] = dict(
         **turns(lambda: kmeans.kmeans_batched_cuda(xy, c0, rs),
@@ -1007,11 +1188,13 @@ def main() -> None:
     gen.manual_seed(0)
     m = presets.make_world(device=dev).maze
     errs = dict(beam_weights=check_k1(m, gen), systematic_expand=check_k2(
-        dev, gen), kmeans=check_k3(dev, gen))
+        dev, gen))
+    errs["kmeans"], errs["kmeans_batched"] = check_k3(dev, gen)
     errs["beam_weights_batched"], errs["beam_weights_beamsub"] = \
         check_batched_weights(m, gen)
     errs["systematic_expand_batched"] = check_k2_batched(dev, gen)
-    errs["kmeans_batched"] = check_k3_batched(dev, gen)
+    errs["kmeans_batched"]["max_abs_err"] = max(
+        errs["kmeans_batched"]["max_abs_err"], check_k3_batched(dev, gen))
 
     # Each path is driven with every count set to 0 just before it and
     # read just after: one filter (serve), a batch (sweep, fleet), K4 (A/B).

@@ -20,38 +20,60 @@
 // Sum mode sums mask * p_b and gates with the dilated raster and the world
 // extent; log mode writes the raw sum of mask * log(max(p_b, 1e-6)).
 //
-// What bounds it: arithmetic and raster lookups.  A particle reads 12 bytes
-// and writes 4; per beam it computes a sine and a cosine and the cast (up to
-// 11 march samples, or 2 axes x 3 candidate slabs with a band scan of at
-// most `span` pixels).  So the raster (2.4 KB for the default 49 x 49 maze)
-// and the beam table sit in shared memory, and no lookup reaches device
-// memory; a raster larger than 32 KB is read from device memory.
+// What bounds it on the H100: issue slots.  A particle reads 12 bytes and
+// writes 4, and a beam needs ~15 float operations plus ~10 for each
+// candidate slab its cast needs, so the bound is ~0.016 ms at 1M x 34; the
+// pixel-scan kernel this design replaced took ~1 ms, nine tenths of it in
+// the analytic cast (PERF.md: that kernel timed with one cost removed at a
+// time, by montecarlolocalisation_tpu_torch/kernel_ab.py).  Of the cast, the band
+// scan pixel by pixel, whose data-dependent trip count makes a warp wait
+// for its longest lane, was a third on uniform particles and a fifth on
+// filtered ones; the rest is the exact float arithmetic of 2 axes x 3
+// candidate slabs a beam, ~100 lane instructions a candidate.  Bank
+// conflicts cost nothing measurable, expf under 1 %.
 //
-// Design: one thread per particle with the beam loop inside, as the TPU
-// kernel keeps one particle per lane.  The ray direction is cos/sin of
-// (theta + signed angle), as the plain path computes it, not the TPU
-// kernel's angle-addition identity, which differs in the last bit and so
-// moves a march sample across a pixel boundary in about 1e-6 of rays.
-// Built with -fmad=false, every float operation rounds as the plain torch
-// operations do, and the plain version sums the beams in the kernel's
-// order, so the two agree to the last bit unless a math function rounds
-// differently.  The first occupied pixel of a slab band is found by a
-// short loop over the raster instead of the TPU's packed bit words.
+// Design:
+// - Gridlines as bit words.  Each block packs the raster's gridlines into
+//   32-bit words in shared memory (one warp ballot a word): vertical line k
+//   is column 8k indexed by row, horizontal line k is row 8k indexed by
+//   column.  A band of at most 32 px lies in two words, so its first
+//   occupied pixel along the ray is one 64-bit window, a mask and a __ffs
+//   (forward) or __clz (backward), with no loop and no branch; longer bands
+//   (smax > 30 px) walk the words.  It is the row the plain version's pixel
+//   loop returns.
+// - Every candidate slab with selects, not branches.  Slabs come in ray
+//   order and the next starts 7 px past the last one's exit, so the first
+//   hit is the axis minimum and an axis could stop there; a beam needs 1.4
+//   of its 6 candidates on average, but a warp runs until its slowest lane
+//   is done, which nearly always needs all of them, and a per-lane stop
+//   measured 1 to 2 % slower than evaluating every candidate (PERF.md).
+// - The fixed march reads a raster packed one bit a pixel (300 bytes for the
+//   49 x 49 maze, 7.3 KB for 241 x 241): every raster up to 1280 x 1280 px
+//   sits in shared memory, and the device-memory path is gone.  A sample
+//   costs a shift and a mask more than a byte raster's: 5 to 7 % of K1
+//   batched's time.
+// - The two axes share 1/dx and 1/dy; sincosf gives both directions (equal
+//   to sinf and cosf bit for bit on the card, PERF.md); particle rows come
+//   in through shared memory, coalesced.
+// - One thread per particle with the beam loop inside, as the TPU kernel
+//   keeps one particle per lane.  The ray direction is cos/sin of
+//   (theta + signed angle), as the plain path computes it, not the TPU
+//   kernel's angle-addition identity, which differs in the last bit.  Built
+//   with -fmad=false, every float operation rounds as the plain torch
+//   operations do, and the plain version sums the beams in the kernel's
+//   order, so the two agree to the last bit.
 //
 // K1 batched: a 2-D grid, x over particle blocks of one episode and y over
 // episodes, so no block straddles two episodes; each block stages its
 // episode's ranges and mask next to the shared beam table and the raster.
 // The per-particle body is K1's own (particle_weight), so each episode's
-// weights equal K1's on that episode bit for bit.  The TPU's packing of
-// small episodes into one (8, 128) tile, and the padding gate around it,
-// are tiling rules of the TPU and have no counterpart here.
+// weights equal K1's on that episode bit for bit.
 //
 // K4: the GPU reading of "one beam per sublane".  Eight consecutive threads
 // share a particle; each repeats the hoisted per-particle work (the TPU
 // kernel repeats it on its 8 sublanes) and sums beams s, s+8, ... in order;
 // the group then adds its eight lane sums in lane order through warp
-// shuffles.  It does 8x the hoisted work of K1 for 8x the threads, which
-// is the trade the TPU layout makes for small episodes.
+// shuffles.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,7 +85,7 @@ constexpr int kCellPx = 8;
 constexpr float kEps = 1e-9f;
 constexpr float kInf = 3e38f;
 constexpr int kThreads = 256;
-constexpr int kSmemRasterMax = 32 * 1024;
+constexpr int kLanes = 8;  // K4: threads a particle
 
 struct Params {
   float origin_x, origin_y, inv_res, res, extent_x, extent_y;
@@ -73,22 +95,78 @@ struct Params {
 };
 static_assert(sizeof(Params) == 26 * 4, "Params is 18 floats then 8 ints");
 
-struct Raster {
-  const uint8_t* occ;
-  int w, h;
+// The gridlines perpendicular to one axis, as bit words: line k's pixel r
+// is bit r % 32 of words[k * wpl + r / 32].
+struct Lines {
+  const uint32_t* words;
+  int wpl, length, n_lines;
 };
+
+// The raster as the kernels read it from shared memory: gridline words
+// (analytic) or one bit a pixel, row by row (fixed).
+struct Bits {
+  Lines v, h;
+  const uint32_t* map;
+  int wpr, w, h_px;
+};
+
+__host__ __device__ inline int raster_words(const Params& P, int h, int w) {
+  const int wv = (h + 31) / 32, wh = (w + 31) / 32;
+  return P.mode == kFixed ? h * wh : P.n_v * wv + P.n_h * wh;
+}
 
 __device__ __forceinline__ bool pixel(const uint8_t* t, int w, int h, int mx,
                                       int my) {
   return mx >= 0 && my >= 0 && mx < w && my < h && t[my * w + mx] != 0;
 }
 
-// Pixel r of gridline k: vertical lines are the columns 8k, indexed by
-// row; horizontal lines are the rows 8k, indexed by column.
-__device__ __forceinline__ bool line_bit(const Raster& g, bool vertical,
-                                         int k, int r) {
-  return vertical ? pixel(g.occ, g.w, g.h, k * kCellPx, r)
-                  : pixel(g.occ, g.w, g.h, r, k * kCellPx);
+__device__ __forceinline__ bool line_bit(const Lines& L, int k, int r) {
+  return r >= 0 && r < L.length &&
+         ((L.words[k * L.wpl + (r >> 5)] >> (r & 31)) & 1u);
+}
+
+// The first set pixel of a line in [a, b] (0 <= a, b < length), walking
+// forward (lowest) or backward (highest); -1 if none or if b < a.  Out of
+// line: only bands longer than 32 px take it, and inlined it slows the
+// common path.
+__device__ __noinline__ int first_set(const uint32_t* line, int a, int b,
+                                      bool fwd) {
+  const int qa = a >> 5, qb = b >> 5;
+  const uint32_t ma = 0xffffffffu << (a & 31);
+  const uint32_t mb = 0xffffffffu >> (31 - (b & 31));
+  if (fwd) {
+    for (int q = qa; q <= qb; ++q) {
+      uint32_t m = line[q];
+      if (q == qa) m &= ma;
+      if (q == qb) m &= mb;
+      if (m) return (q << 5) + __ffs(m) - 1;
+    }
+  } else {
+    for (int q = qb; q >= qa; --q) {
+      uint32_t m = line[q];
+      if (q == qa) m &= ma;
+      if (q == qb) m &= mb;
+      if (m) return (q << 5) + 31 - __clz(m);
+    }
+  }
+  return -1;
+}
+
+// The first set pixel of the band [a, a + cnt) of a line of `wpl` words
+// (cnt = 0: none), walking forward or backward; -1 if none.  When bands are
+// at most 32 px (span <= 32: smax <= 30 px), a band lies in two words, and
+// one 64-bit window with a mask finds it without a loop.
+__device__ __forceinline__ int band_first(const uint32_t* line, int wpl,
+                                          int a, int cnt, bool fwd,
+                                          int span) {
+  if (span > 32) return first_set(line, a, a + cnt - 1, fwd);
+  const int qa = a >> 5;
+  const uint64_t win = (uint64_t)line[qa] |
+      (qa + 1 < wpl ? (uint64_t)line[qa + 1] << 32 : 0ull);
+  const uint32_t m = (uint32_t)(win >> (a & 31)) &
+                     (cnt > 0 ? 0xffffffffu >> (32 - cnt) : 0u);
+  const int off = fwd ? __ffs(m) - 1 : 31 - __clz(m);
+  return m ? a + off : -1;
 }
 
 struct AxisPrep {
@@ -98,83 +176,72 @@ struct AxisPrep {
 
 // Direction-independent state of one axis (analytic.py:332 _axis_prepare).
 __device__ __forceinline__ AxisPrep axis_prepare(float gu, float gv,
-                                                 const Raster& g,
-                                                 bool vertical, int n_lines) {
+                                                 const Lines& L) {
   AxisPrep p;
   p.k0 = (int)floorf(gu * 0.125f);
   int r0 = (int)floorf(gv);
   float line_u0 = (float)(p.k0 * kCellPx);
   p.inside0 = gu >= line_u0 && gu < line_u0 + 1.0f;
-  bool valid0 = p.k0 >= 0 && p.k0 < n_lines;
-  p.origin0 = p.inside0 && valid0 && line_bit(g, vertical, p.k0, r0);
+  bool valid0 = p.k0 >= 0 && p.k0 < L.n_lines;
+  p.origin0 = p.inside0 && valid0 && line_bit(L, p.k0, r0);
   return p;
 }
 
 // First hit s (pixel units) against the slabs of one axis
-// (analytic.py:361 _axis_hits); u across the lines, v along them.
+// (analytic.py:361 _axis_hits), u across the lines and v along them; kInf
+// if none.  Every candidate slab is evaluated with selects, not branches: a
+// warp's lanes cast in different directions, and a branch per lane makes
+// the warp run every lane's path.
 __device__ float axis_hits(float gu, float gv, float du, float dv,
-                           const Raster& g, bool vertical, int n_lines,
-                           int length, const AxisPrep& p, float smax,
-                           int n_cand, int span) {
-  bool small = fabsf(du) < kEps;
-  float inv_du = 1.0f / (small ? kEps : du);
-  int sgn = du >= 0.0f ? 1 : -1;
-  bool fwd = dv >= 0.0f;
-  bool small_v = fabsf(dv) < kEps;
-  float inv_dv = 1.0f / (small_v ? kEps : dv);
+                           float inv_du, float inv_dv, bool small,
+                           bool small_v, const Lines& L, const AxisPrep& p,
+                           float smax, int n_cand, int span) {
   float best = p.origin0 ? 0.0f : kInf;
+  const int sgn = du >= 0.0f ? 1 : -1;
+  const bool fwd = dv >= 0.0f;
   for (int c = 0; c < n_cand; ++c) {
-    int k = p.k0 + sgn * c;
-    float line_u = (float)(k * kCellPx);
-    float t_near = (line_u - gu) * inv_du;
-    float t_far = (line_u + 1.0f - gu) * inv_du;
+    const int k = p.k0 + sgn * c;
+    const float line_u = (float)(k * kCellPx);
+    const float t_near = (line_u - gu) * inv_du;
+    const float t_far = (line_u + 1.0f - gu) * inv_du;
     float t_in = fminf(t_near, t_far);
     float t_out = fmaxf(t_near, t_far);
-    if (small) {
-      // Parallel to the lines: only the origin's own slab can be touched.
-      t_in = (c == 0 && p.inside0) ? 0.0f : kInf;
-      t_out = (c == 0 && p.inside0) ? smax : -kInf;
-    }
+    // Parallel to the lines: only the origin's own slab can be touched.
+    t_in = small ? (c == 0 && p.inside0 ? 0.0f : kInf) : t_in;
+    t_out = small ? (c == 0 && p.inside0 ? smax : -kInf) : t_out;
     t_in = fmaxf(t_in, 0.0f);
-    float t_out_c = fminf(t_out, smax);
+    const float t_out_c = fminf(t_out, smax);
+    const int r_in = (int)floorf(gv + t_in * dv);
+    const int r_out = (int)floorf(gv + t_out_c * dv);
+    const int lo = max(min(r_in, r_out), 0);
+    const int hi = min(max(r_in, r_out), L.length - 1);
+    const int cnt = min(hi - lo + 1, span);
     // Strict: touching the half-open slab's exit face is no crossing.
-    if (!(t_in < t_out_c) || k < 0 || k >= n_lines) continue;
-    int r_in = (int)floorf(gv + t_in * dv);
-    int r_out = (int)floorf(gv + t_out_c * dv);
-    int lo = max(min(r_in, r_out), 0);
-    int hi = min(max(r_in, r_out), length - 1);
-    int cnt = min(hi - lo + 1, span);
-    bool found = false;
-    int rr = 0;
-    for (int j = 0; j < cnt; ++j) {
-      int row = fwd ? lo + j : hi - j;
-      if (line_bit(g, vertical, k, row)) {
-        found = true;
-        rr = row;
-        break;
-      }
-    }
-    if (!found) continue;
-    float row_edge = (float)(fwd ? rr : rr + 1);
-    float t_row = small_v ? 0.0f : (row_edge - gv) * inv_dv;
-    float s_hit = fmaxf(t_in, t_row);
-    if (s_hit < smax) best = fminf(best, s_hit);
+    const bool ok = t_in < t_out_c && k >= 0 && k < L.n_lines && cnt > 0;
+    const int rr = band_first(L.words + (ok ? k : 0) * L.wpl, L.wpl,
+                              ok ? (fwd ? lo : hi - cnt + 1) : 0,
+                              ok ? cnt : 0, fwd, span);
+    const float row_edge = (float)(fwd ? rr : rr + 1);
+    const float t_row = small_v ? 0.0f : (row_edge - gv) * inv_dv;
+    const float s_hit = fmaxf(t_in, t_row);
+    best = (rr >= 0 && s_hit < smax) ? fminf(best, s_hit) : best;
   }
   return best;
 }
 
 // The reference march (monte_carlo.cpp:350-390): first occupied sample,
 // stopping at the first out-of-map sample.
-__device__ float march(float ox, float oy, float dx, float dy,
-                       const Raster& g, const Params& P) {
+__device__ float march(float ox, float oy, float dx, float dy, const Bits& B,
+                       const Params& P) {
   for (int s = 0; s < P.num_steps; ++s) {
     float r = (float)s * P.ray_step;
     float px = ox + r * dx;
     float py = oy + r * dy;
     int mx = (int)((px - P.origin_x) * P.inv_res);
     int my = (int)((py - P.origin_y) * P.inv_res);
-    if (!(mx >= 0 && my >= 0 && mx < g.w && my < g.h)) break;
-    if (g.occ[my * g.w + mx]) return fminf(P.max_range, r);
+    if (!(mx >= 0 && my >= 0 && mx < B.w && my < B.h_px)) break;
+    if ((B.map[my * B.wpr + (mx >> 5)] >> (mx & 31)) & 1u)
+      return fminf(P.max_range, r);
   }
   return P.max_range;
 }
@@ -188,23 +255,24 @@ struct Particle {
 };
 
 __device__ __forceinline__ Particle prepare(float x, float y, float th,
-                                            const Raster& g,
-                                            const Params& P) {
+                                            const Bits& B, const Params& P) {
   Particle q;
   q.x = x;
   q.y = y;
   q.th = th;
-  q.ox = x + P.laser_offset * cosf(th);
-  q.oy = y + P.laser_offset * sinf(th);
+  float s, c;
+  sincosf(th, &s, &c);
+  q.ox = x + P.laser_offset * c;
+  q.oy = y + P.laser_offset * s;
   q.gx = (q.ox - P.origin_x) * P.inv_res;
   q.gy = (q.oy - P.origin_y) * P.inv_res;
-  q.inb = q.gx >= 0.0f && q.gy >= 0.0f && q.gx < (float)g.w &&
-          q.gy < (float)g.h;
+  q.inb = q.gx >= 0.0f && q.gy >= 0.0f && q.gx < (float)B.w &&
+          q.gy < (float)B.h_px;
   q.pv = AxisPrep{};
   q.ph = AxisPrep{};
   if (P.mode != kFixed) {
-    q.pv = axis_prepare(q.gx, q.gy, g, true, P.n_v);
-    q.ph = axis_prepare(q.gy, q.gx, g, false, P.n_h);
+    q.pv = axis_prepare(q.gx, q.gy, B.v);
+    q.ph = axis_prepare(q.gy, q.gx, B.h);
   }
   return q;
 }
@@ -212,21 +280,26 @@ __device__ __forceinline__ Particle prepare(float x, float y, float th,
 // p_b of one beam: the cast, then the truncated Gaussian plus the
 // max-range term.
 __device__ __forceinline__ float beam_prob(const Particle& q, float angle,
-                                           float obs, const Raster& g,
+                                           float obs, const Bits& B,
                                            const Params& P) {
   float ray = q.th + angle;
   if (P.quantize) ray = rintf(ray * P.rad2deg) * P.deg2rad;
-  float dx = cosf(ray), dy = sinf(ray);
+  float dx, dy;
+  sincosf(ray, &dy, &dx);
   float dist;
   if (P.mode == kFixed) {
-    dist = march(q.ox, q.oy, dx, dy, g, P);
+    dist = march(q.ox, q.oy, dx, dy, B, P);
+  } else if (!q.inb) {
+    dist = P.smax * P.res;
   } else {
-    float sv = axis_hits(q.gx, q.gy, dx, dy, g, true, P.n_v, g.h, q.pv,
-                         P.smax, P.n_cand, P.span);
-    float sh = axis_hits(q.gy, q.gx, dy, dx, g, false, P.n_h, g.w, q.ph,
-                         P.smax, P.n_cand, P.span);
-    float s = fminf(fminf(sv, sh), P.smax);
-    dist = (q.inb ? s : P.smax) * P.res;
+    const bool small_x = fabsf(dx) < kEps, small_y = fabsf(dy) < kEps;
+    const float inv_dx = 1.0f / (small_x ? kEps : dx);
+    const float inv_dy = 1.0f / (small_y ? kEps : dy);
+    float sv = axis_hits(q.gx, q.gy, dx, dy, inv_dx, inv_dy, small_x,
+                         small_y, B.v, q.pv, P.smax, P.n_cand, P.span);
+    float sh = axis_hits(q.gy, q.gx, dy, dx, inv_dy, inv_dx, small_y,
+                         small_x, B.h, q.ph, P.smax, P.n_cand, P.span);
+    dist = fminf(fminf(sv, sh), P.smax) * P.res;
   }
   float diff = fabsf(obs - dist);
   float pdf = expf(-(diff * diff) * P.inv_two_sigma2) * P.inv_denom;
@@ -256,49 +329,93 @@ __device__ __forceinline__ float gate(const Particle& q, float prob,
 }
 
 // One particle's weight over all beams, in beam order.
-__device__ float particle_weight(float x, float y, float th,
-                                 const float* s_ang, const float* s_obs,
-                                 const float* s_msk, int nb, const Raster& g,
-                                 const uint8_t* dil, const Params& P) {
-  Particle q = prepare(x, y, th, g, P);
+__device__ float particle_weight(const float* row, const float* s_ang,
+                                 const float* s_obs, const float* s_msk,
+                                 int nb, const Bits& B, const uint8_t* dil,
+                                 const Params& P) {
+  Particle q = prepare(row[0], row[1], row[2], B, P);
   float prob = 0.0f;
   for (int b = 0; b < nb; ++b)
-    prob = accumulate(prob, beam_prob(q, s_ang[b], s_obs[b], g, P),
+    prob = accumulate(prob, beam_prob(q, s_ang[b], s_obs[b], B, P),
                       s_msk[b], P);
-  return gate(q, prob, dil, P, g.h, g.w);
+  return gate(q, prob, dil, P, B.h_px, B.w);
 }
 
-// Stage angles [nb], ranges [nb], mask [nb] and (if it fits) the raster
-// into shared memory; returns the raster to read.
-__device__ __forceinline__ Raster stage(float* smem, const float* ang,
-                                        const float* obs, const float* msk,
-                                        int nb, const uint8_t* occ, int h,
-                                        int w, int raster_in_smem) {
-  uint8_t* s_occ = reinterpret_cast<uint8_t*>(smem + 3 * nb);
+// Pack `n_lines` lines of `wpl` words each: one warp ballot a word, a
+// lane's loads for kPack words issued before their ballots.
+constexpr int kPack = 8;
+
+__device__ void pack(uint32_t* dst, const uint8_t* occ, int n_lines,
+                     int wpl, int stride_line, int stride_px, int length) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int total = n_lines * wpl;
+  for (int q0 = warp; q0 < total; q0 += kPack * nwarps) {
+    bool on[kPack];
+#pragma unroll
+    for (int u = 0; u < kPack; ++u) {
+      const int q = q0 + u * nwarps;
+      const int k = q / wpl;
+      const int r = (q - k * wpl) * 32 + lane;
+      on[u] = q < total && r < length &&
+              occ[k * stride_line + r * stride_px] != 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kPack; ++u) {
+      const uint32_t bits = __ballot_sync(0xffffffffu, on[u]);
+      if (lane == 0 && q0 + u * nwarps < total) dst[q0 + u * nwarps] = bits;
+    }
+  }
+}
+
+// Stage the beam table (angles [nb], ranges [nb], mask [nb]), the block's
+// particle rows ([rows, 3] from p0) and the raster's bit words into shared
+// memory; returns the bits to read.
+__device__ Bits stage(float* smem, const float* ang, const float* obs,
+                      const float* msk, int nb, const float* p0, int rows,
+                      int rows_max, const uint8_t* occ, int h, int w,
+                      const Params& P) {
   for (int t = threadIdx.x; t < nb; t += blockDim.x) {
     smem[t] = ang[t];
     smem[nb + t] = obs[t];
     smem[2 * nb + t] = msk[t];
   }
-  if (raster_in_smem)
-    for (int t = threadIdx.x; t < h * w; t += blockDim.x) s_occ[t] = occ[t];
+  float* s_parts = smem + 3 * nb;
+  for (int t = threadIdx.x; t < 3 * rows; t += blockDim.x) s_parts[t] = p0[t];
+  uint32_t* words = reinterpret_cast<uint32_t*>(s_parts + 3 * rows_max);
+  Bits B;
+  const int wv = (h + 31) / 32, wh = (w + 31) / 32;
+  B.w = w;
+  B.h_px = h;
+  B.wpr = wh;
+  B.map = words;
+  B.v = Lines{words, wv, h, P.n_v};
+  B.h = Lines{words + P.n_v * wv, wh, w, P.n_h};
+  if (P.mode == kFixed) {
+    pack(words, occ, h, wh, w, 1, w);
+  } else {
+    pack(words, occ, P.n_v, wv, kCellPx, w, h);
+    pack(words + P.n_v * wv, occ, P.n_h, wh, kCellPx * w, 1, w);
+  }
   __syncthreads();
-  return Raster{raster_in_smem ? s_occ : occ, w, h};
+  return B;
 }
 
 __global__ void beam_weights_kernel(const float* __restrict__ parts, int n,
                                     const float* __restrict__ beam_tab,
                                     int nb, const uint8_t* __restrict__ occ,
                                     const uint8_t* __restrict__ dil, int h,
-                                    int w, int raster_in_smem, Params P,
+                                    int w, Params P,
                                     float* __restrict__ out) {
   extern __shared__ float smem[];
-  Raster g = stage(smem, beam_tab, beam_tab + nb, beam_tab + 2 * nb, nb, occ,
-                   h, w, raster_in_smem);
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  out[i] = particle_weight(parts[3 * i], parts[3 * i + 1], parts[3 * i + 2],
-                           smem, smem + nb, smem + 2 * nb, nb, g, dil, P);
+  const int i0 = blockIdx.x * blockDim.x;
+  const int rows = min((int)blockDim.x, n - i0);
+  Bits B = stage(smem, beam_tab, beam_tab + nb, beam_tab + 2 * nb, nb,
+                 parts + 3 * (size_t)i0, rows, blockDim.x, occ, h, w, P);
+  if ((int)threadIdx.x >= rows) return;
+  out[i0 + threadIdx.x] =
+      particle_weight(smem + 3 * nb + 3 * threadIdx.x, smem, smem + nb,
+                      smem + 2 * nb, nb, B, dil, P);
 }
 
 // Episode e = blockIdx.y; its particles [n, 3] start at e * n.
@@ -306,52 +423,56 @@ __global__ void beam_weights_batched_kernel(
     const float* __restrict__ parts, int n, const float* __restrict__ ang,
     const float* __restrict__ obs, const float* __restrict__ msk, int nb,
     const uint8_t* __restrict__ occ, const uint8_t* __restrict__ dil, int h,
-    int w, int raster_in_smem, Params P, float* __restrict__ out) {
+    int w, Params P, float* __restrict__ out) {
   extern __shared__ float smem[];
-  size_t e = blockIdx.y;
-  Raster g = stage(smem, ang, obs + e * nb, msk + e * nb, nb, occ, h, w,
-                   raster_in_smem);
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  size_t k = e * (size_t)n + i;
-  out[k] = particle_weight(parts[3 * k], parts[3 * k + 1], parts[3 * k + 2],
-                           smem, smem + nb, smem + 2 * nb, nb, g, dil, P);
+  const size_t e = blockIdx.y;
+  const int i0 = blockIdx.x * blockDim.x;
+  const int rows = min((int)blockDim.x, n - i0);
+  const size_t k0 = e * (size_t)n + i0;
+  Bits B = stage(smem, ang, obs + e * nb, msk + e * nb, nb, parts + 3 * k0,
+                 rows, blockDim.x, occ, h, w, P);
+  if ((int)threadIdx.x >= rows) return;
+  out[k0 + threadIdx.x] =
+      particle_weight(smem + 3 * nb + 3 * threadIdx.x, smem, smem + nb,
+                      smem + 2 * nb, nb, B, dil, P);
 }
 
-// K4: kLanes threads per particle.  Every thread of the warp takes part in
+// K4: kLanes threads a particle.  Every thread of the warp takes part in
 // the shuffles, so threads past the end compute nothing but do not return
 // early.
-constexpr int kLanes = 8;
-
 __global__ void beam_weights_beamsub_kernel(
     const float* __restrict__ parts, int n, const float* __restrict__ ang,
     const float* __restrict__ obs, const float* __restrict__ msk, int nb,
     const uint8_t* __restrict__ occ, const uint8_t* __restrict__ dil, int h,
-    int w, int raster_in_smem, Params P, float* __restrict__ out) {
+    int w, Params P, float* __restrict__ out) {
   extern __shared__ float smem[];
-  size_t e = blockIdx.y;
-  Raster g = stage(smem, ang, obs + e * nb, msk + e * nb, nb, occ, h, w,
-                   raster_in_smem);
+  const size_t e = blockIdx.y;
+  const int per_block = blockDim.x / kLanes;
+  const int i0 = blockIdx.x * per_block;
+  const int rows = min(per_block, n - i0);
+  const size_t k0 = e * (size_t)n + i0;
+  Bits B = stage(smem, ang, obs + e * nb, msk + e * nb, nb, parts + 3 * k0,
+                 rows, per_block, occ, h, w, P);
   const float* s_ang = smem;
   const float* s_obs = smem + nb;
   const float* s_msk = smem + 2 * nb;
-  int lane = threadIdx.x % kLanes;
-  int i = blockIdx.x * (blockDim.x / kLanes) + threadIdx.x / kLanes;
-  bool live = i < n;
-  size_t k = e * (size_t)n + (live ? i : 0);
-  Particle q = prepare(parts[3 * k], parts[3 * k + 1], parts[3 * k + 2], g,
-                       P);
+  const int lane = threadIdx.x % kLanes;
+  const int j = threadIdx.x / kLanes;
+  const bool live = j < rows;
+  Particle q = prepare(live ? smem[3 * nb + 3 * j] : 0.0f,
+                       live ? smem[3 * nb + 3 * j + 1] : 0.0f,
+                       live ? smem[3 * nb + 3 * j + 2] : 0.0f, B, P);
   float part = 0.0f;
   if (live)
     for (int b = lane; b < nb; b += kLanes)
-      part = accumulate(part, beam_prob(q, s_ang[b], s_obs[b], g, P),
+      part = accumulate(part, beam_prob(q, s_ang[b], s_obs[b], B, P),
                         s_msk[b], P);
   int base = (threadIdx.x % 32) & ~(kLanes - 1);
   float prob = 0.0f;
 #pragma unroll
   for (int s = 0; s < kLanes; ++s)
     prob += __shfl_sync(0xffffffffu, part, base + s);
-  if (live && lane == 0) out[k] = gate(q, prob, dil, P, h, w);
+  if (live && lane == 0) out[k0 + j] = gate(q, prob, dil, P, h, w);
 }
 
 void unpack(const float* fparams, const int* iparams, Params* P) {
@@ -361,17 +482,29 @@ void unpack(const float* fparams, const int* iparams, Params* P) {
   for (int t = 0; t < 8; ++t) pi[t] = iparams[t];
 }
 
-size_t smem_bytes(int nb, int h, int w, int* raster_in_smem) {
-  *raster_in_smem = (size_t)h * w <= (size_t)kSmemRasterMax;
-  return 3 * (size_t)nb * sizeof(float) +
-         (*raster_in_smem ? (size_t)h * w : 0);
+// Shared memory of a block: the beam table, `rows` particle rows and the
+// raster's words; raises the kernel's limit past 48 KB where needed.
+cudaError_t smem_for(const void* kernel, const Params& P, int nb, int rows,
+                     int h, int w, size_t* bytes) {
+  *bytes = 4 * (3 * (size_t)nb + 3 * (size_t)rows +
+                (size_t)raster_words(P, h, w));
+  int dev, optin;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (*bytes > (size_t)optin) return cudaErrorInvalidValue;
+  if (*bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
 }
 
 }  // namespace
 
 // particles [n, 3] f32; beam_tab [3, nb] f32 (signed angles, ranges,
 // mask); occ, dil [h, w] u8; fparams/iparams host arrays in Params order;
-// out [n] f32.  Returns cudaGetLastError() after the launch.
+// out [n] f32.  Returns the launch's CUDA error.
 extern "C" int mcl_beam_weights(const float* particles, int n,
                                 const float* beam_tab, int nb,
                                 const uint8_t* occ, const uint8_t* dil,
@@ -380,19 +513,21 @@ extern "C" int mcl_beam_weights(const float* particles, int n,
                                 void* stream) {
   Params P;
   unpack(fparams, iparams, &P);
-  int raster_in_smem;
-  size_t smem = smem_bytes(nb, h, w, &raster_in_smem);
+  size_t smem;
+  cudaError_t err = smem_for((const void*)beam_weights_kernel, P, nb,
+                             kThreads, h, w, &smem);
+  if (err != cudaSuccess) return (int)err;
   if (n > 0) {
     int blocks = (n + kThreads - 1) / kThreads;
     beam_weights_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        particles, n, beam_tab, nb, occ, dil, h, w, raster_in_smem, P, out);
+        particles, n, beam_tab, nb, occ, dil, h, w, P, out);
   }
   return (int)cudaGetLastError();
 }
 
 // particles [episodes, n, 3] f32; angles [nb] f32 (signed); ranges, mask
 // [episodes, nb] f32; occ, dil [h, w] u8; out [episodes, n] f32.
-// episodes <= 65535 (gridDim.y).  Returns cudaGetLastError().
+// episodes <= 65535 (gridDim.y).  Returns the launch's CUDA error.
 extern "C" int mcl_beam_weights_batched(
     const float* particles, int episodes, int n, const float* angles,
     const float* ranges, const float* mask, int nb, const uint8_t* occ,
@@ -401,14 +536,15 @@ extern "C" int mcl_beam_weights_batched(
   if (episodes > 65535) return (int)cudaErrorInvalidValue;
   Params P;
   unpack(fparams, iparams, &P);
-  int raster_in_smem;
-  size_t smem = smem_bytes(nb, h, w, &raster_in_smem);
+  size_t smem;
+  cudaError_t err = smem_for((const void*)beam_weights_batched_kernel, P, nb,
+                             kThreads, h, w, &smem);
+  if (err != cudaSuccess) return (int)err;
   if (n > 0 && episodes > 0) {
     dim3 grid((n + kThreads - 1) / kThreads, episodes);
     beam_weights_batched_kernel<<<grid, kThreads, smem,
                                   (cudaStream_t)stream>>>(
-        particles, n, angles, ranges, mask, nb, occ, dil, h, w,
-        raster_in_smem, P, out);
+        particles, n, angles, ranges, mask, nb, occ, dil, h, w, P, out);
   }
   return (int)cudaGetLastError();
 }
@@ -422,15 +558,16 @@ extern "C" int mcl_beam_weights_beamsub(
   if (episodes > 65535) return (int)cudaErrorInvalidValue;
   Params P;
   unpack(fparams, iparams, &P);
-  int raster_in_smem;
-  size_t smem = smem_bytes(nb, h, w, &raster_in_smem);
+  const int per_block = kThreads / kLanes;
+  size_t smem;
+  cudaError_t err = smem_for((const void*)beam_weights_beamsub_kernel, P, nb,
+                             per_block, h, w, &smem);
+  if (err != cudaSuccess) return (int)err;
   if (n > 0 && episodes > 0) {
-    int per_block = kThreads / kLanes;
     dim3 grid((n + per_block - 1) / per_block, episodes);
     beam_weights_beamsub_kernel<<<grid, kThreads, smem,
                                   (cudaStream_t)stream>>>(
-        particles, n, angles, ranges, mask, nb, occ, dil, h, w,
-        raster_in_smem, P, out);
+        particles, n, angles, ranges, mask, nb, occ, dil, h, w, P, out);
   }
   return (int)cudaGetLastError();
 }

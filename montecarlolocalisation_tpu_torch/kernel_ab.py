@@ -1,0 +1,477 @@
+"""Time the beam weight and k-means kernels against an earlier version of
+their CUDA sources, on one GPU.
+
+    python -m montecarlolocalisation_tpu_torch.kernel_ab OLD_CSRC
+
+OLD_CSRC holds the earlier csrc/weights.cu and csrc/kmeans.cu, with the C
+entries they had at commit 97cbc4c (a pixel-scan K1, a K3 of two launches
+an iteration), for example from
+`git archive 97cbc4c montecarlolocalisation_tpu_torch/csrc | tar -x
+--strip-components=2 -C OLD_CSRC`.  It prints one JSON line a result:
+
+1. `ptxas`: registers, stack and spills of every current kernel.
+2. `sincosf`: whether the card's sincosf gives sinf's and cosf's bits on
+   every float with |x| < 64 (the beam weight kernel calls sincosf).
+3. `ablation`: the earlier K1 with one cost taken out at a time (the band
+   scan cut to one pixel, the cast replaced by a constant, the trig by a
+   fixed direction, expf by a polynomial, the raster read through L1), and
+   the current K1 with its axes stopped at each lane's first hit (the same
+   weights) or its cast replaced by a constant, at 1M x 34 and 1024 x 500 x
+   24, analytic and fixed, in device time, on two kinds of particles:
+   "uniform" (drawn over the map) and "filtered" (after 20 ticks of the
+   filter along a wander, so neighbouring particles are resampled copies
+   of one source, as in the serve's and the sweep's ticks).  The variants
+   that take a cost out compute other weights: they time where the
+   kernel's time goes.
+4. `turns`: K1, K1 batched, K3, K3 batched and K4 at the shapes of
+   PERF.md's kernel table (K1 and K1 batched on both kinds of particles),
+   timed plain, old, new, new, old, plain, with CUDA events around one call
+   (host enqueue included) and with the profiler's device time per call;
+   the old and new outputs are compared.
+
+It needs a CUDA card and nvcc, and fails without them.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+from . import presets
+from .config import SensorModelConfig
+from .models import filter as mcl
+from .models import resample, sensor
+from .sim import robot
+from .ops import build, kmeans, weights
+
+START = (1.25, 1.25, 0.0)
+
+SINCOS_CHECK = r"""
+#include <cuda_runtime.h>
+__global__ void chk(unsigned long long* bad) {
+  const unsigned int top = 0x42800000u;  // 64.0f
+  for (unsigned long long u = blockIdx.x * (unsigned long long)blockDim.x
+           + threadIdx.x; u < 2ull * top;
+       u += (unsigned long long)gridDim.x * blockDim.x) {
+    unsigned int bits = (unsigned int)(u % top) | (u >= top ? 0x80000000u : 0u);
+    float x = __uint_as_float(bits), s, c;
+    sincosf(x, &s, &c);
+    if (__float_as_uint(s) != __float_as_uint(sinf(x)) ||
+        __float_as_uint(c) != __float_as_uint(cosf(x)))
+      atomicAdd(bad, 1ull);
+  }
+}
+extern "C" int run_chk(unsigned long long* bad) {
+  chk<<<132 * 16, 256>>>(bad);
+  return (int)cudaGetLastError();
+}
+"""
+
+# Variants of the earlier weights.cu, each a list of (its text, what the
+# variant puts in its place).
+OLD_ABLATIONS = {
+    "noscan": [("""    for (int j = 0; j < cnt; ++j) {
+      int row = fwd ? lo + j : hi - j;
+      if (line_bit(g, vertical, k, row)) {
+        found = true;
+        rr = row;
+        break;
+      }
+    }""", """    if (cnt > 0) {
+      rr = fwd ? lo : hi;
+      found = line_bit(g, vertical, k, rr);
+    }""")],
+    "nocast": [("""  if (P.mode == kFixed) {
+    dist = march(""", """  if (true) {
+    dist = 0.5f + 1e-3f * dx;
+  } else if (P.mode == kFixed) {
+    dist = march(""")],
+    "notrig": [("float dx = cosf(ray), dy = sinf(ray);",
+                "float dx = 0.6f + 1e-3f * ray, dy = 0.8f - 1e-3f * ray;")],
+    "noexp": [("expf(-(diff * diff) * P.inv_two_sigma2)",
+               "(1.0f - (diff * diff) * P.inv_two_sigma2)")],
+    "l1raster": [(
+        "*raster_in_smem = (size_t)h * w <= (size_t)kSmemRasterMax;",
+        "*raster_in_smem = 0;")],
+}
+
+# Variants of the current weights.cu: each lane stops an axis at its first
+# hit (the same weights; the branch this kernel's selects replace), and the
+# cast replaced by a constant.
+NEW_ABLATIONS = {
+    "first_hit": [
+        ("  float best = p.origin0 ? 0.0f : kInf;\n",
+         "  if (p.origin0) return 0.0f;\n  float best = kInf;\n"),
+        ("    best = (rr >= 0 && s_hit < smax) ? fminf(best, s_hit) : best;",
+         "    if (rr >= 0 && s_hit < smax) return s_hit;")],
+    "nocast": OLD_ABLATIONS["nocast"],
+    # Register caps that let 6 or 5 blocks of 256 threads share an SM.
+    "regs40": [("__global__ void beam_weights",
+                "__global__ void __launch_bounds__(kThreads, 6) beam_weights")],
+    "regs48": [("__global__ void beam_weights",
+                "__global__ void __launch_bounds__(kThreads, 5) beam_weights")],
+}
+
+
+def say(part: str, **fields) -> None:
+    print(json.dumps(dict(part=part, **fields)), flush=True)
+
+
+def ptxas_lines(stderr: str) -> list:
+    return [ln.strip() for ln in stderr.splitlines()
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+
+
+def compile_libs(sources: dict, workdir: str) -> dict:
+    """name -> loaded library, one nvcc per source, all started together;
+    prints each library's ptxas usage."""
+    nvcc = build.find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found")
+    procs = {}
+    for name, src in sources.items():
+        cu = os.path.join(workdir, name + ".cu")
+        with open(cu, "w") as f:
+            f.write(src)
+        so = os.path.join(workdir, name + ".so")
+        procs[name] = (so, subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", so,
+             cu],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (so, p) in procs.items():
+        _, err = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
+        say("ptxas", source=name, lines=ptxas_lines(err))
+        libs[name] = ctypes.CDLL(so)
+    return libs
+
+
+def weight_entries(lib):
+    for entry in ("mcl_beam_weights", "mcl_beam_weights_batched",
+                  "mcl_beam_weights_beamsub"):
+        fn = getattr(lib, entry)
+        fn.argtypes = build.SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def k1(lib, m, parts, scan, cfg):
+    """One K1 launch through `lib`'s C entry, as ops/weights launches it."""
+    nb = scan.angles.shape[0]
+    sign = -1.0 if cfg.negate_beam_angle else 1.0
+    table = torch.stack([sign * scan.angles, scan.ranges.expand(nb),
+                         scan.mask.to(torch.float32)]).contiguous()
+    out = torch.empty(parts.shape[0], dtype=torch.float32,
+                      device=parts.device)
+    fp, ip = weights._params(m, cfg)
+    build.check(lib.mcl_beam_weights(
+        parts.data_ptr(), parts.shape[0], table.data_ptr(), nb,
+        m.occ.data_ptr(), m.occ_dilated.data_ptr(), m.height, m.width,
+        ctypes.addressof(fp), ctypes.addressof(ip), out.data_ptr(),
+        build.stream_handle(parts.device)), "mcl_beam_weights")
+    return out
+
+
+def k1_batched(lib, entry, m, parts, scan, cfg):
+    """One K1 batched or K4 launch through `lib`'s C entry."""
+    n_ep, n = parts.shape[0], parts.shape[1]
+    nb = scan.angles.shape[0]
+    sign = -1.0 if cfg.negate_beam_angle else 1.0
+    angles = (sign * scan.angles).contiguous()
+    ranges = scan.ranges.contiguous()
+    mask = scan.mask.to(torch.float32).contiguous()
+    out = torch.empty((n_ep, n), dtype=torch.float32, device=parts.device)
+    fp, ip = weights._params(m, cfg)
+    build.check(getattr(lib, entry)(
+        parts.data_ptr(), n_ep, n, angles.data_ptr(), ranges.data_ptr(),
+        mask.data_ptr(), nb, m.occ.data_ptr(), m.occ_dilated.data_ptr(),
+        m.height, m.width, ctypes.addressof(fp), ctypes.addressof(ip),
+        out.data_ptr(), build.stream_handle(parts.device)), entry)
+    return out
+
+
+def old_kmeans(lib, xy, c0, rs):
+    """The earlier K3 (two launches an iteration) on xy [E, n, 2]."""
+    e, n, k = xy.shape[0], xy.shape[1], c0.shape[-2]
+    n_blocks = max(1, min(-(-n // 256), 1024))
+    xy = xy.contiguous()
+    assign = torch.zeros((e, n), dtype=torch.int32, device=xy.device)
+    centers = c0.clone().contiguous()
+    partial = torch.empty(e * n_blocks * 3 * k, device=xy.device)
+    changed = torch.empty(e * n_blocks, dtype=torch.int32, device=xy.device)
+    done = torch.zeros(e, dtype=torch.int32, device=xy.device)
+    build.check(lib.mcl_kmeans(
+        xy.data_ptr(), e, n, rs.contiguous().data_ptr(), rs.shape[-3], k,
+        assign.data_ptr(), centers.data_ptr(), partial.data_ptr(),
+        changed.data_ptr(), done.data_ptr(), n_blocks,
+        build.stream_handle(xy.device)), "old mcl_kmeans")
+    return centers, assign
+
+
+def event_ms(fn, reps: int = 20) -> float:
+    """Median CUDA-event time of one call, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
+    """Device time of one call: every kernel and copy the profiler sees
+    over `reps` calls, divided by reps.  A window in which the profiler
+    recorded no device activity at all is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                total += getattr(ev, "self_device_time_total",
+                                 None) or ev.self_cuda_time_total
+        if total > 0.0:
+            return total / 1e3 / reps
+    raise RuntimeError("the profiler recorded no device time")
+
+
+def weight_inputs(m, n, nb, cfg, gen, episodes=None):
+    """Uniform particles ([n, 3], or [E, n, 3]) and a scan with two dead
+    lanes: from START for one filter, from a pose of its own for each
+    episode."""
+    dev = m.device
+    angles = np.deg2rad(np.linspace(-118.0, 118.0, nb)).astype(np.float32)
+    if episodes is None:
+        parts = resample.sample_uniform_particles(gen, m, n)
+        truth = START
+        mask = torch.ones(nb, dtype=torch.bool, device=dev)
+    else:
+        parts = resample.sample_uniform_particles(gen, m, n,
+                                                  batch=(episodes,))
+        truth = resample.sample_uniform_particles(gen, m, episodes)
+        mask = torch.ones((episodes, nb), dtype=torch.bool, device=dev)
+    mask[..., [1, nb // 2]] = False
+    scan = sensor.simulate_scan(m, truth, angles, cfg)
+    return parts, sensor.Scan(angles=scan.angles, ranges=scan.ranges,
+                              mask=mask)
+
+
+def filtered_inputs(m, n, nb, cfg, gen, episodes=None, ticks=20):
+    """Particles after `ticks` filter ticks (systematic resampling) along a
+    wander from START, and the last tick's scan with the same two dead
+    lanes as weight_inputs."""
+    dev = m.device
+    world = presets.make_world(num_particles=n, num_beams=nb,
+                               ray_mode=cfg.ray_mode,
+                               resample_method="systematic", device=dev)
+    enc, ranges, _ = robot.generate_wander_episode(
+        gen, m, world.cfg, world.angles, ticks, batch=episodes or 1,
+        start_pose=START)
+    if episodes is None:
+        enc, ranges = enc[0], ranges[0]
+    state = mcl.init_state(m, world.cfg, seed=3, batch=episodes)
+    final, _ = mcl.run_episode(state, enc, ranges, world.angles, m,
+                               world.cfg)
+    mask = torch.ones(ranges.shape[:-2] + (nb,), dtype=torch.bool,
+                      device=dev)
+    mask[..., [1, nb // 2]] = False
+    return final.particles.contiguous(), sensor.Scan(
+        angles=torch.as_tensor(world.angles, device=dev),
+        ranges=ranges[..., -1, :].contiguous(), mask=mask)
+
+
+def kmeans_inputs(xy, gen):
+    """centers0 [..., 3, 2] and reseed [..., 20, 3, 2] drawn from xy."""
+    n = xy.shape[-2]
+    lead = xy.shape[:-2]
+    init = torch.randint(0, n, lead + (3,), generator=gen, device=xy.device)
+    again = torch.randint(0, n, lead + (60,), generator=gen,
+                          device=xy.device)
+    c0 = torch.take_along_dim(xy, init[..., None], dim=-2)
+    rs = torch.take_along_dim(xy, again[..., None], dim=-2).reshape(
+        lead + (20, 3, 2))
+    return c0, rs
+
+
+def sincos_part(workdir):
+    lib = compile_libs({"sincos_check": SINCOS_CHECK}, workdir)["sincos_check"]
+    lib.run_chk.argtypes = [ctypes.c_void_p]
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    build.check(lib.run_chk(bad.data_ptr()), "run_chk")
+    torch.cuda.synchronize()
+    say("sincosf", floats_checked=2 * 0x42800000, mismatches=int(bad.item()))
+
+
+def variants(source: str, edits: dict) -> dict:
+    """name -> source: the source as it is ("base") and with each edit."""
+    out = {"base": source}
+    for name, pairs in edits.items():
+        text = source
+        for old, new in pairs:
+            if old not in text:
+                raise ValueError(f"no text for the {name} variant")
+            text = text.replace(old, new)
+        out[name] = text
+    return out
+
+
+def ablation_part(which: str, sources: dict, workdir, gen):
+    """Each variant of `sources` timed in turns (all, then all reversed) at
+    1M x 34 and 1024 x 500 x 24, analytic and fixed, on uniform and on
+    filtered particles."""
+    libs = {k: weight_entries(v) for k, v in compile_libs(
+        {f"{which}_{k}": v for k, v in sources.items()}, workdir).items()}
+    libs = {k[len(which) + 1:]: v for k, v in libs.items()}
+    names = list(libs)
+    m = presets.make_world(device="cuda").maze
+    for mode, kind in ((mode, kind) for mode in ("analytic", "fixed")
+                       for kind in ("uniform", "filtered")):
+        cfg = SensorModelConfig(ray_mode=mode)
+        make = weight_inputs if kind == "uniform" else filtered_inputs
+        parts, scan = make(m, 1_048_576, 34, cfg, gen)
+        bparts, bscan = make(m, 500, 24, cfg, gen, episodes=1024)
+        for shape, call in (
+                ([1_048_576, 34], lambda lib: k1(lib, m, parts, scan, cfg)),
+                ([1024, 500, 24], lambda lib: k1_batched(
+                    lib, "mcl_beam_weights_batched", m, bparts, bscan,
+                    cfg))):
+            base = call(libs["base"])
+            same = {k: bool(torch.equal(call(libs[k]), base))
+                    for k in names}
+            sides = {k: [] for k in names}
+            for k in names + names[::-1]:
+                sides[k].append(device_ms(lambda k=k: call(libs[k])))
+            say("ablation", source=which, shape=shape, ray_mode=mode,
+                particles=kind, device_ms={k: float(np.median(v)) for k, v in sides.items()},
+                sides=sides, equal_to_base=same)
+
+
+def ptxas_part(workdir):
+    """Registers, stack and spills of each current kernel (nvcc -Xptxas
+    -v)."""
+    nvcc = build.find_nvcc()
+    for src in build.sources():
+        r = subprocess.run([nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                            "-o", os.path.join(workdir, "ptxas.o"), src],
+                           capture_output=True, text=True)
+        say("ptxas", source=os.path.basename(src), rc=r.returncode,
+            lines=ptxas_lines(r.stderr))
+
+
+def turns_part(old_libs, gen):
+    dev = torch.device("cuda")
+    old_w = weight_entries(old_libs["weights"])
+    old_k = old_libs["kmeans"]
+    old_k.mcl_kmeans.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p]
+    old_k.mcl_kmeans.restype = ctypes.c_int
+    m = presets.make_world(device=dev).maze
+    rows = []
+    cfg = SensorModelConfig(ray_mode="analytic")
+    parts, scan = weight_inputs(m, 1_048_576, 34, cfg, gen)
+    fcfg = SensorModelConfig(ray_mode="fixed")
+    for kind, make in (("uniform", weight_inputs),
+                       ("filtered", filtered_inputs)):
+        parts, scan = make(m, 1_048_576, 34, cfg, gen)
+        rows.append(("beam_weights", [1_048_576, 34, "analytic", kind],
+                     lambda p=parts, s=scan: weights.beam_weights_plain(
+                         m, p, s, cfg),
+                     lambda p=parts, s=scan: k1(old_w, m, p, s, cfg),
+                     lambda p=parts, s=scan: weights.beam_weights_cuda(
+                         m, p, s, cfg)))
+        bparts, bscan = make(m, 500, 24, fcfg, gen, episodes=1024)
+        rows.append(("beam_weights_batched", [1024, 500, 24, "fixed", kind],
+                     lambda p=bparts, s=bscan: weights.beam_weights_plain(
+                         m, p, s, fcfg),
+                     lambda p=bparts, s=bscan: k1_batched(
+                         old_w, "mcl_beam_weights_batched", m, p, s, fcfg),
+                     lambda p=bparts, s=bscan:
+                     weights.beam_weights_batched_cuda(m, p, s, fcfg)))
+    aparts, ascan = weight_inputs(m, 768, 24, cfg, gen, episodes=64)
+    rows.append(("beam_weights_beamsub", [64, 768, 24, "analytic"],
+                 lambda: weights.beamsub_plain(m, aparts, ascan, cfg),
+                 lambda: k1_batched(old_w, "mcl_beam_weights_beamsub", m,
+                                    aparts, ascan, cfg),
+                 lambda: weights.beamsub_cuda(m, aparts, ascan, cfg)))
+    world = presets.make_world(num_particles=1_048_576, device=dev)
+    xy = mcl.init_state(world.maze, world.cfg, seed=3).particles[:, :2]
+    c0, rs = kmeans_inputs(xy, gen)
+    rows.append(("kmeans", [1_048_576],
+                 lambda: kmeans.kmeans_plain(xy, c0, rs),
+                 lambda: old_kmeans(old_k, xy[None], c0[None], rs[None]),
+                 lambda: kmeans.kmeans_cuda(xy, c0, rs)))
+    bxy = weight_inputs(m, 500, 24, fcfg, gen, episodes=1024)[0][..., :2]
+    bc0, brs = kmeans_inputs(bxy, gen)
+    rows.append(("kmeans_batched", [1024, 500],
+                 lambda: kmeans.kmeans_plain(bxy, bc0, brs),
+                 lambda: old_kmeans(old_k, bxy, bc0, brs),
+                 lambda: kmeans.kmeans_batched_cuda(bxy, bc0, brs)))
+    for name, shape, plain, old, new in rows:
+        o, w = old(), new()
+        if name.startswith("kmeans"):
+            same = dict(centers_max_abs_diff=(o[0].reshape(w[0].shape)
+                                              - w[0]).abs().max().item(),
+                        assign_equal_share=(o[1].reshape(w[1].shape) == w[1])
+                        .float().mean().item())
+        else:
+            same = dict(bit_equal=bool(torch.equal(o, w)))
+        p1, o1, n1 = event_ms(plain, 5), event_ms(old), event_ms(new)
+        n2, o2, p2 = event_ms(new), event_ms(old), event_ms(plain, 5)
+        say("turns", kernel=name, shape=shape, plain_ms=[p1, p2],
+            old_ms=[o1, o2], new_ms=[n1, n2],
+            old_device_ms=device_ms(old), new_device_ms=device_ms(new),
+            **same)
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 1:
+        raise SystemExit(__doc__)
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_ab needs a CUDA card")
+    old_dir = argv[0]
+    with open(os.path.join(old_dir, "weights.cu")) as f:
+        old_weights = f.read()
+    with open(os.path.join(old_dir, "kmeans.cu")) as f:
+        old_kmeans_src = f.read()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    build.library()
+    with open(os.path.join(build.CSRC, "weights.cu")) as f:
+        new_weights = f.read()
+    with tempfile.TemporaryDirectory() as workdir:
+        ptxas_part(workdir)
+        sincos_part(workdir)
+        ablation_part("old", variants(old_weights, OLD_ABLATIONS), workdir,
+                      gen)
+        ablation_part("new", variants(new_weights, NEW_ABLATIONS), workdir,
+                      gen)
+        old_libs = compile_libs({"weights": old_weights,
+                                 "kmeans": old_kmeans_src}, workdir)
+        turns_part(old_libs, gen)
+
+
+if __name__ == "__main__":
+    main()

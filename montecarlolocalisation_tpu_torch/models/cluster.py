@@ -74,7 +74,7 @@ def cluster_confidence(
     cfg.near_radius regardless of the cluster threshold, a reference quirk.
     `weighted=True` is the importance-weighted form (weight share near the
     center, weighted mean pose of the best cluster)."""
-    xy = particles[..., :2]
+    xy = particles[..., :2]   # a view: the k-means kernel reads its strides
     x, y = xy[..., 0], xy[..., 1]
     centers, assign = kmeans(xy, cfg, init_idx, reseed_idx)
     cluster_w = torch.stack([torch.sum(torch.where(assign == i, weights, 0.0),

@@ -11,10 +11,12 @@ earliest over both axes.
 
 The TPU version packs each gridline into bit words and finds the first set
 bit with float-exponent tricks; here the touched band (at most `span`
-pixels) is read straight from the raster.  The float operations and their
-order are those of the JAX caster, so the two agree to float rounding.
-This module is the plain version of the analytic cast inside the beam
-weight kernel (csrc/weights.cu), which repeats the same operations.
+pixels) is read straight from the raster, pixel by pixel.  The float
+operations and their order are those of the JAX caster, so the two agree
+to float rounding.  This module is the plain version of the analytic cast
+inside the beam weight kernel (csrc/weights.cu), which repeats the same
+float operations but finds the band's first occupied pixel in 32-bit words
+of the gridline with __ffs/__clz; it gives this loop's row.
 """
 from __future__ import annotations
 

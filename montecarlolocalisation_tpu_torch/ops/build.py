@@ -33,6 +33,7 @@ MAX_EPISODES = 65_535
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry -> argtypes.  Every pointer and the stream are c_void_p, so
 # ctypes never passes one as a 32-bit int.
 SIGNATURES = {
@@ -47,9 +48,11 @@ SIGNATURES = {
                                  _I, _P, _P, _P, _P],
     # particles, counts, E, n, d, out, stream
     "mcl_systematic_expand": [_P, _P, _I, _I, _I, _P, _P],
-    # xy, E, n, reseed, iters, k, assign, centers, partial, changed, done,
-    # n_blocks, stream
-    "mcl_kmeans": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # xy, episode stride, row stride, E, n, centers0, reseed, iters, k,
+    # assign, centers, gsum, gflag, one_block, n_groups, threads, stream
+    "mcl_kmeans": [_P, _L, _L, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I,
+                   _I, _I, _P],
+    "mcl_kmeans_device_launches": [],
 }
 
 _lib = None

@@ -1,5 +1,5 @@
-"""K3 and K3 batched: the k-means kernel's wrappers, its plain version and
-launch counts.
+"""K3 and K3 batched: the k-means kernel's wrappers, its launch plan, its
+plain version and launch counts.
 
 Lloyd's k-means on xy [N, 2] from centers0 [K, 2], an empty cluster taking
 that iteration's reseed candidate from reseed [I, K, 2], ties to the first
@@ -8,16 +8,59 @@ index.  Both versions follow the dense path of the JAX package
 that changes no assignment freezes centers and assignments.  Episodes
 carry leading dims: xy [E, N, 2], centers0 [E, K, 2], reseed [E, I, K, 2],
 each episode with its own latch; K3 takes one filter and K3 batched a
-batch.
+batch.  The kernel (csrc/kmeans.cu) runs every iteration inside one launch
+and reads xy through its strides, so the [..., :2] view of the particles
+goes in uncopied.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from . import build
 
-THREADS = 256
-MAX_BLOCKS = 1024
+CHUNK = 256          # points one warp sums in a fixed float tree
+GROUP_CHUNKS = 32    # chunks one warp adds in a fixed double tree
+GROUP = CHUNK * GROUP_CHUNKS
+BLOCK_MAX_N = 16_384   # one block an episode: xy and assignments in smem
+GRID_THREADS = 1024
+MAX_K = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call runs.  The summation order is fixed by n alone: chunk
+    c holds points [c * CHUNK, (c + 1) * CHUNK) of an episode, cut at n,
+    and group g chunks [g * GROUP_CHUNKS, (g + 1) * GROUP_CHUNKS); chunk
+    sums are float, group sums double, and an episode's groups are added in
+    group order.  n <= BLOCK_MAX_N runs one block an episode with one warp
+    per chunk up to 8 warps; larger n runs a persistent cooperative grid of
+    GRID_THREADS-thread blocks (its size is the card's: as many blocks as
+    can be resident)."""
+    n: int
+    episodes: int
+    one_block: bool
+    threads: int
+    n_chunks: int
+    n_groups: int
+
+    def chunk(self, c: int):
+        """Points [start, stop) of chunk c of an episode."""
+        return c * CHUNK, min((c + 1) * CHUNK, self.n)
+
+    def group_chunks(self, g: int):
+        """Chunks [start, stop) of group g."""
+        return g * GROUP_CHUNKS, min((g + 1) * GROUP_CHUNKS, self.n_chunks)
+
+
+def launch_plan(n: int, episodes: int = 1) -> LaunchPlan:
+    n_chunks = -(-n // CHUNK)
+    one_block = n <= BLOCK_MAX_N
+    threads = 32 * min(8, max(1, n_chunks)) if one_block else GRID_THREADS
+    return LaunchPlan(n=n, episodes=episodes, one_block=one_block,
+                      threads=threads, n_chunks=n_chunks,
+                      n_groups=max(1, -(-n // GROUP)))
 
 
 def kmeans_plain(xy, centers0, reseed):
@@ -68,35 +111,41 @@ def _launch(xy, centers0, reseed, rank: int):
     lead = xy.shape[:-2]
     n, k = xy.shape[-2], centers0.shape[-2]
     if xy.dtype != torch.float32 or xy.dim() != rank or xy.shape[-1] != 2 \
+            or xy.stride(-1) != 1 or not 1 <= k <= MAX_K \
             or centers0.shape != lead + (k, 2) \
             or reseed.dim() != rank + 1 or reseed.shape[:-3] != lead \
             or reseed.shape[-2:] != (k, 2):
-        raise ValueError("need float32 xy [..., N, 2], centers0 [..., K, 2], "
-                         "reseed [..., I, K, 2]")
+        raise ValueError("need float32 xy [..., N, 2] with unit column "
+                         "stride, centers0 [..., K, 2] with K <= 8, reseed "
+                         "[..., I, K, 2]")
     n_ep = 1 if rank == 2 else xy.shape[0]
     if n_ep > build.MAX_EPISODES:
         raise ValueError(f"{n_ep} episodes > {build.MAX_EPISODES}")
     lib = build.library()
-    xy = xy.contiguous()
+    plan = launch_plan(n, n_ep)
+    centers0 = centers0.to(torch.float32).contiguous()
     reseed = reseed.to(torch.float32).contiguous()
-    n_blocks = max(1, min(-(-n // THREADS), MAX_BLOCKS))
-    assign = torch.zeros(lead + (n,), dtype=torch.int32, device=dev)
-    centers = centers0.to(torch.float32).clone().contiguous()
-    partial = torch.empty(n_ep * n_blocks * 3 * k, dtype=torch.float32,
-                          device=dev)
-    changed = torch.empty(n_ep * n_blocks, dtype=torch.int32, device=dev)
-    done = torch.zeros(n_ep, dtype=torch.int32, device=dev)
+    assign = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    centers = torch.empty_like(centers0)
+    gsum = gflag = None
+    if not plan.one_block:
+        groups = n_ep * plan.n_groups
+        gsum = torch.empty(2 * groups * 3 * k, dtype=torch.float64,
+                           device=dev)
+        gflag = torch.empty(2 * groups, dtype=torch.int32, device=dev)
     err = lib.mcl_kmeans(
-        xy.data_ptr(), n_ep, n, reseed.data_ptr(), reseed.shape[-3], k,
-        assign.data_ptr(), centers.data_ptr(), partial.data_ptr(),
-        changed.data_ptr(), done.data_ptr(), n_blocks,
-        build.stream_handle(dev))
+        xy.data_ptr(), xy.stride(0) if rank == 3 else 0, xy.stride(-2),
+        n_ep, n, centers0.data_ptr(), reseed.data_ptr(), reseed.shape[-3],
+        k, assign.data_ptr(), centers.data_ptr(),
+        None if gsum is None else gsum.data_ptr(),
+        None if gflag is None else gflag.data_ptr(), int(plan.one_block),
+        plan.n_groups, plan.threads, build.stream_handle(dev))
     build.check(err, "mcl_kmeans")
     return centers, assign
 
 
 def kmeans_cuda(xy, centers0, reseed):
-    """Launch K3 (2 launches an iteration): xy [N, 2]."""
+    """Launch K3 (one launch a call): xy [N, 2], any row stride."""
     out = _launch(xy, centers0, reseed, 2)
     kmeans_cuda.launches += 1
     return out
@@ -106,13 +155,20 @@ kmeans_cuda.launches = 0
 
 
 def kmeans_batched_cuda(xy, centers0, reseed):
-    """Launch K3 batched (2 launches an iteration): xy [E, N, 2]."""
+    """Launch K3 batched (one launch a call): xy [E, N, 2], any row and
+    episode stride."""
     out = _launch(xy, centers0, reseed, 3)
     kmeans_batched_cuda.launches += 1
     return out
 
 
 kmeans_batched_cuda.launches = 0
+
+
+def device_launches() -> int:
+    """Device launches the C entry has made since the library loaded (one
+    a call)."""
+    return build.library().mcl_kmeans_device_launches()
 
 
 def kmeans(xy, centers0, reseed):

@@ -31,8 +31,10 @@ from ..maps.grid import MazeMap, f32_reciprocal, is_valid_pos
 from ..models import sensor
 from . import analytic, build
 
-MAX_BEAMS = 1024   # beam table in shared memory next to a <= 32 KB raster
+MAX_BEAMS = 1024   # beam table in shared memory next to the raster's bits
 SUBLANES = 8   # K4: threads per particle, each summing every 8th beam
+BLOCK = 256    # threads of a block; K1 stages this many particle rows
+SMEM_MAX = 232_448   # shared memory one H100 block may opt in to (bytes)
 
 
 def _beam_terms(m: MazeMap, particles, scan: sensor.Scan,
@@ -115,6 +117,23 @@ def _check_config(m: MazeMap, cfg: SensorModelConfig, nb: int):
         raise ValueError("the analytic cast needs a gridline raster")
     if nb > MAX_BEAMS:
         raise ValueError(f"{nb} beams > {MAX_BEAMS}")
+    if smem_bytes(m, cfg, nb) > SMEM_MAX:
+        raise ValueError(f"a {m.height} x {m.width} raster does not fit in "
+                         "a block's shared memory as bits")
+
+
+def smem_bytes(m: MazeMap, cfg: SensorModelConfig, nb: int) -> int:
+    """Shared memory of one K1 block: the beam table, its particle rows and
+    the raster's 32-bit words (gridlines for the analytic cast, one bit a
+    pixel for the march)."""
+    wv, wh = -(-m.height // 32), -(-m.width // 32)
+    if cfg.ray_mode == "fixed":
+        words = m.height * wh
+    else:
+        n_v = (m.width - 1) // analytic.CELL_PX + 1
+        n_h = (m.height - 1) // analytic.CELL_PX + 1
+        words = n_v * wv + n_h * wh
+    return 4 * (3 * nb + 3 * BLOCK + words)
 
 
 def beam_weights_cuda(m: MazeMap, particles, scan: sensor.Scan,

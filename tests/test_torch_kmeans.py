@@ -152,3 +152,72 @@ def test_batched_cluster_confidence_matches_jax_vmapped():
         t(np.stack([i[1] for i in idx]), torch.int64))
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-3)
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-3)
+
+
+@pytest.mark.parametrize("n", [1, 255, 500, 1024, 1025, 1_048_576])
+def test_launch_plan_chunks_cover_n_exactly(n):
+    plan = tkmeans.launch_plan(n)
+    chunks = [plan.chunk(c) for c in range(plan.n_chunks)]
+    assert chunks[0][0] == 0 and chunks[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(0 < stop - start <= tkmeans.CHUNK for start, stop in chunks)
+    groups = [plan.group_chunks(g) for g in range(plan.n_groups)]
+    assert groups[0][0] == 0 and groups[-1][1] == plan.n_chunks
+    assert all(a[1] == b[0] for a, b in zip(groups, groups[1:]))
+    assert all(0 < stop - start <= tkmeans.GROUP_CHUNKS
+               for start, stop in groups)
+
+
+@pytest.mark.parametrize("n", [1, 500, 1500, 16_384, 16_385, 65_536,
+                               1_048_576])
+def test_launch_plan_chunking_depends_on_n_alone(n):
+    # The summation order is the chunking, so a batch of episodes sums
+    # each episode as K3 sums it alone.
+    one = tkmeans.launch_plan(n, 1)
+    for episodes in (2, 64, 1024):
+        many = tkmeans.launch_plan(n, episodes)
+        assert (many.n_chunks, many.n_groups, many.one_block,
+                many.threads) == (one.n_chunks, one.n_groups, one.one_block,
+                                  one.threads)
+        assert [many.chunk(c) for c in range(many.n_chunks)] == \
+            [one.chunk(c) for c in range(one.n_chunks)]
+
+
+@pytest.mark.parametrize("n,one_block", [
+    (1, True), (500, True), (tkmeans.BLOCK_MAX_N, True),
+    (tkmeans.BLOCK_MAX_N + 1, False), (1_048_576, False)])
+def test_launch_plan_splits_at_the_one_block_limit(n, one_block):
+    plan = tkmeans.launch_plan(n)
+    assert plan.one_block is one_block
+    if one_block:
+        # One warp a chunk, up to 8, and at most 2 groups: 12 bytes a point
+        # of xy and assignments in shared memory, 192 KB at the limit.
+        assert plan.threads == 32 * min(8, plan.n_chunks)
+        assert plan.n_groups <= 2 and 12 * n <= 192 * 1024
+    else:
+        assert plan.threads == tkmeans.GRID_THREADS
+        assert plan.n_groups == -(-n // tkmeans.GROUP)
+
+
+@pytest.mark.parametrize("n", [1, 255])
+def test_plain_matches_dense_at_small_n(n):
+    xy = _mixture(30 + n, n)
+    cfg, c0, rs = _inputs(n, xy)
+    cw, aw = jax.jit(lambda a, b, c: jcluster._kmeans_dense(a, b, c, cfg))(
+        xy, c0, rs)
+    cg, ag = tkmeans.kmeans_plain(t(xy), t(c0), t(rs))
+    _close(cg.numpy(), ag.numpy(), np.asarray(cw), np.asarray(aw))
+
+
+def test_plain_takes_the_strided_view_of_the_particles():
+    # The filter passes particles[..., :2]; the kernel reads it through its
+    # strides, and the plain version gives the same as on a copy.
+    rng = np.random.default_rng(40)
+    parts = t(np.concatenate([_mixture(40, 900), rng.normal(size=(900, 1))],
+                             1))
+    xy = parts[:, :2]
+    assert xy.stride() == (3, 1)
+    c0, rs = xy[:3].clone(), xy[3:63].reshape(20, 3, 2).clone()
+    cg, ag = tkmeans.kmeans(xy, c0, rs)
+    cc, ac = tkmeans.kmeans(xy.contiguous(), c0, rs)
+    assert torch.equal(cg, cc) and torch.equal(ag, ac)

@@ -3,16 +3,25 @@ of models/sensor.beam_weights) vs the JAX package: its Pallas kernel
 `beam_weights_pallas(..., interpret=True)` and its dense path, with two dead
 mask lanes.  Tolerances are test_weights_pallas.py's: sum rtol 1e-5, log
 rtol 1e-4, analytic > 99.9 % close (pixel-boundary ties shift a beam's
-whole Gaussian)."""
+whole Gaussian).  Two kinds of input pin the cases on which the kernel's
+bit-word slab search and its parallel-ray branch part from a pixel loop:
+rays parallel to the gridlines, and a maze whose gridlines are longer than
+one 32-bit word."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from montecarlolocalisation_tpu.config import SensorModelConfig
+from montecarlolocalisation_tpu.config import (
+    WALL_LEFT, WALL_TOP, SensorModelConfig,
+)
+from montecarlolocalisation_tpu.maps import from_walls
 from montecarlolocalisation_tpu.models import sensor as jsensor
 from montecarlolocalisation_tpu.ops.weights_pallas import beam_weights_pallas
+from montecarlolocalisation_tpu_torch import interop
 from montecarlolocalisation_tpu_torch.interop import config_from
 from montecarlolocalisation_tpu_torch.models import sensor as tsensor
 from montecarlolocalisation_tpu_torch.ops import weights as tweights
@@ -22,10 +31,14 @@ from torch_parity import maps, t, uniform_particles
 torch.set_num_threads(1)
 
 
-def _fixture(n, beams=8, seed=0):
-    jm, tm = maps()
-    parts = uniform_particles(jm, n, seed)
-    angles = np.deg2rad(np.linspace(-118, 118, beams)).astype(np.float32)
+def _fixture(n, beams=8, seed=0, angles=None, pair=None):
+    """(JAX map, port map, particles [n, 3], JAX scan, port scan) with two
+    dead lanes padded on; the default maze unless `pair` is given."""
+    jm, tm = pair or maps()
+    parts = uniform_particles(jm, n, seed).copy()
+    if angles is None:
+        angles = np.deg2rad(np.linspace(-118, 118, beams)).astype(np.float32)
+    beams = len(angles)
     scan = jsensor.simulate_scan(jm, jnp.array([1.25, 1.25, 0.0]), angles,
                                  SensorModelConfig())
     jscan = jsensor.Scan(angles=jnp.pad(scan.angles, (0, 2)),
@@ -46,6 +59,25 @@ def _check(got, want, cfg):
         assert close.all(), np.abs(got - want).max()
 
 
+def _jax_both(jm, parts, jscan, cfg):
+    """The JAX kernel (interpret mode, log mode finished) and dense path."""
+    raw = beam_weights_pallas(jm, jnp.asarray(parts), jscan, cfg,
+                              interpret=True)
+    if cfg.beam_combine == "log":
+        raw = jsensor.finish_log_weights(jm, cfg, jnp.asarray(parts), raw)
+    dense = jax.jit(lambda p: jsensor._beam_weights_dense(
+        jm, p, jscan, cfg, 0.1, "gather"))(parts)
+    return np.asarray(raw), np.asarray(dense)
+
+
+def _plain(tm, parts, tscan, cfg):
+    tcfg = config_from(cfg)
+    out = tweights.beam_weights_plain(tm, t(parts), tscan, tcfg)
+    if cfg.beam_combine == "log":
+        out = tsensor.finish_log_weights(tm, tcfg, t(parts), out)
+    return out.numpy()
+
+
 @pytest.mark.parametrize("n", [500, 1024])
 @pytest.mark.parametrize("combine", ["sum", "log"])
 @pytest.mark.parametrize("ray_mode", ["fixed", "analytic"])
@@ -53,20 +85,57 @@ def test_plain_matches_jax_kernel_and_dense(ray_mode, combine, n):
     jm, tm, parts, jscan, tscan = _fixture(n)
     cfg = SensorModelConfig(ray_mode=ray_mode, beam_combine=combine,
                             log_temperature=2.0)
-    raw = beam_weights_pallas(jm, jnp.asarray(parts), jscan, cfg,
-                              interpret=True)
-    if combine == "log":
-        raw = jsensor.finish_log_weights(jm, cfg, jnp.asarray(parts), raw)
-    dense = jax.jit(lambda p: jsensor._beam_weights_dense(
-        jm, p, jscan, cfg, 0.1, "gather"))(parts)
-    tcfg = config_from(cfg)
-    plain = tweights.beam_weights_plain(tm, t(parts), tscan, tcfg)
-    if combine == "log":
-        plain = tsensor.finish_log_weights(tm, tcfg, t(parts), plain)
-    got = tsensor.beam_weights(tm, t(parts), tscan, tcfg).numpy()
-    np.testing.assert_array_equal(plain.numpy(), got)
-    _check(got, np.asarray(raw), cfg)
-    _check(got, np.asarray(dense), cfg)
+    plain = _plain(tm, parts, tscan, cfg)
+    got = tsensor.beam_weights(tm, t(parts), tscan,
+                               config_from(cfg)).numpy()
+    np.testing.assert_array_equal(plain, got)
+    for want in _jax_both(jm, parts, jscan, cfg):
+        _check(got, want, cfg)
+    assert (got > 0).mean() > 0.3
+
+
+# Beams at 0, +-pi/2 and pi, and particles facing 0, pi/2, pi and -pi/2 in
+# turn: some rays run exactly along a gridline axis (the caster's |du| <
+# eps branch) and others nearly so, where a slab band is longest.
+PARALLEL_BEAMS = np.float32([0.0, math.pi / 2, -math.pi / 2, math.pi, 0.3,
+                             -1.2])
+HEADINGS = np.float32([0.0, math.pi / 2, math.pi, -math.pi / 2])
+
+
+@pytest.mark.parametrize("combine", ["sum", "log"])
+@pytest.mark.parametrize("ray_mode", ["fixed", "analytic"])
+def test_plain_matches_jax_on_rays_parallel_to_the_gridlines(ray_mode,
+                                                              combine):
+    jm, tm, parts, jscan, tscan = _fixture(256, seed=5,
+                                           angles=PARALLEL_BEAMS)
+    parts[:, 2] = HEADINGS[np.arange(256) % 4]
+    cfg = SensorModelConfig(ray_mode=ray_mode, beam_combine=combine,
+                            log_temperature=2.0)
+    got = _plain(tm, parts, tscan, cfg)
+    for want in _jax_both(jm, parts, jscan, cfg):
+        _check(got, want, cfg)
+
+
+def _random_maze(cells, seed):
+    """A random maze of cells x cells; its gridlines are 8 * cells + 1 px
+    long, past one 32-bit word."""
+    rng = np.random.default_rng(seed)
+    walls = [[[w for w in (WALL_TOP, WALL_LEFT) if rng.random() < 0.4]
+              for _ in range(cells)] for _ in range(cells)]
+    jm = from_walls(walls)
+    return jm, interop.maze_from_numpy(jm)
+
+
+@pytest.mark.parametrize("combine", ["sum", "log"])
+def test_plain_matches_jax_on_gridlines_longer_than_a_word(combine):
+    pair = _random_maze(9, seed=3)
+    assert pair[1].height == pair[1].width == 73
+    jm, tm, parts, jscan, tscan = _fixture(400, beams=12, seed=6, pair=pair)
+    cfg = SensorModelConfig(ray_mode="analytic", beam_combine=combine,
+                            log_temperature=2.0)
+    got = _plain(tm, parts, tscan, cfg)
+    for want in _jax_both(jm, parts, jscan, cfg):
+        _check(got, want, cfg)
     assert (got > 0).mean() > 0.3
 
 
