@@ -22,16 +22,22 @@ without one.
 
 The kernel checks hold K1, K1 batched and K4 to 0.0 max-abs error (also on
 rays parallel to the gridlines, bands across a 32-bit word boundary, a
-241 x 241 px maze and, for K1, a 4 m range), and K3 and K3 batched to 1e-4 on the centers at odd
-sizes on both of their paths, as one device launch a call that repeats
-itself bit for bit, with a batch equal to its episodes run one by one.
+241 x 241 px maze and, for K1, a 4 m range), K3 and K3 batched to 1e-4 on
+the centers at odd sizes on both of their paths, as one device launch a
+call that repeats itself bit for bit, with a batch equal to its episodes
+run one by one, and K2 and K2 batched bit for bit, on CDFs glitched one
+ulp non-monotone, short, overshooting, owned by one source or with a long
+run of sources without offspring, on both of their paths (one device launch a call in one
+block an episode, two over source tiles), with a batch equal to its
+episodes.
 
 Output, in order: the card (nvidia-smi name and power limit), the build,
 the kernel checks, the serve phase, the entry config, the kernel-vs-plain
 tick, the kernel times, the sweep, the fleet, a device profile of one
-batched tick at the sweep's and the fleet's shapes, the layout A/B, the
-batched kernels' times, a {"kernels": [...]} line, the card again, and
-last {"ok": true, "device": {...}}.
+filter's tick at the serve's shapes and of one batched tick at the sweep's
+and the fleet's, the layout A/B, the batched kernels' times, a
+{"kernels": [...]} line, the card again, and last {"ok": true,
+"device": {...}}.
 
 Usage: python3 chip_smoke.py
 """
@@ -72,7 +78,6 @@ K4_TIME_N = 768               # K4's time in the kernels line: an A/B shape
 SINGLE = ("beam_weights", "systematic_expand", "kmeans")
 CHECK_EPISODES, CHECK_SIZES, CHECK_BEAMS = (1, 64, 1024), (1, 500, 1500,
                                                           2000), (24, 34)
-K2_BATCHED_SHAPES = ((1024, 500), (8, 65_536))
 START = (1.25, 1.25, 0.0)     # the bench's pose, a free spot of the maze
 WHEELS = (0.5, 0.45)          # encoder step per tick (rad): a gentle arc
 PKG = "montecarlolocalisation_tpu_torch"
@@ -278,23 +283,192 @@ def skewed_cdf(n, gen, dev, batch=()):
     return torch.cumsum(w.double(), -1).float()
 
 
+# K2's sizes: odd ones, both sides of one filter's one-block limit, and the
+# serve and bench sizes; its cdf kinds and offsets.  "on_integers" (n a power of
+# two) lands every n * cdf - u0 on an integer, so each threshold ties.
+K2_SIZES = (1, 2, 255, 1000, expand.SMALL_N, expand.SMALL_N + 1, 65_536,
+            1_048_576, 4_194_304)
+K2_KINDS = ("uniform", "skewed", "glitched", "short", "overshoot",
+            "one_source", "zero_prefix", "zero_run")
+K2_U0 = (0.0, 0.5, 0.99999994)
+# K2 batched: the sweep's and the fleet's shapes, one block an episode at
+# the limit, and two launches past it and at 8 x 65,536.
+K2_BATCHED_SHAPES = ((SWEEP_E, SWEEP_N), (FLEET_R, FLEET_N),
+                     (64, expand.SMALL_N), (64, expand.SMALL_N + 1),
+                     (8, 65_536))
+
+
+def offspring(x, n, u0):
+    """The offspring count of cdf values x, as both versions compute it."""
+    return torch.clamp(torch.floor(n * x - u0).to(torch.int32) + 1, 0, n)
+
+
+def count_edge(x, n, u0):
+    """The smallest float32 y <= x (x >= 0) with x's count, elementwise: a
+    binary search on the bit patterns, which order like the floats."""
+    want = offspring(x, n, u0)
+    lo = torch.zeros_like(x, dtype=torch.int32)
+    hi = x.contiguous().view(torch.int32).clone()
+    for _ in range(32):
+        mid = (lo + hi) // 2
+        same = offspring(mid.view(torch.float32), n, u0) == want
+        hi, lo = torch.where(same, mid, hi), torch.where(same, lo, mid + 1)
+    return hi.view(torch.float32)
+
+
+def k2_cdf(kind, n, u0, gen, dev, batch=()):
+    """CDFs [*batch, n] of one kind for offsets u0 [*batch]: "glitched" is
+    one ulp non-monotone at about one position in 1000, and at the first
+    step of the counts from the middle on: where the count steps up at i,
+    cdf_i moves down to the float where it steps and cdf_{i+1} to one ulp
+    below that, so the counts fall there until the cummax guard lifts
+    them; "short" sums
+    to 0.97; "overshoot" ends a few ulps past 1; "one_source" gives every
+    draw to source n // 3; "zero_prefix" gives none to the first 60 %, and
+    "zero_run" none to the middle 60 % (at 1M, a run that no output's
+    window of sources may span without the kernel searching instead)."""
+    shape = tuple(batch) + (n,)
+    rand = lambda: torch.rand(shape, generator=gen, device=dev)
+    cum = lambda w: torch.cumsum(
+        (w / w.sum(-1, keepdim=True)).double(), -1).float()
+    if kind == "skewed":
+        return skewed_cdf(n, gen, dev, batch)
+    if kind == "one_source":
+        cdf = torch.zeros(shape, device=dev)
+        cdf[..., n // 3:] = 1.0
+        return cdf
+    if kind in ("zero_prefix", "zero_run"):
+        w = rand()
+        lo = 0 if kind == "zero_prefix" else n // 5
+        w[..., lo: lo + 3 * n // 5] = 0.0
+        return cum(w)
+    cdf = cum(rand())
+    if kind == "uniform":
+        return cdf
+    if kind == "short":
+        return cdf * 0.97
+    if kind == "overshoot":
+        tail = min(n, 8)
+        cdf[..., -tail:] = 1.0 + torch.arange(1, tail + 1, device=dev) \
+            * 2.0 ** -23
+        return cdf
+    if kind == "glitched":
+        uu = torch.as_tensor(u0, dtype=torch.float32, device=dev)[..., None]
+        c = offspring(cdf, n, uu)
+        steps = (c > torch.nn.functional.pad(c[..., :-1], (1, 0))) & (c >= 1)
+        steps[..., -1] = False
+        i = torch.arange(n, device=dev)
+        first = torch.argmax((steps & (i >= n // 2)).int(), -1, keepdim=True)
+        at = steps & ((rand() < 1e-3) | (i == first))
+        at[..., 1:] &= ~at[..., :-1]
+        edge = count_edge(cdf, n, uu)
+        out = torch.where(at, edge, cdf)
+        below = torch.nextafter(edge, torch.zeros_like(edge))
+        out[..., 1:] = torch.where(at[..., :-1], below[..., :-1],
+                                   out[..., 1:])
+        return out
+    raise ValueError(kind)
+
+
+def integer_cdf(n, u0, gen, dev):
+    """For n a power of two: cdf_i = (m_i + u0) / n with m sorted, so n *
+    cdf - u0 is the integer m_i exactly and each threshold ties."""
+    m = torch.sort(torch.randint(0, n, (n,), generator=gen,
+                                 device=dev)).values
+    m[-1] = n - 1
+    return (m.float() + u0) / n
+
+
+def k2_rows(shape, gen, dev):
+    """Particles whose first column is their own index, so a wrong draw
+    names its source."""
+    parts = torch.randn(tuple(shape) + (3,), generator=gen, device=dev)
+    parts[..., 0] = torch.arange(shape[-1], device=dev, dtype=torch.float32)
+    return parts
+
+
+def run_k2(fn, parts, cdf, u0) -> tuple:
+    """One K2 call, run twice: (output, device launches a call), checked to
+    repeat itself bit for bit and to launch as its plan says."""
+    before = expand.device_launches()
+    out = fn(parts, cdf, u0)
+    launched = expand.device_launches() - before
+    again = fn(parts, cdf, u0)
+    torch.cuda.synchronize()
+    plan = expand.launch_plan(parts.shape[-2], parts.numel() // parts.shape[
+        -2] // parts.shape[-1])
+    if launched != plan.device_launches or launched > 2:
+        raise AssertionError(f"K2 n={parts.shape[-2]}: {launched} device "
+                             f"launches, plan {plan}")
+    if not torch.equal(out, again):
+        raise AssertionError(f"K2 n={parts.shape[-2]}: two runs differ")
+    return out, launched
+
+
+def k2_mismatch(got, want) -> str:
+    bad = (got != want).any(-1).reshape(-1).nonzero()
+    k = int(bad[0])
+    g, w = got.reshape(-1, 3)[k], want.reshape(-1, 3)[k]
+    return (f"first wrong output {k}: source {g[0].item()} instead of "
+            f"{w[0].item()}, {int(bad.numel())} wrong")
+
+
 def check_k2(dev, gen) -> dict:
-    """Bit-exact: the expansion only copies rows."""
-    for n in (1, 1000, 65_536, 1_048_576, 4_194_304):
-        parts = torch.randn((n, 3), generator=gen, device=dev)
-        counts_ = expand.offspring_counts(
-            skewed_cdf(n, gen, dev), torch.rand((), generator=gen,
-                                                device=dev))
-        got = expand.systematic_expand_cuda(parts, counts_)
-        want = expand.systematic_expand_plain(parts, counts_)
-        torch.cuda.synchronize()
-        equal = torch.equal(got, want)
-        say("check", kernel="systematic_expand", n=n, bit_exact=equal,
-            max_abs_err=(got - want).abs().max().item(),
-            share_close=(got == want).all(1).float().mean().item())
-        if not equal:
-            raise AssertionError(f"K2 n={n}: not bit-exact")
+    """Bit-exact against the plain version (the expansion only copies
+    rows): every size of K2_SIZES, every cdf kind and offset, and the
+    integer-landing cdfs; one device launch a call in one block an
+    episode, two otherwise; each call repeats itself."""
+    for n in K2_SIZES:
+        parts = k2_rows((n,), gen, dev)
+        cases = [(kind, u0) for kind in K2_KINDS for u0 in K2_U0]
+        if n & (n - 1) == 0:
+            cases += [("on_integers", u0) for u0 in (0.0, 0.25, 0.5)]
+        pinned = 0
+        for kind, u0 in cases:
+            uu = torch.tensor(u0, dtype=torch.float32, device=dev)
+            cdf = integer_cdf(n, u0, gen, dev) if kind == "on_integers" \
+                else k2_cdf(kind, n, uu, gen, dev)
+            falls = bool((offspring(cdf[1:], n, uu)
+                          < offspring(cdf[:-1], n, uu)).any())
+            pinned += falls
+            if kind == "glitched" and n >= 255 and not falls:
+                raise AssertionError(f"K2 n={n}: the glitch moved no count")
+            got, launched = run_k2(expand.systematic_expand_cuda, parts, cdf,
+                                   uu)
+            want = expand.systematic_expand_plain(parts, cdf, uu)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K2 n={n} {kind} u0={u0}: not "
+                                     f"bit-exact; {k2_mismatch(got, want)}")
+        say("check", kernel="systematic_expand", n=n, cases=len(cases),
+            kinds=sorted({k for k, _ in cases}), u0=list(K2_U0),
+            bit_exact=True, repeats=True, device_launches_per_call=launched,
+            one_block=expand.launch_plan(n).one_block,
+            cases_with_falling_counts=pinned)
     return dict(max_abs_err=0.0)
+
+
+def check_k2_strided(dev, gen) -> None:
+    """K2 and K2 batched through systematic_expand on a cdf that is a
+    strided view and a scalar u0, which the dispatcher broadcasts with
+    stride 0 to a batch: the wrapper copies both before its launch, and
+    each copy must live until the kernel has read it.  Bit-exact against
+    the plain version on contiguous copies."""
+    for lead, n in (((), 1000), ((), expand.SMALL_N + 1), ((4,), 1000),
+                    ((4,), expand.SMALL_N + 1)):
+        parts = k2_rows(lead + (n,), gen, dev)
+        wide = torch.stack([skewed_cdf(n, gen, dev, lead),
+                            torch.zeros(lead + (n,), device=dev)], -1)
+        cdf = wide[..., 0]
+        u0 = torch.tensor(0.5, device=dev)
+        got = expand.systematic_expand(parts, cdf, u0)
+        want = expand.systematic_expand_plain(parts, cdf.contiguous(), u0)
+        torch.cuda.synchronize()
+        if cdf.is_contiguous() or not torch.equal(got, want):
+            raise AssertionError(f"K2 strided {lead} x {n}: not bit-exact; "
+                                 f"{k2_mismatch(got, want)}")
+        say("check", kernel="systematic_expand", shape=list(parts.shape),
+            cdf_stride=list(cdf.stride()), u0="scalar", bit_exact=True)
 
 
 def blobs(n, gen, dev):
@@ -429,11 +603,15 @@ def serve_phase(dev):
     out = Replies()
     torch.cuda.synchronize()
     reset_counts()
+    k2_before = expand.device_launches()
     server = MCLServer(world.maze, world.cfg, world.angles, seed=0)
     t0 = time.perf_counter()
     ticks = server.serve(lines, out_stream=out)
     torch.cuda.synchronize()
     launched = counts()
+    k2_device = expand.device_launches() - k2_before
+    check_k2_device_launches("serve", k2_device,
+                             launched["systematic_expand"], SERVE_N)
     replies = [json.loads(s) for s in out.lines]
     errors = [r for r in replies if "error" in r]
     tick_replies = [r for r in replies if "exact_pose" in r]
@@ -455,13 +633,22 @@ def serve_phase(dev):
              if best[0] >= 0 else None)
     say("serve", particles=SERVE_N, beams=SERVE_B, ray_mode="analytic",
         resample="systematic", ticks=ticks, error_replies=0,
-        launches=launched, tick_ms_median=float(np.median(lat)),
+        launches=launched, k2_device_launches=k2_device,
+        tick_ms_median=float(np.median(lat)),
         tick_ms_p90=float(np.percentile(lat, 90)),
         tick_ms_first=float(lat[0]),
         updates_per_sec=SERVE_N * SERVE_B / (float(np.median(lat)) / 1e3),
         final_confidence=tick_replies[-1]["confidence"],
         position_error_m=err_m)
     return world, server, launched
+
+
+def check_k2_device_launches(what, device, calls, n, episodes=1) -> None:
+    """K2's device launches on a path: its plan's count a call."""
+    want = calls * expand.launch_plan(n, episodes).device_launches
+    if device != want:
+        raise AssertionError(f"{what}: K2 made {device} device launches in "
+                             f"{calls} calls, not {want}")
 
 
 # -- phase 5: the entry config ---------------------------------------------
@@ -557,9 +744,8 @@ def time_phase(world, state, gen) -> dict:
         ranges=sensor.simulate_scan(m, START, world.angles,
                                     cfg.sensor).ranges,
         mask=torch.ones(SERVE_B, dtype=torch.bool, device=dev))
-    counts_ = expand.offspring_counts(
-        skewed_cdf(SERVE_N, gen, dev), torch.rand((), generator=gen,
-                                                  device=dev))
+    cdf = skewed_cdf(SERVE_N, gen, dev)
+    u0 = torch.rand((), generator=gen, device=dev)
     xy = parts[:, :2]            # the strided view the tick passes
     c0 = xy[torch.randint(0, SERVE_N, (3,), generator=gen, device=dev)]
     rs = xy[torch.randint(0, SERVE_N, (20, 3), generator=gen, device=dev)]
@@ -568,16 +754,15 @@ def time_phase(world, state, gen) -> dict:
             lambda: weights.beam_weights_cuda(m, parts, scan, cfg.sensor),
             lambda: weights.beam_weights_plain(m, parts, scan, cfg.sensor)),
         "systematic_expand": (
-            lambda: expand.systematic_expand_cuda(parts, counts_),
-            lambda: expand.systematic_expand_plain(parts, counts_)),
+            lambda: expand.systematic_expand_cuda(parts, cdf, u0),
+            lambda: expand.systematic_expand_plain(parts, cdf, u0)),
         "kmeans": (lambda: kmeans.kmeans_cuda(xy, c0, rs),
                    lambda: kmeans.kmeans_plain(xy, c0, rs)),
     }
     bounds = {
         "beam_weights": dict(**k1_bound(m, parts, scan.angles, cfg.sensor),
                              library_ms=None),
-        "systematic_expand": dict(**k2_bound(parts), library_ms=cuda_ms(
-            repeat_rows(parts, counts_))),
+        "systematic_expand": k2_extras(parts, cdf, u0),
         "kmeans": dict(**k3_bound(xy, c0, rs), library_ms=None),
     }
     times = {}
@@ -710,10 +895,29 @@ def k1_bound(m, parts, angles, cfg) -> dict:
         m, parts, angles, cfg)), bound_ms_all_slabs=every["bound_ms"])
 
 
-def k2_bound(parts) -> dict:
-    """K2: read the rows and the int32 counts, write the rows."""
-    rows, d = parts.numel() // parts.shape[-1], parts.shape[-1]
-    return bound(rows * (4 * d + 4) + rows * 4 * d, 0.0)
+def k2_bound(parts, counts_, u0) -> dict:
+    """K2: read the float32 cdf and u0, read the row of each source this
+    run's data gives offspring (where the cumulative count steps up, or
+    source 0 in an episode where none has any), and write every output row.
+    The counts, their scan and the spread are integer work on data already
+    read; rows are counted in bytes, not in the 32-byte sectors the card
+    moves, so the bound is the least it could be."""
+    d = parts.shape[-1]
+    rows = parts.numel() // d
+    prev = torch.nn.functional.pad(counts_[..., :-1], (1, 0))
+    read = int((counts_ > prev).sum()) + int((counts_[..., -1] == 0).sum())
+    return dict(**bound(rows * 4 + u0.numel() * 4 + read * 4 * d
+                        + rows * 4 * d, 0.0), source_rows_read=read)
+
+
+def k2_extras(parts, cdf, u0) -> dict:
+    """K2's bound, its library call (repeat_interleave of the rows by the
+    offspring counts, computed beforehand), and the card's time for the
+    torch counts alone (offspring_counts: the work the kernel took in)."""
+    counts_ = expand.offspring_counts(cdf, u0)
+    return dict(**k2_bound(parts, counts_, u0), library_ms=cuda_ms(
+        repeat_rows(parts, counts_)), offspring_counts_ms=cuda_ms(
+        lambda: expand.offspring_counts(cdf, u0)))
 
 
 KMEANS_POINT_FLOPS = 26    # a point's K=3 distances, argmin and sums
@@ -862,25 +1066,39 @@ def check_batched_weights(m, gen) -> tuple:
                  max_rel_diff_from_k1_batched=rel_k4))
 
 
+def k2_batch(n_ep, n, gen, dev):
+    """Episodes [E, n] of every cdf kind in turn, with offsets cycling
+    through K2_U0 and a random one."""
+    u0 = torch.rand(n_ep, generator=gen, device=dev)
+    fixed = torch.tensor(K2_U0, device=dev)
+    e = torch.arange(n_ep, device=dev)
+    u0 = torch.where(e % 4 < 3, fixed[e % 4 % 3], u0)
+    kinds = torch.stack([k2_cdf(kind, n, u0, gen, dev, (n_ep,))
+                         for kind in K2_KINDS])
+    return kinds[e % len(K2_KINDS), e], u0
+
+
 def check_k2_batched(dev, gen) -> dict:
-    """Bit-exact against the plain version and against K2 per episode."""
+    """Bit-exact against the plain version and against K2 per episode at
+    K2_BATCHED_SHAPES, the episodes mixing every cdf kind and offset."""
     for n_ep, n in K2_BATCHED_SHAPES:
-        parts = torch.randn((n_ep, n, 3), generator=gen, device=dev)
-        counts_ = expand.offspring_counts(
-            skewed_cdf(n, gen, dev, (n_ep,)),
-            torch.rand(n_ep, generator=gen, device=dev))
-        got = expand.systematic_expand_batched_cuda(parts, counts_)
-        want = expand.systematic_expand_plain(parts, counts_)
+        parts = k2_rows((n_ep, n), gen, dev)
+        cdf, u0 = k2_batch(n_ep, n, gen, dev)
+        got, launched = run_k2(expand.systematic_expand_batched_cuda, parts,
+                               cdf, u0)
+        want = expand.systematic_expand_plain(parts, cdf, u0)
         single = torch.stack([expand.systematic_expand_cuda(
-            parts[e], counts_[e]) for e in range(n_ep)])
+            parts[e], cdf[e], u0[e]) for e in range(n_ep)])
         torch.cuda.synchronize()
         exact = torch.equal(got, want)
         same = torch.equal(got, single)
         say("check", kernel="systematic_expand_batched", episodes=n_ep,
-            n=n, bit_exact=exact, equals_single_k2=same,
-            max_abs_err=(got - want).abs().max().item())
+            n=n, kinds=list(K2_KINDS), bit_exact=exact, equals_single_k2=same,
+            device_launches_per_call=launched)
         if not (exact and same):
-            raise AssertionError(f"K2 batched E={n_ep} n={n}: not exact")
+            raise AssertionError(f"K2 batched E={n_ep} n={n}: exact={exact}, "
+                                 f"equal to K2 per episode={same}; "
+                                 f"{k2_mismatch(got, want if not exact else single)}")
     return dict(max_abs_err=0.0)
 
 
@@ -943,19 +1161,25 @@ def sweep_phase(dev) -> dict:
                                resample_method="systematic", device=dev)
     torch.cuda.synchronize()
     reset_counts()
+    k2_before = expand.device_launches()
     t0 = time.perf_counter()
     metrics = presets.run_sweep(world, batch=SWEEP_E, num_ticks=SWEEP_T,
                                 seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
+    k2_device = expand.device_launches() - k2_before
+    check_k2_device_launches("sweep", k2_device,
+                             launched["systematic_expand_batched"], SWEEP_N,
+                             SWEEP_E)
     short = {k: launched[k] for k in ("beam_weights_batched",
                                       "systematic_expand_batched",
                                       "kmeans_batched")
              if launched[k] < SWEEP_T}
     say("sweep", episodes=SWEEP_E, particles=SWEEP_N, beams=SWEEP_B,
         ticks=SWEEP_T, ray_mode="fixed", resample="systematic",
-        launches=launched, wall_s=wall, ticks_per_sec=SWEEP_T / wall,
+        launches=launched, k2_device_launches=k2_device, wall_s=wall,
+        ticks_per_sec=SWEEP_T / wall,
         updates_per_sec=SWEEP_E * SWEEP_N * SWEEP_B * SWEEP_T / wall,
         **metrics)
     if short:
@@ -1028,11 +1252,27 @@ def fleet_phase(dev) -> dict:
 
 # -- phase 9b: where a batched tick's time goes ----------------------------
 
+# The CUDA runtime's and driver's calls that enqueue a kernel, that wait
+# for the device, and that copy (a copy to the host waits, as `.item()`
+# does; one from the host does not).
+HOST_CALLS = dict(
+    launch=("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+            "cuLaunchKernelEx", "cudaLaunchCooperativeKernel"),
+    sync=("cudaStreamSynchronize", "cudaDeviceSynchronize",
+          "cudaEventSynchronize"),
+    copy=("cudaMemcpy", "cudaMemcpyAsync"))
+
+
 def device_profile(fn, ticks: int) -> dict:
-    """torch.profiler over `ticks` calls of fn: host wall ms per tick, the
-    device time per tick summed over the kernels and copies it ran, their
-    share of the wall time (the profiler's own host cost lowers it), and
-    the five largest device consumers by name."""
+    """torch.profiler over `ticks` calls of fn, per tick: host wall ms;
+    the device time summed over the kernels and copies it ran, its share
+    of the wall time (the profiler's own host cost lowers it), the five
+    largest device consumers by name and the count of kernels and copies.
+    On the host: the kernel launches enqueued, the synchronize calls (the
+    loop's last included) and the copies, each with their ms; the host
+    time of all recorded operators and calls, and the five with the most
+    host time of their own (the profiler's cost included).  The wall time
+    beyond the recorded host time is Python's."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1044,24 +1284,80 @@ def device_profile(fn, ticks: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
-    rows = []
-    for ev in prof.key_averages():
+    rows, host, device_ops = [], [], 0
+    calls = {what: [0, 0.0] for what in HOST_CALLS}
+    averages = prof.key_averages()
+    names = {ev.key for ev in averages}
+    for ev in averages:
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            cpu_ms = ev.self_cpu_time_total / 1e3 / ticks
+            host.append((cpu_ms, ev.count / ticks, ev.key))
+            for what, keys in HOST_CALLS.items():
+                if ev.key in keys:
+                    calls[what][0] += ev.count
+                    calls[what][1] += cpu_ms
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
         rows.append((us / 1e3 / ticks, ev.key))
+        device_ops += ev.count
     rows.sort(reverse=True)
+    host.sort(reverse=True)
     dev_ms = sum(ms for ms, _ in rows)
     return dict(wall_ms_per_tick=wall_ms, device_ms_per_tick=dev_ms,
                 device_busy_share=dev_ms / wall_ms,
-                top=[[name[:60], ms] for ms, name in rows[:5]])
+                top=[[name[:60], ms] for ms, name in rows[:5]],
+                device_ops_per_tick=device_ops / ticks,
+                **{f"host_{what}_calls_per_tick": n / ticks
+                   for what, (n, _) in calls.items()},
+                **{f"host_{what}_ms_per_tick": ms
+                   for what, (_, ms) in calls.items()},
+                host_self_ms_per_tick=sum(ms for ms, _, _ in host),
+                host_top=[[name[:60], ms, n] for ms, n, name in host[:5]],
+                names=names)
+
+
+# Names under which a cummax would show in a profile: torch's operator,
+# and its CUDA scan kernel.
+CUMMAX_NAMES = ("cummax", "scan_innermost_dim_with_indices",
+                "scan_outer_dim_with_indices")
+
+
+def serve_tick_profile(dev) -> None:
+    """One filter's tick at the serve's shapes (1M x 34, analytic,
+    systematic), 20 ticks; no cummax may run in it, since K2 takes the
+    offspring counts in, so a profiler that fails here fails the run."""
+    world = presets.make_world(num_particles=SERVE_N, num_beams=SERVE_B,
+                               ray_mode="analytic",
+                               resample_method="systematic", device=dev)
+    m, cfg = world.maze, world.cfg
+    enc, truth = drive(2)
+    scan = sensor.Scan(angles=torch.as_tensor(world.angles, device=dev),
+                       ranges=scans(m, truth[-1:], world.angles, cfg.sensor,
+                                    seed=10)[0],
+                       mask=torch.ones(SERVE_B, dtype=torch.bool, device=dev))
+    holder = [mcl.init_state(m, cfg, seed=11)]
+
+    def tick():
+        holder[0], _ = mcl.mcl_step(holder[0], float(enc[-1, 0]),
+                                    float(enc[-1, 1]), scan, m, cfg)
+
+    prof = device_profile(tick, 20)
+    names = prof.pop("names")
+    cummax = sorted(k for k in names if any(c in k for c in CUMMAX_NAMES))
+    say("profile", what="serve_tick", particles=SERVE_N, beams=SERVE_B,
+        ray_mode="analytic", resample="systematic", cummax_ops=cummax,
+        **prof)
+    if cummax:
+        raise AssertionError(f"serve tick: a cummax ran: {cummax}")
 
 
 def profile_phase(dev) -> None:
-    """One batched filter tick at the sweep's shapes (the wander already
-    simulated, as the sweep feeds it) and at the fleet's, 20 ticks each."""
+    """One filter's tick at the serve's shapes, then one batched filter
+    tick at the sweep's shapes (the wander already simulated, as the sweep
+    feeds it) and at the fleet's, 20 ticks each."""
+    serve_tick_profile(dev)
     for what, n_ep, n, nb, method in (
             ("sweep_tick", SWEEP_E, SWEEP_N, SWEEP_B, "systematic"),
             ("fleet_tick", FLEET_R, FLEET_N, FLEET_B, "multinomial")):
@@ -1085,6 +1381,7 @@ def profile_phase(dev) -> None:
 
         try:
             prof = device_profile(tick, 20)
+            prof.pop("names")
         except RuntimeError as e:    # a profiler the sandbox refuses
             prof = dict(not_measured=f"{type(e).__name__}: {e}")
         say("profile", what=what, episodes=n_ep, particles=n, beams=nb,
@@ -1141,15 +1438,12 @@ def batched_time_phase(m, gen) -> dict:
                 lambda: weights.beam_weights_plain(m, parts, scan, cfg)),
         **k1_bound(m, parts, scan.angles, cfg), library_ms=None,
         shape=[SWEEP_E, SWEEP_N, SWEEP_B])
-    counts_ = expand.offspring_counts(
-        skewed_cdf(SWEEP_N, gen, dev, (SWEEP_E,)),
-        torch.rand(SWEEP_E, generator=gen, device=dev))
+    cdf = skewed_cdf(SWEEP_N, gen, dev, (SWEEP_E,))
+    u0 = torch.rand(SWEEP_E, generator=gen, device=dev)
     times["systematic_expand_batched"] = dict(
-        **turns(lambda: expand.systematic_expand_batched_cuda(parts,
-                                                              counts_),
-                lambda: expand.systematic_expand_plain(parts, counts_)),
-        **k2_bound(parts), library_ms=cuda_ms(repeat_rows(parts, counts_)),
-        shape=[SWEEP_E, SWEEP_N, 3])
+        **turns(lambda: expand.systematic_expand_batched_cuda(parts, cdf, u0),
+                lambda: expand.systematic_expand_plain(parts, cdf, u0)),
+        **k2_extras(parts, cdf, u0), shape=[SWEEP_E, SWEEP_N, 3])
     xy = parts[..., :2]
     c0, rs = kmeans_inputs(xy, gen)
     times["kmeans_batched"] = dict(
@@ -1189,6 +1483,7 @@ def main() -> None:
     m = presets.make_world(device=dev).maze
     errs = dict(beam_weights=check_k1(m, gen), systematic_expand=check_k2(
         dev, gen))
+    check_k2_strided(dev, gen)
     errs["kmeans"], errs["kmeans_batched"] = check_k3(dev, gen)
     errs["beam_weights_batched"], errs["beam_weights_beamsub"] = \
         check_batched_weights(m, gen)

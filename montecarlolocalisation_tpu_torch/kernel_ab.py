@@ -1,11 +1,14 @@
-"""Time the beam weight and k-means kernels against an earlier version of
-their CUDA sources, on one GPU.
+"""Time the kernels against an earlier version of their CUDA sources, on
+one GPU.
 
-    python -m montecarlolocalisation_tpu_torch.kernel_ab OLD_CSRC
+    python -m montecarlolocalisation_tpu_torch.kernel_ab OLD_CSRC [PART ...]
 
-OLD_CSRC holds the earlier csrc/weights.cu and csrc/kmeans.cu, with the C
-entries they had at commit 97cbc4c (a pixel-scan K1, a K3 of two launches
-an iteration), for example from
+PART is any of ptxas, sincosf, ablation, turns and expand; all of them
+without one.  OLD_CSRC holds the earlier sources the parts read: for
+ablation and turns, csrc/weights.cu and csrc/kmeans.cu with the C entries
+they had at commit 97cbc4c (a pixel-scan K1, a K3 of two launches an
+iteration); for expand, csrc/expand.cu as it was from 97cbc4c to e1e0d5d
+(K2 taking offspring counts computed in torch).  For example
 `git archive 97cbc4c montecarlolocalisation_tpu_torch/csrc | tar -x
 --strip-components=2 -C OLD_CSRC`.  It prints one JSON line a result:
 
@@ -28,6 +31,16 @@ an iteration), for example from
    timed plain, old, new, new, old, plain, with CUDA events around one call
    (host enqueue included) and with the profiler's device time per call;
    the old and new outputs are compared.
+5. `expand`: K2 and K2 batched at the shapes of PERF.md's kernel table and
+   beside them (1M and 4M x 3; 1024 x 500, 64 x 1500 and 8 x 65,536
+   episodes), on skewed, uniform and one-source CDFs.  "Old" is the
+   earlier path: the offspring counts and their cummax in torch, then the
+   earlier kernel; "new" the kernel that computes them itself.  Timed
+   plain, old, new, new, old, plain, as in `turns`, with each side's
+   device launches a call; the outputs are compared bit for bit.  Then
+   `expand_paths`: the current kernel's two paths forced at the same
+   sizes up to its one-block limit, ops/expand.SMALL_N, at 1, 8, 64 and
+   1024 episodes, in device time.
 
 It needs a CUDA card and nvcc, and fails without them.
 """
@@ -48,7 +61,7 @@ from .config import SensorModelConfig
 from .models import filter as mcl
 from .models import resample, sensor
 from .sim import robot
-from .ops import build, kmeans, weights
+from .ops import build, expand, kmeans, weights
 
 START = (1.25, 1.25, 0.0)
 
@@ -445,32 +458,152 @@ def turns_part(old_libs, gen):
             **same)
 
 
+def old_expand(lib, parts, cdf, u0):
+    """The earlier path: offspring counts and their cummax in torch, then
+    the earlier kernel (one thread an output, a binary search over the
+    counts in device memory) through its C entry."""
+    counts = expand.offspring_counts(cdf, u0)
+    n, d = parts.shape[-2], parts.shape[-1]
+    out = torch.empty_like(parts)
+    build.check(lib.mcl_systematic_expand(
+        parts.data_ptr(), counts.data_ptr(), parts.numel() // (n * d), n, d,
+        out.data_ptr(), build.stream_handle(parts.device)),
+        "old mcl_systematic_expand")
+    return out
+
+
+def forced_expand(parts, cdf, u0, one_block: bool):
+    """The current kernel with its path forced: one block an episode
+    (no scratch), or the two launches over source tiles (scratch)."""
+    n, d = parts.shape[-2], parts.shape[-1]
+    n_ep = parts.numel() // (n * d)
+    out = torch.empty_like(parts)
+    scratch = None if one_block else torch.empty(
+        expand.LaunchPlan(n, n_ep, False).scratch_ints, dtype=torch.int32,
+        device=parts.device)
+    build.check(build.library().mcl_systematic_expand(
+        parts.data_ptr(), cdf.data_ptr(), u0.data_ptr(), n_ep, n, d,
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        build.stream_handle(parts.device)), "mcl_systematic_expand")
+    return out
+
+
+def expand_cdf(kind, n_ep, n, gen):
+    """cdf [n_ep, n] of one kind, accumulated in float64 as the filter
+    does: "skewed" (weights u^8, half of them zero), "uniform" (u), or
+    "one_source" (source n // 3 owns every draw)."""
+    dev = torch.device("cuda")
+    if kind == "one_source":
+        cdf = torch.zeros((n_ep, n), device=dev)
+        cdf[:, n // 3:] = 1.0
+        return cdf
+    w = torch.rand((n_ep, n), generator=gen, device=dev)
+    if kind == "skewed":
+        w = w ** 8
+        w[torch.rand((n_ep, n), generator=gen, device=dev) < 0.5] = 0.0
+    return torch.cumsum((w / w.sum(-1, keepdim=True)).double(), -1).float()
+
+
+def launches_of(fn) -> int:
+    """Device launches of one call of fn, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def expand_part(old_dir, workdir, gen):
+    with open(os.path.join(old_dir, "expand.cu")) as f:
+        old_lib = compile_libs({"expand": f.read()}, workdir)["expand"]
+    old_lib.mcl_systematic_expand.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    old_lib.mcl_systematic_expand.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    shapes = [("systematic_expand", 1, 1_048_576, kind)
+              for kind in ("skewed", "uniform", "one_source")]
+    shapes += [("systematic_expand", 1, 4_194_304, "skewed"),
+               ("systematic_expand_batched", 1024, 500, "skewed"),
+               ("systematic_expand_batched", 1024, 500, "uniform"),
+               ("systematic_expand_batched", 64, 1500, "skewed"),
+               ("systematic_expand_batched", 8, 65_536, "skewed")]
+    for name, n_ep, n, kind in shapes:
+        parts = torch.randn((n_ep, n, 3), generator=gen, device=dev)
+        cdf = expand_cdf(kind, n_ep, n, gen)
+        u0 = torch.rand(n_ep, generator=gen, device=dev)
+        if name == "systematic_expand":
+            parts, cdf, u0 = parts[0], cdf[0], u0[0]
+        plain = lambda: expand.systematic_expand_plain(parts, cdf, u0)
+        old = lambda: old_expand(old_lib, parts, cdf, u0)
+        new = lambda: expand.systematic_expand(parts, cdf, u0)
+        want, o, w = plain(), old(), new()
+        p1, o1, n1 = event_ms(plain, 5), event_ms(old), event_ms(new)
+        n2, o2, p2 = event_ms(new), event_ms(old), event_ms(plain, 5)
+        od1, nd1 = device_ms(old), device_ms(new)
+        nd2, od2 = device_ms(new), device_ms(old)
+        say("expand", kernel=name, shape=list(parts.shape), cdf=kind,
+            plain_ms=[p1, p2], old_ms=[o1, o2], new_ms=[n1, n2],
+            old_device_ms=[od1, od2], new_device_ms=[nd1, nd2],
+            old_launches=launches_of(old), new_launches=launches_of(new),
+            offspring_counts_device_ms=device_ms(
+                lambda: expand.offspring_counts(cdf, u0)),
+            old_bit_equal=bool(torch.equal(o, want)),
+            new_bit_equal=bool(torch.equal(w, want)))
+    for n_ep in (1, 8, 64, 1024):
+        for n in (1024, 2048, 4096, 6144, expand.SMALL_N):
+            parts = torch.randn((n_ep, n, 3), generator=gen, device=dev)
+            cdf = expand_cdf("skewed", n_ep, n, gen)
+            u0 = torch.rand(n_ep, generator=gen, device=dev)
+            block = lambda: forced_expand(parts, cdf, u0, True)
+            grid = lambda: forced_expand(parts, cdf, u0, False)
+            same = bool(torch.equal(block(), grid()))
+            b1, g1, g2, b2 = (device_ms(block), device_ms(grid),
+                              device_ms(grid), device_ms(block))
+            say("expand_paths", episodes=n_ep, n=n,
+                one_block_device_ms=[b1, b2], two_launch_device_ms=[g1, g2],
+                equal=same)
+
+
+PARTS = ("ptxas", "sincosf", "ablation", "turns", "expand")
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
+    if not argv or any(p not in PARTS for p in argv[1:]):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_ab needs a CUDA card")
-    old_dir = argv[0]
-    with open(os.path.join(old_dir, "weights.cu")) as f:
-        old_weights = f.read()
-    with open(os.path.join(old_dir, "kmeans.cu")) as f:
-        old_kmeans_src = f.read()
+    old_dir, parts = argv[0], set(argv[1:] or PARTS)
+
+    def read(d, name):
+        with open(os.path.join(d, name)) as f:
+            return f.read()
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     build.library()
-    with open(os.path.join(build.CSRC, "weights.cu")) as f:
-        new_weights = f.read()
     with tempfile.TemporaryDirectory() as workdir:
-        ptxas_part(workdir)
-        sincos_part(workdir)
-        ablation_part("old", variants(old_weights, OLD_ABLATIONS), workdir,
-                      gen)
-        ablation_part("new", variants(new_weights, NEW_ABLATIONS), workdir,
-                      gen)
-        old_libs = compile_libs({"weights": old_weights,
-                                 "kmeans": old_kmeans_src}, workdir)
-        turns_part(old_libs, gen)
+        if "ptxas" in parts:
+            ptxas_part(workdir)
+        if "sincosf" in parts:
+            sincos_part(workdir)
+        if "ablation" in parts:
+            ablation_part("old", variants(read(old_dir, "weights.cu"),
+                                          OLD_ABLATIONS), workdir, gen)
+            ablation_part("new", variants(read(build.CSRC, "weights.cu"),
+                                          NEW_ABLATIONS), workdir, gen)
+        if "turns" in parts:
+            old_libs = compile_libs({"weights": read(old_dir, "weights.cu"),
+                                     "kmeans": read(old_dir, "kmeans.cu")},
+                                    workdir)
+            turns_part(old_libs, gen)
+        if "expand" in parts:
+            expand_part(old_dir, workdir, gen)
 
 
 if __name__ == "__main__":

@@ -46,8 +46,9 @@ SIGNATURES = {
                                  _I, _P, _P, _P, _P],
     "mcl_beam_weights_beamsub": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
                                  _I, _P, _P, _P, _P],
-    # particles, counts, E, n, d, out, stream
-    "mcl_systematic_expand": [_P, _P, _I, _I, _I, _P, _P],
+    # particles, cdf, u0, E, n, d, out, scratch, stream
+    "mcl_systematic_expand": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "mcl_expand_device_launches": [],
     # xy, episode stride, row stride, E, n, centers0, reseed, iters, k,
     # assign, centers, gsum, gflag, one_block, n_groups, threads, stream
     "mcl_kmeans": [_P, _L, _L, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I,

@@ -1,19 +1,54 @@
 """K2 and K2 batched: the systematic-expansion kernel's wrappers, its
-plain version and launch counts.
+launch plan, its plain version and launch counts.
 
 drawn[k] = particles[lower_bound(cdf, (k + u0)/N)], through the offspring
-counts c_i = clip(floor(N*cdf_i - u0) + 1, 0, N) (expand_pallas.py:64-74,
-cummax guard included), which stay plain torch as they do in the JAX
-package.  The copy is exact, so kernel and plain version agree bit for
-bit; both equal resample.systematic_indices of the JAX package.  Every
-function takes leading episode dims: cdf [..., N], u0 [...], particles
-[..., N, D]; K2 takes one filter [N, D] and K2 batched episodes [E, N, D].
+counts c_i = clip(floor(N*cdf_i - u0) + 1, 0, N) kept monotone by cummax
+(expand_pallas.py:64-74).  The JAX package's `systematic_expand` computes
+the counts inside the function that launches its kernel, and so does K2:
+the cdf and u0 go in, read on the device, and the drawn rows come out
+(csrc/expand.cu), with no torch work and no host sync before the launch.
+The copy is exact, so kernel, plain version and the JAX package's
+resample.systematic_indices agree bit for bit.  Every function takes
+leading episode dims: cdf [..., N], u0 [...], particles [..., N, D]; K2
+takes one filter [N, D] and K2 batched episodes [E, N, D].
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from . import build
+
+# One block an episode up to SMALL_N sources (csrc/expand.cu kBlockMaxN:
+# 4 bytes of shared memory a source, 32 KB), else two launches over source
+# tiles (kernel_ab's expand_paths times both paths up to the limit).
+SMALL_N = 8192
+SCAN_CHUNK = 4096     # csrc/expand.cu kScanChunk: a source tile's multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call runs: one block an episode and one launch, or two
+    launches over source tiles (csrc/expand.cu picks the tile) with int32
+    scratch for each episode's tile-scanned counts [n] and one maximum for
+    each SCAN_CHUNK sources, at most."""
+    n: int
+    episodes: int
+    one_block: bool
+
+    @property
+    def device_launches(self) -> int:
+        return 1 if self.one_block else 2
+
+    @property
+    def scratch_ints(self) -> int:
+        return 0 if self.one_block else self.episodes * (
+            self.n + -(-self.n // SCAN_CHUNK))
+
+
+def launch_plan(n: int, episodes: int = 1) -> LaunchPlan:
+    return LaunchPlan(n, episodes, n <= SMALL_N)
 
 
 def offspring_counts(cdf, u0):
@@ -39,40 +74,50 @@ def gather_rows(particles, idx):
     return torch.take_along_dim(particles, idx[..., None].long(), dim=-2)
 
 
-def systematic_expand_plain(particles, counts):
+def systematic_expand_plain(particles, cdf, u0):
     """What the kernels compute: each episode's
-    particles[source_indices(counts)]."""
-    return gather_rows(particles, source_indices(counts))
+    particles[source_indices(offspring_counts(cdf, u0))]."""
+    return gather_rows(particles, source_indices(offspring_counts(cdf, u0)))
 
 
-def _launch(particles, counts, rank: int):
-    if not (particles.is_cuda and counts.device == particles.device):
-        raise ValueError("systematic_expand_cuda needs particles and counts "
-                         f"on one CUDA device, got {particles.device} and "
-                         f"{counts.device}")
+def _launch(particles, cdf, u0, rank: int):
+    dev = particles.device
+    if not (particles.is_cuda and isinstance(u0, torch.Tensor)
+            and cdf.device == dev and u0.device == dev):
+        raise ValueError("systematic_expand_cuda needs particles, cdf and u0 "
+                         f"tensors on one CUDA device, got {particles.device}"
+                         f", {cdf.device} and "
+                         f"{getattr(u0, 'device', type(u0).__name__)}")
     if particles.dtype != torch.float32 or particles.dim() != rank \
-            or counts.dtype != torch.int32 \
-            or counts.shape != particles.shape[:-1]:
-        what = "[N, D] and int32 counts [N]" if rank == 2 else \
-            "[E, N, D] and int32 counts [E, N]"
+            or cdf.dtype != torch.float32 or u0.dtype != torch.float32 \
+            or cdf.shape != particles.shape[:-1] \
+            or u0.shape != particles.shape[:-2]:
+        what = "[N, D], cdf [N] and u0 []" if rank == 2 else \
+            "[E, N, D], cdf [E, N] and u0 [E]"
         raise ValueError(f"need float32 particles {what}")
-    parts = particles.contiguous()
-    counts = counts.contiguous()
+    # Held in locals until the launch is enqueued, so that no copy is freed
+    # (and its memory handed to the next copy) before the kernel reads it.
+    parts, cdf, u0 = particles.contiguous(), cdf.contiguous(), u0.contiguous()
     n_ep = 1 if rank == 2 else parts.shape[0]
     if n_ep > build.MAX_EPISODES:
         raise ValueError(f"{n_ep} episodes > {build.MAX_EPISODES}")
     lib = build.library()
+    plan = launch_plan(parts.shape[-2], n_ep)
     out = torch.empty_like(parts)
+    scratch = None if plan.one_block else torch.empty(
+        plan.scratch_ints, dtype=torch.int32, device=dev)
     err = lib.mcl_systematic_expand(
-        parts.data_ptr(), counts.data_ptr(), n_ep, parts.shape[-2],
-        parts.shape[-1], out.data_ptr(), build.stream_handle(parts.device))
+        parts.data_ptr(), cdf.data_ptr(), u0.data_ptr(), n_ep,
+        parts.shape[-2], parts.shape[-1], out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        build.stream_handle(dev))
     build.check(err, "mcl_systematic_expand")
     return out
 
 
-def systematic_expand_cuda(particles, counts):
-    """Launch K2 on CUDA tensors: particles [N, D], counts [N]."""
-    out = _launch(particles, counts, 2)
+def systematic_expand_cuda(particles, cdf, u0):
+    """Launch K2 on CUDA tensors: particles [N, D], cdf [N], u0 []."""
+    out = _launch(particles, cdf, u0, 2)
     systematic_expand_cuda.launches += 1
     return out
 
@@ -80,10 +125,10 @@ def systematic_expand_cuda(particles, counts):
 systematic_expand_cuda.launches = 0
 
 
-def systematic_expand_batched_cuda(particles, counts):
-    """Launch K2 batched on CUDA tensors: particles [E, N, D], counts
-    [E, N]."""
-    out = _launch(particles, counts, 3)
+def systematic_expand_batched_cuda(particles, cdf, u0):
+    """Launch K2 batched on CUDA tensors: particles [E, N, D], cdf [E, N],
+    u0 [E]."""
+    out = _launch(particles, cdf, u0, 3)
     systematic_expand_batched_cuda.launches += 1
     return out
 
@@ -91,19 +136,29 @@ def systematic_expand_batched_cuda(particles, counts):
 systematic_expand_batched_cuda.launches = 0
 
 
+def device_launches() -> int:
+    """Device launches the C entry has made since the library loaded (one
+    a call in one block an episode, else two)."""
+    return build.library().mcl_expand_device_launches()
+
+
 def systematic_expand(particles, cdf, u0):
     """drawn[k] = particles[searchsorted(cdf, (k+u0)/N, 'left')] per
     episode: plain torch on the CPU, K2 (one filter) or K2 batched (a
     batch of episodes) on CUDA."""
-    counts = offspring_counts(cdf, u0)
     if particles.device.type == "cpu":
-        return systematic_expand_plain(particles, counts)
+        return systematic_expand_plain(particles, cdf, u0)
     if particles.is_cuda:
-        if particles.dim() == 2:
-            return systematic_expand_cuda(particles, counts)
         lead = particles.shape[:-2]
+        if not isinstance(u0, torch.Tensor):
+            u0 = torch.full(lead, u0, dtype=torch.float32,
+                            device=particles.device)
+        elif u0.shape != lead:
+            u0 = u0.expand(lead)
+        if particles.dim() == 2:
+            return systematic_expand_cuda(particles, cdf, u0)
         out = systematic_expand_batched_cuda(
             particles.reshape(-1, *particles.shape[-2:]),
-            counts.reshape(-1, counts.shape[-1]))
+            cdf.reshape(-1, cdf.shape[-1]), u0.reshape(-1))
         return out.reshape(*lead, *out.shape[-2:])
     raise ValueError(f"no expansion path for device {particles.device}")

@@ -48,7 +48,8 @@ def _cpu_calls():
     tm = presets.make_world(device="cpu").maze
     parts = torch.rand(64, 3)
     scan = sensor.make_scan(np.zeros(4, np.float32), np.ones(4, np.float32))
-    counts = torch.arange(1, 65, dtype=torch.int32)
+    cdf = torch.arange(1, 65, dtype=torch.float32) / 64
+    u0 = torch.tensor(0.5)
     xy = torch.rand(64, 2)
     bparts = torch.rand(2, 64, 3)
     bscan = sensor.make_scan(np.zeros(4, np.float32),
@@ -61,10 +62,10 @@ def _cpu_calls():
             tm, bparts, bscan, cfg),
         "beamsub": lambda: weights.beamsub_cuda(tm, bparts, bscan, cfg),
         "systematic_expand": lambda: expand.systematic_expand_cuda(
-            parts, counts),
+            parts, cdf, u0),
         "systematic_expand_batched":
             lambda: expand.systematic_expand_batched_cuda(
-                bparts, counts.expand(2, 64)),
+                bparts, cdf.expand(2, 64), u0.expand(2)),
         "kmeans": lambda: kmeans.kmeans_cuda(xy, xy[:3],
                                              xy[:60].reshape(20, 3, 2)),
         "kmeans_batched": lambda: kmeans.kmeans_batched_cuda(
