@@ -14,7 +14,8 @@ the filter through the entry points a user calls:
   resampling, and the fleet server (MCLFleetServer) at 64 robots x 1500 x
   34 for 20 frames;
 - the layout A/B of the two episode-batched beam weight kernels (K1
-  batched against K4), the port's counterpart of tools/ab_beamsub.py.
+  batched against K4) in device time, the port's counterpart of
+  tools/ab_beamsub.py.
 
 Every phase prints one JSON line; any failure raises, so the exit code is
 non-zero and no result line appears.  It needs one CUDA card and fails
@@ -22,7 +23,10 @@ without one.
 
 The kernel checks hold K1, K1 batched and K4 to 0.0 max-abs error (also on
 rays parallel to the gridlines, bands across a 32-bit word boundary, a
-241 x 241 px maze and, for K1, a 4 m range), K3 and K3 batched to 1e-4 on
+241 x 241 px maze and, for K1, a 4 m range; K4 with 5 to 34 beams on 1
+to 1024 episodes of 1 to 1500 particles, where its plan takes each of 1,
+2, 4 and 8 threads a particle, and with every one of them forced, to the
+same bits), K3 and K3 batched to 1e-4 on
 the centers at odd sizes on both of their paths, as one device launch a
 call that repeats itself bit for bit, with a batch equal to its episodes
 run one by one, and K2 and K2 batched bit for bit, on CDFs glitched one
@@ -59,6 +63,7 @@ from montecarlolocalisation_tpu_torch.config import (
 )
 from montecarlolocalisation_tpu_torch.io.fleet import MCLFleetServer
 from montecarlolocalisation_tpu_torch.io.server import MCLServer
+from montecarlolocalisation_tpu_torch.kernel_ab import device_ms, forced_plan
 from montecarlolocalisation_tpu_torch.maps import from_walls
 from montecarlolocalisation_tpu_torch.maps.grid import lookup, world_to_map
 from montecarlolocalisation_tpu_torch.models import filter as mcl
@@ -73,7 +78,13 @@ ENTRY_N, ENTRY_B, ENTRY_TICKS = 65_536, 12, 50
 SWEEP_E, SWEEP_N, SWEEP_B, SWEEP_T = 1024, 500, 24, 300
 FLEET_R, FLEET_N, FLEET_B, FLEET_TICKS = 64, 1500, 34, 20
 AB_E, AB_SIZES, AB_B = 64, (500, 768, 2000), 24
+# The layout A/B's other shapes: the fleet's, and the CLI serve's one filter.
+AB_MORE = ((FLEET_R, FLEET_N, FLEET_B), (1, 1500, 24))
 K4_TIME_N = 768               # K4's time in the kernels line: an A/B shape
+K4_BIG_E = 1024               # K4's second time shape, 1024 x 768 x 24
+# K4's own checks: every T of its plan is taken somewhere in this grid.
+K4_EPISODES, K4_SIZES, K4_BEAMS = (1, 64, 1024), (1, 127, 768, 1500), (5, 24,
+                                                                      34)
 # The kernels of one filter's tick, and the batched checks' grids.
 SINGLE = ("beam_weights", "systematic_expand", "kmeans")
 CHECK_EPISODES, CHECK_SIZES, CHECK_BEAMS = (1, 64, 1024), (1, 500, 1500,
@@ -1016,13 +1027,45 @@ def batched_cases(m):
                     yield maze, 64, 500, 24, mode, comb, kind
 
 
+def check_k4(maze, parts, scan, cfg) -> tuple:
+    """K4 against beamsub_plain, and K4 with each T of 1, 2, 4 and 8
+    threads a particle forced (through the C entry, not counted) against
+    the plan's K4 bit for bit: (K4's weights, max-abs error, the plan's T,
+    whether every forced T gave the same bits)."""
+    sub = weights.beamsub_cuda(maze, parts, scan, cfg)
+    threads = weights.beamsub_cuda.last_plan.threads
+    want = weights.beamsub_plain(maze, parts, scan, cfg)
+    forced = [weights._batched_launch(
+        "mcl_beam_weights_beamsub", maze, parts, scan, cfg,
+        *forced_plan(parts, t)) for t in (1, 2, 4, 8)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(f, sub) for f in forced)
+    if not (torch.isfinite(sub).all() and same):
+        raise AssertionError(f"K4 {tuple(parts.shape)} {cfg.ray_mode}/"
+                             f"{cfg.beam_combine}: forced T equal {same}")
+    return sub, (sub - want).abs().max().item(), threads, same
+
+
+def k4_cases(m):
+    """K4's grid: episodes, sizes and beam counts (B < 8 leaves lanes
+    dead) over which its plan takes each T, both modes and combines."""
+    for n_ep in K4_EPISODES:
+        for n in K4_SIZES:
+            for nb in K4_BEAMS:
+                for mode in ("fixed", "analytic"):
+                    for comb in ("sum", "log"):
+                        yield m, n_ep, n, nb, mode, comb
+
+
 def check_batched_weights(m, gen) -> tuple:
     """K1 batched and K4 against their plain versions at 0.0 max-abs error
-    in every case, K1 batched against K1 on each episode bit for bit, and
-    K4's max relative difference from K1 batched, which sums the beams in
-    another order."""
+    in every case, K1 batched against K1 on each episode bit for bit, K4's
+    max relative difference from K1 batched, which sums the beams in
+    another order, and K4 at every T forced equal to its plan's bit for
+    bit; then K4 alone on its grid, where its plan must take every T."""
     worst = dict(beam_weights_batched=0.0, beam_weights_beamsub=0.0)
     rel_k4 = 0.0
+    taken = set()
     for maze, n_ep, n, nb, mode, comb, kind in batched_cases(m):
         cfg = SensorModelConfig(ray_mode=mode, beam_combine=comb)
         parts, scan = batched_inputs(maze, n_ep, n, nb, cfg, gen, kind)
@@ -1032,11 +1075,11 @@ def check_batched_weights(m, gen) -> tuple:
             maze, parts[e], sensor.Scan(scan.angles, scan.ranges[e],
                                         scan.mask[e]), cfg)
             for e in range(n_ep)])
-        sub = weights.beamsub_cuda(maze, parts, scan, cfg)
-        sub_want = weights.beamsub_plain(maze, parts, scan, cfg)
+        sub, k4_err, threads, _ = check_k4(maze, parts, scan, cfg)
+        taken.add(threads)
         torch.cuda.synchronize()
         errs = dict(beam_weights_batched=(got - want).abs().max().item(),
-                    beam_weights_beamsub=(sub - sub_want).abs().max().item())
+                    beam_weights_beamsub=k4_err)
         for name, err in errs.items():
             worst[name] = max(worst[name], err)
         same = torch.equal(got, single)
@@ -1052,18 +1095,33 @@ def check_batched_weights(m, gen) -> tuple:
             max_abs_err=errs["beam_weights_batched"],
             share_close=_close_share(got, want, comb),
             equals_single_k1=same,
-            k4_max_abs_err=errs["beam_weights_beamsub"],
-            k4_share_close=_close_share(sub, sub_want, comb),
+            k4_max_abs_err=errs["beam_weights_beamsub"], k4_threads=threads,
             k4_max_rel_diff_from_k1_batched=rel)
-        finite = bool(torch.isfinite(got).all()
-                      and torch.isfinite(sub).all())
+        finite = bool(torch.isfinite(got).all())
         if not (same and finite and max(errs.values()) == 0.0):
             raise AssertionError(
                 f"K1 batched / K4 E={n_ep} n={n} b={nb} {mode}/{comb} "
                 f"{kind}: {errs}, same={same}")
+    for maze, n_ep, n, nb, mode, comb in k4_cases(m):
+        cfg = SensorModelConfig(ray_mode=mode, beam_combine=comb)
+        parts, scan = batched_inputs(maze, n_ep, n, nb, cfg, gen)
+        _, err, threads, same = check_k4(maze, parts, scan, cfg)
+        taken.add(threads)
+        worst["beam_weights_beamsub"] = max(worst["beam_weights_beamsub"],
+                                            err)
+        say("check", kernel="beam_weights_beamsub", episodes=n_ep, n=n,
+            beams=nb, ray_mode=mode, combine=comb, threads=threads,
+            max_abs_err=err, forced_threads_equal=same)
+        if err != 0.0:
+            raise AssertionError(f"K4 E={n_ep} n={n} b={nb} {mode}/{comb}"
+                                 f" T={threads}: max-abs error {err}")
+    if taken != {1, 2, 4, 8}:
+        raise AssertionError(f"K4's plan took T in {sorted(taken)}, not "
+                             "each of 1, 2, 4 and 8")
     return (dict(max_abs_err=worst["beam_weights_batched"]),
             dict(max_abs_err=worst["beam_weights_beamsub"],
-                 max_rel_diff_from_k1_batched=rel_k4))
+                 max_rel_diff_from_k1_batched=rel_k4,
+                 threads_taken=sorted(taken)))
 
 
 def k2_batch(n_ep, n, gen, dev):
@@ -1391,23 +1449,33 @@ def profile_phase(dev) -> None:
 # -- phase 10: layout A/B of the two batched beam weight kernels -----------
 
 def ab_phase(m, gen) -> dict:
-    """K1 batched (one thread a particle) against K4 (eight threads a
-    particle) at E = 64, analytic, sum, timed in turns (row, beamsub,
-    beamsub, row).  K4 runs only here: the filter never dispatches it."""
-    cfg = SensorModelConfig(ray_mode="analytic")
+    """K1 batched (one thread a particle) against K4 (its plan's T threads
+    a particle) in device time, the profiler's per call (kernel_ab's
+    device_ms), timed in turns (row, beamsub, beamsub, row): at E = 64, n
+    in AB_SIZES, B = 24, at the fleet's 64 x 1500 x 34 and at the CLI
+    serve's 1 x 1500 x 24, analytic and fixed.  K4 runs only here: the
+    filter never dispatches it."""
     torch.cuda.synchronize()
     reset_counts()
-    for n in AB_SIZES:
-        parts, scan = batched_inputs(m, AB_E, n, AB_B, cfg, gen)
-        row = lambda: weights.beam_weights_batched_cuda(m, parts, scan, cfg)
-        sub = lambda: weights.beamsub_cuda(m, parts, scan, cfg)
-        r1, s1, s2, r2 = cuda_ms(row), cuda_ms(sub), cuda_ms(sub), cuda_ms(row)
-        a, b = row(), sub()
-        rel = ((b - a).abs() / torch.clamp(a.abs(), min=1e-6)).max().item()
-        say("layout_ab", episodes=AB_E, n=n, beams=AB_B, ray_mode="analytic",
-            row_ms=[r1, r2], beamsub_ms=[s1, s2],
-            beamsub_over_row=float(np.median([s1, s2]) / np.median([r1, r2])),
-            max_rel_diff=rel)
+    shapes = [(AB_E, n, AB_B) for n in AB_SIZES] + list(AB_MORE)
+    for mode in ("analytic", "fixed"):
+        cfg = SensorModelConfig(ray_mode=mode)
+        for n_ep, n, nb in shapes:
+            parts, scan = batched_inputs(m, n_ep, n, nb, cfg, gen)
+            row = lambda: weights.beam_weights_batched_cuda(m, parts, scan,
+                                                            cfg)
+            sub = lambda: weights.beamsub_cuda(m, parts, scan, cfg)
+            r1, s1, s2, r2 = (device_ms(row), device_ms(sub),
+                              device_ms(sub), device_ms(row))
+            a, b = row(), sub()
+            rel = ((b - a).abs() / torch.clamp(a.abs(), min=1e-6)).max(
+                ).item()
+            say("layout_ab", episodes=n_ep, n=n, beams=nb, ray_mode=mode,
+                k4_threads=weights.beamsub_cuda.last_plan.threads,
+                row_device_ms=[r1, r2], beamsub_device_ms=[s1, s2],
+                beamsub_over_row=float(np.median([s1, s2])
+                                       / np.median([r1, r2])),
+                max_rel_diff=rel)
     torch.cuda.synchronize()
     return counts()
 
@@ -1452,13 +1520,28 @@ def batched_time_phase(m, gen) -> dict:
         **k3_bound(xy, c0, rs), library_ms=None, shape=[SWEEP_E, SWEEP_N])
     acfg = SensorModelConfig(ray_mode="analytic")
     aparts, ascan = batched_inputs(m, AB_E, K4_TIME_N, AB_B, acfg, gen)
+    k4 = lambda: weights.beamsub_cuda(m, aparts, ascan, acfg)
     times["beam_weights_beamsub"] = dict(
-        **turns(lambda: weights.beamsub_cuda(m, aparts, ascan, acfg),
-                lambda: weights.beamsub_plain(m, aparts, ascan, acfg)),
+        **turns(k4, lambda: weights.beamsub_plain(m, aparts, ascan, acfg)),
+        device_ms=device_ms(k4),
+        threads=weights.beamsub_cuda.last_plan.threads,
         **k1_bound(m, aparts, ascan.angles, acfg), library_ms=None,
         shape=[AB_E, K4_TIME_N, AB_B])
     for name, t in times.items():
         say("time", kernel=name, **t)
+    # K4 where the work, not the launch, sets the time, beside K1 batched.
+    for mode in ("analytic", "fixed"):
+        cfg = SensorModelConfig(ray_mode=mode)
+        parts, scan = batched_inputs(m, K4_BIG_E, K4_TIME_N, AB_B, cfg, gen)
+        k4 = lambda: weights.beamsub_cuda(m, parts, scan, cfg)
+        row = lambda: weights.beam_weights_batched_cuda(m, parts, scan, cfg)
+        say("time", kernel="beam_weights_beamsub", ray_mode=mode,
+            shape=[K4_BIG_E, K4_TIME_N, AB_B],
+            **turns(k4, lambda: weights.beamsub_plain(m, parts, scan, cfg)),
+            device_ms=device_ms(k4),
+            threads=weights.beamsub_cuda.last_plan.threads,
+            k1_batched_device_ms=device_ms(row),
+            **k1_bound(m, parts, scan.angles, cfg))
     return times
 
 

@@ -69,14 +69,28 @@
 // The per-particle body is K1's own (particle_weight), so each episode's
 // weights equal K1's on that episode bit for bit.
 //
-// K4: the GPU reading of "one beam per sublane".  Eight consecutive threads
-// share a particle; each repeats the hoisted per-particle work (the TPU
-// kernel repeats it on its 8 sublanes) and sums beams s, s+8, ... in order;
-// the group then adds its eight lane sums in lane order through warp
-// shuffles.
+// K4: the beam-per-sublane function, laid out for the card.  What it
+// computes is fixed by the TPU layout (ops/weights.beamsub_plain): eight
+// lane sums, lane s adding beams s, s+8, ... one after another, then the
+// eight added in lane order.  How many threads hold them is a launch
+// choice (ops/weights.beamsub_plan): T in {1, 2, 4, 8} threads a particle,
+// each keeping its 8/T lane sums apart (never folded together), added in
+// lane order at the end through shuffles, so the bits do not depend on T.
+// Eight threads a particle only where the particles alone leave the card
+// mostly idle; one once they fill half of it.  The per-particle work
+// (sincos of theta, the origin, both axes' state) is done once a particle
+// and shared through shared memory; the gate runs on the group's first
+// thread.  The grid is persistent: as many blocks as the card holds at
+// once, each staging the raster's bit words once and taking (episode,
+// particle block) items from a counter, so there is no tail wave and the
+// blocks finish within about one item of each other.  Bound as K1: issue
+// slots, the cast's arithmetic (PERF.md, section 6).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -85,7 +99,8 @@ constexpr int kCellPx = 8;
 constexpr float kEps = 1e-9f;
 constexpr float kInf = 3e38f;
 constexpr int kThreads = 256;
-constexpr int kLanes = 8;  // K4: threads a particle
+constexpr int kLanes = 8;      // K4: lane sums a particle
+constexpr int kPrepWords = 10;  // K4: a prepared particle in shared memory
 
 struct Params {
   float origin_x, origin_y, inv_res, res, extent_x, extent_y;
@@ -368,21 +383,10 @@ __device__ void pack(uint32_t* dst, const uint8_t* occ, int n_lines,
   }
 }
 
-// Stage the beam table (angles [nb], ranges [nb], mask [nb]), the block's
-// particle rows ([rows, 3] from p0) and the raster's bit words into shared
-// memory; returns the bits to read.
-__device__ Bits stage(float* smem, const float* ang, const float* obs,
-                      const float* msk, int nb, const float* p0, int rows,
-                      int rows_max, const uint8_t* occ, int h, int w,
-                      const Params& P) {
-  for (int t = threadIdx.x; t < nb; t += blockDim.x) {
-    smem[t] = ang[t];
-    smem[nb + t] = obs[t];
-    smem[2 * nb + t] = msk[t];
-  }
-  float* s_parts = smem + 3 * nb;
-  for (int t = threadIdx.x; t < 3 * rows; t += blockDim.x) s_parts[t] = p0[t];
-  uint32_t* words = reinterpret_cast<uint32_t*>(s_parts + 3 * rows_max);
+// Pack the raster's bit words into `words` (shared memory) and return
+// the bits to read; the caller synchronizes before reading them.
+__device__ Bits stage_bits(uint32_t* words, const uint8_t* occ, int h,
+                           int w, const Params& P) {
   Bits B;
   const int wv = (h + 31) / 32, wh = (w + 31) / 32;
   B.w = w;
@@ -397,6 +401,25 @@ __device__ Bits stage(float* smem, const float* ang, const float* obs,
     pack(words, occ, P.n_v, wv, kCellPx, w, h);
     pack(words + P.n_v * wv, occ, P.n_h, wh, kCellPx * w, 1, w);
   }
+  return B;
+}
+
+// Stage the beam table (angles [nb], ranges [nb], mask [nb]), the block's
+// particle rows ([rows, 3] from p0) and the raster's bit words into shared
+// memory; returns the bits to read.
+__device__ Bits stage(float* smem, const float* ang, const float* obs,
+                      const float* msk, int nb, const float* p0, int rows,
+                      int rows_max, const uint8_t* occ, int h, int w,
+                      const Params& P) {
+  for (int t = threadIdx.x; t < nb; t += blockDim.x) {
+    smem[t] = ang[t];
+    smem[nb + t] = obs[t];
+    smem[2 * nb + t] = msk[t];
+  }
+  float* s_parts = smem + 3 * nb;
+  for (int t = threadIdx.x; t < 3 * rows; t += blockDim.x) s_parts[t] = p0[t];
+  Bits B = stage_bits(reinterpret_cast<uint32_t*>(s_parts + 3 * rows_max),
+                      occ, h, w, P);
   __syncthreads();
   return B;
 }
@@ -437,42 +460,140 @@ __global__ void beam_weights_batched_kernel(
                       smem + 2 * nb, nb, B, dil, P);
 }
 
-// K4: kLanes threads a particle.  Every thread of the warp takes part in
-// the shuffles, so threads past the end compute nothing but do not return
-// early.
-__global__ void beam_weights_beamsub_kernel(
-    const float* __restrict__ parts, int n, const float* __restrict__ ang,
-    const float* __restrict__ obs, const float* __restrict__ msk, int nb,
-    const uint8_t* __restrict__ occ, const uint8_t* __restrict__ dil, int h,
-    int w, Params P, float* __restrict__ out) {
+// K4's prepared particles in shared memory: field f of particle j at
+// s[f * per + j].
+__device__ __forceinline__ void put_particle(float* s, int per, int j,
+                                             const Particle& q) {
+  s[j] = q.x;
+  s[per + j] = q.y;
+  s[2 * per + j] = q.th;
+  s[3 * per + j] = q.ox;
+  s[4 * per + j] = q.oy;
+  s[5 * per + j] = q.gx;
+  s[6 * per + j] = q.gy;
+  int* si = reinterpret_cast<int*>(s);
+  si[7 * per + j] = q.pv.k0;
+  si[8 * per + j] = q.ph.k0;
+  si[9 * per + j] = (int)q.inb | (int)q.pv.inside0 << 1 |
+                    (int)q.pv.origin0 << 2 | (int)q.ph.inside0 << 3 |
+                    (int)q.ph.origin0 << 4;
+}
+
+__device__ __forceinline__ Particle get_particle(const float* s, int per,
+                                                 int j) {
+  Particle q;
+  q.x = s[j];
+  q.y = s[per + j];
+  q.th = s[2 * per + j];
+  q.ox = s[3 * per + j];
+  q.oy = s[4 * per + j];
+  q.gx = s[5 * per + j];
+  q.gy = s[6 * per + j];
+  const int* si = reinterpret_cast<const int*>(s);
+  const int f = si[9 * per + j];
+  q.inb = f & 1;
+  q.pv = AxisPrep{si[7 * per + j], (f & 2) != 0, (f & 4) != 0};
+  q.ph = AxisPrep{si[8 * per + j], (f & 8) != 0, (f & 16) != 0};
+  return q;
+}
+
+// K4: T threads a particle, blocks of `per` particles (per * T threads, a
+// whole number of warps), a persistent grid of G blocks.  Item f = e *
+// chunks + c is particles [c * per, c * per + per) of episode e, cut at n.
+// Block b takes item b first; where there are more items than blocks, a
+// block done with one takes the next, G + the counter `next` (zero at the
+// launch), so blocks that draw short casts take more items and all finish
+// within about one item of each other.  Items come in episode order, so
+// blocks side by side work on one episode, and a block restages the
+// episode's ranges and mask only where its item moved to another.  Thread
+// r of a particle's group sums its lanes r, r + T, ... one after another,
+// each lane's beams in order in one register, and keeps lane r + T * v in
+// acc[v]; the group adds the eight in lane order (with T = 1 the thread
+// adds each lane as it is done).  Every thread of the warp takes part in
+// the shuffles, so threads past the end compute nothing but stay.
+template <int T>
+__global__ void __launch_bounds__(kThreads) beamsub_kernel(
+    const float* __restrict__ parts, int episodes, int n,
+    const float* __restrict__ ang, const float* __restrict__ obs,
+    const float* __restrict__ msk, int nb, const uint8_t* __restrict__ occ,
+    const uint8_t* __restrict__ dil, int h, int w, Params P, int per,
+    int* __restrict__ next, float* __restrict__ out) {
+  constexpr int L = kLanes / T;
+  // Shared memory: the beam table, the prepared particles (T > 1), the
+  // raster's words, and the next item.
   extern __shared__ float smem[];
-  const size_t e = blockIdx.y;
-  const int per_block = blockDim.x / kLanes;
-  const int i0 = blockIdx.x * per_block;
-  const int rows = min(per_block, n - i0);
-  const size_t k0 = e * (size_t)n + i0;
-  Bits B = stage(smem, ang, obs + e * nb, msk + e * nb, nb, parts + 3 * k0,
-                 rows, per_block, occ, h, w, P);
-  const float* s_ang = smem;
-  const float* s_obs = smem + nb;
-  const float* s_msk = smem + 2 * nb;
-  const int lane = threadIdx.x % kLanes;
-  const int j = threadIdx.x / kLanes;
-  const bool live = j < rows;
-  Particle q = prepare(live ? smem[3 * nb + 3 * j] : 0.0f,
-                       live ? smem[3 * nb + 3 * j + 1] : 0.0f,
-                       live ? smem[3 * nb + 3 * j + 2] : 0.0f, B, P);
-  float part = 0.0f;
-  if (live)
-    for (int b = lane; b < nb; b += kLanes)
-      part = accumulate(part, beam_prob(q, s_ang[b], s_obs[b], B, P),
-                        s_msk[b], P);
-  int base = (threadIdx.x % 32) & ~(kLanes - 1);
-  float prob = 0.0f;
+  float* s_ang = smem;
+  float* s_obs = smem + nb;
+  float* s_msk = smem + 2 * nb;
+  float* s_prep = smem + 3 * nb;
+  uint32_t* words =
+      reinterpret_cast<uint32_t*>(s_prep + (T > 1 ? kPrepWords * per : 0));
+  int& s_item = reinterpret_cast<int*>(words)[raster_words(P, h, w)];
+  for (int t = threadIdx.x; t < nb; t += blockDim.x) s_ang[t] = ang[t];
+  const Bits B = stage_bits(words, occ, h, w, P);
+  const int chunks = (n + per - 1) / per;
+  const int items = episodes * chunks;
+  const bool more = items > (int)gridDim.x;
+  const int j = threadIdx.x / T, r = threadIdx.x % T;
+  int staged = -1;
+  __syncthreads();  // the raster is packed
+  for (int f = blockIdx.x; f < items;) {
+    const int e = f / chunks;
+    const int i0 = (f - e * chunks) * per;
+    const int rows = min(per, n - i0);
+    const size_t k0 = (size_t)e * n + i0;
+    if (e != staged) {
+      for (int t = threadIdx.x; t < nb; t += blockDim.x) {
+        s_obs[t] = obs[(size_t)e * nb + t];
+        s_msk[t] = msk[(size_t)e * nb + t];
+      }
+      staged = e;
+    }
+    if constexpr (T > 1) {
+      if ((int)threadIdx.x < rows) {
+        const float* row = parts + 3 * (k0 + threadIdx.x);
+        put_particle(s_prep, per, threadIdx.x,
+                     prepare(row[0], row[1], row[2], B, P));
+      }
+    }
+    __syncthreads();
+    if (more && threadIdx.x == 0) s_item = gridDim.x + atomicAdd(next, 1);
+    const bool live = j < rows;
+    Particle q;
+    if constexpr (T > 1) {
+      q = get_particle(s_prep, per, j);
+    } else if (live) {
+      const float* row = parts + 3 * (k0 + j);
+      q = prepare(row[0], row[1], row[2], B, P);
+    }
+    float acc[L], prob = 0.0f;
 #pragma unroll
-  for (int s = 0; s < kLanes; ++s)
-    prob += __shfl_sync(0xffffffffu, part, base + s);
-  if (live && lane == 0) out[k0 + j] = gate(q, prob, dil, P, h, w);
+    for (int v = 0; v < L; ++v) acc[v] = 0.0f;
+    if (live) {
+#pragma unroll 1
+      for (int v = 0; v < L; ++v) {
+        float lane = 0.0f;
+        for (int b = r + T * v; b < nb; b += kLanes)
+          lane = accumulate(lane, beam_prob(q, s_ang[b], s_obs[b], B, P),
+                            s_msk[b], P);
+        if constexpr (T == 1) {
+          prob += lane;  // one thread holds all eight, in lane order
+        } else {
+#pragma unroll
+          for (int u = 0; u < L; ++u) acc[u] = u == v ? lane : acc[u];
+        }
+      }
+    }
+    if constexpr (T > 1) {
+#pragma unroll
+      for (int s = 0; s < kLanes; ++s)
+        prob += __shfl_sync(0xffffffffu, acc[s / T], s % T, T);
+    }
+    if (live && r == 0) out[k0 + j] = gate(q, prob, dil, P, h, w);
+    if (!more) break;  // one item a block
+    __syncthreads();   // the item is read and s_item is set
+    f = s_item;
+  }
 }
 
 void unpack(const float* fparams, const int* iparams, Params* P) {
@@ -482,11 +603,12 @@ void unpack(const float* fparams, const int* iparams, Params* P) {
   for (int t = 0; t < 8; ++t) pi[t] = iparams[t];
 }
 
-// Shared memory of a block: the beam table, `rows` particle rows and the
-// raster's words; raises the kernel's limit past 48 KB where needed.
-cudaError_t smem_for(const void* kernel, const Params& P, int nb, int rows,
+// Shared memory of a block: the beam table, `extra` words (particle rows,
+// K4's prepared particles and item) and the raster's words; raises the
+// kernel's limit past 48 KB where needed.
+cudaError_t smem_for(const void* kernel, const Params& P, int nb, int extra,
                      int h, int w, size_t* bytes) {
-  *bytes = 4 * (3 * (size_t)nb + 3 * (size_t)rows +
+  *bytes = 4 * (3 * (size_t)nb + (size_t)extra +
                 (size_t)raster_words(P, h, w));
   int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
@@ -515,7 +637,7 @@ extern "C" int mcl_beam_weights(const float* particles, int n,
   unpack(fparams, iparams, &P);
   size_t smem;
   cudaError_t err = smem_for((const void*)beam_weights_kernel, P, nb,
-                             kThreads, h, w, &smem);
+                             3 * kThreads, h, w, &smem);
   if (err != cudaSuccess) return (int)err;
   if (n > 0) {
     int blocks = (n + kThreads - 1) / kThreads;
@@ -538,7 +660,7 @@ extern "C" int mcl_beam_weights_batched(
   unpack(fparams, iparams, &P);
   size_t smem;
   cudaError_t err = smem_for((const void*)beam_weights_batched_kernel, P, nb,
-                             kThreads, h, w, &smem);
+                             3 * kThreads, h, w, &smem);
   if (err != cudaSuccess) return (int)err;
   if (n > 0 && episodes > 0) {
     dim3 grid((n + kThreads - 1) / kThreads, episodes);
@@ -549,25 +671,65 @@ extern "C" int mcl_beam_weights_batched(
   return (int)cudaGetLastError();
 }
 
-// K4, same arguments as mcl_beam_weights_batched.
+// K4: the arguments of mcl_beam_weights_batched, then T threads a particle
+// (1, 2, 4 or 8) and `per` particles a block (per * T threads, a whole
+// number of warps, at most kThreads), both from ops/weights.beamsub_plan,
+// and `next`, one int of device scratch for the item counter, which the
+// entry zeroes on the stream where there are more items than blocks.  The grid is as many blocks as the card holds
+// at once, at most one an item.  Returns the first CUDA error.
+namespace {
+
+template <int T>
+cudaError_t launch_beamsub(const float* particles, int episodes, int n,
+                           const float* angles, const float* ranges,
+                           const float* mask, int nb, const uint8_t* occ,
+                           const uint8_t* dil, int h, int w, const Params& P,
+                           int per, int* next, float* out,
+                           cudaStream_t stream) {
+  const void* kernel = (const void*)beamsub_kernel<T>;
+  const int threads = per * T;
+  size_t smem;
+  cudaError_t err = smem_for(kernel, P, nb,
+                             (T > 1 ? kPrepWords * per : 0) + 1, h, w, &smem);
+  int dev, sms, resident;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  const long long items = (long long)episodes * ((n + per - 1) / per);
+  const long long grid = std::min(items, (long long)resident * sms);
+  if (items + grid > INT_MAX) return cudaErrorInvalidValue;
+  if (items > grid) err = cudaMemsetAsync(next, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  beamsub_kernel<T><<<(int)grid, threads, smem, stream>>>(
+      particles, episodes, n, angles, ranges, mask, nb, occ, dil, h, w, P,
+      per, next, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int mcl_beam_weights_beamsub(
     const float* particles, int episodes, int n, const float* angles,
     const float* ranges, const float* mask, int nb, const uint8_t* occ,
     const uint8_t* dil, int h, int w, const float* fparams,
-    const int* iparams, float* out, void* stream) {
-  if (episodes > 65535) return (int)cudaErrorInvalidValue;
+    const int* iparams, float* out, int threads_per_particle, int per,
+    int* next, void* stream) {
+  const int T = threads_per_particle;
+  if ((T != 1 && T != 2 && T != 4 && T != 8) || per < 1 ||
+      per * T > kThreads || (per * T) % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0 || episodes <= 0) return (int)cudaGetLastError();
   Params P;
   unpack(fparams, iparams, &P);
-  const int per_block = kThreads / kLanes;
-  size_t smem;
-  cudaError_t err = smem_for((const void*)beam_weights_beamsub_kernel, P, nb,
-                             per_block, h, w, &smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n > 0 && episodes > 0) {
-    dim3 grid((n + per_block - 1) / per_block, episodes);
-    beam_weights_beamsub_kernel<<<grid, kThreads, smem,
-                                  (cudaStream_t)stream>>>(
-        particles, n, angles, ranges, mask, nb, occ, dil, h, w, P, out);
-  }
-  return (int)cudaGetLastError();
+  auto* launch = T == 1   ? &launch_beamsub<1>
+                 : T == 2 ? &launch_beamsub<2>
+                 : T == 4 ? &launch_beamsub<4>
+                          : &launch_beamsub<8>;
+  return (int)launch(particles, episodes, n, angles, ranges, mask, nb, occ,
+                     dil, h, w, P, per, next, out, (cudaStream_t)stream);
 }

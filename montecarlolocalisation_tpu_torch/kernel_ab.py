@@ -3,14 +3,17 @@ one GPU.
 
     python -m montecarlolocalisation_tpu_torch.kernel_ab OLD_CSRC [PART ...]
 
-PART is any of ptxas, sincosf, ablation, turns and expand; all of them
-without one.  OLD_CSRC holds the earlier sources the parts read: for
-ablation and turns, csrc/weights.cu and csrc/kmeans.cu with the C entries
-they had at commit 97cbc4c (a pixel-scan K1, a K3 of two launches an
-iteration); for expand, csrc/expand.cu as it was from 97cbc4c to e1e0d5d
-(K2 taking offspring counts computed in torch).  For example
+PART is any of ptxas, sincosf, ablation, turns, expand and beamsub; all
+of them without one.  OLD_CSRC holds the earlier sources the parts read:
+for ablation and turns, csrc/weights.cu and csrc/kmeans.cu with the C
+entries they had at commit 97cbc4c (a pixel-scan K1, a K3 of two launches
+an iteration); for expand, csrc/expand.cu as it was from 97cbc4c to
+e1e0d5d (K2 taking offspring counts computed in torch); for beamsub,
+csrc/weights.cu as it was at commit 24f8e6e (K4 with eight threads a
+particle on a grid of particle blocks x episodes).  For example
 `git archive 97cbc4c montecarlolocalisation_tpu_torch/csrc | tar -x
---strip-components=2 -C OLD_CSRC`.  It prints one JSON line a result:
+--strip-components=2 -C OLD_CSRC`.  Parts that need different commits run
+in separate invocations.  It prints one JSON line a result:
 
 1. `ptxas`: registers, stack and spills of every current kernel.
 2. `sincosf`: whether the card's sincosf gives sinf's and cosf's bits on
@@ -41,6 +44,22 @@ iteration); for expand, csrc/expand.cu as it was from 97cbc4c to e1e0d5d
    `expand_paths`: the current kernel's two paths forced at the same
    sizes up to its one-block limit, ops/expand.SMALL_N, at 1, 8, 64 and
    1024 episodes, in device time.
+6. `beamsub`: K4 of OLD_CSRC against the current one at 64 x {500, 768,
+   2000} x 24, 1024 x 768 x 24, 64 x 1500 x 34 and 1 x 1500 x 24, analytic
+   and fixed, on uniform particles, in device time, timed old, new, new,
+   old; the outputs compared bit for bit.  Beside them, at each shape: K1
+   batched; the current K4 with each T of 1, 2, 4 and 8 threads a particle
+   forced; and three variants of the current source at the plan's T, timed
+   in turns with it: "static_runs" (each block takes a fixed contiguous run
+   of items instead of drawing the next from the counter), "recompute"
+   (every thread of a group prepares its particle itself) and "shuffle"
+   (the group's first thread prepares it and broadcasts the fields by
+   __shfl_sync), which must give the current kernel's bits; and four
+   diagnostics: "beam_order" (each thread's beams in beam order into one
+   sum: other weights, the same work), "one_item_blocks" (one block an
+   item, not persistent), "no_bounds" (no __launch_bounds__) and "bounds5"
+   (registers capped for five blocks an SM).  The ptxas lines of every
+   variant come first.
 
 It needs a CUDA card and nvcc, and fails without them.
 """
@@ -132,6 +151,49 @@ NEW_ABLATIONS = {
 }
 
 
+# Variants of the current weights.cu's K4, named in the docstring's part 6.
+_FIRST_ITEM = "  for (int f = blockIdx.x; f < items;) {"
+_NEXT_ITEM = "    if (more && threadIdx.x == 0) s_item = gridDim.x + atomicAdd(next, 1);"
+_SMEM_PREP = "    if constexpr (T > 1) {\n      if ((int)threadIdx.x < rows) {"
+_GET_PREP = "      q = get_particle(s_prep, per, j);"
+_OWN_PREP = """      if (live) {
+        const float* row = parts + 3 * (k0 + j);
+        q = prepare(row[0], row[1], row[2], B, P);
+      }"""
+_SHFL = "__shfl_sync(0xffffffffu, {0}, 0, T)"
+_SHFL_PREP = (_OWN_PREP.replace("if (live)", "if (live && r == 0)") + "\n"
+              + "".join(f"      q.{f} = {_SHFL.format('q.' + f)};\n"
+                        for f in ("x", "y", "th", "ox", "oy", "gx", "gy",
+                                  "pv.k0", "ph.k0"))
+              + "".join(f"      q.{f} = {_SHFL.format('(int)q.' + f)} != 0;\n"
+                        for f in ("inb", "pv.inside0", "pv.origin0",
+                                  "ph.inside0", "ph.origin0")))
+BEAMSUB_VARIANTS = {
+    "static_runs": [
+        (_FIRST_ITEM, _FIRST_ITEM.replace(
+            "blockIdx.x;",
+            "(int)(blockIdx.x * (long long)items / gridDim.x);")),
+        (_NEXT_ITEM, _NEXT_ITEM.replace(
+            "gridDim.x + atomicAdd(next, 1)",
+            "f + 1 < (int)((blockIdx.x + 1) * (long long)items / gridDim.x)"
+            " ? f + 1 : items"))],
+    "recompute": [(_SMEM_PREP, _SMEM_PREP.replace("(T > 1)", "(T < 1)")),
+                  (_GET_PREP, _OWN_PREP)],
+    "shuffle": [(_SMEM_PREP, _SMEM_PREP.replace("(T > 1)", "(T < 1)")),
+                (_GET_PREP, _SHFL_PREP.rstrip("\n"))],
+    "beam_order": [("for (int b = r + T * v; b < nb; b += kLanes)",
+                    "for (int b = r; b < nb && v == 0; b += T)")],
+    "one_item_blocks": [(
+        "std::min(items, (long long)resident * sms)", "items")],
+    "no_bounds": [("__global__ void __launch_bounds__(kThreads) beamsub",
+                   "__global__ void beamsub")],
+    "bounds5": [("__launch_bounds__(kThreads) beamsub",
+                 "__launch_bounds__(kThreads, 5) beamsub")],
+}
+BEAMSUB_SHAPES = ((64, 500, 24), (64, 768, 24), (64, 2000, 24),
+                  (1024, 768, 24), (64, 1500, 34), (1, 1500, 24))
+
+
 def say(part: str, **fields) -> None:
     print(json.dumps(dict(part=part, **fields)), flush=True)
 
@@ -167,11 +229,15 @@ def compile_libs(sources: dict, workdir: str) -> dict:
     return libs
 
 
-def weight_entries(lib):
+def weight_entries(lib, old_k4: bool = False):
+    """Set the beam weight entries' argtypes; an earlier K4 (old_k4) takes
+    K1 batched's arguments, without a plan or a counter."""
     for entry in ("mcl_beam_weights", "mcl_beam_weights_batched",
                   "mcl_beam_weights_beamsub"):
         fn = getattr(lib, entry)
-        fn.argtypes = build.SIGNATURES[entry]
+        fn.argtypes = build.SIGNATURES[
+            "mcl_beam_weights_batched" if old_k4 and "sub" in entry
+            else entry]
         fn.restype = ctypes.c_int
     return lib
 
@@ -193,8 +259,10 @@ def k1(lib, m, parts, scan, cfg):
     return out
 
 
-def k1_batched(lib, entry, m, parts, scan, cfg):
-    """One K1 batched or K4 launch through `lib`'s C entry."""
+def k1_batched(lib, entry, m, parts, scan, cfg, *plan):
+    """One K1 batched or K4 launch through `lib`'s C entry; the current K4
+    takes its threads a particle and particles a block (`plan`) and an
+    item counter, an earlier one neither."""
     n_ep, n = parts.shape[0], parts.shape[1]
     nb = scan.angles.shape[0]
     sign = -1.0 if cfg.negate_beam_angle else 1.0
@@ -203,11 +271,13 @@ def k1_batched(lib, entry, m, parts, scan, cfg):
     mask = scan.mask.to(torch.float32).contiguous()
     out = torch.empty((n_ep, n), dtype=torch.float32, device=parts.device)
     fp, ip = weights._params(m, cfg)
+    counter = torch.empty(1, dtype=torch.int32, device=parts.device)
+    tail = (*plan, counter.data_ptr()) if plan else ()
     build.check(getattr(lib, entry)(
         parts.data_ptr(), n_ep, n, angles.data_ptr(), ranges.data_ptr(),
         mask.data_ptr(), nb, m.occ.data_ptr(), m.occ_dilated.data_ptr(),
         m.height, m.width, ctypes.addressof(fp), ctypes.addressof(ip),
-        out.data_ptr(), build.stream_handle(parts.device)), entry)
+        out.data_ptr(), *tail, build.stream_handle(parts.device)), entry)
     return out
 
 
@@ -392,7 +462,7 @@ def ptxas_part(workdir):
 
 def turns_part(old_libs, gen):
     dev = torch.device("cuda")
-    old_w = weight_entries(old_libs["weights"])
+    old_w = weight_entries(old_libs["weights"], old_k4=True)
     old_k = old_libs["kmeans"]
     old_k.mcl_kmeans.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -569,7 +639,67 @@ def expand_part(old_dir, workdir, gen):
                 equal=same)
 
 
-PARTS = ("ptxas", "sincosf", "ablation", "turns", "expand")
+def forced_plan(parts, t: int) -> tuple:
+    """K4's C entry arguments (threads a particle, particles a block) with
+    T = t forced on particles [E, n, 3]."""
+    plan = weights.BeamsubPlan.for_threads(parts.shape[0], parts.shape[1], t)
+    return plan.threads, plan.per_block
+
+
+def beamsub_part(old_dir, workdir, gen):
+    with open(os.path.join(old_dir, "weights.cu")) as f:
+        old_src = f.read()
+    with open(os.path.join(build.CSRC, "weights.cu")) as f:
+        new_src = f.read()
+    sources = {f"k4_{k}": v for k, v in variants(
+        new_src, BEAMSUB_VARIANTS).items()}
+    sources["k4_old"] = old_src
+    libs = compile_libs(sources, workdir)
+    old = weight_entries(libs.pop("k4_old"), old_k4=True)
+    libs = {k[3:]: weight_entries(v) for k, v in libs.items()}
+    names = list(libs)
+    entry = "mcl_beam_weights_beamsub"
+    m = presets.make_world(device="cuda").maze
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (n_ep, n, nb), mode in ((s, mode) for mode in ("analytic", "fixed")
+                                for s in BEAMSUB_SHAPES):
+        cfg = SensorModelConfig(ray_mode=mode)
+        parts, scan = weight_inputs(m, n, nb, cfg, gen, episodes=n_ep)
+        plan = weights.beamsub_plan(n_ep, n, nb, sms)
+        p_args = (plan.threads, plan.per_block)
+        want = weights.beamsub_plain(m, parts, scan, cfg)
+        o_fn = lambda: k1_batched(old, entry, m, parts, scan, cfg)
+        n_fn = lambda: weights.beamsub_cuda(m, parts, scan, cfg)
+        o1, n1, n2, o2 = (device_ms(o_fn), device_ms(n_fn), device_ms(n_fn),
+                          device_ms(o_fn))
+        forced = {t: device_ms(lambda t=t: k1_batched(
+            libs["base"], entry, m, parts, scan, cfg,
+            *forced_plan(parts, t))) for t in (1, 2, 4, 8)}
+        var = {k: lambda k=k: k1_batched(libs[k], entry, m, parts, scan, cfg,
+                                         *p_args) for k in names}
+        sides = {k: [] for k in names}
+        for k in names + names[::-1]:
+            sides[k].append(device_ms(var[k]))
+        say("beamsub", shape=[n_ep, n, nb], ray_mode=mode,
+            plan_threads=plan.threads, plan_per_block=plan.per_block,
+            old_device_ms=[o1, o2], new_device_ms=[n1, n2],
+            k1_batched_device_ms=device_ms(
+                lambda: weights.beam_weights_batched_cuda(m, parts, scan,
+                                                          cfg)),
+            forced_threads_device_ms=forced,
+            variant_device_ms={k: float(np.median(v))
+                               for k, v in sides.items()},
+            variant_sides=sides,
+            old_bit_equal=bool(torch.equal(o_fn(), n_fn())),
+            new_bit_equal_plain=bool(torch.equal(n_fn(), want)),
+            variants_bit_equal={k: bool(torch.equal(f(), want))
+                                for k, f in var.items()},
+            forced_bit_equal={t: bool(torch.equal(k1_batched(
+                libs["base"], entry, m, parts, scan, cfg,
+                *forced_plan(parts, t)), want)) for t in (1, 2, 4, 8)})
+
+
+PARTS = ("ptxas", "sincosf", "ablation", "turns", "expand", "beamsub")
 
 
 def main(argv=None) -> None:
@@ -604,6 +734,8 @@ def main(argv=None) -> None:
             turns_part(old_libs, gen)
         if "expand" in parts:
             expand_part(old_dir, workdir, gen)
+        if "beamsub" in parts:
+            beamsub_part(old_dir, workdir, gen)
 
 
 if __name__ == "__main__":

@@ -44,8 +44,10 @@ SIGNATURES = {
     # iparams, out, stream
     "mcl_beam_weights_batched": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
                                  _I, _P, _P, _P, _P],
+    # ... out, then threads a particle, particles a block, item counter,
+    # stream
     "mcl_beam_weights_beamsub": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
-                                 _I, _P, _P, _P, _P],
+                                 _I, _P, _P, _P, _I, _I, _P, _P],
     # particles, cdf, u0, E, n, d, out, scratch, stream
     "mcl_systematic_expand": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "mcl_expand_device_launches": [],

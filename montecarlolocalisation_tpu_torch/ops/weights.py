@@ -12,16 +12,18 @@ after its Pallas kernels (ops/weights_pallas.py:330, :371).
 - K1 batched (`beam_weights_batched`): episodes [E, N, 3] with one shared
   beam table angles [B] and per-episode ranges and mask [E, B]; per
   episode the same arithmetic as K1, bit for bit.
-- K4 (`beam_weights_beamsub`): the same function as K1 batched in the
-  beam-per-sublane layout of weights_pallas.py:432: eight threads share a
-  particle and thread s sums beams s, s+8, ...; the eight lane sums are
-  then added in lane order.  Its public form finishes log mode per
-  episode, as the JAX launcher does (weights_pallas.py:590-593).  The
-  filter never dispatches it.
+- K4 (`beam_weights_beamsub`): the function of the beam-per-sublane
+  layout of weights_pallas.py:432 (`beamsub_plain`): eight lane sums, lane
+  s adding beams s, s+8, ... in order, then the eight added in lane order.
+  `beamsub_plan` picks how many threads hold a particle's lanes and how
+  many particles a block takes; the bits do not depend on it.  Its public
+  form finishes log mode per episode, as the JAX launcher does
+  (weights_pallas.py:590-593).  The filter never dispatches it.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -32,9 +34,12 @@ from ..models import sensor
 from . import analytic, build
 
 MAX_BEAMS = 1024   # beam table in shared memory next to the raster's bits
-SUBLANES = 8   # K4: threads per particle, each summing every 8th beam
+SUBLANES = 8   # K4: lane sums a particle, lane s summing every 8th beam
 BLOCK = 256    # threads of a block; K1 stages this many particle rows
 SMEM_MAX = 232_448   # shared memory one H100 block may opt in to (bytes)
+# K4's resident threads an SM: four blocks of BLOCK threads at its 60 to 64
+# registers a thread (ptxas; PERF.md, section 6).
+K4_THREADS_PER_SM = 1024
 
 
 def _beam_terms(m: MazeMap, particles, scan: sensor.Scan,
@@ -79,6 +84,57 @@ def beamsub_plain(m: MazeMap, particles, scan: sensor.Scan,
     for g in range(groups.shape[-2]):
         lanes = lanes + groups[..., g, :]
     return _gate(m, cfg, particles, sensor.beam_sum(lanes))
+
+
+@dataclasses.dataclass(frozen=True)
+class BeamsubPlan:
+    """How one K4 call runs.  `threads` threads (1, 2, 4 or 8) share a
+    particle, thread r holding lane sums r, r + threads, ...; a block takes
+    `per_block` particles (threads * per_block threads, whole warps, at most
+    BLOCK).  Item f = e * chunks + c is particles [c * per_block,
+    (c + 1) * per_block) of episode e, cut at n.  The grid is persistent
+    (as many blocks as the card holds at once, chosen by the C entry); each
+    block takes the next item, in item order, from a counter on the card
+    whenever it is done with one."""
+    episodes: int
+    n: int
+    threads: int
+    per_block: int
+
+    @classmethod
+    def for_threads(cls, episodes: int, n: int, threads: int):
+        """The plan with `threads` threads a particle: a block of BLOCK
+        threads, fewer where n is small (whole warps)."""
+        width = min(BLOCK, 32 * -(-max(n, 1) * threads // 32))
+        return cls(episodes=episodes, n=n, threads=threads,
+                   per_block=width // threads)
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.n // self.per_block)
+
+    @property
+    def items(self) -> int:
+        return self.episodes * self.chunks
+
+    def item(self, f: int):
+        """(episode, first particle, particle past the last) of item f."""
+        e, c = divmod(f, self.chunks)
+        start = c * self.per_block
+        return e, start, min(start + self.per_block, self.n)
+
+
+def beamsub_plan(n_ep: int, n: int, nb: int, sms: int) -> BeamsubPlan:
+    """K4's launch plan for E = n_ep episodes of n particles and nb beams
+    on a card of `sms` SMs: the most threads a particle, 8, 4 or 2, that
+    keeps E x n x T within the threads K4 holds resident (sms x
+    K4_THREADS_PER_SM) and leaves no thread without a beam (T <= nb); else
+    one.  So T = 8 only where the particles alone leave the card mostly
+    idle (an eighth of it or less), T never grows with E x n, and T = 1
+    once they fill half of it."""
+    cap = sms * K4_THREADS_PER_SM
+    t = next((t for t in (8, 4, 2) if t <= nb and n_ep * n * t <= cap), 1)
+    return BeamsubPlan.for_threads(n_ep, n, t)
 
 
 def _params(m: MazeMap, cfg: SensorModelConfig):
@@ -166,9 +222,10 @@ beam_weights_cuda.launches = 0
 
 
 def _batched_launch(entry: str, m: MazeMap, particles, scan: sensor.Scan,
-                    cfg: SensorModelConfig):
-    """Launch a batched C entry (K1 batched or K4): particles [E, N, 3],
-    angles [B], ranges and mask [E, B] -> [E, N]."""
+                    cfg: SensorModelConfig, *plan: int):
+    """Launch a batched C entry (K1 batched, or K4 with its plan's threads
+    a particle and particles a block): particles [E, N, 3], angles [B],
+    ranges and mask [E, B] -> [E, N]."""
     _check_particles(m, particles, 3, entry)
     n_ep, n = particles.shape[0], particles.shape[1]
     nb = scan.angles.shape[0]
@@ -190,11 +247,15 @@ def _batched_launch(entry: str, m: MazeMap, particles, scan: sensor.Scan,
     dil = m.occ_dilated.contiguous()
     out = torch.empty((n_ep, n), dtype=torch.float32, device=parts.device)
     fp, ip = _params(m, cfg)
+    # K4's item counter: one int of scratch, zeroed by the C entry.
+    counter = torch.empty(1, dtype=torch.int32, device=parts.device) \
+        if plan else None
+    tail = (*plan, counter.data_ptr()) if plan else ()
     err = getattr(lib, entry)(
         parts.data_ptr(), n_ep, n, angles.data_ptr(), ranges.data_ptr(),
         mask.data_ptr(), nb, occ.data_ptr(), dil.data_ptr(), m.height,
         m.width, ctypes.addressof(fp), ctypes.addressof(ip), out.data_ptr(),
-        build.stream_handle(parts.device))
+        *tail, build.stream_handle(parts.device))
     build.check(err, entry)
     return out
 
@@ -213,14 +274,23 @@ beam_weights_batched_cuda.launches = 0
 
 def beamsub_cuda(m: MazeMap, particles, scan: sensor.Scan,
                  cfg: SensorModelConfig):
-    """Launch K4 on CUDA tensors (raw log-sums in log mode)."""
+    """Launch K4 on CUDA tensors (raw log-sums in log mode), planned for
+    the card it runs on; `beamsub_cuda.last_plan` is the last launch's
+    plan."""
+    _check_particles(m, particles, 3, "beamsub_cuda")
+    plan = beamsub_plan(particles.shape[0], particles.shape[1],
+                        scan.angles.shape[0],
+                        torch.cuda.get_device_properties(
+                            particles.device).multi_processor_count)
     out = _batched_launch("mcl_beam_weights_beamsub", m, particles, scan,
-                          cfg)
+                          cfg, plan.threads, plan.per_block)
     beamsub_cuda.launches += 1
+    beamsub_cuda.last_plan = plan
     return out
 
 
 beamsub_cuda.launches = 0
+beamsub_cuda.last_plan = None
 
 
 def _dispatch(plain, cuda, particles, *args):
