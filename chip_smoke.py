@@ -15,7 +15,15 @@ the filter through the entry points a user calls:
   34 for 20 frames;
 - the layout A/B of the two episode-batched beam weight kernels (K1
   batched against K4) in device time, the port's counterpart of
-  tools/ab_beamsub.py.
+  tools/ab_beamsub.py;
+- the production schedule: (a) the sweep at 1024 x 500 x 24 x 300 with
+  the ESS gate at 0.5 and 2 rounds of gradient refinement (raises below
+  0.95 converged or alias-converged, or above 0.15 m alias RMSE); (b) the
+  elastic server, MCLServer with the KLD budget on [1024, 65,536], the
+  ESS gate and refinement over 96 wander frames with a kidnap at frame 64,
+  every other frame a raw LaserScan, and a checkpoint whose restore must
+  repeat the next 10 replies exactly; (c) the server at 1,048,576 x 34
+  under the ESS gate.
 
 Every phase prints one JSON line; any failure raises, so the exit code is
 non-zero and no result line appears.  It needs one CUDA card and fails
@@ -35,12 +43,22 @@ run of sources without offspring, on both of their paths (one device launch a ca
 block an episode, two over source tiles), with a batch equal to its
 episodes.
 
+F1: K1, K1 batched and K4 also hold 0.0 max-abs error on random mazes
+whose rasters do not fit a block's shared memory (the smallest such
+square maze for each ray mode, and one twice its side), where they read
+the raster's bit words from a device buffer; the two raster forms give
+the same bits on rasters that fit both, and their device times set the
+size at which ops/weights switches forms.  F2: K1 batched, K4, K2
+batched and K3 batched at 65,543 episodes, past one grid's 65,535 along y,
+equal their plain versions.
+
 Output, in order: the card (nvidia-smi name and power limit), the build,
-the kernel checks, the serve phase, the entry config, the kernel-vs-plain
-tick, the kernel times, the sweep, the fleet, a device profile of one
-filter's tick at the serve's shapes and of one batched tick at the sweep's
-and the fleet's, the layout A/B, the batched kernels' times, a
-{"kernels": [...]} line, the card again, and last {"ok": true,
+the kernel checks (F1 and F2 among them), the serve phase, the entry
+config, the kernel-vs-plain tick, the kernel times, the sweep, paths (a),
+(b) and (c), the fleet, a device profile of one filter's tick at the
+serve's shapes and of one batched tick at the sweep's and the fleet's, the
+layout A/B, the batched kernels' times, the two raster forms' device
+times, a {"kernels": [...]} line, the card again, and last {"ok": true,
 "device": {...}}.
 
 Usage: python3 chip_smoke.py
@@ -50,8 +68,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -65,9 +86,13 @@ from montecarlolocalisation_tpu_torch.io.fleet import MCLFleetServer
 from montecarlolocalisation_tpu_torch.io.server import MCLServer
 from montecarlolocalisation_tpu_torch.kernel_ab import device_ms, forced_plan
 from montecarlolocalisation_tpu_torch.maps import from_walls
-from montecarlolocalisation_tpu_torch.maps.grid import lookup, world_to_map
+from montecarlolocalisation_tpu_torch.maps.grid import (
+    cell_center, is_valid_pos, lookup, world_to_map,
+)
 from montecarlolocalisation_tpu_torch.models import filter as mcl
-from montecarlolocalisation_tpu_torch.models import motion, resample, sensor
+from montecarlolocalisation_tpu_torch.models import (
+    motion, refine, resample, sensor,
+)
 from montecarlolocalisation_tpu_torch.models.raycast import march_steps
 from montecarlolocalisation_tpu_torch.ops import analytic, build, expand
 from montecarlolocalisation_tpu_torch.ops import kmeans, weights
@@ -89,6 +114,21 @@ K4_EPISODES, K4_SIZES, K4_BEAMS = (1, 64, 1024), (1, 127, 768, 1500), (5, 24,
 SINGLE = ("beam_weights", "systematic_expand", "kmeans")
 CHECK_EPISODES, CHECK_SIZES, CHECK_BEAMS = (1, 64, 1024), (1, 500, 1500,
                                                           2000), (24, 34)
+# F1: the beam weight kernels on rasters past shared memory; F2: batches
+# past one grid's 65,535 episodes along y.
+F1_BEAMS = (12, 34)
+F2_E = 65_543
+# Path (c): the bench config under the ESS gate.  Path (b): the elastic
+# server, its frames, the kidnap, the checkpoint and the replayed frames.
+ESS = 0.5
+ELASTIC = (1024, 65_536)
+ELASTIC_FRAMES, KIDNAP_AT, CHECKPOINT_AT, REPLAYED = 96, 64, 20, 10
+ELASTIC_PATIENCE = 3
+ELASTIC_START = (2.05, 2.05, 0.0)   # the sweep's start
+# F1's timing: square random mazes (cells a side) from the default maze's
+# size to the largest that fits a block's shared memory.
+F1_TIME_CELLS = dict(fixed=(12, 18, 30, 60, 120), analytic=(30, 60, 120,
+                                                              240))
 START = (1.25, 1.25, 0.0)     # the bench's pose, a free spot of the maze
 WHEELS = (0.5, 0.45)          # encoder step per tick (rad): a gentle arc
 PKG = "montecarlolocalisation_tpu_torch"
@@ -408,7 +448,7 @@ def run_k2(fn, parts, cdf, u0) -> tuple:
     torch.cuda.synchronize()
     plan = expand.launch_plan(parts.shape[-2], parts.numel() // parts.shape[
         -2] // parts.shape[-1])
-    if launched != plan.device_launches or launched > 2:
+    if launched != plan.device_launches:
         raise AssertionError(f"K2 n={parts.shape[-2]}: {launched} device "
                              f"launches, plan {plan}")
     if not torch.equal(out, again):
@@ -599,10 +639,14 @@ class Replies:
         pass
 
 
-def serve_phase(dev):
+def serve_phase(dev, ess=None):
+    """The JSONL server at the bench config, every tick resampled, or
+    (path (c)) under the ESS gate."""
+    what = "serve" if ess is None else "serve_ess"
     world = presets.make_world(num_particles=SERVE_N, num_beams=SERVE_B,
                                ray_mode="analytic",
-                               resample_method="systematic", device=dev)
+                               resample_method="systematic",
+                               ess_threshold=ess, device=dev)
     enc, truth = drive(SERVE_TICKS)
     ranges = scans(world.maze, truth, world.angles, world.cfg.sensor,
                    seed=1).cpu().numpy()
@@ -621,29 +665,30 @@ def serve_phase(dev):
     torch.cuda.synchronize()
     launched = counts()
     k2_device = expand.device_launches() - k2_before
-    check_k2_device_launches("serve", k2_device,
+    check_k2_device_launches(what, k2_device,
                              launched["systematic_expand"], SERVE_N)
     replies = [json.loads(s) for s in out.lines]
     errors = [r for r in replies if "error" in r]
     tick_replies = [r for r in replies if "exact_pose" in r]
     if errors or ticks != SERVE_TICKS or len(tick_replies) != SERVE_TICKS:
-        raise AssertionError(f"serve: ticks={ticks}, errors={errors[:3]}")
+        raise AssertionError(f"{what}: ticks={ticks}, errors={errors[:3]}")
     for r in tick_replies:
         if not all(math.isfinite(v) for v in r["exact_pose"]
                    + [r["confidence"]]):
-            raise AssertionError(f"serve: non-finite reply {r}")
+            raise AssertionError(f"{what}: non-finite reply {r}")
     if replies[-2].get("tick") != SERVE_TICKS or replies[-1] != {"ok": True}:
-        raise AssertionError(f"serve: stats/shutdown replies {replies[-2:]}")
+        raise AssertionError(f"{what}: stats/shutdown replies "
+                             f"{replies[-2:]}")
     short = {k: launched[k] for k in SINGLE if launched[k] < SERVE_TICKS}
     if short:
-        raise AssertionError(f"serve: kernels launched < {SERVE_TICKS} "
+        raise AssertionError(f"{what}: kernels launched < {SERVE_TICKS} "
                              f"times: {short}")
     lat = np.diff(np.array([t0] + out.times[:SERVE_TICKS])) * 1e3
     best = np.array(tick_replies[-1]["exact_pose"][:2])
     err_m = (float(np.hypot(*(best - truth[-2, :2])))
              if best[0] >= 0 else None)
-    say("serve", particles=SERVE_N, beams=SERVE_B, ray_mode="analytic",
-        resample="systematic", ticks=ticks, error_replies=0,
+    say(what, particles=SERVE_N, beams=SERVE_B, ray_mode="analytic",
+        resample="systematic", ess=ess, ticks=ticks, error_replies=0,
         launches=launched, k2_device_launches=k2_device,
         tick_ms_median=float(np.median(lat)),
         tick_ms_p90=float(np.percentile(lat, 90)),
@@ -1545,6 +1590,411 @@ def batched_time_phase(m, gen) -> dict:
     return times
 
 
+# -- phase 3c: F1, the beam weight kernels on rasters past shared memory --
+
+def random_maze(rows, cols, dev, seed):
+    """A random maze of rows x cols cells, each top and left wall present
+    with probability 0.4."""
+    rng = np.random.default_rng(seed)
+    walls = [[[w for w in (WALL_TOP, WALL_LEFT) if rng.random() < 0.4]
+              for _ in range(cols)] for _ in range(rows)]
+    return from_walls(walls, device=dev)
+
+
+def fits_shared(cells: int, mode: str, nb: int) -> bool:
+    """Whether a square maze of `cells` a side fits a K1 block's shared
+    memory with its raster at nb beams (ops/weights.smem_bytes)."""
+    side = types.SimpleNamespace(height=8 * cells + 1, width=8 * cells + 1)
+    return weights.smem_bytes(side, SensorModelConfig(ray_mode=mode),
+                              nb) <= weights.SMEM_MAX
+
+
+def device_form_cells(mode: str) -> int:
+    """The fewest cells a side of a square maze whose raster does not fit a
+    K1 block's shared memory at any beam count of F1_BEAMS: only the
+    device-memory form can take it."""
+    cells = 1
+    while any(fits_shared(cells, mode, nb) for nb in F1_BEAMS):
+        cells += 1
+    return cells
+
+
+def largest_shared_cells(mode: str, nb: int) -> int:
+    """The most cells a side of a square maze whose raster still fits a K1
+    block's shared memory at nb beams: both forms can take it."""
+    cells = 1
+    while fits_shared(cells + 1, mode, nb):
+        cells += 1
+    return cells
+
+
+def check_f1(gen) -> dict:
+    """K1, K1 batched and K4 at 0.0 max-abs error from their plain versions
+    on the smallest random maze past shared memory and one twice its side,
+    for each ray mode (K1 also on bands across 32-bit words and at a 4 m
+    range), every call in the device-memory form."""
+    dev = torch.device("cuda")
+    worst = dict(beam_weights=0.0, beam_weights_batched=0.0,
+                 beam_weights_beamsub=0.0)
+    for mode in ("fixed", "analytic"):
+        cells = device_form_cells(mode)
+        for side in (cells, 2 * cells):
+            t0 = time.perf_counter()
+            m = random_maze(side, side, dev, seed=side)
+            built = time.perf_counter() - t0
+            errs = dict(worst)
+            for comb in ("sum", "log"):
+                for kind, max_range in (("uniform", 1.0),
+                                        ("word_boundary", 1.0),
+                                        ("uniform", 4.0)):
+                    cfg = SensorModelConfig(ray_mode=mode, beam_combine=comb,
+                                            max_range=max_range)
+                    parts, scan = k1_inputs(m, 65_536, 34, cfg, gen, kind)
+                    form = weights.raster_form(m, cfg)
+                    got = weights.beam_weights_cuda(m, parts, scan, cfg)
+                    want = weights.beam_weights_plain(m, parts, scan, cfg)
+                    errs["beam_weights"] = max(
+                        errs["beam_weights"], (got - want).abs().max().item())
+                    if form != "device" or not torch.isfinite(got).all():
+                        raise AssertionError(f"F1 K1 {mode} {side} cells: "
+                                             f"form {form}")
+                cfg = SensorModelConfig(ray_mode=mode, beam_combine=comb)
+                parts, scan = batched_inputs(m, 64, 500, 24, cfg, gen)
+                got = weights.beam_weights_batched_cuda(m, parts, scan, cfg)
+                want = weights.beam_weights_plain(m, parts, scan, cfg)
+                errs["beam_weights_batched"] = max(
+                    errs["beam_weights_batched"],
+                    (got - want).abs().max().item())
+                parts, scan = batched_inputs(m, 64, 768, 24, cfg, gen)
+                got = weights.beamsub_cuda(m, parts, scan, cfg)
+                want = weights.beamsub_plain(m, parts, scan, cfg)
+                errs["beam_weights_beamsub"] = max(
+                    errs["beam_weights_beamsub"],
+                    (got - want).abs().max().item())
+            torch.cuda.synchronize()
+            say("check", kernel="F1: beam_weights, batched, beamsub",
+                ray_mode=mode, cells=side, raster=list(m.occ.shape),
+                raster_words=weights.raster_words(
+                    m, SensorModelConfig(ray_mode=mode)),
+                smem_bytes_k1=weights.smem_bytes(
+                    m, SensorModelConfig(ray_mode=mode), 34),
+                smem_max=weights.SMEM_MAX, form="device",
+                maze_build_s=built, **{f"{k}_max_abs_err": v
+                                       for k, v in errs.items()})
+            if any(v != 0.0 for v in errs.values()):
+                raise AssertionError(f"F1 {mode} {side} cells: {errs}")
+            worst = errs
+    return worst
+
+
+def f1_time(gen) -> None:
+    """The device-memory form against the shared-memory form in device time
+    (kernel_ab.device_ms, in turns shared, device, device, shared) on the
+    default maze, on random square mazes of F1_TIME_CELLS and on the
+    largest that fits both forms: K1 at 1M x 34 and K1 batched at the
+    sweep's 1024 x 500 x 24."""
+    dev = torch.device("cuda")
+    mazes = [("default", mode, presets.make_world(device=dev).maze)
+             for mode in ("fixed", "analytic")]
+    for mode in ("fixed", "analytic"):
+        largest = largest_shared_cells(mode, max(SERVE_B, SWEEP_B))
+        for side in F1_TIME_CELLS[mode] + (largest,):
+            mazes.append((f"{side} cells", mode,
+                          random_maze(side, side, dev, seed=side)))
+    for name, mode, m in mazes:
+        cfg = SensorModelConfig(ray_mode=mode)
+        parts, scan = k1_inputs(m, SERVE_N, SERVE_B, cfg, gen)
+        bparts, bscan = batched_inputs(m, SWEEP_E, SWEEP_N, SWEEP_B, cfg,
+                                       gen)
+        calls = {
+            "beam_weights": lambda f: weights._launch_k1(
+                m, parts, scan, cfg, form=f),
+            "beam_weights_batched": lambda f: weights._batched_launch(
+                "mcl_beam_weights_batched", m, bparts, bscan, cfg,
+                form=f)}
+        for kernel, call in calls.items():
+            same = torch.equal(call("shared"), call("device"))
+            s1, d1, d2, s2 = (device_ms(lambda: call("shared")),
+                              device_ms(lambda: call("device")),
+                              device_ms(lambda: call("device")),
+                              device_ms(lambda: call("shared")))
+            say("f1_time", kernel=kernel, maze=name,
+                raster=list(m.occ.shape), ray_mode=mode,
+                raster_bytes=4 * weights.raster_words(m, cfg),
+                shape=list(parts.shape[:1]) + [SERVE_B]
+                if kernel == "beam_weights" else [SWEEP_E, SWEEP_N,
+                                                  SWEEP_B],
+                shared_device_ms=[s1, s2], device_form_device_ms=[d1, d2],
+                device_over_shared=float(np.median([d1, d2])
+                                         / np.median([s1, s2])),
+                forms_bit_equal=same)
+            if not same:
+                raise AssertionError(f"F1 {kernel} {name} {mode}: the "
+                                     "two forms differ")
+
+
+# -- phase 3d: F2, batches past one grid's 65,535 episodes -----------------
+
+def check_f2(gen) -> None:
+    """K1 batched, K4, K2 batched (one block an episode at n = 8, and the
+    two-launch path at n = 8193, one column) and K3 batched at E = F2_E
+    episodes against their plain versions: K1 batched and K4 at 0.0
+    max-abs error, K2 bit for bit, K3's centers within 1e-4; each call's
+    last 16 episodes, 8 on each side of the chunk boundary at 65,535,
+    equal to a call of their own."""
+    dev = torch.device("cuda")
+    m = presets.make_world(device=dev).maze
+    tail = slice(F2_E - 16, None)     # 8 episodes on each side of a chunk
+    for mode in ("fixed", "analytic"):
+        cfg = SensorModelConfig(ray_mode=mode)
+        parts, scan = batched_inputs(m, F2_E, 32, 12, cfg, gen)
+        tscan = sensor.Scan(scan.angles, scan.ranges[tail], scan.mask[tail])
+        for name, fn, plain in (
+                ("beam_weights_batched", weights.beam_weights_batched_cuda,
+                 weights.beam_weights_plain),
+                ("beam_weights_beamsub", weights.beamsub_cuda,
+                 weights.beamsub_plain)):
+            got = fn(m, parts, scan, cfg)
+            err = (got - plain(m, parts, scan, cfg)).abs().max().item()
+            alone = torch.equal(got[tail], fn(m, parts[tail], tscan, cfg))
+            torch.cuda.synchronize()
+            say("check", kernel=name, what="F2", episodes=F2_E, n=32,
+                beams=12, ray_mode=mode, max_abs_err=err,
+                tail_equals_alone=alone)
+            if err != 0.0 or not alone:
+                raise AssertionError(f"F2 {name} {mode}: {err}, {alone}")
+    for n, d in ((8, 3), (expand.SMALL_N + 1, 1)):
+        parts = torch.randn((F2_E, n, d), generator=gen, device=dev)
+        parts[..., 0] = torch.arange(n, device=dev, dtype=torch.float32)
+        cdf = skewed_cdf(n, gen, dev, (F2_E,))
+        u0 = torch.rand(F2_E, generator=gen, device=dev)
+        got, launched = run_k2(expand.systematic_expand_batched_cuda, parts,
+                               cdf, u0)
+        exact = torch.equal(got, expand.systematic_expand_plain(parts, cdf,
+                                                                u0))
+        alone = torch.equal(got[tail], expand.systematic_expand_batched_cuda(
+            parts[tail], cdf[tail], u0[tail]))
+        say("check", kernel="systematic_expand_batched", what="F2",
+            episodes=F2_E, n=n, columns=d, device_launches_per_call=launched,
+            bit_exact=exact, tail_equals_alone=alone)
+        if not (exact and alone):
+            raise AssertionError(f"F2 K2 batched n={n}: exact={exact}, "
+                                 f"alone={alone}")
+        del parts, cdf, got
+    xy = batched_blobs(F2_E, 64, gen, dev)
+    c0, rs = kmeans_inputs(xy, gen)
+    k3_against_plain(kmeans.kmeans_batched_cuda, xy, c0, rs, what="F2",
+                     episodes=F2_E, n=64)
+    c1, a1 = kmeans.kmeans_batched_cuda(xy, c0, rs)
+    c2, a2 = kmeans.kmeans_batched_cuda(xy[tail], c0[tail], rs[tail])
+    if not (torch.equal(c1[tail], c2) and torch.equal(a1[tail], a2)):
+        raise AssertionError("F2 K3 batched: the tail differs alone")
+    torch.cuda.empty_cache()
+
+
+# -- phase 8b: path (a), the composed production sweep ----------------------
+
+def production_sweep_phase(dev) -> dict:
+    """The sweep at 1024 x 500 x 24 x 300, fixed march, systematic, ESS
+    0.5 and 2 rounds of refinement (BENCH_DETAILS.md:226-236, published
+    99.8 % converged and alias-converged at 0.074 m on the TPU): raises
+    below 0.95 converged or alias-converged or above 0.15 m alias RMSE.
+    Then refinement's share of one batched tick (CUDA events, the tick
+    with 2 rounds against the tick with none, at a cloud around each
+    episode's truth) and its peak device memory."""
+    world = presets.make_world(num_particles=SWEEP_N, num_beams=SWEEP_B,
+                               ray_mode="fixed",
+                               resample_method="systematic",
+                               refine_iters=2, ess_threshold=ESS, device=dev)
+    m, cfg = world.maze, world.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    k2_before = expand.device_launches()
+    t0 = time.perf_counter()
+    metrics = presets.run_sweep(world, batch=SWEEP_E, num_ticks=SWEEP_T,
+                                seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_sweep = torch.cuda.max_memory_allocated() - base
+    launched = counts()
+    check_k2_device_launches("production sweep",
+                             expand.device_launches() - k2_before,
+                             launched["systematic_expand_batched"], SWEEP_N,
+                             SWEEP_E)
+    # One batched tick with and without refinement, and refinement alone.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    truth = resample.sample_uniform_particles(gen, m, SWEEP_E)
+    state = mcl.init_tracking_state(m, cfg, truth, batch=SWEEP_E,
+                                    sigma_xy=0.1, sigma_theta=0.1)
+    scan = sensor.simulate_scan(m, truth, world.angles, cfg.sensor, gen=gen,
+                                noise_sigma=0.02)
+    enc = torch.full((SWEEP_E,), 0.1, device=dev)
+    no_refine = dataclasses.replace(cfg, refine=dataclasses.replace(
+        cfg.refine, iters=0))
+    tick_ms = [cuda_ms(lambda c=c: mcl.mcl_step(state, enc, enc, scan, m, c))
+               for c in (cfg, no_refine, no_refine, cfg)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    refine_ms = cuda_ms(lambda: refine.refine_particles(
+        m, state.particles, scan, cfg), reps=5)
+    peak_refine = torch.cuda.max_memory_allocated() - base
+    with_ms = float(np.median([tick_ms[0], tick_ms[3]]))
+    without_ms = float(np.median(tick_ms[1:3]))
+    say("production_sweep", episodes=SWEEP_E, particles=SWEEP_N,
+        beams=SWEEP_B, ticks=SWEEP_T, ray_mode="fixed",
+        resample="systematic", ess=ESS, refine_iters=2, launches=launched,
+        wall_s=wall, ticks_per_sec=SWEEP_T / wall,
+        updates_per_sec=SWEEP_E * SWEEP_N * SWEEP_B * SWEEP_T / wall,
+        peak_memory_gib_sweep=peak_sweep / 2**30,
+        peak_memory_gib_refine=peak_refine / 2**30,
+        tick_ms_refine=with_ms, tick_ms_no_refine=without_ms,
+        tick_ms_sides=tick_ms, refine_share_of_tick=1.0 - without_ms / with_ms,
+        refine_ms=refine_ms, **metrics)
+    short = {k: launched[k] for k in ("beam_weights_batched",
+                                      "systematic_expand_batched",
+                                      "kmeans_batched")
+             if launched[k] < SWEEP_T}
+    if short:
+        raise AssertionError(f"production sweep: kernels launched < "
+                             f"{SWEEP_T} times: {short}")
+    if not (metrics["converged_frac"] >= 0.95
+            and metrics["alias_converged_frac"] >= 0.95
+            and metrics["alias_rmse_xy"] <= 0.15):
+        raise AssertionError(f"production sweep: below 0.95 / 0.95 / "
+                             f"0.15 m: {metrics}")
+    return launched
+
+
+# -- phase 8c: path (b), the elastic server --------------------------------
+
+def far_pose(m, start):
+    """The free cell center farthest from `start`, facing +y."""
+    rows, cols = torch.meshgrid(torch.arange(m.n_rows, device=m.device),
+                                torch.arange(m.n_cols, device=m.device),
+                                indexing="ij")
+    cx, cy = cell_center(rows.float(), cols.float(), m.cell_meters)
+    cx, cy = cx + 0.05, cy + 0.05
+    d = torch.hypot(cx - start[0], cy - start[1])
+    d = torch.where(is_valid_pos(m, cx, cy), d, -1.0)
+    k = int(torch.argmax(d))
+    return (float(cx.reshape(-1)[k]), float(cy.reshape(-1)[k]), math.pi / 2)
+
+
+def raw_scan(ranges, angles, skip):
+    """A raw LaserScan dict whose every skip-th beam is one of the beam
+    table's ranges (filter_scan keeps those), with unreadable (NaN) beams
+    between them, and beams past the +-120 degree crop."""
+    full = np.repeat(np.float64(ranges), skip)
+    full[3::skip] = np.nan
+    inc = (float(angles[-1]) - float(angles[0])) / ((len(angles) - 1) * skip)
+    return dict(ranges=[None if np.isnan(v) else float(v) for v in full],
+                angle_min=float(angles[0]), angle_increment=inc,
+                range_min=0.0, range_max=1.0)
+
+
+def elastic_phase(dev) -> dict:
+    """MCLServer with the KLD budget on [1024, 65,536] and the production
+    schedule (ESS gate, 2 rounds of refinement), 24 beams,
+    ELASTIC_FRAMES frames of a wander from the sweep's start whose truth is
+    carried at KIDNAP_AT to the free cell farthest from the start (the
+    encoders run on), every other frame as a raw LaserScan, a checkpoint at
+    CHECKPOINT_AT and a restore that replays the next REPLAYED frames.
+    Raises unless the budget shrinks below n_max while the filter is
+    confident before the kidnap, returns to n_max after it (the lost
+    song), the replayed replies equal the first ones exactly, and the
+    budget crosses K2's one-block limit and K3's cooperative-grid
+    threshold (so both forms of each run)."""
+    n_min, n_max = ELASTIC
+    world = presets.make_world(num_particles=n_max, num_beams=SWEEP_B,
+                               ray_mode="fixed",
+                               resample_method="systematic",
+                               refine_iters=2, ess_threshold=ESS,
+                               device=dev)
+    m = world.maze
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    kidnap = far_pose(m, ELASTIC_START)
+    enc, ranges, truth = robot.generate_wander_episode(
+        gen, m, world.cfg, world.angles, ELASTIC_FRAMES, batch=1,
+        start_pose=ELASTIC_START, kidnap_tick=KIDNAP_AT,
+        kidnap_pose=kidnap)
+    enc, ranges = enc[0].cpu().numpy(), ranges[0].cpu().numpy()
+    skip = world.cfg.sensor.beam_skip
+    frames = []
+    for k in range(ELASTIC_FRAMES):
+        f = dict(encoder_left=float(enc[k, 0]),
+                 encoder_right=float(enc[k, 1]))
+        if k % 2:
+            f["raw_scan"] = raw_scan(ranges[k], world.angles, skip)
+        else:
+            f["ranges"] = [float(r) for r in ranges[k]]
+        frames.append(json.dumps(f))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "elastic.npz")
+        replay = frames[CHECKPOINT_AT:CHECKPOINT_AT + REPLAYED]
+        lines = (frames[:CHECKPOINT_AT]
+                 + [json.dumps(dict(cmd="checkpoint", path=path))] + replay
+                 + [json.dumps(dict(cmd="restore", path=path))] + replay
+                 + frames[CHECKPOINT_AT + REPLAYED:])
+        out = Replies()
+        torch.cuda.synchronize()
+        reset_counts()
+        k2_before = expand.device_launches()
+        k3_before = kmeans.device_launches()
+        server = MCLServer(m, world.cfg, world.angles, seed=0, adapt=ELASTIC,
+                           adapt_patience=ELASTIC_PATIENCE, adapt_mode="kld")
+        t0 = time.perf_counter()
+        server.serve(lines, out_stream=out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = counts()
+    replies = [json.loads(s) for s in out.lines]
+    errors = [r for r in replies if "error" in r]
+    a = CHECKPOINT_AT
+    first = replies[a + 1:a + 1 + REPLAYED]
+    again = replies[a + 2 + REPLAYED:a + 2 + 2 * REPLAYED]
+    ticks = replies[:a] + first + replies[a + 2 + 2 * REPLAYED:]
+    sizes = [r["particles"] for r in ticks]
+    conf = [r["confidence"] for r in ticks]
+    before, after = sizes[:KIDNAP_AT], sizes[KIDNAP_AT:]
+    back = any(s == n_max for s in after) and min(before) < n_max
+    confident = world.cfg.hysteresis.conf_confident_threshold
+    shrunk_confident = [s for s, c in zip(before, conf)
+                        if s < n_max and c >= confident]
+    lattice = sorted(set(sizes))
+    crossed = (min(sizes) <= expand.SMALL_N < max(sizes)
+               and min(sizes) <= kmeans.BLOCK_MAX_N < max(sizes))
+    say("elastic", adapt=list(ELASTIC), adapt_mode="kld",
+        patience=ELASTIC_PATIENCE, ess=ESS, beams=SWEEP_B,
+        frames=ELASTIC_FRAMES, raw_frames=ELASTIC_FRAMES // 2,
+        kidnap_at=KIDNAP_AT, kidnap_pose=list(kidnap), error_replies=len(
+            errors), particles=sizes, confidence=conf,
+        kld_target=[r["kld_target"] for r in ticks],
+        songs=[r["song"] for r in ticks], lattice=lattice,
+        min_before_kidnap=min(before),
+        sizes_while_confident=shrunk_confident,
+        returned_to_n_max=back, replay_equal=first == again,
+        crossed_k2_and_k3_limits=crossed, launches=launched,
+        k2_device_launches=expand.device_launches() - k2_before,
+        k3_device_launches=kmeans.device_launches() - k3_before,
+        wall_s=wall)
+    if errors or len(ticks) != ELASTIC_FRAMES:
+        raise AssertionError(f"elastic: {len(ticks)} tick replies, errors "
+                             f"{errors[:3]}")
+    if not (back and shrunk_confident and first == again and crossed):
+        raise AssertionError(f"elastic: returned={back}, shrunk while "
+                             f"confident={bool(shrunk_confident)}, replay "
+                             f"equal={first == again}, crossed={crossed}, "
+                             f"sizes {sizes}")
+    if not all(launched[k] for k in SINGLE):
+        raise AssertionError(f"elastic: launches {launched}")
+    return launched
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -1573,18 +2023,28 @@ def main() -> None:
     errs["systematic_expand_batched"] = check_k2_batched(dev, gen)
     errs["kmeans_batched"]["max_abs_err"] = max(
         errs["kmeans_batched"]["max_abs_err"], check_k3_batched(dev, gen))
+    for name, err in check_f1(gen).items():
+        errs[name]["max_abs_err"] = max(errs[name]["max_abs_err"], err)
+    check_f2(gen)
 
     # Each path is driven with every count set to 0 just before it and
-    # read just after: one filter (serve), a batch (sweep, fleet), K4 (A/B).
+    # read just after: one filter (serve), a batch (sweep, fleet), K4
+    # (A/B), and this slice's paths: (a) the production sweep, (b) the
+    # elastic server, (c) the bench config under the ESS gate.
     world, server, launched = serve_phase(dev)
     entry_phase(dev)
     tick_phase(world, server.state)
     times = time_phase(world, server.state, gen)
+    del server
     sweep_launched = sweep_phase(dev)
+    production_sweep_phase(dev)
+    elastic_phase(dev)
+    serve_phase(dev, ess=ESS)
     fleet_phase(dev)
     profile_phase(dev)
     ab_launched = ab_phase(m, gen)
     times.update(batched_time_phase(m, gen))
+    f1_time(gen)
     launches = {name: launched[name] for name in
                 ("beam_weights", "systematic_expand", "kmeans")}
     launches.update({name: sweep_launched[name] for name in

@@ -7,11 +7,14 @@ resampling.
   serve   JSONL sensor frames on stdin, one reply per line on stdout and a
           summary line on stderr at the end; `--robots R` > 1 serves a
           fleet of R filters in one batched tick (io/fleet.py), with
-          `--pipeline` replies lag one tick.
+          `--pipeline` replies lag one tick; `--adapt [kld:]NMIN:NMAX`
+          gives one filter an elastic particle budget (io/server.py).
   sweep   `--batch` wander episodes of `--ticks` ticks through the batched
           filter; prints one JSON line of the sweep's convergence metrics.
 
-Both run on `--device` (default cuda).
+`--ess` and `--refine-iters` set the production schedule for both.  A
+flag that would change nothing in the chosen mode is an error.  Both run
+on `--device` (default cuda).
 """
 from __future__ import annotations
 
@@ -47,6 +50,20 @@ def main(argv=None) -> None:
                     help="serve, fleet mode: replies lag one tick, and the "
                          "fetch of tick t-1 overlaps the card computing "
                          "tick t")
+    ap.add_argument("--ess", type=float, default=None,
+                    help="ESS-gated resampling threshold (e.g. 0.5): "
+                         "resample only when ESS < ess * N (the production "
+                         "SIR schedule; default: every tick, as the "
+                         "reference)")
+    ap.add_argument("--refine-iters", type=int, default=0,
+                    help="gradient refinement rounds a tick (models/refine;"
+                         " 0, the default, is the reference filter)")
+    ap.add_argument("--adapt", default=None, metavar="[kld:]NMIN:NMAX",
+                    help="serve, one robot: elastic particle budget; halve "
+                         "the count every 20 confident ticks down to NMIN "
+                         "and jump to NMAX when the filter goes lost. "
+                         "'kld:NMIN:NMAX' sizes it by the KLD-sampling "
+                         "bound instead (models/kld.py)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the filter runs on")
     args = ap.parse_args(argv)
@@ -55,11 +72,33 @@ def main(argv=None) -> None:
             ap.error(f"--{name} must be >= 1")
     if args.ticks is not None and args.ticks < 1:
         ap.error("--ticks must be >= 1")
+    if args.refine_iters < 0:
+        ap.error("--refine-iters must be >= 0")
+    if args.ess is not None and not 0.0 < args.ess <= 1.0:
+        ap.error("--ess must be in (0, 1]")
+    if args.pipeline and (args.preset != "serve" or args.robots == 1):
+        ap.error("--pipeline applies to the serve preset with --robots > 1")
+    adapt, adapt_mode = None, "patience"
+    if args.adapt is not None:
+        if args.preset != "serve" or args.robots != 1:
+            ap.error("--adapt applies to the serve preset with one robot")
+        spec = args.adapt
+        if spec.startswith("kld:"):
+            adapt_mode, spec = "kld", spec[len("kld:"):]
+        try:
+            lo, hi = (int(v) for v in spec.split(":"))
+        except ValueError:
+            ap.error("--adapt expects [kld:]NMIN:NMAX, e.g. kld:1024:65536")
+        if not 1 <= lo <= hi:
+            ap.error("--adapt needs 1 <= NMIN <= NMAX")
+        adapt = (lo, hi)
 
     from . import presets
 
     world = presets.make_world(num_particles=args.particles,
-                               num_beams=args.beams, device=args.device)
+                               num_beams=args.beams,
+                               refine_iters=args.refine_iters,
+                               ess_threshold=args.ess, device=args.device)
     if args.preset == "sweep":
         metrics = presets.run_sweep(world, batch=args.batch,
                                     num_ticks=args.ticks or 150,
@@ -82,7 +121,8 @@ def main(argv=None) -> None:
         from .io.server import MCLServer
 
         server = MCLServer(world.maze, world.cfg, world.angles,
-                           seed=args.seed)
+                           seed=args.seed, adapt=adapt,
+                           adapt_mode=adapt_mode)
         ticks = server.serve(sys.stdin)
         print(json.dumps(dict(preset="serve", ticks=ticks,
                               final_confidence=round(

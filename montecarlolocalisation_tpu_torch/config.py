@@ -101,13 +101,26 @@ class ResampleConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RefineConfig:
-    """Gradient-guided particle refinement (not ported; iters=0 is off)."""
+    """Gradient-guided particle refinement (models/refine; iters=0 is
+    off)."""
 
     iters: int = 0
     step_xy: float = 0.02
     step_theta: float = 0.01
     ray_mode: str = "dda"
     eps: float = 1e-9
+
+
+@dataclasses.dataclass(frozen=True)
+class KLDConfig:
+    """KLD-sampling statistic (Fox 2001; ROS AMCL's kld_err/kld_z), read
+    by the server's adapt_mode="kld" through models/kld."""
+
+    epsilon: float = 0.05
+    z: float = 2.326
+    bin_xy: float = 0.5
+    bin_theta: float = math.pi / 18.0
+    subsample: int = 8192
 
 
 @dataclasses.dataclass(frozen=True)

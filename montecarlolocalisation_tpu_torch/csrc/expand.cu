@@ -395,17 +395,19 @@ __global__ void __launch_bounds__(kCopyThreads)
 }  // namespace
 
 // particles [E, n, d] f32, cdf [E, n] f32, u0 [E] f32 (all read on the
-// device), out [E, n, d] f32; E <= 65535.  scratch null: one block an
-// episode, one launch, for n <= kBlockMaxN.  Otherwise the two-launch path,
-// with scratch int32 [E * (n + ceil(n / 4096))]: each episode's
-// tile-scanned counts and one maximum a source tile.  Returns the first
-// CUDA error.
+// device), out [E, n, d] f32, any E.  scratch null: one block an episode
+// (episodes along grid x), one launch, for n <= kBlockMaxN.  Otherwise the
+// two-launch path, with scratch int32 [E * (n + ceil(n / 4096))]: each
+// episode's tile-scanned counts and one maximum a source tile; it lays
+// episodes along grid y, so a batch launches in chunks of kMaxGridY
+// episodes, their pointers offset (each episode's rows are the same bits
+// whatever chunk holds it).  Returns the first CUDA error.
 extern "C" int mcl_systematic_expand(const float* particles, const float* cdf,
                                      const float* u0, int episodes, int n,
                                      int d, float* out, int* scratch,
                                      void* stream) {
-  if (episodes < 0 || episodes > 65535 || n < 0 || d < 1)
-    return (int)cudaErrorInvalidValue;
+  constexpr int kMaxGridY = 65535;
+  if (episodes < 0 || n < 0 || d < 1) return (int)cudaErrorInvalidValue;
   if (n == 0 || episodes == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
   if (scratch == nullptr) {
@@ -425,18 +427,23 @@ extern "C" int mcl_systematic_expand(const float* particles, const float* cdf,
   const int chunks = (n + kScanChunk - 1) / kScanChunk;
   const int source_tile = kScanChunk * ((chunks + kMaxTiles - 1) / kMaxTiles);
   const int n_tiles = (n + source_tile - 1) / source_tile;
-  int* local = scratch;
-  int* tmax = scratch + (size_t)episodes * n;
-  expand_scan_kernel<<<dim3(n_tiles, episodes), kScanThreads, 0, s>>>(
-      cdf, u0, n, source_tile, n_tiles, local, tmax);
-  ++g_device_launches;
   cudaError_t err;
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  expand_copy_kernel<<<dim3((n + kOutTile - 1) / kOutTile, episodes),
-                       kCopyThreads, 0, s>>>(particles, local, tmax, n, d,
-                                              source_tile, n_tiles, out);
-  ++g_device_launches;
-  return (int)cudaGetLastError();
+  for (int e0 = 0; e0 < episodes; e0 += kMaxGridY) {
+    const int ne = min(kMaxGridY, episodes - e0);
+    int* local = scratch + (size_t)e0 * n;
+    int* tmax = scratch + (size_t)episodes * n + (size_t)e0 * n_tiles;
+    expand_scan_kernel<<<dim3(n_tiles, ne), kScanThreads, 0, s>>>(
+        cdf + (size_t)e0 * n, u0 + e0, n, source_tile, n_tiles, local, tmax);
+    ++g_device_launches;
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    expand_copy_kernel<<<dim3((n + kOutTile - 1) / kOutTile, ne),
+                         kCopyThreads, 0, s>>>(
+        particles + (size_t)e0 * n * d, local, tmax, n, d, source_tile,
+        n_tiles, out + (size_t)e0 * n * d);
+    ++g_device_launches;
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 // Device launches made by mcl_systematic_expand since the library loaded.

@@ -48,10 +48,19 @@
 //   is done, which nearly always needs all of them, and a per-lane stop
 //   measured 1 to 2 % slower than evaluating every candidate (PERF.md).
 // - The fixed march reads a raster packed one bit a pixel (300 bytes for the
-//   49 x 49 maze, 7.3 KB for 241 x 241): every raster up to 1280 x 1280 px
-//   sits in shared memory, and the device-memory path is gone.  A sample
-//   costs a shift and a mask more than a byte raster's: 5 to 7 % of K1
-//   batched's time.
+//   49 x 49 maze, 7.3 KB for 241 x 241).  A sample costs a shift and a mask
+//   more than a byte raster's: 5 to 7 % of K1 batched's time.
+// - Two raster forms, one arithmetic.  A small raster (at most 1 KB of
+//   words, ops/weights.raster_form; the default maze's is 392 bytes) is
+//   packed by each block into shared memory.  A larger one is packed once a
+//   call into a device buffer by pack_kernel (the same words, the same
+//   ballots) and the kernels read it through __ldg: read-only, L1- and
+//   L2-resident (2 MB holds a 4096 x 4096 one-bit raster).  Every block
+//   packing a large raster costs in proportion to it and holds the SM's
+//   shared memory: at the largest raster that fits a block, the shared form
+//   ran 29 to 55 times slower (PERF.md, section 6).  The template flag G
+//   picks the form; the search, the march and the sums are the same code,
+//   so both forms give the plain version's bits.
 // - The two axes share 1/dx and 1/dy; sincosf gives both directions (equal
 //   to sinf and cosf bit for bit on the card, PERF.md); particle rows come
 //   in through shared memory, coalesced.
@@ -135,15 +144,25 @@ __device__ __forceinline__ bool pixel(const uint8_t* t, int w, int h, int mx,
   return mx >= 0 && my >= 0 && mx < w && my < h && t[my * w + mx] != 0;
 }
 
+// A raster word: from shared memory, or (G) from the device buffer through
+// the read-only cache.
+template <bool G>
+__device__ __forceinline__ uint32_t word(const uint32_t* p) {
+  if constexpr (G) return __ldg(p);
+  return *p;
+}
+
+template <bool G>
 __device__ __forceinline__ bool line_bit(const Lines& L, int k, int r) {
   return r >= 0 && r < L.length &&
-         ((L.words[k * L.wpl + (r >> 5)] >> (r & 31)) & 1u);
+         ((word<G>(L.words + k * L.wpl + (r >> 5)) >> (r & 31)) & 1u);
 }
 
 // The first set pixel of a line in [a, b] (0 <= a, b < length), walking
 // forward (lowest) or backward (highest); -1 if none or if b < a.  Out of
 // line: only bands longer than 32 px take it, and inlined it slows the
 // common path.
+template <bool G>
 __device__ __noinline__ int first_set(const uint32_t* line, int a, int b,
                                       bool fwd) {
   const int qa = a >> 5, qb = b >> 5;
@@ -151,14 +170,14 @@ __device__ __noinline__ int first_set(const uint32_t* line, int a, int b,
   const uint32_t mb = 0xffffffffu >> (31 - (b & 31));
   if (fwd) {
     for (int q = qa; q <= qb; ++q) {
-      uint32_t m = line[q];
+      uint32_t m = word<G>(line + q);
       if (q == qa) m &= ma;
       if (q == qb) m &= mb;
       if (m) return (q << 5) + __ffs(m) - 1;
     }
   } else {
     for (int q = qb; q >= qa; --q) {
-      uint32_t m = line[q];
+      uint32_t m = word<G>(line + q);
       if (q == qa) m &= ma;
       if (q == qb) m &= mb;
       if (m) return (q << 5) + 31 - __clz(m);
@@ -171,13 +190,14 @@ __device__ __noinline__ int first_set(const uint32_t* line, int a, int b,
 // (cnt = 0: none), walking forward or backward; -1 if none.  When bands are
 // at most 32 px (span <= 32: smax <= 30 px), a band lies in two words, and
 // one 64-bit window with a mask finds it without a loop.
+template <bool G>
 __device__ __forceinline__ int band_first(const uint32_t* line, int wpl,
                                           int a, int cnt, bool fwd,
                                           int span) {
-  if (span > 32) return first_set(line, a, a + cnt - 1, fwd);
+  if (span > 32) return first_set<G>(line, a, a + cnt - 1, fwd);
   const int qa = a >> 5;
-  const uint64_t win = (uint64_t)line[qa] |
-      (qa + 1 < wpl ? (uint64_t)line[qa + 1] << 32 : 0ull);
+  const uint64_t win = (uint64_t)word<G>(line + qa) |
+      (qa + 1 < wpl ? (uint64_t)word<G>(line + qa + 1) << 32 : 0ull);
   const uint32_t m = (uint32_t)(win >> (a & 31)) &
                      (cnt > 0 ? 0xffffffffu >> (32 - cnt) : 0u);
   const int off = fwd ? __ffs(m) - 1 : 31 - __clz(m);
@@ -190,6 +210,7 @@ struct AxisPrep {
 };
 
 // Direction-independent state of one axis (analytic.py:332 _axis_prepare).
+template <bool G>
 __device__ __forceinline__ AxisPrep axis_prepare(float gu, float gv,
                                                  const Lines& L) {
   AxisPrep p;
@@ -198,7 +219,7 @@ __device__ __forceinline__ AxisPrep axis_prepare(float gu, float gv,
   float line_u0 = (float)(p.k0 * kCellPx);
   p.inside0 = gu >= line_u0 && gu < line_u0 + 1.0f;
   bool valid0 = p.k0 >= 0 && p.k0 < L.n_lines;
-  p.origin0 = p.inside0 && valid0 && line_bit(L, p.k0, r0);
+  p.origin0 = p.inside0 && valid0 && line_bit<G>(L, p.k0, r0);
   return p;
 }
 
@@ -207,6 +228,7 @@ __device__ __forceinline__ AxisPrep axis_prepare(float gu, float gv,
 // if none.  Every candidate slab is evaluated with selects, not branches: a
 // warp's lanes cast in different directions, and a branch per lane makes
 // the warp run every lane's path.
+template <bool G>
 __device__ float axis_hits(float gu, float gv, float du, float dv,
                            float inv_du, float inv_dv, bool small,
                            bool small_v, const Lines& L, const AxisPrep& p,
@@ -233,7 +255,7 @@ __device__ float axis_hits(float gu, float gv, float du, float dv,
     const int cnt = min(hi - lo + 1, span);
     // Strict: touching the half-open slab's exit face is no crossing.
     const bool ok = t_in < t_out_c && k >= 0 && k < L.n_lines && cnt > 0;
-    const int rr = band_first(L.words + (ok ? k : 0) * L.wpl, L.wpl,
+    const int rr = band_first<G>(L.words + (ok ? k : 0) * L.wpl, L.wpl,
                               ok ? (fwd ? lo : hi - cnt + 1) : 0,
                               ok ? cnt : 0, fwd, span);
     const float row_edge = (float)(fwd ? rr : rr + 1);
@@ -246,6 +268,7 @@ __device__ float axis_hits(float gu, float gv, float du, float dv,
 
 // The reference march (monte_carlo.cpp:350-390): first occupied sample,
 // stopping at the first out-of-map sample.
+template <bool G>
 __device__ float march(float ox, float oy, float dx, float dy, const Bits& B,
                        const Params& P) {
   for (int s = 0; s < P.num_steps; ++s) {
@@ -255,7 +278,7 @@ __device__ float march(float ox, float oy, float dx, float dy, const Bits& B,
     int mx = (int)((px - P.origin_x) * P.inv_res);
     int my = (int)((py - P.origin_y) * P.inv_res);
     if (!(mx >= 0 && my >= 0 && mx < B.w && my < B.h_px)) break;
-    if ((B.map[my * B.wpr + (mx >> 5)] >> (mx & 31)) & 1u)
+    if ((word<G>(B.map + my * B.wpr + (mx >> 5)) >> (mx & 31)) & 1u)
       return fminf(P.max_range, r);
   }
   return P.max_range;
@@ -269,6 +292,7 @@ struct Particle {
   AxisPrep pv, ph;
 };
 
+template <bool G>
 __device__ __forceinline__ Particle prepare(float x, float y, float th,
                                             const Bits& B, const Params& P) {
   Particle q;
@@ -286,14 +310,15 @@ __device__ __forceinline__ Particle prepare(float x, float y, float th,
   q.pv = AxisPrep{};
   q.ph = AxisPrep{};
   if (P.mode != kFixed) {
-    q.pv = axis_prepare(q.gx, q.gy, B.v);
-    q.ph = axis_prepare(q.gy, q.gx, B.h);
+    q.pv = axis_prepare<G>(q.gx, q.gy, B.v);
+    q.ph = axis_prepare<G>(q.gy, q.gx, B.h);
   }
   return q;
 }
 
 // p_b of one beam: the cast, then the truncated Gaussian plus the
 // max-range term.
+template <bool G>
 __device__ __forceinline__ float beam_prob(const Particle& q, float angle,
                                            float obs, const Bits& B,
                                            const Params& P) {
@@ -303,17 +328,17 @@ __device__ __forceinline__ float beam_prob(const Particle& q, float angle,
   sincosf(ray, &dy, &dx);
   float dist;
   if (P.mode == kFixed) {
-    dist = march(q.ox, q.oy, dx, dy, B, P);
+    dist = march<G>(q.ox, q.oy, dx, dy, B, P);
   } else if (!q.inb) {
     dist = P.smax * P.res;
   } else {
     const bool small_x = fabsf(dx) < kEps, small_y = fabsf(dy) < kEps;
     const float inv_dx = 1.0f / (small_x ? kEps : dx);
     const float inv_dy = 1.0f / (small_y ? kEps : dy);
-    float sv = axis_hits(q.gx, q.gy, dx, dy, inv_dx, inv_dy, small_x,
-                         small_y, B.v, q.pv, P.smax, P.n_cand, P.span);
-    float sh = axis_hits(q.gy, q.gx, dy, dx, inv_dy, inv_dx, small_y,
-                         small_x, B.h, q.ph, P.smax, P.n_cand, P.span);
+    float sv = axis_hits<G>(q.gx, q.gy, dx, dy, inv_dx, inv_dy, small_x,
+                            small_y, B.v, q.pv, P.smax, P.n_cand, P.span);
+    float sh = axis_hits<G>(q.gy, q.gx, dy, dx, inv_dy, inv_dx, small_y,
+                            small_x, B.h, q.ph, P.smax, P.n_cand, P.span);
     dist = fminf(fminf(sv, sh), P.smax) * P.res;
   }
   float diff = fabsf(obs - dist);
@@ -344,26 +369,29 @@ __device__ __forceinline__ float gate(const Particle& q, float prob,
 }
 
 // One particle's weight over all beams, in beam order.
+template <bool G>
 __device__ float particle_weight(const float* row, const float* s_ang,
                                  const float* s_obs, const float* s_msk,
                                  int nb, const Bits& B, const uint8_t* dil,
                                  const Params& P) {
-  Particle q = prepare(row[0], row[1], row[2], B, P);
+  Particle q = prepare<G>(row[0], row[1], row[2], B, P);
   float prob = 0.0f;
   for (int b = 0; b < nb; ++b)
-    prob = accumulate(prob, beam_prob(q, s_ang[b], s_obs[b], B, P),
+    prob = accumulate(prob, beam_prob<G>(q, s_ang[b], s_obs[b], B, P),
                       s_msk[b], P);
   return gate(q, prob, dil, P, B.h_px, B.w);
 }
 
 // Pack `n_lines` lines of `wpl` words each: one warp ballot a word, a
-// lane's loads for kPack words issued before their ballots.
+// lane's loads for kPack words issued before their ballots.  Warps warp,
+// warp + nwarps, ... of the caller's set take part (a block's warps for
+// shared memory, the grid's for the device buffer).
 constexpr int kPack = 8;
 
 __device__ void pack(uint32_t* dst, const uint8_t* occ, int n_lines,
-                     int wpl, int stride_line, int stride_px, int length) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
+                     int wpl, int stride_line, int stride_px, int length,
+                     int warp, int nwarps) {
+  const int lane = threadIdx.x & 31;
   const int total = n_lines * wpl;
   for (int q0 = warp; q0 < total; q0 += kPack * nwarps) {
     bool on[kPack];
@@ -373,7 +401,7 @@ __device__ void pack(uint32_t* dst, const uint8_t* occ, int n_lines,
       const int k = q / wpl;
       const int r = (q - k * wpl) * 32 + lane;
       on[u] = q < total && r < length &&
-              occ[k * stride_line + r * stride_px] != 0;
+              occ[(size_t)k * stride_line + (size_t)r * stride_px] != 0;
     }
 #pragma unroll
     for (int u = 0; u < kPack; ++u) {
@@ -383,10 +411,10 @@ __device__ void pack(uint32_t* dst, const uint8_t* occ, int n_lines,
   }
 }
 
-// Pack the raster's bit words into `words` (shared memory) and return
-// the bits to read; the caller synchronizes before reading them.
-__device__ Bits stage_bits(uint32_t* words, const uint8_t* occ, int h,
-                           int w, const Params& P) {
+// The raster's bit words at `words`: gridlines (analytic) or one bit a
+// pixel, row by row (fixed).
+__device__ Bits bits_at(const uint32_t* words, int h, int w,
+                        const Params& P) {
   Bits B;
   const int wv = (h + 31) / 32, wh = (w + 31) / 32;
   B.w = w;
@@ -395,22 +423,54 @@ __device__ Bits stage_bits(uint32_t* words, const uint8_t* occ, int h,
   B.map = words;
   B.v = Lines{words, wv, h, P.n_v};
   B.h = Lines{words + P.n_v * wv, wh, w, P.n_h};
-  if (P.mode == kFixed) {
-    pack(words, occ, h, wh, w, 1, w);
-  } else {
-    pack(words, occ, P.n_v, wv, kCellPx, w, h);
-    pack(words + P.n_v * wv, occ, P.n_h, wh, kCellPx * w, 1, w);
-  }
   return B;
 }
 
+// Pack the raster's words into `words` with the given warps.
+__device__ void pack_raster(uint32_t* words, const uint8_t* occ, int h, int w,
+                            const Params& P, int warp, int nwarps) {
+  const int wv = (h + 31) / 32, wh = (w + 31) / 32;
+  if (P.mode == kFixed) {
+    pack(words, occ, h, wh, w, 1, w, warp, nwarps);
+  } else {
+    pack(words, occ, P.n_v, wv, kCellPx, w, h, warp, nwarps);
+    pack(words + P.n_v * wv, occ, P.n_h, wh, kCellPx * w, 1, w, warp,
+         nwarps);
+  }
+}
+
+// The bits a block reads: packed into its shared `words`, or (G) the
+// device buffer `gwords` packed before the launch.  The caller
+// synchronizes before reading them.
+template <bool G>
+__device__ Bits stage_bits(uint32_t* words, const uint32_t* gwords,
+                           const uint8_t* occ, int h, int w,
+                           const Params& P) {
+  if constexpr (G) {
+    return bits_at(gwords, h, w, P);
+  } else {
+    pack_raster(words, occ, h, w, P, threadIdx.x >> 5, blockDim.x >> 5);
+    return bits_at(words, h, w, P);
+  }
+}
+
+// The device-memory form's one pass: every warp of the grid packs words.
+__global__ void pack_kernel(uint32_t* __restrict__ words,
+                            const uint8_t* __restrict__ occ, int h, int w,
+                            Params P) {
+  pack_raster(words, occ, h, w, P,
+              (blockIdx.x * blockDim.x + threadIdx.x) >> 5,
+              (gridDim.x * blockDim.x) >> 5);
+}
+
 // Stage the beam table (angles [nb], ranges [nb], mask [nb]), the block's
-// particle rows ([rows, 3] from p0) and the raster's bit words into shared
-// memory; returns the bits to read.
+// particle rows ([rows, 3] from p0) and, in the shared-memory form, the
+// raster's bit words into shared memory; returns the bits to read.
+template <bool G>
 __device__ Bits stage(float* smem, const float* ang, const float* obs,
                       const float* msk, int nb, const float* p0, int rows,
-                      int rows_max, const uint8_t* occ, int h, int w,
-                      const Params& P) {
+                      int rows_max, const uint8_t* occ,
+                      const uint32_t* gwords, int h, int w, const Params& P) {
   for (int t = threadIdx.x; t < nb; t += blockDim.x) {
     smem[t] = ang[t];
     smem[nb + t] = obs[t];
@@ -418,46 +478,53 @@ __device__ Bits stage(float* smem, const float* ang, const float* obs,
   }
   float* s_parts = smem + 3 * nb;
   for (int t = threadIdx.x; t < 3 * rows; t += blockDim.x) s_parts[t] = p0[t];
-  Bits B = stage_bits(reinterpret_cast<uint32_t*>(s_parts + 3 * rows_max),
-                      occ, h, w, P);
+  Bits B = stage_bits<G>(
+      reinterpret_cast<uint32_t*>(s_parts + 3 * rows_max), gwords, occ, h, w,
+      P);
   __syncthreads();
   return B;
 }
 
+template <bool G>
 __global__ void beam_weights_kernel(const float* __restrict__ parts, int n,
                                     const float* __restrict__ beam_tab,
                                     int nb, const uint8_t* __restrict__ occ,
+                                    const uint32_t* __restrict__ gwords,
                                     const uint8_t* __restrict__ dil, int h,
                                     int w, Params P,
                                     float* __restrict__ out) {
   extern __shared__ float smem[];
   const int i0 = blockIdx.x * blockDim.x;
   const int rows = min((int)blockDim.x, n - i0);
-  Bits B = stage(smem, beam_tab, beam_tab + nb, beam_tab + 2 * nb, nb,
-                 parts + 3 * (size_t)i0, rows, blockDim.x, occ, h, w, P);
+  Bits B = stage<G>(smem, beam_tab, beam_tab + nb, beam_tab + 2 * nb, nb,
+                    parts + 3 * (size_t)i0, rows, blockDim.x, occ, gwords, h,
+                    w, P);
   if ((int)threadIdx.x >= rows) return;
   out[i0 + threadIdx.x] =
-      particle_weight(smem + 3 * nb + 3 * threadIdx.x, smem, smem + nb,
-                      smem + 2 * nb, nb, B, dil, P);
+      particle_weight<G>(smem + 3 * nb + 3 * threadIdx.x, smem, smem + nb,
+                         smem + 2 * nb, nb, B, dil, P);
 }
 
-// Episode e = blockIdx.y; its particles [n, 3] start at e * n.
+// Episode e = blockIdx.y of this launch's episodes; its particles [n, 3]
+// start at e * n (the entry offsets the pointers of each chunk).
+template <bool G>
 __global__ void beam_weights_batched_kernel(
     const float* __restrict__ parts, int n, const float* __restrict__ ang,
     const float* __restrict__ obs, const float* __restrict__ msk, int nb,
-    const uint8_t* __restrict__ occ, const uint8_t* __restrict__ dil, int h,
-    int w, Params P, float* __restrict__ out) {
+    const uint8_t* __restrict__ occ, const uint32_t* __restrict__ gwords,
+    const uint8_t* __restrict__ dil, int h, int w, Params P,
+    float* __restrict__ out) {
   extern __shared__ float smem[];
   const size_t e = blockIdx.y;
   const int i0 = blockIdx.x * blockDim.x;
   const int rows = min((int)blockDim.x, n - i0);
   const size_t k0 = e * (size_t)n + i0;
-  Bits B = stage(smem, ang, obs + e * nb, msk + e * nb, nb, parts + 3 * k0,
-                 rows, blockDim.x, occ, h, w, P);
+  Bits B = stage<G>(smem, ang, obs + e * nb, msk + e * nb, nb,
+                    parts + 3 * k0, rows, blockDim.x, occ, gwords, h, w, P);
   if ((int)threadIdx.x >= rows) return;
   out[k0 + threadIdx.x] =
-      particle_weight(smem + 3 * nb + 3 * threadIdx.x, smem, smem + nb,
-                      smem + 2 * nb, nb, B, dil, P);
+      particle_weight<G>(smem + 3 * nb + 3 * threadIdx.x, smem, smem + nb,
+                         smem + 2 * nb, nb, B, dil, P);
 }
 
 // K4's prepared particles in shared memory: field f of particle j at
@@ -511,16 +578,17 @@ __device__ __forceinline__ Particle get_particle(const float* s, int per,
 // acc[v]; the group adds the eight in lane order (with T = 1 the thread
 // adds each lane as it is done).  Every thread of the warp takes part in
 // the shuffles, so threads past the end compute nothing but stay.
-template <int T>
+template <int T, bool G>
 __global__ void __launch_bounds__(kThreads) beamsub_kernel(
     const float* __restrict__ parts, int episodes, int n,
     const float* __restrict__ ang, const float* __restrict__ obs,
     const float* __restrict__ msk, int nb, const uint8_t* __restrict__ occ,
-    const uint8_t* __restrict__ dil, int h, int w, Params P, int per,
-    int* __restrict__ next, float* __restrict__ out) {
+    const uint32_t* __restrict__ gwords, const uint8_t* __restrict__ dil,
+    int h, int w, Params P, int per, int* __restrict__ next,
+    float* __restrict__ out) {
   constexpr int L = kLanes / T;
   // Shared memory: the beam table, the prepared particles (T > 1), the
-  // raster's words, and the next item.
+  // raster's words (shared-memory form), and the next item.
   extern __shared__ float smem[];
   float* s_ang = smem;
   float* s_obs = smem + nb;
@@ -528,9 +596,9 @@ __global__ void __launch_bounds__(kThreads) beamsub_kernel(
   float* s_prep = smem + 3 * nb;
   uint32_t* words =
       reinterpret_cast<uint32_t*>(s_prep + (T > 1 ? kPrepWords * per : 0));
-  int& s_item = reinterpret_cast<int*>(words)[raster_words(P, h, w)];
+  int& s_item = reinterpret_cast<int*>(words)[G ? 0 : raster_words(P, h, w)];
   for (int t = threadIdx.x; t < nb; t += blockDim.x) s_ang[t] = ang[t];
-  const Bits B = stage_bits(words, occ, h, w, P);
+  const Bits B = stage_bits<G>(words, gwords, occ, h, w, P);
   const int chunks = (n + per - 1) / per;
   const int items = episodes * chunks;
   const bool more = items > (int)gridDim.x;
@@ -553,7 +621,7 @@ __global__ void __launch_bounds__(kThreads) beamsub_kernel(
       if ((int)threadIdx.x < rows) {
         const float* row = parts + 3 * (k0 + threadIdx.x);
         put_particle(s_prep, per, threadIdx.x,
-                     prepare(row[0], row[1], row[2], B, P));
+                     prepare<G>(row[0], row[1], row[2], B, P));
       }
     }
     __syncthreads();
@@ -564,7 +632,7 @@ __global__ void __launch_bounds__(kThreads) beamsub_kernel(
       q = get_particle(s_prep, per, j);
     } else if (live) {
       const float* row = parts + 3 * (k0 + j);
-      q = prepare(row[0], row[1], row[2], B, P);
+      q = prepare<G>(row[0], row[1], row[2], B, P);
     }
     float acc[L], prob = 0.0f;
 #pragma unroll
@@ -574,7 +642,8 @@ __global__ void __launch_bounds__(kThreads) beamsub_kernel(
       for (int v = 0; v < L; ++v) {
         float lane = 0.0f;
         for (int b = r + T * v; b < nb; b += kLanes)
-          lane = accumulate(lane, beam_prob(q, s_ang[b], s_obs[b], B, P),
+          lane = accumulate(lane,
+                            beam_prob<G>(q, s_ang[b], s_obs[b], B, P),
                             s_msk[b], P);
         if constexpr (T == 1) {
           prob += lane;  // one thread holds all eight, in lane order
@@ -604,12 +673,12 @@ void unpack(const float* fparams, const int* iparams, Params* P) {
 }
 
 // Shared memory of a block: the beam table, `extra` words (particle rows,
-// K4's prepared particles and item) and the raster's words; raises the
-// kernel's limit past 48 KB where needed.
+// K4's prepared particles and item) and, in the shared-memory form, the
+// raster's words; raises the kernel's limit past 48 KB where needed.
 cudaError_t smem_for(const void* kernel, const Params& P, int nb, int extra,
-                     int h, int w, size_t* bytes) {
+                     int h, int w, bool global_raster, size_t* bytes) {
   *bytes = 4 * (3 * (size_t)nb + (size_t)extra +
-                (size_t)raster_words(P, h, w));
+                (global_raster ? 0 : (size_t)raster_words(P, h, w)));
   int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -622,75 +691,120 @@ cudaError_t smem_for(const void* kernel, const Params& P, int nb, int extra,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
 }
 
+// The device-memory form's pass: the raster's words into `gwords`
+// (raster_words(P, h, w) of them) on the stream.
+cudaError_t pack_global(uint32_t* gwords, const uint8_t* occ, int h, int w,
+                        const Params& P, cudaStream_t stream) {
+  const long long warps = (raster_words(P, h, w) + kPack - 1) / kPack;
+  const int blocks = (int)std::min(
+      std::max((warps * 32 + kThreads - 1) / kThreads, 1ll), 4096ll);
+  pack_kernel<<<blocks, kThreads, 0, stream>>>(gwords, occ, h, w, P);
+  return cudaGetLastError();
+}
+
+// The most episodes one launch's grid y dimension holds.
+constexpr int kMaxGridY = 65535;
+
 }  // namespace
 
 // particles [n, 3] f32; beam_tab [3, nb] f32 (signed angles, ranges,
 // mask); occ, dil [h, w] u8; fparams/iparams host arrays in Params order;
-// out [n] f32.  Returns the launch's CUDA error.
+// out [n] f32.  gwords: null for the shared-memory raster form, else
+// raster_words(P, h, w) ints of device scratch for the device-memory form,
+// which the entry packs on the stream before the launch.  Returns the
+// first CUDA error.
 extern "C" int mcl_beam_weights(const float* particles, int n,
                                 const float* beam_tab, int nb,
                                 const uint8_t* occ, const uint8_t* dil,
                                 int h, int w, const float* fparams,
                                 const int* iparams, float* out,
-                                void* stream) {
+                                uint32_t* gwords, void* stream) {
   Params P;
   unpack(fparams, iparams, &P);
+  const bool G = gwords != nullptr;
+  const void* kernel = G ? (const void*)beam_weights_kernel<true>
+                         : (const void*)beam_weights_kernel<false>;
   size_t smem;
-  cudaError_t err = smem_for((const void*)beam_weights_kernel, P, nb,
-                             3 * kThreads, h, w, &smem);
+  cudaError_t err = smem_for(kernel, P, nb, 3 * kThreads, h, w, G, &smem);
   if (err != cudaSuccess) return (int)err;
-  if (n > 0) {
-    int blocks = (n + kThreads - 1) / kThreads;
-    beam_weights_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-        particles, n, beam_tab, nb, occ, dil, h, w, P, out);
-  }
+  if (n <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (G && (err = pack_global(gwords, occ, h, w, P, s)) != cudaSuccess)
+    return (int)err;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  if (G)
+    beam_weights_kernel<true><<<blocks, kThreads, smem, s>>>(
+        particles, n, beam_tab, nb, occ, gwords, dil, h, w, P, out);
+  else
+    beam_weights_kernel<false><<<blocks, kThreads, smem, s>>>(
+        particles, n, beam_tab, nb, occ, gwords, dil, h, w, P, out);
   return (int)cudaGetLastError();
 }
 
 // particles [episodes, n, 3] f32; angles [nb] f32 (signed); ranges, mask
-// [episodes, nb] f32; occ, dil [h, w] u8; out [episodes, n] f32.
-// episodes <= 65535 (gridDim.y).  Returns the launch's CUDA error.
+// [episodes, nb] f32; occ, dil [h, w] u8; out [episodes, n] f32; gwords
+// as for mcl_beam_weights.  Any
+// number of episodes: launches of at most kMaxGridY episodes each (grid
+// y), their pointers offset, so each episode's weights are the same bits
+// whatever chunk holds it.  Returns the first CUDA error.
 extern "C" int mcl_beam_weights_batched(
     const float* particles, int episodes, int n, const float* angles,
     const float* ranges, const float* mask, int nb, const uint8_t* occ,
     const uint8_t* dil, int h, int w, const float* fparams,
-    const int* iparams, float* out, void* stream) {
-  if (episodes > 65535) return (int)cudaErrorInvalidValue;
+    const int* iparams, float* out, uint32_t* gwords, void* stream) {
   Params P;
   unpack(fparams, iparams, &P);
+  const bool G = gwords != nullptr;
+  const void* kernel = G ? (const void*)beam_weights_batched_kernel<true>
+                         : (const void*)beam_weights_batched_kernel<false>;
   size_t smem;
-  cudaError_t err = smem_for((const void*)beam_weights_batched_kernel, P, nb,
-                             3 * kThreads, h, w, &smem);
+  cudaError_t err = smem_for(kernel, P, nb, 3 * kThreads, h, w, G, &smem);
   if (err != cudaSuccess) return (int)err;
-  if (n > 0 && episodes > 0) {
-    dim3 grid((n + kThreads - 1) / kThreads, episodes);
-    beam_weights_batched_kernel<<<grid, kThreads, smem,
-                                  (cudaStream_t)stream>>>(
-        particles, n, angles, ranges, mask, nb, occ, dil, h, w, P, out);
+  if (n <= 0 || episodes <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (G && (err = pack_global(gwords, occ, h, w, P, s)) != cudaSuccess)
+    return (int)err;
+  for (int e0 = 0; e0 < episodes; e0 += kMaxGridY) {
+    const dim3 grid((n + kThreads - 1) / kThreads,
+                    std::min(kMaxGridY, episodes - e0));
+    const float* p = particles + 3 * (size_t)e0 * n;
+    const float* r = ranges + (size_t)e0 * nb;
+    const float* k = mask + (size_t)e0 * nb;
+    float* o = out + (size_t)e0 * n;
+    if (G)
+      beam_weights_batched_kernel<true><<<grid, kThreads, smem, s>>>(
+          p, n, angles, r, k, nb, occ, gwords, dil, h, w, P, o);
+    else
+      beam_weights_batched_kernel<false><<<grid, kThreads, smem, s>>>(
+          p, n, angles, r, k, nb, occ, gwords, dil, h, w, P, o);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 // K4: the arguments of mcl_beam_weights_batched, then T threads a particle
 // (1, 2, 4 or 8) and `per` particles a block (per * T threads, a whole
 // number of warps, at most kThreads), both from ops/weights.beamsub_plan,
-// and `next`, one int of device scratch for the item counter, which the
-// entry zeroes on the stream where there are more items than blocks.  The grid is as many blocks as the card holds
-// at once, at most one an item.  Returns the first CUDA error.
+// `next`, one int of device scratch for the item counter, which the entry
+// zeroes on the stream where there are more items than blocks, and gwords
+// as for mcl_beam_weights.  The grid is as many blocks as the card holds
+// at once, at most one an item, over grid x: any number of episodes takes
+// one launch.  Returns the first CUDA error.
 namespace {
 
-template <int T>
+template <int T, bool G>
 cudaError_t launch_beamsub(const float* particles, int episodes, int n,
                            const float* angles, const float* ranges,
                            const float* mask, int nb, const uint8_t* occ,
-                           const uint8_t* dil, int h, int w, const Params& P,
-                           int per, int* next, float* out,
-                           cudaStream_t stream) {
-  const void* kernel = (const void*)beamsub_kernel<T>;
+                           const uint32_t* gwords, const uint8_t* dil, int h,
+                           int w, const Params& P, int per, int* next,
+                           float* out, cudaStream_t stream) {
+  const void* kernel = (const void*)beamsub_kernel<T, G>;
   const int threads = per * T;
   size_t smem;
   cudaError_t err = smem_for(kernel, P, nb,
-                             (T > 1 ? kPrepWords * per : 0) + 1, h, w, &smem);
+                             (T > 1 ? kPrepWords * per : 0) + 1, h, w, G,
+                             &smem);
   int dev, sms, resident;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -705,10 +819,28 @@ cudaError_t launch_beamsub(const float* particles, int episodes, int n,
   if (items + grid > INT_MAX) return cudaErrorInvalidValue;
   if (items > grid) err = cudaMemsetAsync(next, 0, sizeof(int), stream);
   if (err != cudaSuccess) return err;
-  beamsub_kernel<T><<<(int)grid, threads, smem, stream>>>(
-      particles, episodes, n, angles, ranges, mask, nb, occ, dil, h, w, P,
-      per, next, out);
+  beamsub_kernel<T, G><<<(int)grid, threads, smem, stream>>>(
+      particles, episodes, n, angles, ranges, mask, nb, occ, gwords, dil, h,
+      w, P, per, next, out);
   return cudaGetLastError();
+}
+
+template <int T>
+cudaError_t launch_beamsub_form(const float* particles, int episodes, int n,
+                                const float* angles, const float* ranges,
+                                const float* mask, int nb, const uint8_t* occ,
+                                uint32_t* gwords, const uint8_t* dil, int h,
+                                int w, const Params& P, int per, int* next,
+                                float* out, cudaStream_t stream) {
+  if (gwords == nullptr)
+    return launch_beamsub<T, false>(particles, episodes, n, angles, ranges,
+                                    mask, nb, occ, gwords, dil, h, w, P, per,
+                                    next, out, stream);
+  cudaError_t err = pack_global(gwords, occ, h, w, P, stream);
+  if (err != cudaSuccess) return err;
+  return launch_beamsub<T, true>(particles, episodes, n, angles, ranges, mask,
+                                 nb, occ, gwords, dil, h, w, P, per, next,
+                                 out, stream);
 }
 
 }  // namespace
@@ -718,7 +850,7 @@ extern "C" int mcl_beam_weights_beamsub(
     const float* ranges, const float* mask, int nb, const uint8_t* occ,
     const uint8_t* dil, int h, int w, const float* fparams,
     const int* iparams, float* out, int threads_per_particle, int per,
-    int* next, void* stream) {
+    int* next, uint32_t* gwords, void* stream) {
   const int T = threads_per_particle;
   if ((T != 1 && T != 2 && T != 4 && T != 8) || per < 1 ||
       per * T > kThreads || (per * T) % 32 != 0)
@@ -726,10 +858,11 @@ extern "C" int mcl_beam_weights_beamsub(
   if (n <= 0 || episodes <= 0) return (int)cudaGetLastError();
   Params P;
   unpack(fparams, iparams, &P);
-  auto* launch = T == 1   ? &launch_beamsub<1>
-                 : T == 2 ? &launch_beamsub<2>
-                 : T == 4 ? &launch_beamsub<4>
-                          : &launch_beamsub<8>;
+  auto* launch = T == 1   ? &launch_beamsub_form<1>
+                 : T == 2 ? &launch_beamsub_form<2>
+                 : T == 4 ? &launch_beamsub_form<4>
+                          : &launch_beamsub_form<8>;
   return (int)launch(particles, episodes, n, angles, ranges, mask, nb, occ,
-                     dil, h, w, P, per, next, out, (cudaStream_t)stream);
+                     gwords, dil, h, w, P, per, next, out,
+                     (cudaStream_t)stream);
 }

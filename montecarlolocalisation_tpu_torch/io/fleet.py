@@ -14,16 +14,20 @@ Protocol (JSONL; one fleet frame per line, arrays indexed by robot):
       "cell_pose": [R][3], "confidence": [R], "song": [R],
       "wanderer_cmd": [R], "n_injected": [R]}
 
+  Raw LaserScan frames (each robot's filterLaserReadings on the host):
+  {"encoder_left": [R], "encoder_right": [R], "raw_scans": [R scan dicts]}
+
   Commands:
     {"cmd": "reset", "seed": n?}                 whole fleet
     {"cmd": "reset", "robot": i, "seed": n?}     one robot; the others are
                                                  untouched
+    {"cmd": "checkpoint"|"restore", "path": p}   the fleet's state (.npz)
     {"cmd": "stats"}                             per-robot confidence
     {"cmd": "shutdown"}
 
 A line that is not JSON, misses keys or fails gets an {"error": ...}
-reply and the session goes on.  Raw LaserScan frames ("raw_scans") and the
-checkpoint/restore commands are not ported yet and get an error reply.
+reply and the session goes on.  A checkpoint (io/logs.save_state) holds
+the batched state with its generator and the tick count.
 
 Pipelined mode (`pipeline=True`): each tick enqueues this frame's step on
 the card and returns the PREVIOUS tick's reply, whose outputs were copied
@@ -46,6 +50,8 @@ from ..config import FilterConfig
 from ..maps.grid import MazeMap
 from ..models import filter as mcl
 from ..models import sensor
+from . import logs
+from .server import raw_to_beams
 
 # Reply fields and their columns in the packed [R, 12] output.
 _COLUMNS = dict(exact_pose=slice(0, 3), cell_pose=slice(3, 6),
@@ -104,6 +110,19 @@ class MCLFleetServer:
 
         self.state = put(self.state, fresh)
 
+    def checkpoint(self, path: str) -> None:
+        """The fleet's state, after the tick in flight."""
+        logs.save_state(path, self.state, dict(tick=self.tick_count))
+
+    def restore(self, path: str) -> None:
+        state, extra = logs.load_state(path, self.m.device)
+        if state.batch != (self.n_robots,):
+            raise ValueError(f"the checkpoint holds batch {state.batch}, "
+                             f"not {self.n_robots} robots")
+        self._pending = None
+        self.state = state
+        self.tick_count = int(extra.get("tick", self.tick_count))
+
     # -- ticks ---------------------------------------------------------------
 
     def tick(self, encoder_left, encoder_right, ranges, mask=None):
@@ -126,7 +145,9 @@ class MCLFleetServer:
                          else np.asarray(mask, np.float32))
         # One host->device copy for the whole fleet frame; it is taken
         # before this returns, so the buffer can be refilled next tick.
-        frame = torch.as_tensor(f, device=self.m.device)
+        # A copy on the CPU too: the state keeps the encoder columns, and a
+        # tensor sharing the buffer would change under them.
+        frame = torch.tensor(f, device=self.m.device)
         scan = sensor.Scan(angles=self._angles_dev,
                            ranges=frame[:, 2:2 + nb].contiguous(),
                            mask=frame[:, 2 + nb:] > 0.5)
@@ -139,6 +160,19 @@ class MCLFleetServer:
         prev = self.flush()
         self._pending = (self.tick_count, staged)
         return prev
+
+    def tick_raw(self, encoder_left, encoder_right, raws):
+        """A fleet update from R raw LaserScan dicts, each filtered onto
+        the beam table on the host (fleet.py:181-197 of the JAX
+        package)."""
+        if len(raws) != self.n_robots:
+            raise ValueError(f"got {len(raws)} raw scans for "
+                             f"{self.n_robots} robots")
+        nb = len(self.angles)
+        beams = [raw_to_beams(raw, self.cfg, nb) for raw in raws]
+        return self.tick(encoder_left, encoder_right,
+                         np.stack([b[0] for b in beams]),
+                         np.stack([b[1] for b in beams]))
 
     def flush(self) -> Optional[dict]:
         """The reply of the tick in flight (pipelined mode); None if none."""
@@ -210,9 +244,9 @@ class MCLFleetServer:
                     if self._handle_cmd(msg, reply):
                         return self.tick_count
                 elif "raw_scans" in msg:
-                    raise NotImplementedError(
-                        "raw_scans frames are not ported; send ranges on "
-                        "the beam table")
+                    reply(self.tick_raw(msg["encoder_left"],
+                                        msg["encoder_right"],
+                                        msg["raw_scans"]))
                 else:
                     reply(self.tick(msg["encoder_left"],
                                     msg["encoder_right"], msg["ranges"],
@@ -230,8 +264,10 @@ class MCLFleetServer:
                 self.reset_robot(int(msg["robot"]), int(msg.get("seed", 0)))
             else:
                 self.reset(int(msg.get("seed", 0)))
-        elif cmd in ("checkpoint", "restore"):
-            raise NotImplementedError(f"{cmd} is not ported")
+        elif cmd == "checkpoint":
+            self.checkpoint(msg["path"])
+        elif cmd == "restore":
+            self.restore(msg["path"])
         elif cmd == "stats":
             reply(dict(tick=self.tick_count, n_robots=self.n_robots,
                        confidence=np.round(

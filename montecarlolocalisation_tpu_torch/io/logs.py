@@ -1,0 +1,114 @@
+"""Episode logs and filter checkpoints.
+
+Torch counterpart of montecarlolocalisation_tpu/io/logs.py.  The
+reference persists nothing (its filter state lives in memory):
+
+- `EpisodeLog`: the replay schema, per-tick encoder readings and filtered
+  scans plus optional ground truth, saved as .npz (the JAX package's
+  format, field for field).
+- `save_state` / `load_state`: an `MCLState` (one filter or a batch) as
+  .npz, every tensor and the state of its torch.Generator, so a filter
+  restored from a checkpoint repeats the uninterrupted run bit for bit.
+  `extra` carries the caller's own integers (a server's tick count).  The
+  format is the port's own; the JAX package's checkpoints hold a PRNG key,
+  not a generator state.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models import motion, resample
+from ..models.filter import MCLState
+
+
+@dataclasses.dataclass
+class EpisodeLog:
+    """Recorded (or simulated) sensor log of one episode."""
+
+    encoders: np.ndarray          # [T, 2] cumulative wheel radians
+    scan_ranges: np.ndarray       # [T, B]
+    scan_angles: np.ndarray       # [B] static beam table
+    scan_mask: Optional[np.ndarray] = None   # [T, B] bool
+    true_poses: Optional[np.ndarray] = None  # [T, 3] ground truth if known
+    meta: Optional[Dict[str, Any]] = None
+
+    @property
+    def num_ticks(self) -> int:
+        return self.encoders.shape[0]
+
+    def save(self, path: str) -> None:
+        arrays = dict(encoders=np.asarray(self.encoders),
+                      scan_ranges=np.asarray(self.scan_ranges),
+                      scan_angles=np.asarray(self.scan_angles))
+        if self.scan_mask is not None:
+            arrays["scan_mask"] = np.asarray(self.scan_mask)
+        if self.true_poses is not None:
+            arrays["true_poses"] = np.asarray(self.true_poses)
+        arrays["meta_json"] = np.frombuffer(
+            json.dumps(self.meta or {}).encode(), dtype=np.uint8)
+        np.savez_compressed(path, **arrays)
+
+    @staticmethod
+    def load(path: str) -> "EpisodeLog":
+        z = np.load(path)
+        meta = (json.loads(bytes(z["meta_json"]).decode())
+                if "meta_json" in z else {})
+        return EpisodeLog(encoders=z["encoders"],
+                          scan_ranges=z["scan_ranges"],
+                          scan_angles=z["scan_angles"],
+                          scan_mask=z.get("scan_mask"),
+                          true_poses=z.get("true_poses"), meta=meta)
+
+
+# MCLState's tensors by checkpoint name; odom and inj nest one level.
+_ODOM = [f.name for f in dataclasses.fields(motion.OdometryState)]
+_INJ = [f.name for f in dataclasses.fields(resample.InjectionState)]
+_TOP = [f.name for f in dataclasses.fields(MCLState)
+        if f.name not in ("odom", "inj", "gen")]
+
+
+def save_state(path: str, state: MCLState,
+               extra: Optional[Dict[str, int]] = None) -> None:
+    """Write `state` (and the integers of `extra`) to an .npz at `path`."""
+    def n(t):
+        return t.detach().cpu().numpy()
+
+    arrays = {name: n(getattr(state, name)) for name in _TOP}
+    arrays.update({f"odom.{k}": n(getattr(state.odom, k)) for k in _ODOM})
+    arrays.update({f"inj.{k}": n(getattr(state.inj, k)) for k in _INJ})
+    arrays["gen_state"] = state.gen.get_state().numpy()
+    arrays["gen_device"] = np.frombuffer(
+        state.gen.device.type.encode(), dtype=np.uint8)
+    arrays["extra_json"] = np.frombuffer(
+        json.dumps(extra or {}).encode(), dtype=np.uint8)
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **arrays)
+
+
+def load_state(path: str, device) -> Tuple[MCLState, Dict[str, int]]:
+    """Read a save_state checkpoint onto `device`: (state, extra).  The
+    generator must be of the device type it was saved from (a CPU
+    generator's state is not a CUDA generator's)."""
+    z = np.load(path)
+    device = torch.device(device)
+    saved = bytes(z["gen_device"]).decode()
+    if saved != device.type:
+        raise ValueError(f"the checkpoint holds a {saved} generator, not a "
+                         f"{device.type} one")
+
+    def t(name):
+        return torch.as_tensor(z[name], device=device)
+
+    gen = torch.Generator(device=device)
+    gen.set_state(torch.as_tensor(z["gen_state"], dtype=torch.uint8))
+    state = MCLState(
+        **{name: t(name) for name in _TOP},
+        odom=motion.OdometryState(**{k: t(f"odom.{k}") for k in _ODOM}),
+        inj=resample.InjectionState(**{k: t(f"inj.{k}") for k in _INJ}),
+        gen=gen)
+    return state, json.loads(bytes(z["extra_json"]).decode())

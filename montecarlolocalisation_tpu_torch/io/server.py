@@ -1,31 +1,44 @@
 """Online serving: the reference's live filter loop as a JSONL stream.
 
-Torch counterpart of the core of montecarlolocalisation_tpu/io/server.py
-(MCLServer, server.py:54-333).  The filter state lives on the map's device
-and each input line runs one `mcl_step`.
+Torch counterpart of MCLServer in montecarlolocalisation_tpu/io/server.py
+(server.py:54-333).  The filter state lives on the map's device and each
+sensor line runs one `mcl_step`, with one host-to-device copy for the
+frame and one device-to-host copy for the reply.
 
 Protocol, one JSON object per line in and out:
 
   Sensor tick, pre-filtered (ranges aligned to the server's beam table):
     {"encoder_left": rad, "encoder_right": rad, "ranges": [...],
      "mask": [...]?}
+  Sensor tick, raw LaserScan (filterLaserReadings on the host):
+    {"encoder_left": rad, "encoder_right": rad,
+     "raw_scan": {"ranges": [...], "angle_min": a, "angle_increment": d,
+                  "range_min": lo?, "range_max": hi?}}
   -> {"tick": i, "exact_pose": [x, y, th], "theta_quaternion": q,
       "cell_pose": [row, col, o], "confidence": c, "song": s,
-      "wanderer_cmd": w, "n_injected": k}
+      "wanderer_cmd": w, "n_injected": k,
+      "particles": n (with adapt), "kld_target": t (adapt_mode "kld")}
      (the poses are the PREVIOUS tick's estimate: the reference publishes,
-      then updates, monte_carlo.cpp:1082-1083.)
+      then updates, monte_carlo.cpp:1082-1083; "particles" is the count
+      the tick ran with.)
 
   Commands:
-    {"cmd": "reset", "seed": n?}  -> {"ok": true}
-    {"cmd": "stats"}              -> {"tick": i, "confidence": c}
-    {"cmd": "shutdown"}           -> {"ok": true} and the loop exits
+    {"cmd": "reset", "seed": n?}            -> {"ok": true}
+    {"cmd": "checkpoint", "path": "..."}    -> {"ok": true}
+    {"cmd": "restore", "path": "..."}       -> {"ok": true}
+    {"cmd": "stats"}                        -> {"tick": i, "confidence": c}
+    {"cmd": "shutdown"}                     -> {"ok": true} and the loop
+                                               exits
 
-A line that is not JSON, misses keys or fails gets an {"error": ...}
-reply and the session goes on.  Raw LaserScan frames, checkpoints and the
-elastic particle budget are not ported yet.
+A checkpoint (io/logs.save_state) holds the filter state with its
+generator, the tick count and the adapt policy's counter, so a restored
+server repeats the replies of the uninterrupted session exactly.  A line
+that is not JSON, misses keys or fails gets an {"error": ...} reply and the
+session goes on.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import sys
@@ -34,32 +47,151 @@ from typing import IO, Iterable, Optional
 import numpy as np
 import torch
 
-from ..config import FilterConfig
+from ..config import FilterConfig, KLDConfig
 from ..maps.grid import MazeMap
 from ..models import filter as mcl
-from ..models import sensor
+from ..models import kld as kldmod
+from ..models import resample, sensor
+from . import logs
+
+
+def raw_to_beams(raw: dict, cfg: FilterConfig, nb: int):
+    """A raw LaserScan dict -> (ranges [nb], mask [nb]) on the server's beam
+    table (sensor.filter_scan, padded to nb lanes).  The surviving beams'
+    angles can drift from the table (a dropped beam shifts the comb); the
+    filter evaluates at the table, as the JAX server does
+    (server.py:237-250)."""
+    _, radii, mask = sensor.filter_scan(
+        np.asarray(raw["ranges"], np.float64), float(raw["angle_min"]),
+        float(raw["angle_increment"]), float(raw.get("range_min", 0.0)),
+        float(raw.get("range_max", cfg.sensor.max_range)), cfg.sensor,
+        pad_to=nb)
+    return radii, mask
 
 
 class MCLServer:
     """A live filter: device-resident state, one tick per sensor frame.
     The beam table is fixed at construction, as the reference fixes its
-    LIDAR."""
+    LIDAR; raw scans are filtered onto it.
 
-    def __init__(self, m: MazeMap, cfg: FilterConfig, angles, seed: int = 0):
+    `adapt=(n_min, n_max)` is the elastic particle budget (no reference
+    counterpart; its N = 1500 is a constant, monte_carlo.cpp:84): in
+    "patience" mode the count halves after every `adapt_patience`
+    consecutive confident ticks, down to n_min; in "kld" mode every tick
+    also computes Fox's KLD-sampling count (models/kld, `kld`), and the
+    budget snaps to the smallest halving of n_max that covers it, growing
+    at once and shrinking one halving after `adapt_patience` agreeing
+    ticks.  In both modes the lost song snaps it back to n_max.  A resize
+    is a systematic redraw of the current posterior
+    (resample.resize_particles) with an offset from the state's
+    generator."""
+
+    def __init__(self, m: MazeMap, cfg: FilterConfig, angles, seed: int = 0,
+                 adapt=None, adapt_patience: int = 20,
+                 adapt_mode: str = "patience",
+                 kld: Optional[KLDConfig] = None):
         self.m = m
         self.cfg = cfg
         self.angles = np.asarray(angles, np.float32)
         self._angles_dev = torch.as_tensor(self.angles, device=m.device)
         self.tick_count = 0
+        self.adapt = None if adapt is None else (int(adapt[0]),
+                                                 int(adapt[1]))
+        if self.adapt is not None and not 1 <= self.adapt[0] <= self.adapt[1]:
+            raise ValueError("adapt=(n_min, n_max) needs 1 <= n_min <= "
+                             "n_max")
+        if adapt_mode not in ("patience", "kld"):
+            raise ValueError(f"unknown adapt_mode {adapt_mode!r}")
+        self.adapt_patience = adapt_patience
+        self.adapt_mode = adapt_mode
+        self.kld = kld or KLDConfig()
+        self._kld_on = self.adapt is not None and adapt_mode == "kld"
+        self._confident_run = 0
         self.reset(seed)
 
     @property
     def num_particles(self) -> int:
         return int(self.state.particles.shape[0])
 
+    # -- the elastic budget --------------------------------------------------
+
+    def _set_particle_count(self, n_new: int) -> None:
+        """Redraw the live posterior at n_new particles."""
+        if n_new == self.num_particles:
+            return
+        st = self.state
+        u0 = resample.draw_resize(st.gen, self.m.device)
+        parts, w = resample.resize_particles(st.particles, st.weights, n_new,
+                                             u0)
+        self.state = dataclasses.replace(st, particles=parts, weights=w)
+
+    def _lattice_size(self, target: float) -> int:
+        """The smallest halving of n_max that covers `target`, clamped to
+        the adapt bounds (server.py:149-157)."""
+        n_min, n_max = self.adapt
+        t = min(max(target, float(n_min)), float(n_max))
+        size = n_max
+        while size // 2 >= t and size // 2 >= n_min:
+            size //= 2
+        return size
+
+    def _maybe_adapt(self, out: dict, kld_target: float = 0.0) -> None:
+        """The adapt policy after a tick's reply (server.py:159-190)."""
+        if self.adapt is None:
+            return
+        n_min, n_max = self.adapt
+        n = self.num_particles
+        if out["song"] == self.cfg.hysteresis.song_lost:
+            # Lost (the kidnap detector): full budget to re-localize.
+            self._confident_run = 0
+            if n < n_max:
+                self._set_particle_count(n_max)
+            return
+        if self.adapt_mode == "kld":
+            want = self._lattice_size(kld_target)
+            if want > n:
+                self._confident_run = 0
+                self._set_particle_count(want)
+            elif want < n:
+                # One halving after adapt_patience agreeing ticks: no
+                # flapping on bin-count noise.
+                self._confident_run += 1
+                if self._confident_run >= self.adapt_patience:
+                    self._set_particle_count(n // 2)
+                    self._confident_run = 0
+            else:
+                self._confident_run = 0
+            return
+        confident = (out["confidence"]
+                     >= self.cfg.hysteresis.conf_confident_threshold)
+        self._confident_run = self._confident_run + 1 if confident else 0
+        if self._confident_run >= self.adapt_patience and n > n_min:
+            self._set_particle_count(max(n // 2, n_min))
+            self._confident_run = 0
+
+    # -- lifecycle -----------------------------------------------------------
+
     def reset(self, seed: int = 0) -> None:
         self.state = mcl.init_state(self.m, self.cfg, seed)
         self.tick_count = 0
+        self._confident_run = 0
+        if self.adapt is not None:
+            # Global localization starts at the full budget.
+            self._set_particle_count(self.adapt[1])
+
+    def checkpoint(self, path: str) -> None:
+        logs.save_state(path, self.state, dict(
+            tick=self.tick_count, confident_run=self._confident_run))
+
+    def restore(self, path: str) -> None:
+        state, extra = logs.load_state(path, self.m.device)
+        if state.batch:
+            raise ValueError("the checkpoint holds a batch of filters")
+        self.state = state
+        self.tick_count = int(extra.get("tick", self.tick_count))
+        self._confident_run = int(extra.get("confident_run", 0))
+
+    # -- ticks ---------------------------------------------------------------
 
     def tick(self, encoder_left: float, encoder_right: float, ranges,
              mask=None) -> dict:
@@ -68,7 +200,7 @@ class MCLServer:
         if ranges.shape != self.angles.shape:
             raise ValueError(
                 f"ranges has shape {ranges.shape}, beam table has "
-                f"{self.angles.shape}")
+                f"{self.angles.shape}: pass a raw_scan or match the table")
         mask = (np.ones(self.angles.shape, bool) if mask is None
                 else np.asarray(mask, np.float32) > 0.5)
         # One host->device copy for the frame.
@@ -78,18 +210,36 @@ class MCLServer:
         nb = len(self.angles)
         scan = sensor.Scan(angles=self._angles_dev, ranges=frame[2:2 + nb],
                            mask=frame[2 + nb:] > 0.5)
+        n_used = self.num_particles
         self.state, out = mcl.mcl_step(self.state, frame[0], frame[1], scan,
                                        self.m, self.cfg)
+        target = (kldmod.particle_target(self.state.particles, self.m,
+                                         self.kld) if self._kld_on else None)
         self.tick_count += 1
-        return self._out_dict(out)
+        d, tgt = self._out_dict(out, target)
+        if self.adapt is not None:
+            d["particles"] = n_used
+        if self._kld_on:
+            d["kld_target"] = round(tgt, 1)
+        self._maybe_adapt(d, kld_target=tgt)
+        return d
 
-    def _out_dict(self, o: mcl.MCLOutput) -> dict:
-        # One device->host copy for all of the reply's numbers.
+    def tick_raw(self, encoder_left: float, encoder_right: float,
+                 raw: dict) -> dict:
+        """One filter update from a raw LaserScan message dict."""
+        radii, mask = raw_to_beams(raw, self.cfg, len(self.angles))
+        return self.tick(encoder_left, encoder_right, radii, mask)
+
+    def _out_dict(self, o: mcl.MCLOutput, target=None):
+        """(reply, KLD target or 0.0) from one device->host copy of all the
+        reply's numbers, the KLD target among them."""
+        extra = [] if target is None else [target.to(torch.float32)]
         v = torch.cat([o.exact_pose, o.cell_pose.to(torch.float32),
                        torch.stack([o.confidence,
                                     o.song.to(torch.float32),
                                     o.wanderer_cmd.to(torch.float32),
-                                    o.n_injected.to(torch.float32)])]
+                                    o.n_injected.to(torch.float32),
+                                    *extra])]
                       ).cpu().numpy().astype(np.float64)
         return dict(
             tick=self.tick_count,
@@ -101,7 +251,7 @@ class MCLServer:
             song=int(v[7]),
             wanderer_cmd=int(v[8]),
             n_injected=int(v[9]),
-        )
+        ), (float(v[10]) if target is not None else 0.0)
 
     def serve(self, lines: Iterable[str],
               out_stream: Optional[IO[str]] = None) -> int:
@@ -125,16 +275,17 @@ class MCLServer:
                     if self._handle_cmd(msg, reply):
                         break
                 elif "raw_scan" in msg:
-                    raise NotImplementedError(
-                        "raw_scan frames are not ported; send pre-filtered "
-                        "ranges on the beam table")
+                    reply(self.tick_raw(msg["encoder_left"],
+                                        msg["encoder_right"],
+                                        msg["raw_scan"]))
                 else:
                     reply(self.tick(msg["encoder_left"],
                                     msg["encoder_right"], msg["ranges"],
                                     msg.get("mask")))
             except Exception as e:  # noqa: BLE001 — a long-lived server
-                # must survive any bad line (missing keys, shape errors):
-                # reply with the error instead of dropping the session.
+                # must survive any bad line (missing keys, shape errors,
+                # unreadable checkpoints): reply with the error instead of
+                # dropping the session.
                 reply(dict(error=f"{type(e).__name__}: {e}"))
         return self.tick_count
 
@@ -142,6 +293,10 @@ class MCLServer:
         cmd = msg["cmd"]
         if cmd == "reset":
             self.reset(int(msg.get("seed", 0)))
+        elif cmd == "checkpoint":
+            self.checkpoint(msg["path"])
+        elif cmd == "restore":
+            self.restore(msg["path"])
         elif cmd == "stats":
             reply(dict(tick=self.tick_count,
                        confidence=round(float(self.state.confidence), 6)))

@@ -142,7 +142,11 @@ NEW_ABLATIONS = {
          "  if (p.origin0) return 0.0f;\n  float best = kInf;\n"),
         ("    best = (rr >= 0 && s_hit < smax) ? fminf(best, s_hit) : best;",
          "    if (rr >= 0 && s_hit < smax) return s_hit;")],
-    "nocast": OLD_ABLATIONS["nocast"],
+    "nocast": [("""  if (P.mode == kFixed) {
+    dist = march<G>(""", """  if (true) {
+    dist = 0.5f + 1e-3f * dx;
+  } else if (P.mode == kFixed) {
+    dist = march<G>(""")],
     # Register caps that let 6 or 5 blocks of 256 threads share an SM.
     "regs40": [("__global__ void beam_weights",
                 "__global__ void __launch_bounds__(kThreads, 6) beam_weights")],
@@ -158,7 +162,7 @@ _SMEM_PREP = "    if constexpr (T > 1) {\n      if ((int)threadIdx.x < rows) {"
 _GET_PREP = "      q = get_particle(s_prep, per, j);"
 _OWN_PREP = """      if (live) {
         const float* row = parts + 3 * (k0 + j);
-        q = prepare(row[0], row[1], row[2], B, P);
+        q = prepare<G>(row[0], row[1], row[2], B, P);
       }"""
 _SHFL = "__shfl_sync(0xffffffffu, {0}, 0, T)"
 _SHFL_PREP = (_OWN_PREP.replace("if (live)", "if (live && r == 0)") + "\n"
@@ -229,21 +233,32 @@ def compile_libs(sources: dict, workdir: str) -> dict:
     return libs
 
 
-def weight_entries(lib, old_k4: bool = False):
-    """Set the beam weight entries' argtypes; an earlier K4 (old_k4) takes
-    K1 batched's arguments, without a plan or a counter."""
+# The beam weight entries of the earlier sources (97cbc4c, 24f8e6e): no
+# raster-words argument before the stream, and K4 with K1 batched's
+# arguments, without a plan or a counter.
+OLD_SIGNATURES = {
+    name: build.SIGNATURES[name][:-2] + build.SIGNATURES[name][-1:]
+    for name in ("mcl_beam_weights", "mcl_beam_weights_batched")}
+OLD_SIGNATURES["mcl_beam_weights_beamsub"] = OLD_SIGNATURES[
+    "mcl_beam_weights_batched"]
+
+
+def weight_entries(lib, old: bool = False):
+    """Set the beam weight entries' argtypes, the current sources' or
+    (old) the earlier ones'; `lib.old_entries` records which."""
+    table = OLD_SIGNATURES if old else build.SIGNATURES
     for entry in ("mcl_beam_weights", "mcl_beam_weights_batched",
                   "mcl_beam_weights_beamsub"):
         fn = getattr(lib, entry)
-        fn.argtypes = build.SIGNATURES[
-            "mcl_beam_weights_batched" if old_k4 and "sub" in entry
-            else entry]
+        fn.argtypes = table[entry]
         fn.restype = ctypes.c_int
+    lib.old_entries = old
     return lib
 
 
 def k1(lib, m, parts, scan, cfg):
-    """One K1 launch through `lib`'s C entry, as ops/weights launches it."""
+    """One K1 launch through `lib`'s C entry, as ops/weights launches it
+    (the shared-memory raster form)."""
     nb = scan.angles.shape[0]
     sign = -1.0 if cfg.negate_beam_angle else 1.0
     table = torch.stack([sign * scan.angles, scan.ranges.expand(nb),
@@ -255,6 +270,7 @@ def k1(lib, m, parts, scan, cfg):
         parts.data_ptr(), parts.shape[0], table.data_ptr(), nb,
         m.occ.data_ptr(), m.occ_dilated.data_ptr(), m.height, m.width,
         ctypes.addressof(fp), ctypes.addressof(ip), out.data_ptr(),
+        *(() if lib.old_entries else (None,)),
         build.stream_handle(parts.device)), "mcl_beam_weights")
     return out
 
@@ -273,6 +289,8 @@ def k1_batched(lib, entry, m, parts, scan, cfg, *plan):
     fp, ip = weights._params(m, cfg)
     counter = torch.empty(1, dtype=torch.int32, device=parts.device)
     tail = (*plan, counter.data_ptr()) if plan else ()
+    if not lib.old_entries:
+        tail += (None,)    # the shared-memory raster form
     build.check(getattr(lib, entry)(
         parts.data_ptr(), n_ep, n, angles.data_ptr(), ranges.data_ptr(),
         mask.data_ptr(), nb, m.occ.data_ptr(), m.occ_dilated.data_ptr(),
@@ -421,7 +439,7 @@ def ablation_part(which: str, sources: dict, workdir, gen):
     """Each variant of `sources` timed in turns (all, then all reversed) at
     1M x 34 and 1024 x 500 x 24, analytic and fixed, on uniform and on
     filtered particles."""
-    libs = {k: weight_entries(v) for k, v in compile_libs(
+    libs = {k: weight_entries(v, old=which == "old") for k, v in compile_libs(
         {f"{which}_{k}": v for k, v in sources.items()}, workdir).items()}
     libs = {k[len(which) + 1:]: v for k, v in libs.items()}
     names = list(libs)
@@ -462,7 +480,7 @@ def ptxas_part(workdir):
 
 def turns_part(old_libs, gen):
     dev = torch.device("cuda")
-    old_w = weight_entries(old_libs["weights"], old_k4=True)
+    old_w = weight_entries(old_libs["weights"], old=True)
     old_k = old_libs["kmeans"]
     old_k.mcl_kmeans.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -655,7 +673,7 @@ def beamsub_part(old_dir, workdir, gen):
         new_src, BEAMSUB_VARIANTS).items()}
     sources["k4_old"] = old_src
     libs = compile_libs(sources, workdir)
-    old = weight_entries(libs.pop("k4_old"), old_k4=True)
+    old = weight_entries(libs.pop("k4_old"), old=True)
     libs = {k[3:]: weight_entries(v) for k, v in libs.items()}
     names = list(libs)
     entry = "mcl_beam_weights_beamsub"

@@ -6,9 +6,18 @@ reference's order:
   1. hysteresis on the PREVIOUS tick's confidence -> events, thresholds
   2. publish the previous best pose (exact + quantized cell pose)
   3. diffDriveModel + sampleMotionModelOdometry (odometry + noise)
-  4. updateParticlePos (propagation)
-  5. resampleParticles (weights inside; jitter regime = was_lost AFTER 1)
-  6. k-means confidence with the post-hysteresis thresholds
+  4. updateParticlePos (propagation), then the opt-in gradient
+     refinement (models/refine, cfg.refine.iters > 0)
+  5. resampleParticles (weights inside; jitter regime = was_lost AFTER 1),
+     every tick, or ESS-gated with carried weights
+     (cfg.resample.ess_threshold)
+  6. k-means confidence with the post-hysteresis thresholds (importance-
+     weighted under the ESS gate)
+
+With `known_map` (a partial learned map: `m` the conservative fit,
+`known_map` the same fit with unexplored edges open) the weights come
+from sensor.beam_weights_partial, and InitConfig.partial_map_cells may
+restrict the fresh draws to explored cells.
 
 A tick's random numbers come from the state's torch.Generator, or from
 `draws` (TickDraws), which lets a caller replay another implementation's
@@ -30,7 +39,7 @@ import torch
 from ..config import FilterConfig
 from ..maps.grid import MazeMap, is_valid_pos, world_to_cell
 from ..utils.angles import quantize_orientation
-from . import cluster, motion, resample, sensor
+from . import cluster, motion, refine, resample, sensor
 
 # Wanderer command codes emitted per tick.
 WANDERER_NOOP = -1
@@ -88,12 +97,25 @@ class TickDraws:
     kmeans_reseed: torch.Tensor
 
 
+def injection_cells(m: MazeMap, cfg: FilterConfig,
+                    known_map: Optional[MazeMap] = None,
+                    modes=("explored",)):
+    """The cell mask of the fresh draws: the explored cells on a partial
+    map where partial_map_cells is one of `modes`, else None (the tick's
+    draws: "explored", filter.py:226-228 of the JAX package; the initial
+    cloud's: "explored" or "init-only", :82-84)."""
+    if known_map is None or cfg.init.partial_map_cells not in modes:
+        return None
+    return resample.explored_cells(m)
+
+
 def draw_tick(gen: torch.Generator, m: MazeMap, n: int,
-              cfg: FilterConfig, batch=()) -> TickDraws:
-    """One tick's draws from `gen`, with leading episode shape `batch`."""
+              cfg: FilterConfig, batch=(), cell_mask=None) -> TickDraws:
+    """One tick's draws from `gen`, with leading episode shape `batch`;
+    `cell_mask` restricts the fresh particles' cells."""
     normals = motion.draw_motion_normals(gen, n, cfg.motion, m.device,
                                          batch)
-    rs = resample.draw_resample(gen, m, n, cfg, batch)
+    rs = resample.draw_resample(gen, m, n, cfg, batch, cell_mask)
     init, reseed = cluster.draw_kmeans(gen, n, cfg.cluster, m.device, batch)
     return TickDraws(motion_normals=normals, resample=rs, kmeans_init=init,
                      kmeans_reseed=reseed)
@@ -104,17 +126,22 @@ def _full(batch, v, dtype, device):
 
 
 def init_state(m: MazeMap, cfg: FilterConfig, seed: int = 0,
-               batch: Optional[int] = None) -> MCLState:
+               batch: Optional[int] = None,
+               known_map: Optional[MazeMap] = None) -> MCLState:
     """Startup state (monte_carlo.cpp:1198-1209): uniform particles,
     zeroed odometry/injection accumulators, lost-side thresholds.  With
     `batch`, E independent episodes drawn from one generator: particles
-    [E, N, 3] and every scalar [E]."""
+    [E, N, 3] and every scalar [E].  With `known_map` and
+    partial_map_cells "explored" or "init-only", the cloud is drawn over
+    the explored cells only (filter.py:72-101 of the JAX package)."""
     dev = m.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     b = () if batch is None else (batch,)
     n = cfg.num_particles
-    particles = resample.sample_uniform_particles(gen, m, n, cfg.init, b)
+    mask = injection_cells(m, cfg, known_map, ("explored", "init-only"))
+    particles = resample.sample_uniform_particles(gen, m, n, cfg.init, b,
+                                                  mask)
     h = cfg.hysteresis
     f32 = torch.float32
     return MCLState(
@@ -128,6 +155,37 @@ def init_state(m: MazeMap, cfg: FilterConfig, seed: int = 0,
         confident_threshold=_full(b, h.init_confident_threshold, f32, dev),
         best_pose=_full(b + (3,), -1.0, f32, dev),
         gen=gen)
+
+
+def init_tracking_state(m: MazeMap, cfg: FilterConfig, pose, seed: int = 0,
+                        sigma_xy: float = 0.03, sigma_theta: float = 0.05,
+                        batch: Optional[int] = None,
+                        normals=None) -> MCLState:
+    """Known-pose startup (filter.py:102-126 of the JAX package): a
+    Gaussian cloud at `pose` ([3], or [E, 3] with `batch`) and the
+    confident-side thresholds.  `normals` [..., 3, N] are the cloud's
+    standard normals for x, y and theta; None draws them from the state's
+    generator after init_state's draws."""
+    st = init_state(m, cfg, seed, batch)
+    n = cfg.num_particles
+    b = st.batch
+    if normals is None:
+        normals = torch.randn(b + (3, n), generator=st.gen, device=m.device)
+    normals = torch.as_tensor(normals, dtype=torch.float32, device=m.device)
+    p = torch.as_tensor(pose, dtype=torch.float32,
+                        device=m.device).expand(b + (3,))
+    parts = torch.stack([p[..., 0, None] + sigma_xy * normals[..., 0, :],
+                         p[..., 1, None] + sigma_xy * normals[..., 1, :],
+                         p[..., 2, None] + sigma_theta * normals[..., 2, :]],
+                        dim=-1)
+    h = cfg.hysteresis
+    f32 = torch.float32
+    return dataclasses.replace(
+        st, particles=parts, confidence=_full(b, 1.0, f32, m.device),
+        cluster_threshold=_full(b, h.conf_cluster_threshold, f32, m.device),
+        confident_threshold=_full(b, h.conf_confident_threshold, f32,
+                                  m.device),
+        best_pose=p.clone())
 
 
 def _hysteresis(state: MCLState, m: MazeMap, cfg: FilterConfig):
@@ -183,18 +241,15 @@ def mcl_step(
     m: MazeMap,
     cfg: FilterConfig,
     draws: Optional[TickDraws] = None,
+    known_map: Optional[MazeMap] = None,
 ) -> Tuple[MCLState, MCLOutput]:
     """One 10 Hz filter tick, of one filter or of every episode of a batch
-    (encoders [...], scan ranges and mask [..., B])."""
-    if cfg.resample.ess_threshold is not None:
-        raise NotImplementedError(
-            "ESS-gated resampling (resample.ess_threshold) is not ported")
-    if cfg.refine.iters > 0:
-        raise NotImplementedError(
-            "gradient refinement (refine.iters > 0) is not ported")
+    (encoders [...], scan ranges and mask [..., B]).  `known_map` switches
+    the weights to the partial-map scorer (module docstring)."""
+    cell_mask = injection_cells(m, cfg, known_map)
     if draws is None:
         draws = draw_tick(state.gen, m, state.particles.shape[-2], cfg,
-                          state.batch)
+                          state.batch, cell_mask)
 
     # 1. Hysteresis on previous confidence.
     was_lost, cluster_thr, conf_thr, song, wanderer = _hysteresis(
@@ -209,17 +264,32 @@ def mcl_step(
         state.particles, state.odom, encoder_left, encoder_right,
         cfg.motion, draws.motion_normals)
 
+    # 4b. Opt-in gradient refinement (no reference counterpart).
+    particles = refine.refine_particles(m, particles, scan, cfg)
+
     # 5. Weights + resample (jitter regime = was_lost after hysteresis,
     #    monte_carlo.cpp:1087).
-    weights = sensor.beam_weights(m, particles, scan, cfg.sensor,
-                                  cfg.valid_pos_offset)
-    particles, weights, inj, info = resample.resample(
-        particles, weights, state.inj, was_lost, m, cfg, draws.resample)
+    if known_map is None:
+        weights = sensor.beam_weights(m, particles, scan, cfg.sensor,
+                                      cfg.valid_pos_offset)
+    else:
+        weights = sensor.beam_weights_partial(m, known_map, particles, scan,
+                                              cfg.sensor,
+                                              cfg.valid_pos_offset)
+    gated = cfg.resample.ess_threshold is not None
+    if gated:
+        particles, weights, inj, info = resample.ess_gated_resample(
+            particles, weights, state.weights, state.inj, was_lost, m, cfg,
+            draws.resample)
+    else:
+        particles, weights, inj, info = resample.resample(
+            particles, weights, state.inj, was_lost, m, cfg, draws.resample)
 
-    # 6. Cluster confidence with the post-hysteresis threshold.
+    # 6. Cluster confidence with the post-hysteresis threshold, importance-
+    #    weighted where the gate carries non-uniform weights.
     confidence, best_pose = cluster.cluster_confidence(
         particles, weights, conf_thr, cfg.cluster, draws.kmeans_init,
-        draws.kmeans_reseed)
+        draws.kmeans_reseed, weighted=gated)
 
     new_state = MCLState(
         particles=particles, weights=weights, odom=odom, inj=inj,
@@ -243,10 +313,12 @@ def run_episode(
     cfg: FilterConfig,
     scan_mask=None,      # [..., T, B] optional
     draws: Optional[Sequence[TickDraws]] = None,   # one per tick
+    known_map: Optional[MazeMap] = None,
 ) -> Tuple[MCLState, MCLOutput]:
     """Run the filter over a recorded episode, or over a batch of episodes
     with the state's leading dims; the outputs are stacked over ticks
-    ([..., T, ...]).  A batch shares one static beam table [B]."""
+    ([..., T, ...]).  A batch shares one static beam table [B].
+    `known_map` as in mcl_step."""
     dev = m.device
     encoders = torch.as_tensor(encoders, dtype=torch.float32, device=dev)
     ranges = torch.as_tensor(scan_ranges, dtype=torch.float32, device=dev)
@@ -264,7 +336,8 @@ def run_episode(
                          mask=mask[..., t, :])
         state, out = mcl_step(state, encoders[..., t, 0],
                               encoders[..., t, 1], sc, m, cfg,
-                              None if draws is None else draws[t])
+                              None if draws is None else draws[t],
+                              known_map=known_map)
         outs.append(out)
     stacked = MCLOutput(**{
         f.name: torch.stack([getattr(o, f.name) for o in outs], dim=lead)

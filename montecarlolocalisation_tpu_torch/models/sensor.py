@@ -12,13 +12,15 @@ isValidPos weigh 0.
 Beams are fixed-size tensors (angles [B], ranges [..., B], mask [..., B]).
 Particles carry leading episode dims: [N, 3] is one filter and [E, N, 3]
 a batch of episodes, which shares one beam table `angles` [B] and has its
-own observations, ranges and mask [E, B].
+own observations, ranges and mask [E, B].  `filter_scan` turns a raw
+(ragged) LaserScan into that form on the host; `beam_weights_partial`
+scores particles on a partial learned map.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +37,45 @@ class Scan:
     angles: torch.Tensor  # [B] beam angles (radians, LIDAR frame)
     ranges: torch.Tensor  # [..., B] observed radii (m)
     mask: torch.Tensor    # [..., B] bool — False lanes contribute nothing
+
+
+def filter_scan(
+    ranges: np.ndarray,
+    angle_min: float,
+    angle_increment: float,
+    range_min: float,
+    range_max: float,
+    cfg: SensorModelConfig = SensorModelConfig(),
+    pad_to: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """filterLaserReadings + filterAngles + the beam skip on the host
+    (monte_carlo.cpp:254-278, :610-620, :650; sensor.py:45-86 of the JAX
+    package): non-finite beams become cfg.invalid_beam_range at their
+    nominal angle, finite beams outside [range_min, range_max] are dropped
+    (which shifts the later beams' indices), beams strictly inside
+    +-angle_crop_deg are kept, then every beam_skip-th.  Returns numpy
+    (angles [B], ranges [B], mask [B]), padded to `pad_to` lanes."""
+    ranges = np.asarray(ranges, dtype=np.float64)
+    idx = np.arange(len(ranges))
+    angles = angle_min + idx * angle_increment
+    bad = ~np.isfinite(ranges)
+    keep = bad | ((ranges >= range_min) & (ranges <= range_max))
+    radii = np.where(bad, cfg.invalid_beam_range, ranges)[keep]
+    angles = angles[keep]
+    deg = angles * 180.0 / math.pi
+    crop = (deg > -cfg.angle_crop_deg) & (deg < cfg.angle_crop_deg)
+    radii, angles = radii[crop], angles[crop]
+    radii = radii[:: cfg.beam_skip]
+    angles = angles[:: cfg.beam_skip]
+    mask = np.ones(len(radii), dtype=bool)
+    if pad_to is not None:
+        pad = pad_to - len(radii)
+        if pad < 0:
+            raise ValueError(f"pad_to={pad_to} < {len(radii)} beams")
+        radii = np.pad(radii, (0, pad))
+        angles = np.pad(angles, (0, pad))
+        mask = np.pad(mask, (0, pad))
+    return angles.astype(np.float32), radii.astype(np.float32), mask
 
 
 def default_beam_angles(
@@ -179,14 +220,55 @@ def beam_weights(m: MazeMap, particles, scan: Scan, cfg: SensorModelConfig,
 def beam_weights_dense(m: MazeMap, particles, scan: Scan,
                        cfg: SensorModelConfig, valid_offset: float = 0.1):
     """The dense torch path (sensor.py:193 _beam_weights_dense)."""
-    per_beam = per_beam_likelihood(m, particles, scan, cfg)
-    mask = scan.mask.to(torch.float32)[..., None, :]
+    prob = _combine(per_beam_likelihood(m, particles, scan, cfg),
+                    scan.mask.to(torch.float32)[..., None, :], cfg)
+    valid = is_valid_pos(m, particles[..., 0], particles[..., 1],
+                         valid_offset)
+    return torch.where(valid, prob, 0.0)
+
+
+def _combine(per_beam, mask, cfg: SensorModelConfig):
+    """Masked beam combine [..., N, B] -> [..., N]: the sum, or in log mode
+    the temperature-scaled log-sum shifted by each episode's max."""
     if cfg.beam_combine == "log":
         logs = beam_sum(torch.log(torch.clamp(per_beam, min=1e-6))
                         * mask) * f32_reciprocal(cfg.log_temperature)
-        prob = torch.exp(logs - torch.amax(logs, dim=-1, keepdim=True))
+        return torch.exp(logs - torch.amax(logs, dim=-1, keepdim=True))
+    return beam_sum(per_beam * mask)
+
+
+def beam_weights_partial(m: MazeMap, known: MazeMap, particles, scan: Scan,
+                         cfg: SensorModelConfig, valid_offset: float = 0.1):
+    """computeWeight on a partial learned map (sensor.py:225-291 of the
+    JAX package).  `m` is the conservative fit (unexplored edges closed),
+    `known` the same fit with them open, so a beam cast on both stays in
+    mapped space where the two distances agree, and crosses the
+    exploration frontier at d_cons where d_cons < d_known.  A measurement
+    at or beyond that frontier gets the unknown credit (flat:
+    unknown_credit of the peak hit probability; "interval": the density of
+    a wall uniform over the unknown stretch, capped at the peak) instead
+    of the score against a phantom wall; every other beam keeps the
+    reference score against d_known.  Validity uses `m`.
+
+    Plain torch on every device: the JAX package runs XLA here too."""
+    d_cons = expected_ranges(m, particles, scan.angles, cfg)     # [..., N, B]
+    d_known = expected_ranges(known, particles, scan.angles, cfg)
+    observed = scan.ranges[..., None, :]
+    frontier = d_cons < d_known - 1e-4
+    beyond = observed >= d_cons - cfg.sigma
+    peak = 1.0 / (cfg.sigma * math.sqrt(2.0 * math.pi))
+    p_hit = cfg.w_hit * gauss_pdf(torch.abs(observed - d_known), cfg)
+    if cfg.unknown_credit_mode == "interval":
+        interval = torch.clamp(cfg.max_range - d_cons, min=0.0) + cfg.sigma
+        credit = cfg.w_hit * torch.clamp(1.0 / interval, max=peak)
     else:
-        prob = beam_sum(per_beam * mask)
+        credit = torch.full_like(p_hit, float(np.float32(
+            cfg.unknown_credit * cfg.w_hit * peak)))
+    p_hit = torch.where(frontier & beyond, credit, p_hit)
+    p_rand = cfg.w_rand * (torch.abs(observed - cfg.max_range)
+                           < cfg.rand_window).to(torch.float32)
+    prob = _combine(p_hit + p_rand, scan.mask.to(torch.float32)[..., None, :],
+                    cfg)
     valid = is_valid_pos(m, particles[..., 0], particles[..., 1],
                          valid_offset)
     return torch.where(valid, prob, 0.0)

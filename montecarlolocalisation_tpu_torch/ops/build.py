@@ -28,8 +28,10 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
-# The most episodes one batched launch takes: its grid's y dimension.
-MAX_EPISODES = 65_535
+# The most episodes one launch's grid y dimension holds.  The batched C
+# entries that lay episodes along y (K1 batched, K2 batched's two-launch
+# path) launch larger batches in chunks of this many.
+GRID_Y_MAX = 65_535
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,16 +40,17 @@ _L = ctypes.c_longlong
 # ctypes never passes one as a 32-bit int.
 SIGNATURES = {
     # particles, n, beam table, B, occ, dil, H, W, fparams, iparams, out,
-    # stream
-    "mcl_beam_weights": [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    # raster words (null: shared-memory form), stream
+    "mcl_beam_weights": [_P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
+                         _P],
     # particles, E, N, angles, ranges, mask, B, occ, dil, H, W, fparams,
-    # iparams, out, stream
+    # iparams, out, raster words, stream
     "mcl_beam_weights_batched": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
-                                 _I, _P, _P, _P, _P],
+                                 _I, _P, _P, _P, _P, _P],
     # ... out, then threads a particle, particles a block, item counter,
-    # stream
+    # raster words, stream
     "mcl_beam_weights_beamsub": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
-                                 _I, _P, _P, _P, _I, _I, _P, _P],
+                                 _I, _P, _P, _P, _I, _I, _P, _P, _P],
     # particles, cdf, u0, E, n, d, out, scratch, stream
     "mcl_systematic_expand": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "mcl_expand_device_launches": [],

@@ -29,17 +29,21 @@ SCAN_CHUNK = 4096     # csrc/expand.cu kScanChunk: a source tile's multiple
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How one call runs: one block an episode and one launch, or two
-    launches over source tiles (csrc/expand.cu picks the tile) with int32
-    scratch for each episode's tile-scanned counts [n] and one maximum for
-    each SCAN_CHUNK sources, at most."""
+    """How one call runs: one block an episode and one launch (episodes
+    along grid x, any number), or two launches over source tiles
+    (csrc/expand.cu picks the tile) with int32 scratch for each episode's
+    tile-scanned counts [n] and one maximum for each SCAN_CHUNK sources, at
+    most; that path lays episodes along grid y and so launches a batch in
+    chunks of build.GRID_Y_MAX episodes."""
     n: int
     episodes: int
     one_block: bool
 
     @property
     def device_launches(self) -> int:
-        return 1 if self.one_block else 2
+        if self.one_block:
+            return 1
+        return 2 * -(-self.episodes // build.GRID_Y_MAX)
 
     @property
     def scratch_ints(self) -> int:
@@ -99,8 +103,6 @@ def _launch(particles, cdf, u0, rank: int):
     # (and its memory handed to the next copy) before the kernel reads it.
     parts, cdf, u0 = particles.contiguous(), cdf.contiguous(), u0.contiguous()
     n_ep = 1 if rank == 2 else parts.shape[0]
-    if n_ep > build.MAX_EPISODES:
-        raise ValueError(f"{n_ep} episodes > {build.MAX_EPISODES}")
     lib = build.library()
     plan = launch_plan(parts.shape[-2], n_ep)
     out = torch.empty_like(parts)
@@ -137,8 +139,8 @@ systematic_expand_batched_cuda.launches = 0
 
 
 def device_launches() -> int:
-    """Device launches the C entry has made since the library loaded (one
-    a call in one block an episode, else two)."""
+    """Device launches the C entry has made since the library loaded
+    (LaunchPlan.device_launches a call)."""
     return build.library().mcl_expand_device_launches()
 
 

@@ -119,8 +119,6 @@ def _launch(xy, centers0, reseed, rank: int):
                          "stride, centers0 [..., K, 2] with K <= 8, reseed "
                          "[..., I, K, 2]")
     n_ep = 1 if rank == 2 else xy.shape[0]
-    if n_ep > build.MAX_EPISODES:
-        raise ValueError(f"{n_ep} episodes > {build.MAX_EPISODES}")
     lib = build.library()
     plan = launch_plan(n, n_ep)
     centers0 = centers0.to(torch.float32).contiguous()

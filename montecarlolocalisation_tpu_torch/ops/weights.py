@@ -19,6 +19,15 @@ after its Pallas kernels (ops/weights_pallas.py:330, :371).
   many particles a block takes; the bits do not depend on it.  Its public
   form finishes log mode per episode, as the JAX launcher does
   (weights_pallas.py:590-593).  The filter never dispatches it.
+
+Every kernel takes any raster, as the TPU kernel takes any concrete one
+(weights_pallas.py:295-326).  `raster_form` keeps a small raster's bit
+words in each block's shared memory, which every block packs itself, and
+a larger one in a device buffer that the C entry packs once a call and
+the kernels read through the read-only cache.  The two forms run the same
+arithmetic, so both give the plain version's bits.
+Any number of episodes takes one call: the C entries split a batch into
+launches where the grid needs it.
 """
 from __future__ import annotations
 
@@ -37,6 +46,13 @@ MAX_BEAMS = 1024   # beam table in shared memory next to the raster's bits
 SUBLANES = 8   # K4: lane sums a particle, lane s summing every 8th beam
 BLOCK = 256    # threads of a block; K1 stages this many particle rows
 SMEM_MAX = 232_448   # shared memory one H100 block may opt in to (bytes)
+# The shared-memory raster form up to this many bytes of bit words.  Each
+# block packs the raster itself there, a cost that grows with the raster,
+# while the device-memory form's words stay in the L1 cache at a cost that
+# does not: the two cross near 1 KB (chip_smoke.py's f1_time on an H100,
+# PERF.md, section 6), and past it the shared form only loses, up to 55
+# times at the largest raster that still fits.
+SHARED_RASTER_BYTES = 1024
 # K4's resident threads an SM: four blocks of BLOCK threads at its 60 to 64
 # registers a thread (ptxas; PERF.md, section 6).
 K4_THREADS_PER_SM = 1024
@@ -173,28 +189,53 @@ def _check_config(m: MazeMap, cfg: SensorModelConfig, nb: int):
         raise ValueError("the analytic cast needs a gridline raster")
     if nb > MAX_BEAMS:
         raise ValueError(f"{nb} beams > {MAX_BEAMS}")
-    if smem_bytes(m, cfg, nb) > SMEM_MAX:
-        raise ValueError(f"a {m.height} x {m.width} raster does not fit in "
-                         "a block's shared memory as bits")
+
+
+def raster_words(m: MazeMap, cfg: SensorModelConfig) -> int:
+    """The raster's 32-bit words: the gridlines for the analytic cast, one
+    bit a pixel for the march (csrc/weights.cu raster_words)."""
+    wv, wh = -(-m.height // 32), -(-m.width // 32)
+    if cfg.ray_mode == "fixed":
+        return m.height * wh
+    n_v = (m.width - 1) // analytic.CELL_PX + 1
+    n_h = (m.height - 1) // analytic.CELL_PX + 1
+    return n_v * wv + n_h * wh
 
 
 def smem_bytes(m: MazeMap, cfg: SensorModelConfig, nb: int) -> int:
-    """Shared memory of one K1 block: the beam table, its particle rows and
-    the raster's 32-bit words (gridlines for the analytic cast, one bit a
-    pixel for the march)."""
-    wv, wh = -(-m.height // 32), -(-m.width // 32)
-    if cfg.ray_mode == "fixed":
-        words = m.height * wh
-    else:
-        n_v = (m.width - 1) // analytic.CELL_PX + 1
-        n_h = (m.height - 1) // analytic.CELL_PX + 1
-        words = n_v * wv + n_h * wh
-    return 4 * (3 * nb + 3 * BLOCK + words)
+    """Shared memory of one K1 block with the raster in it: the beam table,
+    its particle rows and the raster's words.  Past SMEM_MAX only the
+    device-memory form can take the raster."""
+    return 4 * (3 * nb + 3 * BLOCK + raster_words(m, cfg))
+
+
+def raster_form(m: MazeMap, cfg: SensorModelConfig) -> str:
+    """"shared" for a raster of at most SHARED_RASTER_BYTES of bit words,
+    else "device"."""
+    small = 4 * raster_words(m, cfg) <= SHARED_RASTER_BYTES
+    return "shared" if small else "device"
+
+
+def _raster_buffer(m: MazeMap, cfg: SensorModelConfig, form=None):
+    """The device-memory form's word buffer (int32 scratch the C entry
+    packs), or None for the shared-memory form; `form` forces one (the
+    card's checks time both forms on rasters that fit both)."""
+    if (form or raster_form(m, cfg)) == "shared":
+        return None
+    return torch.empty(raster_words(m, cfg), dtype=torch.int32,
+                       device=m.device)
 
 
 def beam_weights_cuda(m: MazeMap, particles, scan: sensor.Scan,
                       cfg: SensorModelConfig):
     """Launch K1 on CUDA tensors: particles [N, 3], one scan."""
+    out = _launch_k1(m, particles, scan, cfg)
+    beam_weights_cuda.launches += 1
+    return out
+
+
+def _launch_k1(m: MazeMap, particles, scan: sensor.Scan,
+               cfg: SensorModelConfig, form=None):
     _check_particles(m, particles, 2, "beam_weights_cuda")
     nb = scan.angles.shape[0]
     _check_config(m, cfg, nb)
@@ -208,13 +249,14 @@ def beam_weights_cuda(m: MazeMap, particles, scan: sensor.Scan,
     out = torch.empty(parts.shape[0], dtype=torch.float32,
                       device=parts.device)
     fp, ip = _params(m, cfg)
+    words = _raster_buffer(m, cfg, form)
     err = lib.mcl_beam_weights(
         parts.data_ptr(), parts.shape[0], table.data_ptr(), nb,
         occ.data_ptr(), dil.data_ptr(), m.height, m.width,
         ctypes.addressof(fp), ctypes.addressof(ip), out.data_ptr(),
+        None if words is None else words.data_ptr(),
         build.stream_handle(parts.device))
     build.check(err, "mcl_beam_weights")
-    beam_weights_cuda.launches += 1
     return out
 
 
@@ -222,17 +264,14 @@ beam_weights_cuda.launches = 0
 
 
 def _batched_launch(entry: str, m: MazeMap, particles, scan: sensor.Scan,
-                    cfg: SensorModelConfig, *plan: int):
+                    cfg: SensorModelConfig, *plan: int, form=None):
     """Launch a batched C entry (K1 batched, or K4 with its plan's threads
     a particle and particles a block): particles [E, N, 3], angles [B],
-    ranges and mask [E, B] -> [E, N]."""
+    ranges and mask [E, B] -> [E, N]; `form` forces a raster form."""
     _check_particles(m, particles, 3, entry)
     n_ep, n = particles.shape[0], particles.shape[1]
     nb = scan.angles.shape[0]
     _check_config(m, cfg, nb)
-    if n_ep > build.MAX_EPISODES:
-        raise ValueError(f"{n_ep} episodes > {build.MAX_EPISODES}, the most one "
-                         "launch's grid holds")
     if scan.angles.dim() != 1 or scan.ranges.shape != (n_ep, nb) \
             or scan.mask.shape != (n_ep, nb):
         raise ValueError("need one beam table angles [B] and ranges, mask "
@@ -251,11 +290,13 @@ def _batched_launch(entry: str, m: MazeMap, particles, scan: sensor.Scan,
     counter = torch.empty(1, dtype=torch.int32, device=parts.device) \
         if plan else None
     tail = (*plan, counter.data_ptr()) if plan else ()
+    words = _raster_buffer(m, cfg, form)
     err = getattr(lib, entry)(
         parts.data_ptr(), n_ep, n, angles.data_ptr(), ranges.data_ptr(),
         mask.data_ptr(), nb, occ.data_ptr(), dil.data_ptr(), m.height,
         m.width, ctypes.addressof(fp), ctypes.addressof(ip), out.data_ptr(),
-        *tail, build.stream_handle(parts.device))
+        *tail, None if words is None else words.data_ptr(),
+        build.stream_handle(parts.device))
     build.check(err, entry)
     return out
 

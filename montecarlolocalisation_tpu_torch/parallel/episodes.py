@@ -38,11 +38,13 @@ def run_episode_batch(
     scan_angles, tick_chunk: Optional[int] = None,
     state: Optional[mcl.MCLState] = None,
     draws: Optional[Sequence[mcl.TickDraws]] = None,
+    known_map: Optional[MazeMap] = None,
 ) -> Tuple[mcl.MCLState, mcl.MCLOutput]:
     """Run the filter over a batch of episodes: encoders [E, T, 2],
     scan_ranges [E, T, B], one beam table [B].  The start state is
     init_state(seed, batch=E) unless `state` is given; `draws` (one
-    TickDraws [E, ...] per tick) replays given random numbers.
+    TickDraws [E, ...] per tick) replays given random numbers;
+    `known_map` scores on a partial map (models/filter.mcl_step).
 
     `tick_chunk` is accepted for the JAX package's signature and changes
     nothing: the JAX package splits the tick scan to bound one device
@@ -52,9 +54,10 @@ def run_episode_batch(
     encoders = torch.as_tensor(encoders, dtype=torch.float32,
                                device=m.device)
     if state is None:
-        state = mcl.init_state(m, cfg, seed, batch=encoders.shape[0])
+        state = mcl.init_state(m, cfg, seed, batch=encoders.shape[0],
+                               known_map=known_map)
     return mcl.run_episode(state, encoders, scan_ranges, scan_angles, m, cfg,
-                           draws=draws)
+                           draws=draws, known_map=known_map)
 
 
 def _nanmean(v):
@@ -143,7 +146,8 @@ def pick_replicas(final: mcl.MCLState, outs: mcl.MCLOutput, replicas: int):
 
 def run_episode_replicas(seed: int, m: MazeMap, cfg: FilterConfig, encoders,
                          scan_ranges, scan_angles, replicas: int = 4,
-                         tick_chunk: Optional[int] = None):
+                         tick_chunk: Optional[int] = None,
+                         known_map: Optional[MazeMap] = None):
     """Evidence-selected filter replicas over an episode batch
     (episodes.py:211): every episode runs `replicas` times with
     independent filter draws, in ONE batch of replicas x episodes, and
@@ -158,5 +162,6 @@ def run_episode_replicas(seed: int, m: MazeMap, cfg: FilterConfig, encoders,
     rep = (replicas,) + (1,) * (enc.dim() - 1)
     final, outs = run_episode_batch(seed, m, cfg, enc.repeat(rep),
                                     rng.repeat(rep), scan_angles,
-                                    tick_chunk=tick_chunk)
+                                    tick_chunk=tick_chunk,
+                                    known_map=known_map)
     return pick_replicas(final, outs, replicas)

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from .config import (
-    FilterConfig, ResampleConfig, SensorModelConfig,
+    FilterConfig, RefineConfig, ResampleConfig, SensorModelConfig,
 )
 from .maps import MazeMap, from_map_file
 
@@ -30,13 +30,20 @@ class World:
 def make_world(map_path: str = DEFAULT_MAP, num_particles: int = 1500,
                num_beams: int = 24, ray_mode: str = "fixed",
                resample_method: str = "multinomial",
+               refine_iters: int = 0, ess_threshold=None,
                device="cuda") -> World:
     """World from a reference map.txt wall list: the maze on `device`, the
-    filter config and an evenly spread beam table over +-118 degrees."""
+    filter config and an evenly spread beam table over +-118 degrees.
+    refine_iters > 0 turns on gradient refinement (models/refine) and
+    ess_threshold the ESS-gated resampling schedule
+    (resample.ess_gated_resample); both are off by default, as in the JAX
+    package's make_world (presets.py:46-72)."""
     maze = from_map_file(map_path, device=device)
     cfg = FilterConfig(num_particles=num_particles,
                        sensor=SensorModelConfig(ray_mode=ray_mode),
-                       resample=ResampleConfig(method=resample_method))
+                       refine=RefineConfig(iters=refine_iters),
+                       resample=ResampleConfig(method=resample_method,
+                                               ess_threshold=ess_threshold))
     angles = np.deg2rad(
         np.linspace(-118.0, 118.0, num_beams)).astype(np.float32)
     return World(maze=maze, walls=maze.walls, cfg=cfg, angles=angles)

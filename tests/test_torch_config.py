@@ -14,7 +14,7 @@ torch.set_num_threads(1)
 
 CLASSES = ["GridConfig", "SensorModelConfig", "MotionModelConfig",
            "ResampleConfig", "RefineConfig", "ClusterConfig",
-           "HysteresisConfig", "InitConfig", "FilterConfig"]
+           "HysteresisConfig", "InitConfig", "FilterConfig", "KLDConfig"]
 
 
 @pytest.mark.parametrize("name", CLASSES)
@@ -60,5 +60,8 @@ def test_config_from_round_trips():
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert interop.config_from(tcfg) == tcfg
     assert interop.config_from(jcfg.motion) == tconfig.MotionModelConfig()
+    kld = jconfig.KLDConfig(epsilon=0.02, subsample=4096)
+    assert interop.config_from(kld) == tconfig.KLDConfig(epsilon=0.02,
+                                                         subsample=4096)
     with pytest.raises(TypeError):
         interop.config_from(jconfig.SLAMConfig())

@@ -116,6 +116,8 @@ def test_run_episode_shapes_and_per_tick_angles():
 
 
 def test_init_state_and_unported_options_raise():
+    # ESS gating and refinement are ported now: a tick runs with both.
+    # What still raises is an option neither package knows.
     _, tm = maps()
     cfg = config_from(_cfg("fixed", "multinomial"))
     s = tfilter.init_state(tm, cfg, seed=3)
@@ -123,7 +125,13 @@ def test_init_state_and_unported_options_raise():
     assert s.best_pose.tolist() == [-1.0, -1.0, -1.0]
     scan = tsensor.make_scan(np.zeros(BEAMS, np.float32),
                              np.ones(BEAMS, np.float32))
-    ess = dataclasses.replace(cfg, resample=config_from(ResampleConfig(
-        ess_threshold=0.5)))
-    with pytest.raises(NotImplementedError):
-        tfilter.mcl_step(s, 0.0, 0.0, scan, tm, ess)
+    ess = dataclasses.replace(
+        cfg, resample=config_from(ResampleConfig(ess_threshold=0.5)),
+        refine=dataclasses.replace(cfg.refine, iters=1))
+    new, out = tfilter.mcl_step(s, 0.0, 0.0, scan, tm, ess)
+    assert new.particles.shape == (N, 3)
+    assert torch.isfinite(new.weights).all()
+    bogus = dataclasses.replace(cfg, resample=dataclasses.replace(
+        cfg.resample, method="stratified"))
+    with pytest.raises(ValueError):
+        tfilter.mcl_step(s, 0.0, 0.0, scan, tm, bogus)

@@ -7,7 +7,8 @@
 - Robot r's reply equals a single-filter tick of robot r's state with the
   same draws.
 - Pipelined replies lag by one tick and carry their own tick index.
-- checkpoint/restore commands and raw_scans frames get error replies.
+- checkpoint/restore and raw_scans answer; their bad lines get error
+  replies.
 - The `serve --robots R --pipeline` CLI answers a session.
 """
 import json
@@ -169,20 +170,30 @@ def test_pipelined_replies_lag_one_tick():
         [(True, True), (True, False)]
 
 
-def test_unported_commands_and_raw_scans_get_error_replies():
+def test_unported_commands_and_raw_scans_get_error_replies(tmp_path):
+    # checkpoint, restore and raw_scans are ported now: they answer, and
+    # only a bad line of theirs (a missing checkpoint, too few raw scans)
+    # or an unknown command gets an error reply.
     world = _world()
     raw = dict(encoder_left=[0.0] * R, encoder_right=[0.0] * R,
                raw_scans=[dict(ranges=[0.5] * 10, angle_min=-1.0,
                                angle_increment=0.2)] * R)
-    lines = [json.dumps({"cmd": "checkpoint", "path": "fleet.npz"}),
-             json.dumps({"cmd": "restore", "path": "fleet.npz"}),
-             json.dumps(raw), json.dumps({"cmd": "shutdown"})]
+    short = dict(raw, raw_scans=raw["raw_scans"][:1])
+    path = str(tmp_path / "fleet.npz")
+    lines = [json.dumps({"cmd": "checkpoint", "path": path}),
+             json.dumps({"cmd": "restore", "path": path}),
+             json.dumps(raw), json.dumps(short),
+             json.dumps({"cmd": "restore", "path": path + ".missing"}),
+             json.dumps({"cmd": "fly"}), json.dumps({"cmd": "shutdown"})]
     ticks, replies = _serve(MCLFleetServer(world.maze, world.cfg,
                                            world.angles, R), lines)
-    assert ticks == 0
-    assert [sorted(r) for r in replies] == [["error"]] * 3 + [["ok"]]
-    assert "not ported" in replies[0]["error"]
-    assert "raw_scans" in replies[2]["error"]
+    assert ticks == 1
+    assert replies[0] == replies[1] == {"ok": True}
+    assert replies[2]["tick"] == 1 and len(replies[2]["confidence"]) == R
+    assert [sorted(r) for r in replies[3:6]] == [["error"]] * 3
+    assert "1 raw scans" in replies[3]["error"]
+    assert replies[5] == {"error": "unknown cmd 'fly'"}
+    assert replies[6] == {"ok": True}
 
 
 def test_serve_fleet_cli():

@@ -156,3 +156,56 @@ def test_wrapper_takes_plain_version_on_cpu():
     out = tweights.beam_weights(tm, t(parts), tscan, cfg)
     assert out.shape == (64,) and out.device.type == "cpu"
     assert tweights.beam_weights_cuda.launches == before
+
+
+def _square_maze(cells):
+    """An open square maze of `cells` x `cells` cells, 8 * cells + 1 px a
+    side, on the CPU."""
+    from montecarlolocalisation_tpu_torch.maps import from_walls as tfw
+
+    walls = [[[WALL_TOP] if r == 0 else [] for _ in range(cells)]
+             for r in range(cells)]
+    return tfw(walls, device="cpu")
+
+
+@pytest.mark.parametrize("cells,fixed_form,analytic_form", [
+    (6, "shared", "shared"),          # the default maze's size, 49 px
+    (12, "device", "shared"),         # 97 px: 1552 bytes of march words
+    (30, "device", "device"),         # 241 px: 1984 bytes of gridlines
+    (170, "device", "device"),        # 1361 px: past shared memory
+    (340, "device", "device"),        # 2721 px: the gridlines too
+])
+def test_raster_form_past_shared_memory(cells, fixed_form, analytic_form):
+    """F1: every raster takes a kernel.  ops/weights keeps a raster of at
+    most SHARED_RASTER_BYTES of bit words in each block's shared memory
+    and any larger one, up to rasters no block's shared memory holds, in a
+    device buffer of the same words; the config check no longer refuses a
+    raster for its size."""
+    m = _square_maze(cells)
+    for mode, want in (("fixed", fixed_form), ("analytic", analytic_form)):
+        cfg = config_from(SensorModelConfig(ray_mode=mode))
+        words = -(-m.width // 32) * m.height if mode == "fixed" else \
+            2 * (cells + 1) * -(-m.width // 32)
+        assert tweights.raster_words(m, cfg) == words
+        assert tweights.raster_form(m, cfg) == want
+        assert (want == "shared") == (4 * words
+                                      <= tweights.SHARED_RASTER_BYTES)
+        for nb in (12, 34):
+            fits = tweights.smem_bytes(m, cfg, nb) <= tweights.SMEM_MAX
+            assert fits == (cells < 170 or (mode == "analytic"
+                                            and cells < 340))
+            tweights._check_config(m, cfg, nb)
+
+
+def test_wrapper_takes_plain_version_on_a_raster_past_shared_memory():
+    m = _square_maze(170)
+    cfg = config_from(SensorModelConfig(ray_mode="fixed"))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    parts = torch.rand(64, 3, generator=gen) * torch.tensor([130.0, 130.0,
+                                                             6.0])
+    scan = tsensor.make_scan(np.zeros(12, np.float32),
+                             np.full(12, 0.5, np.float32))
+    got = tweights.beam_weights(m, parts, scan, cfg)
+    assert torch.equal(got, tweights.beam_weights_plain(m, parts, scan, cfg))
+    assert torch.equal(got, tsensor.beam_weights(m, parts, scan, cfg))
