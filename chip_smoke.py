@@ -23,7 +23,22 @@ the filter through the entry points a user calls:
   ESS gate and refinement over 96 wander frames with a kidnap at frame 64,
   every other frame a raw LaserScan, and a checkpoint whose restore must
   repeat the next 10 replies exactly; (c) the server at 1,048,576 x 34
-  under the ESS gate.
+  under the ESS gate;
+- sweeps over randomized maps (parallel/episodes.run_multimap_sweep, each
+  episode on its own map of a stack, K1 batched reading one raster per
+  episode): the published JAX row, 64 mixed maps x 2 episodes x 150
+  ticks at 500 x 24 (converged 0.6016 on the TPU; raises below 0.47), and
+  the full width, 512 mixed maps x 2 episodes = 1024 x 500 x 24 x 300,
+  fixed, systematic, where K1 batched's map-stack form, K2 batched and K3
+  batched must launch once a tick;
+- an imported map: a generated 32 x 32-cell maze exported as a
+  map_server YAML + PGM, reloaded through presets.make_world and
+  localised by the localisation preset at 1500 x 24 (its raster in the
+  device-memory form), then tracked with its origin kept (keep_origin);
+- the CLI's localisation and moving presets, each line well-formed and
+  finite; and the shipped replay fixture replayed by 64 replicas of 500
+  particles with the DDA caster (raises if no replica ends confident
+  within 0.2 m of the truth).
 
 Every phase prints one JSON line; any failure raises, so the exit code is
 non-zero and no result line appears.  It needs one CUDA card and fails
@@ -50,14 +65,20 @@ the raster's bit words from a device buffer; the two raster forms give
 the same bits on rasters that fit both, and their device times set the
 size at which ops/weights switches forms.  F2: K1 batched, K4, K2
 batched and K3 batched at 65,543 episodes, past one grid's 65,535 along y,
-equal their plain versions.
+equal their plain versions.  K1 batched's map-stack form holds 0.0
+max-abs error and equals single-map launches map by map: stacks of 1, 64
+and 512 mixed maps at E = 2 M, both ray modes, combines and raster forms,
+random mazes past shared memory, and E = 65,543 with the map index
+changing across the chunk boundary.
 
 Output, in order: the card (nvidia-smi name and power limit), the build,
 the kernel checks (F1 and F2 among them), the serve phase, the entry
-config, the kernel-vs-plain tick, the kernel times, the sweep, paths (a),
-(b) and (c), the fleet, a device profile of one filter's tick at the
+config, the kernel-vs-plain tick, the kernel times, the sweep, the two
+randomized-map sweeps, paths (a), (b) and (c), the fleet, the imported
+map, the CLI, the replay, a device profile of one filter's tick at the
 serve's shapes and of one batched tick at the sweep's and the fleet's, the
-layout A/B, the batched kernels' times, the two raster forms' device
+layout A/B, the batched kernels' times (the map-stack form's against
+single-map K1 batched in device time), the two raster forms' device
 times, a {"kernels": [...]} line, the card again, and last {"ok": true,
 "device": {...}}.
 
@@ -69,6 +90,7 @@ import dataclasses
 import json
 import math
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -80,12 +102,15 @@ import torch
 from montecarlolocalisation_tpu_torch import presets
 from montecarlolocalisation_tpu_torch.bench import card
 from montecarlolocalisation_tpu_torch.config import (
-    WALL_LEFT, WALL_TOP, FilterConfig, SensorModelConfig,
+    WALL_LEFT, WALL_TOP, FilterConfig, ResampleConfig, SensorModelConfig,
 )
 from montecarlolocalisation_tpu_torch.io.fleet import MCLFleetServer
+from montecarlolocalisation_tpu_torch.io.logs import EpisodeLog
 from montecarlolocalisation_tpu_torch.io.server import MCLServer
 from montecarlolocalisation_tpu_torch.kernel_ab import device_ms, forced_plan
-from montecarlolocalisation_tpu_torch.maps import from_walls
+from montecarlolocalisation_tpu_torch.maps import (
+    from_walls, generator, pgm, repeat_maps, select_maps, stack_maps,
+)
 from montecarlolocalisation_tpu_torch.maps.grid import (
     cell_center, is_valid_pos, lookup, world_to_map,
 )
@@ -96,6 +121,7 @@ from montecarlolocalisation_tpu_torch.models import (
 from montecarlolocalisation_tpu_torch.models.raycast import march_steps
 from montecarlolocalisation_tpu_torch.ops import analytic, build, expand
 from montecarlolocalisation_tpu_torch.ops import kmeans, weights
+from montecarlolocalisation_tpu_torch.parallel import episodes
 from montecarlolocalisation_tpu_torch.sim import robot
 
 SERVE_N, SERVE_B, SERVE_TICKS = 1_048_576, 34, 20
@@ -129,6 +155,24 @@ ELASTIC_START = (2.05, 2.05, 0.0)   # the sweep's start
 # size to the largest that fits a block's shared memory.
 F1_TIME_CELLS = dict(fixed=(12, 18, 30, 60, 120), analytic=(30, 60, 120,
                                                               240))
+# K1 batched's map-stack form: stacks of mixed maps at E = 2 M, and of
+# random mazes past shared memory.  The sweeps over randomized maps: the
+# published JAX row (maps, episodes a map, ticks) and the full width's
+# maps (2 episodes a map).  The imported map, the CLI runs and the replay.
+STACK_MAPS, STACK_BIG_MAPS = (1, 64, 512), 2
+MULTIMAP_ROW = (64, 2, 150)
+MULTIMAP_MAPS = 512
+IMPORT_CELLS, IMPORT_N, IMPORT_TICKS = 32, 1500, 200
+IMPORT_ORIGIN = (3.2, 1.6)
+CLI_RUNS = (
+    (["localisation", "--particles", "500", "--ticks", "200"],
+     {"preset", "confidence", "best_pose", "true_pose", "position_error_m",
+      "songs"}),
+    (["moving"], {"preset", "ticks", "distance_m", "final_pose"}))
+REPLAY_REPLICAS = 64
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "montecarlolocalisation_tpu", "data",
+                       "replay_6x6.npz")
 START = (1.25, 1.25, 0.0)     # the bench's pose, a free spot of the maze
 WHEELS = (0.5, 0.45)          # encoder step per tick (rad): a gentle arc
 PKG = "montecarlolocalisation_tpu_torch"
@@ -143,6 +187,10 @@ KERNELS = {
         replaces=f"{TPU}/weights_pallas.py:277"),
     "beam_weights_batched": dict(
         fn=weights.beam_weights_batched_cuda,
+        source=f"{PKG}/csrc/weights.cu",
+        replaces=f"{TPU}/weights_pallas.py:371"),
+    "beam_weights_stack": dict(
+        fn=weights.beam_weights_stack_cuda,
         source=f"{PKG}/csrc/weights.cu",
         replaces=f"{TPU}/weights_pallas.py:371"),
     "systematic_expand": dict(
@@ -868,7 +916,7 @@ def march_samples(m, parts, angles, cfg) -> int:
     for r in march_steps(cfg):
         count += alive.to(torch.int32)
         mx, my, inb = world_to_map(m, ox + r * dx, oy + r * dy)
-        alive = alive & inb & ~lookup(m.occ, mx, my)
+        alive = alive & inb & ~lookup(m.occ, mx, my, m.episode_maps)
     return int(count.sum())
 
 
@@ -930,8 +978,9 @@ def slab_candidates(m, parts, angles, cfg) -> int:
 
 
 def k1_bound(m, parts, angles, cfg) -> dict:
-    """K1 (and K1 batched, K4: the same function): each input read once,
-    each output written once; operations per beam and per particle, the
+    """K1 (and K1 batched, its map-stack form, K4: the same function): each
+    input read once (a stack's every raster and its map index), each
+    output written once; operations per beam and per particle, the
     cast counted by what this data needs: march samples, or the analytic
     cast's slab candidates up to each axis's first hit.  bound_ms_all_slabs
     counts every candidate slab of both axes for every beam instead, the
@@ -940,7 +989,8 @@ def k1_bound(m, parts, angles, cfg) -> dict:
     nb = angles.shape[-1]
     n_ep = n // parts.shape[-2]
     n_bytes = (12 * n + 4 * n + 4 * nb + 8 * n_ep * nb
-               + 2 * m.height * m.width)
+               + 2 * m.maps * m.height * m.width
+               + (4 * n_ep if m.is_stack else 0))
     base = n * nb * BEAM_FLOPS + n * PARTICLE_FLOPS
     if cfg.ray_mode == "fixed":
         return bound(n_bytes, base + MARCH_SAMPLE_FLOPS
@@ -1995,6 +2045,359 @@ def elastic_phase(dev) -> dict:
     return launched
 
 
+# -- phase 3e: K1 batched's map-stack form ---------------------------------
+
+def stack_launch(stack, parts, scan, cfg, form):
+    """One map-stack launch in a forced raster form (not counted: a
+    comparison with the plain version)."""
+    return weights._batched_launch(weights.STACK_ENTRY, stack, parts, scan,
+                                   cfg, form=form)
+
+
+def per_map_equal(stack, singles, got, parts, scan, cfg, form) -> bool:
+    """Whether each map's episodes equal a single-map K1 batched launch on
+    that map (uncounted, in the same raster form)."""
+    index = stack.episode_maps
+    same = True
+    for i, one in enumerate(singles):
+        eps = torch.nonzero(index == i).flatten()
+        if eps.numel() == 0:
+            continue
+        want = weights._batched_launch(
+            "mcl_beam_weights_batched", one, parts[eps],
+            sensor.Scan(scan.angles, scan.ranges[eps], scan.mask[eps]), cfg,
+            form=form)
+        same = same and torch.equal(got[eps], want)
+    return same
+
+
+def check_stack(gen) -> dict:
+    """K1 batched's map-stack form at 0.0 max-abs error from the plain
+    version and equal to single-map launches map by map: M in STACK_MAPS
+    mixed maps at E = 2 M, both ray modes, both combines and both raster
+    forms (forced); a stack of random mazes past shared memory in the
+    device form; and E = 65,543 episodes with the map index changing
+    across the chunk boundary at 65,535, whose last 16 episodes equal a
+    call of their own."""
+    dev = gen.device
+    worst = 0.0
+    cases = []
+    for n_maps in STACK_MAPS:
+        stack = generator.generate_map_batch(n_maps, style="mixed",
+                                             device=dev)
+        cases.append((f"{n_maps} mixed maps", repeat_maps(stack, 2),
+                      ("fixed", "analytic"), ("shared", "device"), SWEEP_N,
+                      SWEEP_B))
+    for mode in ("fixed", "analytic"):
+        cells = device_form_cells(mode)
+        big = stack_maps([random_maze(cells, cells, dev, seed=cells + s)
+                          for s in range(STACK_BIG_MAPS)])
+        cases.append((f"{STACK_BIG_MAPS} random {cells}-cell mazes",
+                      repeat_maps(big, 2), (mode,), ("device",), 500, 24))
+    for name, stack, modes, forms, n, nb in cases:
+        singles = [stack.map_at(i) for i in range(stack.maps)]
+        n_ep = stack.episode_maps.shape[0]
+        for mode in modes:
+            for comb in ("sum", "log"):
+                cfg = SensorModelConfig(ray_mode=mode, beam_combine=comb)
+                parts, scan = batched_inputs(stack, n_ep, n, nb, cfg, gen)
+                want = weights.beam_weights_plain(stack, parts, scan, cfg)
+                for form in forms:
+                    got = stack_launch(stack, parts, scan, cfg, form)
+                    err = (got - want).abs().max().item()
+                    same = per_map_equal(stack, singles, got, parts, scan,
+                                         cfg, form)
+                    torch.cuda.synchronize()
+                    worst = max(worst, err)
+                    say("check", kernel="beam_weights_stack", maps=name,
+                        episodes=n_ep, n=n, beams=nb, ray_mode=mode,
+                        combine=comb, form=form,
+                        raster=list(stack.occ.shape[1:]), max_abs_err=err,
+                        equals_single_map_launches=same)
+                    if not (err == 0.0 and same
+                            and torch.isfinite(got).all()):
+                        raise AssertionError(
+                            f"K1 stack {name} {mode}/{comb} {form}: "
+                            f"{err}, per map {same}")
+        del stack, singles
+    base = generator.generate_map_batch(3, style="mixed", device=dev)
+    singles = [base.map_at(i) for i in range(3)]
+    index = (torch.arange(F2_E) // 7) % 3
+    stack = select_maps(base, index)
+    tail = slice(F2_E - 16, None)
+    tstack = select_maps(base, index[tail])
+    for mode in ("fixed", "analytic"):
+        cfg = SensorModelConfig(ray_mode=mode)
+        parts, scan = batched_inputs(stack, F2_E, 32, 12, cfg, gen)
+        tscan = sensor.Scan(scan.angles, scan.ranges[tail], scan.mask[tail])
+        for form in ("shared", "device"):
+            got = stack_launch(stack, parts, scan, cfg, form)
+            err = (got - weights.beam_weights_plain(stack, parts, scan, cfg)
+                   ).abs().max().item()
+            alone = torch.equal(got[tail], stack_launch(
+                tstack, parts[tail], tscan, cfg, form))
+            same = per_map_equal(stack, singles, got, parts, scan, cfg,
+                                 form)
+            torch.cuda.synchronize()
+            worst = max(worst, err)
+            say("check", kernel="beam_weights_stack", what="F2",
+                episodes=F2_E, maps=3, n=32, beams=12, ray_mode=mode,
+                form=form, max_abs_err=err, tail_equals_alone=alone,
+                equals_single_map_launches=same,
+                maps_in_tail=sorted(set(index[tail].tolist())))
+            if err != 0.0 or not (alone and same):
+                raise AssertionError(f"K1 stack F2 {mode} {form}: {err}, "
+                                     f"{alone}, {same}")
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst)
+
+
+def stack_time(gen) -> dict:
+    """The map-stack form at the full-width sweep's shape (512 mixed maps,
+    2 episodes a map, 500 x 24, fixed): CUDA events in turns against its
+    plain version, and device time (kernel_ab.device_ms) in turns against
+    the single-map K1 batched on the stack's first map with the same
+    inputs."""
+    dev = gen.device
+    stack = repeat_maps(generator.generate_map_batch(
+        MULTIMAP_MAPS, style="mixed", device=dev), 2)
+    one = stack.map_at(0)
+    cfg = SensorModelConfig(ray_mode="fixed")
+    parts, scan = batched_inputs(stack, 2 * MULTIMAP_MAPS, SWEEP_N, SWEEP_B,
+                               cfg, gen)
+    kern = lambda: weights.beam_weights_stack_cuda(stack, parts, scan, cfg)
+    single = lambda: weights.beam_weights_batched_cuda(one, parts, scan,
+                                                       cfg)
+    s1, k1, k2, s2 = (device_ms(single), device_ms(kern), device_ms(kern),
+                      device_ms(single))
+    row = dict(
+        **turns(kern, lambda: weights.beam_weights_plain(stack, parts, scan,
+                                                         cfg)),
+        **k1_bound(stack, parts, scan.angles, cfg), library_ms=None,
+        shape=[2 * MULTIMAP_MAPS, SWEEP_N, SWEEP_B], maps=MULTIMAP_MAPS,
+        device_ms=[k1, k2], single_map_device_ms=[s1, s2],
+        stack_over_single=float(np.median([k1, k2]) / np.median([s1, s2])))
+    say("time", kernel="beam_weights_stack", **row)
+    return row
+
+
+# -- phase 8c: sweeps over randomized maps ----------------------------------
+
+def multimap_row_phase(dev) -> dict:
+    """The published JAX row (BENCH_DETAILS.md:572-586): the JAX tool's
+    defaults (fixed march, multinomial, 500 x 24, start (1.25, 1.25, 0)),
+    64 mixed maps x 2 episodes x 150 ticks, converged 0.6016 on the TPU.
+    The maps are the same, the draws are not; raises below 0.47, 3
+    binomial standard deviations at 128 episodes."""
+    maps = generator.generate_map_batch(MULTIMAP_ROW[0], style="mixed",
+                                        device=dev)
+    cfg = FilterConfig(num_particles=SWEEP_N, sensor=SensorModelConfig())
+    angles = np.deg2rad(np.linspace(-118.0, 118.0, SWEEP_B)
+                        ).astype(np.float32)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    final, _, truth = episodes.run_multimap_sweep(
+        0, maps, cfg, angles, MULTIMAP_ROW[2],
+        episodes_per_map=MULTIMAP_ROW[1], start_pose=START)
+    metrics = episodes.sweep_rmse(final, truth)
+    wall = time.perf_counter() - t0
+    launched = counts()
+    say("multimap_row", maps=MULTIMAP_ROW[0],
+        episodes_per_map=MULTIMAP_ROW[1], ticks=MULTIMAP_ROW[2],
+        style="mixed", particles=SWEEP_N, beams=SWEEP_B, ray_mode="fixed",
+        resample="multinomial", launches=launched, wall_s=wall,
+        jax_converged_frac=0.6016, **metrics)
+    if launched["beam_weights_stack"] != MULTIMAP_ROW[2]:
+        raise AssertionError(f"multimap row: K1 stack launched "
+                             f"{launched['beam_weights_stack']} times")
+    if not metrics["converged_frac"] >= 0.47:
+        raise AssertionError(f"multimap row: converged "
+                             f"{metrics['converged_frac']} < 0.47")
+    return metrics
+
+
+def multimap_phase(dev) -> dict:
+    """The full-width sweep over randomized maps: 512 mixed maps x 2
+    episodes = 1024 episodes x 500 x 24 x 300 ticks, fixed march,
+    systematic resampling (the plain sweep's schedule), through
+    run_multimap_sweep; K1 batched's map-stack form, K2 batched and K3
+    batched must each launch once a tick."""
+    maps = generator.generate_map_batch(MULTIMAP_MAPS, style="mixed",
+                                        device=dev)
+    cfg = FilterConfig(num_particles=SWEEP_N,
+                       sensor=SensorModelConfig(ray_mode="fixed"),
+                       resample=ResampleConfig(method="systematic"))
+    angles = np.deg2rad(np.linspace(-118.0, 118.0, SWEEP_B)
+                        ).astype(np.float32)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    final, _, truth = episodes.run_multimap_sweep(
+        0, maps, cfg, angles, SWEEP_T, episodes_per_map=2,
+        start_pose=START)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    metrics = episodes.sweep_rmse(final, truth)
+    ran = {k: launched[k] for k in ("beam_weights_stack",
+                                    "systematic_expand_batched",
+                                    "kmeans_batched")}
+    say("multimap", maps=MULTIMAP_MAPS, episodes_per_map=2,
+        episodes=2 * MULTIMAP_MAPS, particles=SWEEP_N, beams=SWEEP_B,
+        ticks=SWEEP_T, style="mixed", ray_mode="fixed",
+        resample="systematic", launches=launched, wall_s=wall,
+        ticks_per_sec=SWEEP_T / wall,
+        updates_per_sec=2 * MULTIMAP_MAPS * SWEEP_N * SWEEP_B * SWEEP_T
+        / wall, **metrics)
+    if any(v != SWEEP_T for v in ran.values()):
+        raise AssertionError(f"multimap: kernels not launched once a tick: "
+                             f"{ran}")
+    if not torch.isfinite(final.particles).all():
+        raise AssertionError("multimap: non-finite particles")
+    return launched
+
+
+# -- phase 10: an imported map, the CLI and the replay ----------------------
+
+def imported_map_phase(dev) -> None:
+    """A generated 32 x 32-cell maze exported with pgm.export_map to a
+    map_server YAML + PGM (its bit words past 1 KB: the device form),
+    reloaded through presets.make_world(map_path=...) and localised by the
+    localisation preset at 1500 x 24; then the same raster with a non-zero
+    origin kept (keep_origin=True), tracked from a known start shifted by
+    the origin.  K1 must launch every tick of both."""
+    walls = generator.generate_maze(IMPORT_CELLS, IMPORT_CELLS, seed=11)
+    src = from_walls(walls, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml = os.path.join(tmp, "maze.yaml")
+        pgm.export_map(src, os.path.join(tmp, "maze.pgm"), yaml)
+        world = presets.make_world(map_path=yaml, num_particles=IMPORT_N,
+                                   num_beams=SWEEP_B, device=dev)
+        shifted = os.path.join(tmp, "shifted.yaml")
+        with open(shifted, "w") as f:
+            f.write("image: maze.pgm\nresolution: 0.1\n"
+                    f"origin: [{IMPORT_ORIGIN[0]}, {IMPORT_ORIGIN[1]}, "
+                    "0.0]\n")
+        kept = pgm.from_pgm(shifted, keep_origin=True, device=dev)
+    if not (torch.equal(world.maze.occ, src.occ)
+            and torch.equal(kept.occ, src.occ)):
+        raise AssertionError("imported map: raster differs from its source")
+    form = weights.raster_form(world.maze, world.cfg.sensor)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    final, outs, truth = presets.run_localisation(world, seed=0,
+                                                  num_ticks=IMPORT_TICKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    best, tp = final.best_pose.cpu().numpy(), truth[-1].cpu().numpy()
+    say("imported_map", cells=IMPORT_CELLS, raster=list(src.occ.shape),
+        raster_bytes=4 * weights.raster_words(world.maze, world.cfg.sensor),
+        form=form, particles=IMPORT_N, beams=SWEEP_B, ticks=IMPORT_TICKS,
+        launches=launched, wall_s=wall, confidence=float(final.confidence),
+        best_pose=best.tolist(), true_pose=tp.tolist(),
+        position_error_m=float(np.hypot(*(best[:2] - tp[:2])))
+        if best[0] >= 0 else None)
+    if form != "device" or launched["beam_weights"] != IMPORT_TICKS \
+            or not torch.isfinite(final.particles).all():
+        raise AssertionError(f"imported map: form {form}, {launched}")
+    # keep_origin: the same wander in world coordinates shifted by the
+    # origin, tracked from a known start.
+    start = (2.05 + IMPORT_ORIGIN[0], 2.05 + IMPORT_ORIGIN[1], 0.0)
+    cfg = world.cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    enc, ranges, poses = robot.generate_wander_episode(
+        gen, kept, cfg, world.angles, IMPORT_TICKS, start_pose=start)
+    state = mcl.init_tracking_state(kept, cfg, start, seed=13)
+    reset_counts()
+    final, outs = mcl.run_episode(state, enc[0], ranges[0], world.angles,
+                                  kept, cfg)
+    torch.cuda.synchronize()
+    launched = counts()
+    ep = outs.exact_pose[1:].cpu().numpy()
+    tp = poses[0, :-1].cpu().numpy()
+    ok = ep[:, 0] >= 0      # not the -1 sentinel: the origin is positive
+    err = np.hypot(ep[:, 0] - tp[:, 0], ep[:, 1] - tp[:, 1])[ok]
+    say("imported_map", what="keep_origin", origin=list(IMPORT_ORIGIN),
+        ticks=IMPORT_TICKS, launches=launched,
+        confident_share=float(ok.mean()),
+        tracking_rmse_m=float(np.sqrt((err ** 2).mean())) if ok.any()
+        else None, final_confidence=float(final.confidence))
+    if launched["beam_weights"] != IMPORT_TICKS or not bool(
+            torch.isfinite(final.particles).all()):
+        raise AssertionError(f"imported map keep_origin: {launched}")
+
+
+def cli_phase() -> None:
+    """The CLI's localisation and moving presets on the card, each line
+    well-formed and finite."""
+    for args, keys in CLI_RUNS:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", PKG, *args],
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"CLI {args}: {r.stderr[-2000:]}")
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        # position_error_m is null exactly where the filter is not
+        # localised (best_pose at the -1 sentinel).
+        unlocalised = line.get("best_pose", [0.0])[0] < 0
+        flat = []
+        for k, v in line.items():
+            if k in ("preset", "songs") or (k == "position_error_m"
+                                            and unlocalised):
+                continue
+            flat += v if isinstance(v, list) else [v]
+        finite = all(isinstance(v, (int, float)) and math.isfinite(v)
+                     for v in flat)
+        say("cli", args=args, seconds=time.perf_counter() - t0, line=line,
+            finite=finite)
+        if set(line) != keys or not finite:
+            raise AssertionError(f"CLI {args}: {line}")
+
+
+def replay_phase(dev) -> dict:
+    """The shipped fixture replayed by REPLAY_REPLICAS replicas of 500
+    particles with ray_mode="dda" (tests/test_replay_fixture.py:40-53),
+    as run_episode_replicas runs them: one batch, then the replica with the
+    most log evidence.  Reports the share of replicas that end confident
+    (> 0.5) within 0.2 m of the truth; raises if none does."""
+    log = EpisodeLog.load(FIXTURE)
+    world = presets.make_world(device=dev)
+    cfg = FilterConfig(num_particles=SWEEP_N,
+                       sensor=SensorModelConfig(ray_mode="dda"))
+    rep = REPLAY_REPLICAS
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    final, outs = episodes.run_episode_batch(
+        2, world.maze, cfg, np.repeat(log.encoders[None], rep, 0),
+        np.repeat(log.scan_ranges[None], rep, 0), log.scan_angles)
+    win, _, info = episodes.pick_replicas(final, outs, rep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    truth = torch.as_tensor(log.true_poses[-1], device=dev)
+    best = final.best_pose
+    err = torch.hypot(best[:, 0] - truth[0], best[:, 1] - truth[1])
+    good = (final.confidence > 0.5) & (best[:, 0] >= 0) & (err < 0.2)
+    wb = win.best_pose[0]
+    werr = (float(torch.hypot(wb[0] - truth[0], wb[1] - truth[1]))
+            if float(wb[0]) >= 0 else None)
+    say("replay", fixture=os.path.relpath(FIXTURE), ticks=log.num_ticks,
+        replicas=rep, particles=SWEEP_N, ray_mode="dda",
+        launches=counts(), wall_s=wall,
+        good_share=float(good.float().mean()),
+        winner=int(info["chosen"][0]),
+        winner_confidence=float(win.confidence[0]),
+        winner_error_m=werr)
+    if not bool(good.any()):
+        raise AssertionError("replay: no replica ends confident within "
+                             "0.2 m of the truth")
+    return dict(good_share=float(good.float().mean()))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -2026,30 +2429,40 @@ def main() -> None:
     for name, err in check_f1(gen).items():
         errs[name]["max_abs_err"] = max(errs[name]["max_abs_err"], err)
     check_f2(gen)
+    errs["beam_weights_stack"] = check_stack(gen)
 
     # Each path is driven with every count set to 0 just before it and
     # read just after: one filter (serve), a batch (sweep, fleet), K4
-    # (A/B), and this slice's paths: (a) the production sweep, (b) the
-    # elastic server, (c) the bench config under the ESS gate.
+    # (A/B), the production schedule's paths: (a) the production sweep,
+    # (b) the elastic server, (c) the bench config under the ESS gate; and
+    # the randomized-map sweeps (the published row, the full width), the
+    # imported map, the CLI presets and the replay.
     world, server, launched = serve_phase(dev)
     entry_phase(dev)
     tick_phase(world, server.state)
     times = time_phase(world, server.state, gen)
     del server
     sweep_launched = sweep_phase(dev)
+    multimap_row_phase(dev)
+    multimap_launched = multimap_phase(dev)
     production_sweep_phase(dev)
     elastic_phase(dev)
     serve_phase(dev, ess=ESS)
     fleet_phase(dev)
+    imported_map_phase(dev)
+    cli_phase()
+    replay_phase(dev)
     profile_phase(dev)
     ab_launched = ab_phase(m, gen)
     times.update(batched_time_phase(m, gen))
+    times["beam_weights_stack"] = stack_time(gen)
     f1_time(gen)
     launches = {name: launched[name] for name in
                 ("beam_weights", "systematic_expand", "kmeans")}
     launches.update({name: sweep_launched[name] for name in
                      ("beam_weights_batched", "systematic_expand_batched",
                       "kmeans_batched")})
+    launches["beam_weights_stack"] = multimap_launched["beam_weights_stack"]
     launches["beam_weights_beamsub"] = ab_launched["beam_weights_beamsub"]
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on its path: "

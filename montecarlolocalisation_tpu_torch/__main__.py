@@ -1,9 +1,15 @@
 """CLI runner: `python -m montecarlolocalisation_tpu_torch <preset>`.
 
 Presets of the JAX package's CLI (__main__.py), with its defaults: the
-default maze, 1500 particles, 24 beams, the fixed march and multinomial
-resampling.
+default maze (or `--map`, a map.txt wall list or a ROS map_server YAML),
+1500 particles, 24 beams, the fixed march and multinomial resampling.
 
+  localisation  the scripted wanderer for `--ticks` (200) ticks from
+          (2.05, 2.05, 0), then the filter from a global cloud; prints the
+          final confidence, the best and the true pose, the position
+          error and the first songs.
+  moving  the wanderer alone for `--ticks` (300) ticks; prints the
+          distance driven and the final pose.
   serve   JSONL sensor frames on stdin, one reply per line on stdout and a
           summary line on stderr at the end; `--robots R` > 1 serves a
           fleet of R filters in one batched tick (io/fleet.py), with
@@ -23,22 +29,37 @@ import json
 import math
 import sys
 
+import numpy as np
+
 
 def _dumps(obj) -> str:
     """json.dumps with non-finite floats as null (NaN means "no
-    qualifying episode" in the sweep metrics)."""
-    return json.dumps({k: (v if math.isfinite(v) else None)
-                       for k, v in obj.items()})
+    qualifying episode" in the sweep metrics and "not localized" in
+    position_error_m)."""
+    def clean(v):
+        if isinstance(v, float) and not math.isfinite(v):
+            return None
+        if isinstance(v, dict):
+            return {k: clean(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [clean(x) for x in v]
+        return v
+    return json.dumps(clean(obj))
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="montecarlolocalisation_tpu_torch")
-    ap.add_argument("preset", choices=["serve", "sweep"])
+    ap.add_argument("preset", choices=["localisation", "moving", "serve",
+                                       "sweep"])
+    ap.add_argument("--map", dest="map_path", default=None,
+                    help="map file: a reference map.txt wall list, or a ROS "
+                         "map_server YAML (+ PGM raster)")
     ap.add_argument("--particles", type=int, default=1500)
     ap.add_argument("--beams", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int, default=None,
-                    help="sweep: ticks per episode (default 150)")
+                    help="ticks per episode (default: localisation 200, "
+                         "moving 300, sweep 150)")
     ap.add_argument("--batch", type=int, default=64,
                     help="sweep: episodes in the batch")
     ap.add_argument("--tick-chunk", type=int, default=None,
@@ -95,11 +116,29 @@ def main(argv=None) -> None:
 
     from . import presets
 
-    world = presets.make_world(num_particles=args.particles,
-                               num_beams=args.beams,
-                               refine_iters=args.refine_iters,
-                               ess_threshold=args.ess, device=args.device)
-    if args.preset == "sweep":
+    world = presets.make_world(
+        **({} if args.map_path is None else dict(map_path=args.map_path)),
+        num_particles=args.particles, num_beams=args.beams,
+        refine_iters=args.refine_iters, ess_threshold=args.ess,
+        device=args.device)
+    if args.preset == "localisation":
+        final, outs, truth = presets.run_localisation(
+            world, seed=args.seed, num_ticks=args.ticks or 200)
+        best = final.best_pose.cpu().numpy()
+        tp = truth[-1].cpu().numpy()
+        err = (float(np.hypot(best[0] - tp[0], best[1] - tp[1]))
+               if best[0] >= 0 else float("nan"))
+        print(_dumps(dict(
+            preset="localisation", confidence=float(final.confidence),
+            best_pose=[round(float(v), 4) for v in best],
+            true_pose=[round(float(v), 4) for v in tp],
+            position_error_m=round(err, 4),
+            songs=[int(s) for s in outs.song.cpu().numpy() if s != 0][:8])))
+    elif args.preset == "moving":
+        out = presets.run_moving(world, seed=args.seed,
+                                 num_ticks=args.ticks or 300)
+        print(_dumps(dict(preset="moving", **out)))
+    elif args.preset == "sweep":
         metrics = presets.run_sweep(world, batch=args.batch,
                                     num_ticks=args.ticks or 150,
                                     seed=args.seed,

@@ -76,7 +76,14 @@
 // episodes, so no block straddles two episodes; each block stages its
 // episode's ranges and mask next to the shared beam table and the raster.
 // The per-particle body is K1's own (particle_weight), so each episode's
-// weights equal K1's on that episode bit for bit.
+// weights equal K1's on that episode bit for bit.  Its map-stack form
+// (mcl_beam_weights_stack) is the same kernel reading one raster per
+// episode, for sweeps over randomized maps: a block stages (or, in the
+// device-memory form, reads) the bit words of its episode's map and gates
+// with that map's dilated raster, and one pack pass writes every map's
+// words.  The JAX package computes this under vmap over traced maps with
+// XLA (no Pallas kernel runs there); per episode it is the dense path's
+// function, so each episode equals a single-map launch on its map.
 //
 // K4: the beam-per-sublane function, laid out for the card.  What it
 // computes is fixed by the TPU layout (ops/weights.beamsub_plain): eight
@@ -454,13 +461,17 @@ __device__ Bits stage_bits(uint32_t* words, const uint32_t* gwords,
   }
 }
 
-// The device-memory form's one pass: every warp of the grid packs words.
+// The device-memory form's one pass: every warp of a grid row packs
+// words of one map of the stack (rows stride over the maps), map m's
+// raster at occ + m * h * w and its words at words + m * raster_words.
 __global__ void pack_kernel(uint32_t* __restrict__ words,
                             const uint8_t* __restrict__ occ, int h, int w,
-                            Params P) {
-  pack_raster(words, occ, h, w, P,
-              (blockIdx.x * blockDim.x + threadIdx.x) >> 5,
-              (gridDim.x * blockDim.x) >> 5);
+                            int maps, Params P) {
+  const size_t rw = raster_words(P, h, w), hw = (size_t)h * w;
+  for (int m = blockIdx.y; m < maps; m += gridDim.y)
+    pack_raster(words + m * rw, occ + m * hw, h, w, P,
+                (blockIdx.x * blockDim.x + threadIdx.x) >> 5,
+                (gridDim.x * blockDim.x) >> 5);
 }
 
 // Stage the beam table (angles [nb], ranges [nb], mask [nb]), the block's
@@ -506,25 +517,32 @@ __global__ void beam_weights_kernel(const float* __restrict__ parts, int n,
 }
 
 // Episode e = blockIdx.y of this launch's episodes; its particles [n, 3]
-// start at e * n (the entry offsets the pointers of each chunk).
+// start at e * n (the entry offsets the pointers of each chunk).  A map
+// stack (map_idx not null): episode e reads map map_idx[e], whose raster
+// and dilated raster start at m * h * w and whose device-form words at
+// m * raster_words; the single-map form reads map 0.
 template <bool G>
 __global__ void beam_weights_batched_kernel(
     const float* __restrict__ parts, int n, const float* __restrict__ ang,
     const float* __restrict__ obs, const float* __restrict__ msk, int nb,
     const uint8_t* __restrict__ occ, const uint32_t* __restrict__ gwords,
-    const uint8_t* __restrict__ dil, int h, int w, Params P,
-    float* __restrict__ out) {
+    const uint8_t* __restrict__ dil, const int* __restrict__ map_idx, int h,
+    int w, Params P, float* __restrict__ out) {
   extern __shared__ float smem[];
   const size_t e = blockIdx.y;
   const int i0 = blockIdx.x * blockDim.x;
   const int rows = min((int)blockDim.x, n - i0);
   const size_t k0 = e * (size_t)n + i0;
+  const size_t m = map_idx == nullptr ? 0 : (size_t)map_idx[e];
+  const size_t hw = (size_t)h * w;
+  const uint32_t* words = G ? gwords + m * raster_words(P, h, w) : gwords;
   Bits B = stage<G>(smem, ang, obs + e * nb, msk + e * nb, nb,
-                    parts + 3 * k0, rows, blockDim.x, occ, gwords, h, w, P);
+                    parts + 3 * k0, rows, blockDim.x, occ + m * hw, words,
+                    h, w, P);
   if ((int)threadIdx.x >= rows) return;
   out[k0 + threadIdx.x] =
       particle_weight<G>(smem + 3 * nb + 3 * threadIdx.x, smem, smem + nb,
-                         smem + 2 * nb, nb, B, dil, P);
+                         smem + 2 * nb, nb, B, dil + m * hw, P);
 }
 
 // K4's prepared particles in shared memory: field f of particle j at
@@ -691,19 +709,20 @@ cudaError_t smem_for(const void* kernel, const Params& P, int nb, int extra,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
 }
 
-// The device-memory form's pass: the raster's words into `gwords`
-// (raster_words(P, h, w) of them) on the stream.
-cudaError_t pack_global(uint32_t* gwords, const uint8_t* occ, int h, int w,
-                        const Params& P, cudaStream_t stream) {
-  const long long warps = (raster_words(P, h, w) + kPack - 1) / kPack;
-  const int blocks = (int)std::min(
-      std::max((warps * 32 + kThreads - 1) / kThreads, 1ll), 4096ll);
-  pack_kernel<<<blocks, kThreads, 0, stream>>>(gwords, occ, h, w, P);
-  return cudaGetLastError();
-}
-
 // The most episodes one launch's grid y dimension holds.
 constexpr int kMaxGridY = 65535;
+
+// The device-memory form's pass: the rasters' words of `maps` maps into
+// `gwords` (maps * raster_words(P, h, w) of them) on the stream.
+cudaError_t pack_global(uint32_t* gwords, const uint8_t* occ, int h, int w,
+                        const Params& P, cudaStream_t stream, int maps = 1) {
+  const long long warps = (raster_words(P, h, w) + kPack - 1) / kPack;
+  const dim3 grid((int)std::min(
+      std::max((warps * 32 + kThreads - 1) / kThreads, 1ll), 4096ll),
+      std::min(maps, kMaxGridY));
+  pack_kernel<<<grid, kThreads, 0, stream>>>(gwords, occ, h, w, maps, P);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -741,17 +760,19 @@ extern "C" int mcl_beam_weights(const float* particles, int n,
   return (int)cudaGetLastError();
 }
 
-// particles [episodes, n, 3] f32; angles [nb] f32 (signed); ranges, mask
-// [episodes, nb] f32; occ, dil [h, w] u8; out [episodes, n] f32; gwords
-// as for mcl_beam_weights.  Any
-// number of episodes: launches of at most kMaxGridY episodes each (grid
-// y), their pointers offset, so each episode's weights are the same bits
-// whatever chunk holds it.  Returns the first CUDA error.
-extern "C" int mcl_beam_weights_batched(
-    const float* particles, int episodes, int n, const float* angles,
-    const float* ranges, const float* mask, int nb, const uint8_t* occ,
-    const uint8_t* dil, int h, int w, const float* fparams,
-    const int* iparams, float* out, uint32_t* gwords, void* stream) {
+namespace {
+
+// K1 batched on one map (maps = 1, map_idx null) or a map stack: any
+// number of episodes, in launches of at most kMaxGridY episodes each (grid
+// y), their pointers offset (map_idx too), so each episode's weights are
+// the same bits whatever chunk holds it.
+cudaError_t launch_batched(const float* particles, int episodes, int n,
+                           const float* angles, const float* ranges,
+                           const float* mask, int nb, const uint8_t* occ,
+                           const uint8_t* dil, int maps, const int* map_idx,
+                           int h, int w, const float* fparams,
+                           const int* iparams, float* out, uint32_t* gwords,
+                           cudaStream_t s) {
   Params P;
   unpack(fparams, iparams, &P);
   const bool G = gwords != nullptr;
@@ -759,27 +780,62 @@ extern "C" int mcl_beam_weights_batched(
                          : (const void*)beam_weights_batched_kernel<false>;
   size_t smem;
   cudaError_t err = smem_for(kernel, P, nb, 3 * kThreads, h, w, G, &smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n <= 0 || episodes <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  if (G && (err = pack_global(gwords, occ, h, w, P, s)) != cudaSuccess)
-    return (int)err;
+  if (err != cudaSuccess) return err;
+  if (maps < 1) return cudaErrorInvalidValue;
+  if (n <= 0 || episodes <= 0) return cudaGetLastError();
+  if (G && (err = pack_global(gwords, occ, h, w, P, s, maps)) != cudaSuccess)
+    return err;
   for (int e0 = 0; e0 < episodes; e0 += kMaxGridY) {
     const dim3 grid((n + kThreads - 1) / kThreads,
                     std::min(kMaxGridY, episodes - e0));
     const float* p = particles + 3 * (size_t)e0 * n;
     const float* r = ranges + (size_t)e0 * nb;
     const float* k = mask + (size_t)e0 * nb;
+    const int* mi = map_idx == nullptr ? nullptr : map_idx + e0;
     float* o = out + (size_t)e0 * n;
     if (G)
       beam_weights_batched_kernel<true><<<grid, kThreads, smem, s>>>(
-          p, n, angles, r, k, nb, occ, gwords, dil, h, w, P, o);
+          p, n, angles, r, k, nb, occ, gwords, dil, mi, h, w, P, o);
     else
       beam_weights_batched_kernel<false><<<grid, kThreads, smem, s>>>(
-          p, n, angles, r, k, nb, occ, gwords, dil, h, w, P, o);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+          p, n, angles, r, k, nb, occ, gwords, dil, mi, h, w, P, o);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  return (int)cudaSuccess;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// particles [episodes, n, 3] f32; angles [nb] f32 (signed); ranges, mask
+// [episodes, nb] f32; occ, dil [h, w] u8; out [episodes, n] f32; gwords
+// as for mcl_beam_weights.  Any number of episodes (launch_batched).
+// Returns the first CUDA error.
+extern "C" int mcl_beam_weights_batched(
+    const float* particles, int episodes, int n, const float* angles,
+    const float* ranges, const float* mask, int nb, const uint8_t* occ,
+    const uint8_t* dil, int h, int w, const float* fparams,
+    const int* iparams, float* out, uint32_t* gwords, void* stream) {
+  return (int)launch_batched(particles, episodes, n, angles, ranges, mask,
+                             nb, occ, dil, 1, nullptr, h, w, fparams,
+                             iparams, out, gwords, (cudaStream_t)stream);
+}
+
+// K1 batched, map-stack form: the arguments of mcl_beam_weights_batched
+// with occ, dil [maps, h, w] u8 and map_idx [episodes] i32 (each in
+// [0, maps)), episode e reading map map_idx[e].  gwords: null for the
+// shared-memory form, else maps * raster_words(P, h, w) ints of scratch,
+// which one pack pass fills for every map before the launches.  Returns
+// the first CUDA error.
+extern "C" int mcl_beam_weights_stack(
+    const float* particles, int episodes, int n, const float* angles,
+    const float* ranges, const float* mask, int nb, const uint8_t* occ,
+    const uint8_t* dil, int maps, const int* map_idx, int h, int w,
+    const float* fparams, const int* iparams, float* out, uint32_t* gwords,
+    void* stream) {
+  if (map_idx == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_batched(particles, episodes, n, angles, ranges, mask,
+                             nb, occ, dil, maps, map_idx, h, w, fparams,
+                             iparams, out, gwords, (cudaStream_t)stream);
 }
 
 // K4: the arguments of mcl_beam_weights_batched, then T threads a particle

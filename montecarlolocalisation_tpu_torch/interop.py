@@ -42,6 +42,8 @@ def _t(a, dtype, device):
 
 
 def maze_from_numpy(src, device="cpu") -> MazeMap:
+    """The port's MazeMap of a JAX MazeMap: one map, or a stacked one
+    (generator.generate_map_batch), which becomes a map stack."""
     occ = np.asarray(src.occ).astype(bool)
     return MazeMap(
         occ=_t(occ, torch.bool, device),
@@ -50,7 +52,8 @@ def maze_from_numpy(src, device="cpu") -> MazeMap:
         row_lengths=_t(src.row_lengths, torch.int32, device),
         resolution=float(src.resolution), origin_x=float(src.origin_x),
         origin_y=float(src.origin_y), cell_meters=float(src.cell_meters),
-        gridline=is_gridline_structured(occ))
+        gridline=all(is_gridline_structured(o)
+                     for o in occ.reshape(-1, *occ.shape[-2:])))
 
 
 def key_to_seed(key) -> int:

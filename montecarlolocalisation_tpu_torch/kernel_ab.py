@@ -3,14 +3,16 @@ one GPU.
 
     python -m montecarlolocalisation_tpu_torch.kernel_ab OLD_CSRC [PART ...]
 
-PART is any of ptxas, sincosf, ablation, turns, expand and beamsub; all
-of them without one.  OLD_CSRC holds the earlier sources the parts read:
+PART is any of ptxas, sincosf, ablation, turns, expand, beamsub and
+batched; all of them without one.  OLD_CSRC holds the earlier sources the parts read:
 for ablation and turns, csrc/weights.cu and csrc/kmeans.cu with the C
 entries they had at commit 97cbc4c (a pixel-scan K1, a K3 of two launches
 an iteration); for expand, csrc/expand.cu as it was from 97cbc4c to
 e1e0d5d (K2 taking offspring counts computed in torch); for beamsub,
 csrc/weights.cu as it was at commit 24f8e6e (K4 with eight threads a
-particle on a grid of particle blocks x episodes).  For example
+particle on a grid of particle blocks x episodes); for batched,
+csrc/weights.cu with the raster-words argument of commit 5c0d8c8 (K1
+batched on one map, before its map-stack form).  For example
 `git archive 97cbc4c montecarlolocalisation_tpu_torch/csrc | tar -x
 --strip-components=2 -C OLD_CSRC`.  Parts that need different commits run
 in separate invocations.  It prints one JSON line a result:
@@ -60,6 +62,9 @@ in separate invocations.  It prints one JSON line a result:
    item, not persistent), "no_bounds" (no __launch_bounds__) and "bounds5"
    (registers capped for five blocks an SM).  The ptxas lines of every
    variant come first.
+7. `batched`: K1 batched of OLD_CSRC against the current one on one map
+   at the sweep's shape (1024 x 500 x 24), fixed and analytic, bit for bit
+   and in device time, old, new, new, old.
 
 It needs a CUDA card and nvcc, and fails without them.
 """
@@ -717,7 +722,28 @@ def beamsub_part(old_dir, workdir, gen):
                 *forced_plan(parts, t)), want)) for t in (1, 2, 4, 8)})
 
 
-PARTS = ("ptxas", "sincosf", "ablation", "turns", "expand", "beamsub")
+PARTS = ("ptxas", "sincosf", "ablation", "turns", "expand", "beamsub",
+         "batched")
+
+
+def batched_part(old_dir, workdir, gen):
+    """K1 batched of an earlier weights.cu with the current entry's
+    arguments against the current one, on the default maze."""
+    with open(os.path.join(old_dir, "weights.cu")) as f:
+        old = weight_entries(compile_libs({"weights": f.read()},
+                                          workdir)["weights"])
+    m = presets.make_world(device="cuda").maze
+    for mode in ("fixed", "analytic"):
+        cfg = SensorModelConfig(ray_mode=mode)
+        parts, scan = weight_inputs(m, 500, 24, cfg, gen, episodes=1024)
+        o = lambda: k1_batched(old, "mcl_beam_weights_batched", m, parts,
+                               scan, cfg)
+        n = lambda: weights.beam_weights_batched_cuda(m, parts, scan, cfg)
+        same = torch.equal(o(), n())
+        t_old1, t_new1, t_new2, t_old2 = (device_ms(f) for f in (o, n, n, o))
+        say("batched", kernel="beam_weights_batched", ray_mode=mode,
+            shape=[1024, 500, 24], bit_equal=same,
+            old_device_ms=[t_old1, t_old2], new_device_ms=[t_new1, t_new2])
 
 
 def main(argv=None) -> None:
@@ -754,6 +780,8 @@ def main(argv=None) -> None:
             expand_part(old_dir, workdir, gen)
         if "beamsub" in parts:
             beamsub_part(old_dir, workdir, gen)
+        if "batched" in parts:
+            batched_part(old_dir, workdir, gen)
 
 
 if __name__ == "__main__":

@@ -10,8 +10,11 @@ Torch counterpart of montecarlolocalisation_tpu/models/raycast.py:
                  that are not gridline-structured.
 
 These are the plain versions the beam weight kernel (ops/weights) is held
-to.  Like the JAX package, the ~1-degree direction quantization of the
-reference (monte_carlo.cpp:355-363) sits behind `quantize_ray_deg`.
+to.  On a map stack each episode's rays read its own map
+(maps/grid.lookup); the analytic cast takes DDA unless every map of the
+stack is gridline-structured.  Like the JAX package, the ~1-degree
+direction quantization of the reference (monte_carlo.cpp:355-363) sits
+behind `quantize_ray_deg`.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ def raycast_fixed(m: MazeMap, ox, oy, angle, cfg: SensorModelConfig):
     alive = torch.ones_like(ox, dtype=torch.bool)
     for r in march_steps(cfg):
         mx, my, inb = world_to_map(m, ox + r * dx, oy + r * dy)
-        hit = lookup(m.occ, mx, my) & alive
+        hit = lookup(m.occ, mx, my, m.episode_maps) & alive
         dist = torch.minimum(dist, torch.where(hit, r, cfg.max_range))
         alive = alive & inb
     return dist
@@ -79,7 +82,7 @@ def raycast_dda(m: MazeMap, ox, oy, angle, cfg: SensorModelConfig):
     def in_bounds(ix, iy):
         return (ix >= 0) & (iy >= 0) & (ix < m.width) & (iy < m.height)
 
-    start_hit = lookup(m.occ, ix, iy)
+    start_hit = lookup(m.occ, ix, iy, m.episode_maps)
     dist = torch.where(start_hit, 0.0, cfg.max_range)
     done = start_hit | ~in_bounds(ix, iy)
     iters = int(math.ceil(cfg.max_range / m.resolution)) * 2 + 2
@@ -90,7 +93,8 @@ def raycast_dda(m: MazeMap, ox, oy, angle, cfg: SensorModelConfig):
         niy = torch.where(take_x, iy, iy + step_y)
         n_t_max_x = torch.where(take_x, t_max_x + t_delta_x, t_max_x)
         n_t_max_y = torch.where(take_x, t_max_y, t_max_y + t_delta_y)
-        hit = lookup(m.occ, nix, niy) & ~done & (t < cfg.max_range)
+        hit = (lookup(m.occ, nix, niy, m.episode_maps) & ~done
+               & (t < cfg.max_range))
         out = (~in_bounds(nix, niy) | (t >= cfg.max_range)) & ~done
         dist = torch.where(hit, t, dist)
         done = done | hit | out

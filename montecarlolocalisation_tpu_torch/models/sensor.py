@@ -12,9 +12,10 @@ isValidPos weigh 0.
 Beams are fixed-size tensors (angles [B], ranges [..., B], mask [..., B]).
 Particles carry leading episode dims: [N, 3] is one filter and [E, N, 3]
 a batch of episodes, which shares one beam table `angles` [B] and has its
-own observations, ranges and mask [E, B].  `filter_scan` turns a raw
-(ragged) LaserScan into that form on the host; `beam_weights_partial`
-scores particles on a partial learned map.
+own observations, ranges and mask [E, B].  On a map stack (maps/grid)
+each episode reads its own map, so a stack needs a batch of episodes.
+`filter_scan` turns a raw (ragged) LaserScan into that form on the host;
+`beam_weights_partial` scores particles on a partial learned map.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ..config import SensorModelConfig
-from ..maps.grid import MazeMap, f32_reciprocal, is_valid_pos
+from ..maps.grid import MazeMap, f32_reciprocal, is_valid_pos, select_maps
 from .raycast import raycast
 
 
@@ -174,7 +175,9 @@ def kernel_eligible(m: MazeMap, particles, cfg: SensorModelConfig,
     validity offset, for the fixed march on any raster and the analytic
     caster on gridline rasters; one filter [N, 3] or a batch of episodes
     [..., N, 3] (the JAX package's episode-batched launch, sensor.py:
-    328-371, without its TPU tile-padding gate)."""
+    328-371, without its TPU tile-padding gate), also on a map stack
+    (every map gridline for the analytic caster), where the JAX package
+    runs XLA on traced maps and K1 batched reads a raster per episode."""
     if cfg.lookup_mode not in ("auto", "pallas"):
         return False
     if not (particles.is_cuda and particles.dim() >= 2
@@ -193,9 +196,15 @@ def beam_weights(m: MazeMap, particles, scan: Scan, cfg: SensorModelConfig,
     exactly 0.
 
     CUDA tensors go through the beam weight kernel (ops/weights: K1 for
-    one filter, K1 batched for episodes) where the JAX package would launch
-    its Pallas kernel; everything else, including ray_mode="dda" on the
-    card, runs the dense torch path."""
+    one filter, K1 batched for episodes, its map-stack form on a map
+    stack) where the JAX package would launch its Pallas kernel;
+    everything else, including ray_mode="dda" on the card, runs the dense
+    torch path.  A map stack needs particles [..., N, 3] whose leading
+    dims are its index's."""
+    if m.is_stack and tuple(particles.shape[:-2]) != tuple(
+            m.episode_maps.shape):
+        raise ValueError(f"a map stack of {tuple(m.episode_maps.shape)} "
+                         f"episodes got particles {tuple(particles.shape)}")
     if kernel_eligible(m, particles, cfg, valid_offset):
         from ..ops import weights
 
@@ -208,8 +217,11 @@ def beam_weights(m: MazeMap, particles, scan: Scan, cfg: SensorModelConfig,
                         ranges=scan.ranges.expand(lead + (nb,)).reshape(
                             -1, nb),
                         mask=scan.mask.expand(lead + (nb,)).reshape(-1, nb))
+            # A stack's map index flattens with the episode dims.
+            fm = (select_maps(m, m.episode_maps.reshape(-1))
+                  if m.is_stack and len(lead) > 1 else m)
             out = weights.beam_weights_batched(
-                m, particles.reshape(-1, *particles.shape[-2:]), flat,
+                fm, particles.reshape(-1, *particles.shape[-2:]), flat,
                 cfg).reshape(particles.shape[:-1])
         if cfg.beam_combine == "log":
             out = finish_log_weights(m, cfg, particles, out)

@@ -48,6 +48,7 @@ class _Axis:
 
     def __init__(self, m: MazeMap, vertical: bool):
         self.occ = m.occ
+        self.maps = m.episode_maps
         self.vertical = vertical
         self.length = m.height if vertical else m.width
         across = m.width if vertical else m.height
@@ -56,8 +57,8 @@ class _Axis:
     def bit(self, k, r):
         """Pixel r of line k (False off the line or the map)."""
         if self.vertical:
-            return lookup(self.occ, k * CELL_PX, r)
-        return lookup(self.occ, r, k * CELL_PX)
+            return lookup(self.occ, k * CELL_PX, r, self.maps)
+        return lookup(self.occ, r, k * CELL_PX, self.maps)
 
 
 def _axis_prepare(gu, gv, ax: _Axis):

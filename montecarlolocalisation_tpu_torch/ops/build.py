@@ -47,6 +47,10 @@ SIGNATURES = {
     # iparams, out, raster words, stream
     "mcl_beam_weights_batched": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
                                  _I, _P, _P, _P, _P, _P],
+    # particles, E, N, angles, ranges, mask, B, occ, dil, maps, map index,
+    # H, W, fparams, iparams, out, raster words, stream
+    "mcl_beam_weights_stack": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P,
+                               _I, _I, _P, _P, _P, _P, _P],
     # ... out, then threads a particle, particles a block, item counter,
     # raster words, stream
     "mcl_beam_weights_beamsub": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I,

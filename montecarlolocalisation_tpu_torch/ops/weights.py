@@ -11,7 +11,10 @@ after its Pallas kernels (ops/weights_pallas.py:330, :371).
 - K1 (`beam_weights`): one filter, particles [N, 3], one scan.
 - K1 batched (`beam_weights_batched`): episodes [E, N, 3] with one shared
   beam table angles [B] and per-episode ranges and mask [E, B]; per
-  episode the same arithmetic as K1, bit for bit.
+  episode the same arithmetic as K1, bit for bit.  On a map stack
+  (maps/grid) it launches its map-stack form (`beam_weights_stack_cuda`),
+  which reads each episode's own map and equals, per episode, a
+  single-map launch on that map.
 - K4 (`beam_weights_beamsub`): the function of the beam-per-sublane
   layout of weights_pallas.py:432 (`beamsub_plain`): eight lane sums, lane
   s adding beams s, s+8, ... in order, then the eight added in lane order.
@@ -169,10 +172,14 @@ def _params(m: MazeMap, cfg: SensorModelConfig):
     return build.floats(fp), build.ints(ip)
 
 
-def _check_particles(m: MazeMap, particles, rank: int, what: str):
+def _check_particles(m: MazeMap, particles, rank: int, what: str,
+                     stack: bool = False):
     if not particles.is_cuda or m.device != particles.device:
         raise ValueError(f"{what} needs particles and map on the same CUDA "
                          f"device, got {particles.device} and {m.device}")
+    if m.is_stack != stack:
+        want = "a map stack" if stack else "one map, not a map stack"
+        raise ValueError(f"{what} takes {want}")
     shape = "[N, 3]" if rank == 2 else "[E, N, 3]"
     if particles.dtype != torch.float32 or particles.dim() != rank \
             or particles.shape[-1] != 3:
@@ -218,11 +225,12 @@ def raster_form(m: MazeMap, cfg: SensorModelConfig) -> str:
 
 def _raster_buffer(m: MazeMap, cfg: SensorModelConfig, form=None):
     """The device-memory form's word buffer (int32 scratch the C entry
-    packs), or None for the shared-memory form; `form` forces one (the
-    card's checks time both forms on rasters that fit both)."""
+    packs, every map's words for a stack), or None for the shared-memory
+    form; `form` forces one (the card's checks time both forms on rasters
+    that fit both).  A stack's form is chosen per map, by the same rule."""
     if (form or raster_form(m, cfg)) == "shared":
         return None
-    return torch.empty(raster_words(m, cfg), dtype=torch.int32,
+    return torch.empty(m.maps * raster_words(m, cfg), dtype=torch.int32,
                        device=m.device)
 
 
@@ -263,13 +271,24 @@ def _launch_k1(m: MazeMap, particles, scan: sensor.Scan,
 beam_weights_cuda.launches = 0
 
 
+STACK_ENTRY = "mcl_beam_weights_stack"
+
+
 def _batched_launch(entry: str, m: MazeMap, particles, scan: sensor.Scan,
                     cfg: SensorModelConfig, *plan: int, form=None):
-    """Launch a batched C entry (K1 batched, or K4 with its plan's threads
-    a particle and particles a block): particles [E, N, 3], angles [B],
-    ranges and mask [E, B] -> [E, N]; `form` forces a raster form."""
-    _check_particles(m, particles, 3, entry)
+    """Launch a batched C entry (K1 batched, its map-stack form, or K4 with
+    its plan's threads a particle and particles a block): particles
+    [E, N, 3], angles [B], ranges and mask [E, B] -> [E, N]; `form` forces
+    a raster form."""
+    _check_particles(m, particles, 3, entry, stack=entry == STACK_ENTRY)
     n_ep, n = particles.shape[0], particles.shape[1]
+    maps = ()
+    if m.is_stack:
+        index = m.episode_maps.to(torch.int32).contiguous()
+        if tuple(index.shape) != (n_ep,):
+            raise ValueError(f"a map stack's index {tuple(index.shape)} for "
+                             f"{n_ep} episodes")
+        maps = (m.maps, index.data_ptr())
     nb = scan.angles.shape[0]
     _check_config(m, cfg, nb)
     if scan.angles.dim() != 1 or scan.ranges.shape != (n_ep, nb) \
@@ -293,9 +312,9 @@ def _batched_launch(entry: str, m: MazeMap, particles, scan: sensor.Scan,
     words = _raster_buffer(m, cfg, form)
     err = getattr(lib, entry)(
         parts.data_ptr(), n_ep, n, angles.data_ptr(), ranges.data_ptr(),
-        mask.data_ptr(), nb, occ.data_ptr(), dil.data_ptr(), m.height,
-        m.width, ctypes.addressof(fp), ctypes.addressof(ip), out.data_ptr(),
-        *tail, None if words is None else words.data_ptr(),
+        mask.data_ptr(), nb, occ.data_ptr(), dil.data_ptr(), *maps,
+        m.height, m.width, ctypes.addressof(fp), ctypes.addressof(ip),
+        out.data_ptr(), *tail, None if words is None else words.data_ptr(),
         build.stream_handle(parts.device))
     build.check(err, entry)
     return out
@@ -311,6 +330,18 @@ def beam_weights_batched_cuda(m: MazeMap, particles, scan: sensor.Scan,
 
 
 beam_weights_batched_cuda.launches = 0
+
+
+def beam_weights_stack_cuda(m: MazeMap, particles, scan: sensor.Scan,
+                            cfg: SensorModelConfig):
+    """Launch K1 batched's map-stack form on CUDA tensors: episode e reads
+    map m.episode_maps[e] of the stack."""
+    out = _batched_launch(STACK_ENTRY, m, particles, scan, cfg)
+    beam_weights_stack_cuda.launches += 1
+    return out
+
+
+beam_weights_stack_cuda.launches = 0
 
 
 def beamsub_cuda(m: MazeMap, particles, scan: sensor.Scan,
@@ -353,9 +384,11 @@ def beam_weights(m: MazeMap, particles, scan: sensor.Scan,
 def beam_weights_batched(m: MazeMap, particles, scan: sensor.Scan,
                          cfg: SensorModelConfig):
     """Beam weights [E, N] for episodes [E, N, 3]: plain torch on the CPU,
-    K1 batched on CUDA."""
-    return _dispatch(beam_weights_plain, beam_weights_batched_cuda,
-                     particles, m, particles, scan, cfg)
+    K1 batched on CUDA (its map-stack form on a map stack)."""
+    cuda = (beam_weights_stack_cuda if m.is_stack
+            else beam_weights_batched_cuda)
+    return _dispatch(beam_weights_plain, cuda, particles, m, particles,
+                     scan, cfg)
 
 
 def beam_weights_beamsub(m: MazeMap, particles, scan: sensor.Scan,

@@ -6,6 +6,8 @@ episodes is the filter's leading episode dim ([E, N, 3] particles, [E]
 scalars), stepped tick by tick by models/filter.run_episode, so every
 tick is one batched launch of each kernel on the card.  Replicas are more
 episodes of the same batch ([R*E], replica-major), not a loop of R runs.
+A sweep over randomized maps (`run_multimap_sweep`) is one batch on a map
+stack (maps/grid), each episode reading its own map.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from ..config import FilterConfig
 from ..maps import symmetry as _sym
-from ..maps.grid import MazeMap
+from ..maps.grid import MazeMap, repeat_maps
 from ..models import filter as mcl
 from ..sim import robot
 
@@ -27,7 +29,8 @@ def simulate_episode_batch(gen: torch.Generator, m: MazeMap,
                            cfg: FilterConfig, scan_angles, num_ticks: int,
                            batch: int, start_pose=(1.25, 1.25, 0.0)):
     """The scripted wanderer for `batch` robots -> (encoders [E, T, 2],
-    scan ranges [E, T, B], poses [E, T, 3])."""
+    scan ranges [E, T, B], poses [E, T, 3]); on a map stack of `batch`
+    episodes each robot wanders its own map."""
     return robot.generate_wander_episode(gen, m, cfg, scan_angles,
                                          num_ticks, batch=batch,
                                          start_pose=start_pose)
@@ -58,6 +61,34 @@ def run_episode_batch(
                                known_map=known_map)
     return mcl.run_episode(state, encoders, scan_ranges, scan_angles, m, cfg,
                            draws=draws, known_map=known_map)
+
+
+def run_multimap_sweep(
+    seed: int, maps: MazeMap, cfg: FilterConfig, scan_angles,
+    num_ticks: int, episodes_per_map: int = 1,
+    start_pose=(1.25, 1.25, 0.0),
+) -> Tuple[mcl.MCLState, mcl.MCLOutput, torch.Tensor]:
+    """Randomized-maps sweep (episodes.py:118-150; BASELINE config 4):
+    `episodes_per_map` wander episodes on each map of the stack `maps`
+    (maps.generator.generate_map_batch), then the filter over all of them
+    as one batch, each episode on its own map.  Returns (final states,
+    outputs, true poses [M * episodes_per_map, T, 3]), map-major as in
+    the JAX package.  The simulation and the filter draw from two seeds
+    derived from `seed`; the JAX package's threefry draws differ, its maps
+    do not."""
+    if not maps.is_stack:
+        raise ValueError("run_multimap_sweep takes a map stack")
+    batch = repeat_maps(maps, episodes_per_map)
+    sim_seed, filter_seed = (int(v) for v in
+                             np.random.SeedSequence(seed).generate_state(2))
+    gen = torch.Generator(device=maps.device)
+    gen.manual_seed(sim_seed)
+    enc, ranges, truth = simulate_episode_batch(
+        gen, batch, cfg, scan_angles, num_ticks,
+        maps.maps * episodes_per_map, start_pose=start_pose)
+    final, outs = run_episode_batch(filter_seed, batch, cfg, enc, ranges,
+                                    scan_angles)
+    return final, outs, truth
 
 
 def _nanmean(v):

@@ -1,5 +1,6 @@
-"""World construction and the sweep preset (the JAX package's
-presets.make_world and run_sweep, presets.py:46-72 and :151-172)."""
+"""World construction and the presets of the JAX package's CLI
+(presets.py:46-172): `localisation` (wander, then the filter), `moving`
+(the wanderer alone) and `sweep` (a batch of episodes)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,10 +14,12 @@ from .config import (
 )
 from .maps import MazeMap, from_map_file
 
-# The default maze ships with the JAX package; read by path, not imported.
-DEFAULT_MAP = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
-                       "montecarlolocalisation_tpu", "maps",
-                       "default_map.txt")
+# The port's copies of the JAX package's maze data (byte-equal; the gold
+# and pickup files are the challenge preset's).
+_MAPS = osp.join(osp.dirname(osp.abspath(__file__)), "maps")
+DEFAULT_MAP = osp.join(_MAPS, "default_map.txt")
+DEFAULT_GOLD = osp.join(_MAPS, "default_gold.txt")
+DEFAULT_PICKUP = osp.join(_MAPS, "default_pickup.txt")
 
 
 @dataclasses.dataclass
@@ -32,13 +35,19 @@ def make_world(map_path: str = DEFAULT_MAP, num_particles: int = 1500,
                resample_method: str = "multinomial",
                refine_iters: int = 0, ess_threshold=None,
                device="cuda") -> World:
-    """World from a reference map.txt wall list: the maze on `device`, the
-    filter config and an evenly spread beam table over +-118 degrees.
-    refine_iters > 0 turns on gradient refinement (models/refine) and
-    ess_threshold the ESS-gated resampling schedule
-    (resample.ess_gated_resample); both are off by default, as in the JAX
-    package's make_world (presets.py:46-72)."""
-    maze = from_map_file(map_path, device=device)
+    """World from a map file on `device`: a reference map.txt wall list,
+    or a ROS map_server YAML (+ PGM) through maps.pgm.from_pgm, whose cell
+    layer is the synthesized wall tensor; the filter config and an evenly
+    spread beam table over +-118 degrees.  refine_iters > 0 turns on
+    gradient refinement (models/refine) and ess_threshold the ESS-gated
+    resampling schedule (resample.ess_gated_resample); both are off by
+    default, as in the JAX package's make_world (presets.py:46-72)."""
+    if map_path.endswith((".yaml", ".yml")):
+        from .maps.pgm import from_pgm
+
+        maze = from_pgm(map_path, device=device)
+    else:
+        maze = from_map_file(map_path, device=device)
     cfg = FilterConfig(num_particles=num_particles,
                        sensor=SensorModelConfig(ray_mode=ray_mode),
                        refine=RefineConfig(iters=refine_iters),
@@ -47,6 +56,48 @@ def make_world(map_path: str = DEFAULT_MAP, num_particles: int = 1500,
     angles = np.deg2rad(
         np.linspace(-118.0, 118.0, num_beams)).astype(np.float32)
     return World(maze=maze, walls=maze.walls, cfg=cfg, angles=angles)
+
+
+def _seeds(seed: int):
+    """The simulation's and the filter's seeds, derived from `seed`."""
+    return (int(v) for v in np.random.SeedSequence(seed).generate_state(2))
+
+
+def run_localisation(world: World, seed: int = 0, num_ticks: int = 200,
+                     start=(2.05, 2.05, 0.0)):
+    """Wander, then localize globally (presets.py:75-88 of the JAX
+    package): returns (final state, outputs, true poses [T, 3])."""
+    from .models import filter as mcl
+    from .sim import robot
+
+    sim_seed, filter_seed = _seeds(seed)
+    gen = torch.Generator(device=world.maze.device)
+    gen.manual_seed(sim_seed)
+    enc, scans, truth = robot.generate_wander_episode(
+        gen, world.maze, world.cfg, world.angles, num_ticks,
+        start_pose=start)
+    state = mcl.init_state(world.maze, world.cfg, filter_seed)
+    final, outs = mcl.run_episode(state, enc[0], scans[0], world.angles,
+                                  world.maze, world.cfg)
+    return final, outs, truth[0]
+
+
+def run_moving(world: World, seed: int = 0, num_ticks: int = 300,
+               start=(2.05, 2.05, 0.0)) -> dict:
+    """The wanderer alone, no filter (launch/moving.launch;
+    presets.py:136-148 of the JAX package): ticks, the distance driven and
+    the final pose."""
+    from .sim import robot
+
+    gen = torch.Generator(device=world.maze.device)
+    gen.manual_seed(seed)
+    _, _, truth = robot.generate_wander_episode(
+        gen, world.maze, world.cfg, world.angles, num_ticks,
+        start_pose=start)
+    tp = truth[0].cpu().numpy()
+    dist = float(np.sum(np.hypot(np.diff(tp[:, 0]), np.diff(tp[:, 1]))))
+    return dict(ticks=num_ticks, distance_m=round(dist, 3),
+                final_pose=[round(float(v), 3) for v in tp[-1]])
 
 
 def run_sweep(world: World, batch: int = 64, num_ticks: int = 150,
@@ -59,8 +110,7 @@ def run_sweep(world: World, batch: int = 64, num_ticks: int = 150,
     from .maps import symmetry
     from .parallel import episodes
 
-    sim_seed, filter_seed = (int(v) for v in
-                             np.random.SeedSequence(seed).generate_state(2))
+    sim_seed, filter_seed = _seeds(seed)
     gen = torch.Generator(device=world.maze.device)
     gen.manual_seed(sim_seed)
     enc, scans, truth = episodes.simulate_episode_batch(

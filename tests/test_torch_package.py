@@ -60,6 +60,8 @@ def _cpu_calls():
             tm, parts, scan, cfg),
         "beam_weights_batched": lambda: weights.beam_weights_batched_cuda(
             tm, bparts, bscan, cfg),
+        "beam_weights_stack": lambda: weights.beam_weights_stack_cuda(
+            maps.stack_maps([tm, tm]), bparts, bscan, cfg),
         "beamsub": lambda: weights.beamsub_cuda(tm, bparts, bscan, cfg),
         "systematic_expand": lambda: expand.systematic_expand_cuda(
             parts, cdf, u0),
@@ -76,6 +78,7 @@ def _cpu_calls():
 
 ENTRIES = {"beam_weights": weights.beam_weights_cuda,
            "beam_weights_batched": weights.beam_weights_batched_cuda,
+           "beam_weights_stack": weights.beam_weights_stack_cuda,
            "beamsub": weights.beamsub_cuda,
            "systematic_expand": expand.systematic_expand_cuda,
            "systematic_expand_batched": expand.systematic_expand_batched_cuda,

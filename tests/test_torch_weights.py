@@ -23,7 +23,9 @@ from montecarlolocalisation_tpu.models import sensor as jsensor
 from montecarlolocalisation_tpu.ops.weights_pallas import beam_weights_pallas
 from montecarlolocalisation_tpu_torch import interop
 from montecarlolocalisation_tpu_torch.interop import config_from
+from montecarlolocalisation_tpu_torch.maps import grid as tgrid
 from montecarlolocalisation_tpu_torch.models import sensor as tsensor
+from montecarlolocalisation_tpu_torch.ops import build
 from montecarlolocalisation_tpu_torch.ops import weights as tweights
 
 from torch_parity import maps, t, uniform_particles
@@ -209,3 +211,61 @@ def test_wrapper_takes_plain_version_on_a_raster_past_shared_memory():
     got = tweights.beam_weights(m, parts, scan, cfg)
     assert torch.equal(got, tweights.beam_weights_plain(m, parts, scan, cfg))
     assert torch.equal(got, tsensor.beam_weights(m, parts, scan, cfg))
+
+
+def _stack_of(m, maps):
+    return tgrid.stack_maps([m] * maps)
+
+
+@pytest.mark.parametrize("cells,form", [(6, "shared"), (30, "device")])
+def test_map_stack_scratch_holds_every_maps_words(cells, form):
+    """K1 batched's map-stack form: the raster form is chosen per map by
+    the single map's rule, and the device form's scratch holds every
+    map's words, map m's at m * raster_words."""
+    one = _square_maze(cells)
+    stack = _stack_of(one, 3)
+    cfg = config_from(SensorModelConfig(ray_mode="fixed"))
+    assert tweights.raster_words(stack, cfg) == tweights.raster_words(
+        one, cfg)
+    assert tweights.raster_form(stack, cfg) == tweights.raster_form(
+        one, cfg) == form
+    buf = tweights._raster_buffer(stack, cfg)
+    if form == "shared":
+        assert buf is None
+    else:
+        assert buf.shape == (3 * tweights.raster_words(one, cfg),)
+    forced = tweights._raster_buffer(stack, cfg, form="device")
+    assert forced.shape == (3 * tweights.raster_words(one, cfg),)
+
+
+def test_map_stack_index_across_the_chunk_boundary():
+    """The plain version the map-stack form is held to, at E = 65,543
+    episodes (past one launch's 65,535 along grid y) with the map index
+    changing across the boundary: the episodes around it equal a
+    single-map call on their own map."""
+    base = maps()[1]
+    walls = [[[WALL_TOP] if (r + c) % 3 else [WALL_LEFT]
+              for c in range(6)] for r in range(6)]
+    other = interop.maze_from_numpy(from_walls(walls))
+    stack = tgrid.stack_maps([base, other, base])
+    n_ep = build.GRID_Y_MAX + 8
+    index = (torch.arange(n_ep) // 7) % 3
+    stack = tgrid.select_maps(stack, index)
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    parts = torch.rand(n_ep, 1, 3, generator=gen) * torch.tensor(
+        [4.8, 4.8, 6.28])
+    angles = np.float32([0.3, -1.2])
+    scan = tsensor.make_scan(angles, torch.rand(n_ep, 2, generator=gen))
+    for mode in ("fixed", "analytic"):
+        cfg = config_from(SensorModelConfig(ray_mode=mode))
+        got = tweights.beam_weights_batched(stack, parts, scan, cfg)
+        assert got.shape == (n_ep, 1)
+        edge = range(build.GRID_Y_MAX - 8, n_ep)
+        assert len({int(index[e]) for e in edge}) == 3
+        for e in edge:
+            one = stack.map_at(int(index[e]))
+            want = tweights.beam_weights_plain(
+                one, parts[e], tsensor.Scan(scan.angles, scan.ranges[e],
+                                            scan.mask[e]), cfg)
+            assert torch.equal(got[e], want), e
