@@ -38,7 +38,28 @@ the filter through the entry points a user calls:
 - the CLI's localisation and moving presets, each line well-formed and
   finite; and the shipped replay fixture replayed by 64 replicas of 500
   particles with the DDA caster (raises if no replica ends confident
-  within 0.2 m of the truth).
+  within 0.2 m of the truth);
+- the compiled tick (models/compiled, CUDA graphs of mcl_step), graph
+  against eager: every entry point above runs its ticks as graph replays,
+  and the graphs phase runs each configuration from one state and one
+  generator state through eager ticks (the same buffers, the ticks
+  called eagerly) and through the graphs, and raises unless the two agree
+  bit for bit (states, weights, every output, the generator) or reply for
+  reply: 1M x 34 analytic systematic, and under the ESS gate
+  (run_episode, checked against mcl_step called tick by tick too, and
+  the server), 65,536 x 12 fixed multinomial, the CLI serve at 1500 x 24,
+  the fleet at 64 x 1500 x 34 synchronous and pipelined, the sweep and
+  the full-width multimap sweep at 1024 x 500 x 24 (wander and filter
+  timed apart), path (a) and path (b).  It times each eager against
+  graph, profiles one replay of each episode graph (its kernels, its
+  device time against its wall time), runs the bench at --scan-chunk 1
+  and 8, and raises if one eager tick of the 1M, 65,536, sweep or path
+  (a) configuration synchronizes with the host.  In every configuration
+  it runs the graphs once more under torch.profiler and raises unless
+  the port's kernels that the card ran, family by family, equal the
+  launches the wrappers' and the C entries' counters claim (a replay
+  adds its capture's counts: this holds them against the card), and it
+  raises if a second multimap sweep on the same stack builds a graph.
 
 Every phase prints one JSON line; any failure raises, so the exit code is
 non-zero and no result line appears.  It needs one CUDA card and fails
@@ -75,17 +96,21 @@ Output, in order: the card (nvidia-smi name and power limit), the build,
 the kernel checks (F1 and F2 among them), the serve phase, the entry
 config, the kernel-vs-plain tick, the kernel times, the sweep, the two
 randomized-map sweeps, paths (a), (b) and (c), the fleet, the imported
-map, the CLI, the replay, a device profile of one filter's tick at the
-serve's shapes and of one batched tick at the sweep's and the fleet's, the
+map, the CLI, the replay, the graphs phase, a device profile of one
+filter's eager tick at the serve's shapes and of one batched eager tick at
+the sweep's and the fleet's, the
 layout A/B, the batched kernels' times (the map-stack form's against
 single-map K1 batched in device time), the two raster forms' device
 times, a {"kernels": [...]} line, the card again, and last {"ok": true,
-"device": {...}}.
+"device": {...}}.  In the kernels line, "launches" counts every launch on
+the kernel's main path (a graph's warm-up tick and its replays) and
+"replayed" the launches inside CUDA graph replays.
 
 Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -99,7 +124,7 @@ import types
 import numpy as np
 import torch
 
-from montecarlolocalisation_tpu_torch import presets
+from montecarlolocalisation_tpu_torch import bench, presets
 from montecarlolocalisation_tpu_torch.bench import card
 from montecarlolocalisation_tpu_torch.config import (
     WALL_LEFT, WALL_TOP, FilterConfig, ResampleConfig, SensorModelConfig,
@@ -116,7 +141,7 @@ from montecarlolocalisation_tpu_torch.maps.grid import (
 )
 from montecarlolocalisation_tpu_torch.models import filter as mcl
 from montecarlolocalisation_tpu_torch.models import (
-    motion, refine, resample, sensor,
+    compiled, motion, refine, resample, sensor,
 )
 from montecarlolocalisation_tpu_torch.models.raycast import march_steps
 from montecarlolocalisation_tpu_torch.ops import analytic, build, expand
@@ -225,10 +250,18 @@ def say(phase: str, **fields) -> None:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k["fn"].launches = 0
+    for name in compiled.replayed:
+        compiled.replayed[name] = 0
 
 
 def counts() -> dict:
     return {name: k["fn"].launches for name, k in KERNELS.items()}
+
+
+def replay_counts() -> dict:
+    """The launches of counts() that ran inside CUDA graph replays."""
+    return {name: compiled.replayed[k["fn"].__name__]
+            for name, k in KERNELS.items()}
 
 
 def drive(n_ticks: int):
@@ -711,7 +744,7 @@ def serve_phase(dev, ess=None):
     t0 = time.perf_counter()
     ticks = server.serve(lines, out_stream=out)
     torch.cuda.synchronize()
-    launched = counts()
+    launched, replayed = counts(), replay_counts()
     k2_device = expand.device_launches() - k2_before
     check_k2_device_launches(what, k2_device,
                              launched["systematic_expand"], SERVE_N)
@@ -737,14 +770,18 @@ def serve_phase(dev, ess=None):
              if best[0] >= 0 else None)
     say(what, particles=SERVE_N, beams=SERVE_B, ray_mode="analytic",
         resample="systematic", ess=ess, ticks=ticks, error_replies=0,
-        launches=launched, k2_device_launches=k2_device,
+        launches=launched, replayed=replayed, k2_device_launches=k2_device,
         tick_ms_median=float(np.median(lat)),
         tick_ms_p90=float(np.percentile(lat, 90)),
         tick_ms_first=float(lat[0]),
         updates_per_sec=SERVE_N * SERVE_B / (float(np.median(lat)) / 1e3),
         final_confidence=tick_replies[-1]["confidence"],
         position_error_m=err_m)
-    return world, server, launched
+    short = {k: replayed[k] for k in SINGLE if replayed[k] < SERVE_TICKS}
+    if short:
+        raise AssertionError(f"{what}: kernels replayed < {SERVE_TICKS} "
+                             f"times: {short}")
+    return world, server, launched, replayed
 
 
 def check_k2_device_launches(what, device, calls, n, episodes=1) -> None:
@@ -1320,47 +1357,53 @@ def sweep_phase(dev) -> dict:
                                 seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = counts()
+    launched, replayed = counts(), replay_counts()
     k2_device = expand.device_launches() - k2_before
     check_k2_device_launches("sweep", k2_device,
                              launched["systematic_expand_batched"], SWEEP_N,
                              SWEEP_E)
-    short = {k: launched[k] for k in ("beam_weights_batched",
+    short = {k: replayed[k] for k in ("beam_weights_batched",
                                       "systematic_expand_batched",
                                       "kmeans_batched")
-             if launched[k] < SWEEP_T}
+             if replayed[k] != SWEEP_T}
     say("sweep", episodes=SWEEP_E, particles=SWEEP_N, beams=SWEEP_B,
         ticks=SWEEP_T, ray_mode="fixed", resample="systematic",
-        launches=launched, k2_device_launches=k2_device, wall_s=wall,
+        launches=launched, replayed=replayed, k2_device_launches=k2_device,
+        wall_s=wall,
         ticks_per_sec=SWEEP_T / wall,
         updates_per_sec=SWEEP_E * SWEEP_N * SWEEP_B * SWEEP_T / wall,
         **metrics)
     if short:
-        raise AssertionError(f"sweep: kernels launched < {SWEEP_T} times: "
+        raise AssertionError(f"sweep: kernels not replayed once a tick: "
                              f"{short}")
     if not (metrics["converged_frac"] >= 0.65
             and metrics["alias_converged_frac"] >= 0.60):
         raise AssertionError(f"sweep: convergence below the floors: "
                              f"{metrics}")
-    return launched
+    return launched, replayed
 
 
 # -- phase 9: the fleet server at full size ---------------------------------
+
+def fleet_lines(world, ticks: int, seed: int) -> list:
+    """Fleet frames of FLEET_R wandering robots."""
+    gen = torch.Generator(device=world.maze.device)
+    gen.manual_seed(seed)
+    enc, ranges, _ = robot.generate_wander_episode(
+        gen, world.maze, world.cfg, world.angles, ticks, batch=FLEET_R,
+        start_pose=START)
+    enc, ranges = enc.cpu().numpy(), ranges.cpu().numpy()
+    return [json.dumps(dict(encoder_left=enc[:, t, 0].tolist(),
+                            encoder_right=enc[:, t, 1].tolist(),
+                            ranges=ranges[:, t].tolist()))
+            for t in range(ticks)]
+
 
 def fleet_phase(dev) -> dict:
     world = presets.make_world(num_particles=FLEET_N, num_beams=FLEET_B,
                                ray_mode="fixed",
                                resample_method="multinomial", device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(6)
-    enc, ranges, _ = robot.generate_wander_episode(
-        gen, world.maze, world.cfg, world.angles, FLEET_TICKS,
-        batch=FLEET_R, start_pose=START)
-    enc, ranges = enc.cpu().numpy(), ranges.cpu().numpy()
-    lines = [json.dumps(dict(encoder_left=enc[:, t, 0].tolist(),
-                             encoder_right=enc[:, t, 1].tolist(),
-                             ranges=ranges[:, t].tolist()))
-             for t in range(FLEET_TICKS)]
+    lines = fleet_lines(world, FLEET_TICKS, seed=6)
     lines += [json.dumps(dict(cmd="stats")), json.dumps(dict(cmd="shutdown"))]
     out = Replies()
     torch.cuda.synchronize()
@@ -1946,20 +1989,10 @@ def raw_scan(ranges, angles, skip):
                 range_min=0.0, range_max=1.0)
 
 
-def elastic_phase(dev) -> dict:
-    """MCLServer with the KLD budget on [1024, 65,536] and the production
-    schedule (ESS gate, 2 rounds of refinement), 24 beams,
-    ELASTIC_FRAMES frames of a wander from the sweep's start whose truth is
-    carried at KIDNAP_AT to the free cell farthest from the start (the
-    encoders run on), every other frame as a raw LaserScan, a checkpoint at
-    CHECKPOINT_AT and a restore that replays the next REPLAYED frames.
-    Raises unless the budget shrinks below n_max while the filter is
-    confident before the kidnap, returns to n_max after it (the lost
-    song), the replayed replies equal the first ones exactly, and the
-    budget crosses K2's one-block limit and K3's cooperative-grid
-    threshold (so both forms of each run)."""
-    n_min, n_max = ELASTIC
-    world = presets.make_world(num_particles=n_max, num_beams=SWEEP_B,
+def elastic_session(dev, tmp: str):
+    """Path (b)'s world, kidnap pose, server maker and session lines, the
+    checkpoint written under `tmp`."""
+    world = presets.make_world(num_particles=ELASTIC[1], num_beams=SWEEP_B,
                                ray_mode="fixed",
                                resample_method="systematic",
                                refine_iters=2, ess_threshold=ESS,
@@ -1983,20 +2016,41 @@ def elastic_phase(dev) -> dict:
         else:
             f["ranges"] = [float(r) for r in ranges[k]]
         frames.append(json.dumps(f))
+    path = os.path.join(tmp, "elastic.npz")
+    replay = frames[CHECKPOINT_AT:CHECKPOINT_AT + REPLAYED]
+    lines = (frames[:CHECKPOINT_AT]
+             + [json.dumps(dict(cmd="checkpoint", path=path))] + replay
+             + [json.dumps(dict(cmd="restore", path=path))] + replay
+             + frames[CHECKPOINT_AT + REPLAYED:])
+
+    def make():
+        return MCLServer(m, world.cfg, world.angles, seed=0, adapt=ELASTIC,
+                         adapt_patience=ELASTIC_PATIENCE, adapt_mode="kld")
+
+    return world, kidnap, make, lines
+
+
+def elastic_phase(dev) -> dict:
+    """MCLServer with the KLD budget on [1024, 65,536] and the production
+    schedule (ESS gate, 2 rounds of refinement), 24 beams,
+    ELASTIC_FRAMES frames of a wander from the sweep's start whose truth is
+    carried at KIDNAP_AT to the free cell farthest from the start (the
+    encoders run on), every other frame as a raw LaserScan, a checkpoint at
+    CHECKPOINT_AT and a restore that replays the next REPLAYED frames.
+    Raises unless the budget shrinks below n_max while the filter is
+    confident before the kidnap, returns to n_max after it (the lost
+    song), the replayed replies equal the first ones exactly, and the
+    budget crosses K2's one-block limit and K3's cooperative-grid
+    threshold (so both forms of each run)."""
+    n_min, n_max = ELASTIC
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "elastic.npz")
-        replay = frames[CHECKPOINT_AT:CHECKPOINT_AT + REPLAYED]
-        lines = (frames[:CHECKPOINT_AT]
-                 + [json.dumps(dict(cmd="checkpoint", path=path))] + replay
-                 + [json.dumps(dict(cmd="restore", path=path))] + replay
-                 + frames[CHECKPOINT_AT + REPLAYED:])
+        world, kidnap, make, lines = elastic_session(dev, tmp)
         out = Replies()
         torch.cuda.synchronize()
         reset_counts()
         k2_before = expand.device_launches()
         k3_before = kmeans.device_launches()
-        server = MCLServer(m, world.cfg, world.angles, seed=0, adapt=ELASTIC,
-                           adapt_patience=ELASTIC_PATIENCE, adapt_mode="kld")
+        server = make()
         t0 = time.perf_counter()
         server.serve(lines, out_stream=out)
         torch.cuda.synchronize()
@@ -2202,15 +2256,15 @@ def multimap_row_phase(dev) -> dict:
         episodes_per_map=MULTIMAP_ROW[1], start_pose=START)
     metrics = episodes.sweep_rmse(final, truth)
     wall = time.perf_counter() - t0
-    launched = counts()
+    launched, replayed = counts(), replay_counts()
     say("multimap_row", maps=MULTIMAP_ROW[0],
         episodes_per_map=MULTIMAP_ROW[1], ticks=MULTIMAP_ROW[2],
         style="mixed", particles=SWEEP_N, beams=SWEEP_B, ray_mode="fixed",
-        resample="multinomial", launches=launched, wall_s=wall,
-        jax_converged_frac=0.6016, **metrics)
-    if launched["beam_weights_stack"] != MULTIMAP_ROW[2]:
-        raise AssertionError(f"multimap row: K1 stack launched "
-                             f"{launched['beam_weights_stack']} times")
+        resample="multinomial", launches=launched, replayed=replayed,
+        wall_s=wall, jax_converged_frac=0.6016, **metrics)
+    if replayed["beam_weights_stack"] != MULTIMAP_ROW[2]:
+        raise AssertionError(f"multimap row: K1 stack replayed "
+                             f"{replayed['beam_weights_stack']} times")
     if not metrics["converged_frac"] >= 0.47:
         raise AssertionError(f"multimap row: converged "
                              f"{metrics['converged_frac']} < 0.47")
@@ -2238,24 +2292,24 @@ def multimap_phase(dev) -> dict:
         start_pose=START)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = counts()
+    launched, replayed = counts(), replay_counts()
     metrics = episodes.sweep_rmse(final, truth)
-    ran = {k: launched[k] for k in ("beam_weights_stack",
+    ran = {k: replayed[k] for k in ("beam_weights_stack",
                                     "systematic_expand_batched",
                                     "kmeans_batched")}
     say("multimap", maps=MULTIMAP_MAPS, episodes_per_map=2,
         episodes=2 * MULTIMAP_MAPS, particles=SWEEP_N, beams=SWEEP_B,
         ticks=SWEEP_T, style="mixed", ray_mode="fixed",
-        resample="systematic", launches=launched, wall_s=wall,
-        ticks_per_sec=SWEEP_T / wall,
+        resample="systematic", launches=launched, replayed=replayed,
+        wall_s=wall, ticks_per_sec=SWEEP_T / wall,
         updates_per_sec=2 * MULTIMAP_MAPS * SWEEP_N * SWEEP_B * SWEEP_T
         / wall, **metrics)
     if any(v != SWEEP_T for v in ran.values()):
-        raise AssertionError(f"multimap: kernels not launched once a tick: "
+        raise AssertionError(f"multimap: kernels not replayed once a tick: "
                              f"{ran}")
     if not torch.isfinite(final.particles).all():
         raise AssertionError("multimap: non-finite particles")
-    return launched
+    return launched, replayed
 
 
 # -- phase 10: an imported map, the CLI and the replay ----------------------
@@ -2291,7 +2345,7 @@ def imported_map_phase(dev) -> None:
                                                   num_ticks=IMPORT_TICKS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = counts()
+    launched, replayed = counts(), replay_counts()
     best, tp = final.best_pose.cpu().numpy(), truth[-1].cpu().numpy()
     say("imported_map", cells=IMPORT_CELLS, raster=list(src.occ.shape),
         raster_bytes=4 * weights.raster_words(world.maze, world.cfg.sensor),
@@ -2300,7 +2354,7 @@ def imported_map_phase(dev) -> None:
         best_pose=best.tolist(), true_pose=tp.tolist(),
         position_error_m=float(np.hypot(*(best[:2] - tp[:2])))
         if best[0] >= 0 else None)
-    if form != "device" or launched["beam_weights"] != IMPORT_TICKS \
+    if form != "device" or replayed["beam_weights"] != IMPORT_TICKS \
             or not torch.isfinite(final.particles).all():
         raise AssertionError(f"imported map: form {form}, {launched}")
     # keep_origin: the same wander in world coordinates shifted by the
@@ -2316,7 +2370,7 @@ def imported_map_phase(dev) -> None:
     final, outs = mcl.run_episode(state, enc[0], ranges[0], world.angles,
                                   kept, cfg)
     torch.cuda.synchronize()
-    launched = counts()
+    launched, replayed = counts(), replay_counts()
     ep = outs.exact_pose[1:].cpu().numpy()
     tp = poses[0, :-1].cpu().numpy()
     ok = ep[:, 0] >= 0      # not the -1 sentinel: the origin is positive
@@ -2326,7 +2380,7 @@ def imported_map_phase(dev) -> None:
         confident_share=float(ok.mean()),
         tracking_rmse_m=float(np.sqrt((err ** 2).mean())) if ok.any()
         else None, final_confidence=float(final.confidence))
-    if launched["beam_weights"] != IMPORT_TICKS or not bool(
+    if replayed["beam_weights"] != IMPORT_TICKS or not bool(
             torch.isfinite(final.particles).all()):
         raise AssertionError(f"imported map keep_origin: {launched}")
 
@@ -2398,6 +2452,565 @@ def replay_phase(dev) -> dict:
     return dict(good_share=float(good.float().mean()))
 
 
+# -- phase 11: the compiled tick, graphs against eager ticks ---------------
+
+# Ticks of the episode A/Bs: two graphs of TICKS_PER_GRAPH and the
+# remainder's.  Frames of the server A/Bs.
+GRAPH_T = 20
+GRAPH_FRAMES = 30
+# The port's kernels as the profiler names them (csrc/*.cu).
+DEVICE_KERNELS = ("beam_weights_kernel", "beam_weights_batched_kernel",
+                  "pack_kernel", "expand_block_kernel", "expand_scan_kernel",
+                  "expand_copy_kernel", "kmeans_kernel", "beamsub_kernel")
+
+
+@contextlib.contextmanager
+def eager_ticks():
+    """Inside, every graph built runs its ticks as eager calls on its
+    buffers, as it does on the CPU (a TickGraph without its capture), from
+    a cache of its own: the eager side of each A/B.  The servers built
+    inside hold such graphs for their lives."""
+    capture, cache = compiled.TickGraph._capture, compiled.graphs
+    compiled.TickGraph._capture = lambda self: None
+    compiled.graphs = compiled.GraphCache()
+    try:
+        yield
+    finally:
+        compiled.TickGraph._capture = capture
+        compiled.graphs = cache
+
+
+def timed(fn):
+    """(fn(), host seconds), the card synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_gen(gen):
+    """A generator of gen's device in gen's state."""
+    g = torch.Generator(device=gen.device)
+    g.set_state(gen.get_state())
+    return g
+
+
+def differing(a, b) -> list:
+    """The names of the tensors of two results (states, outputs, tuples
+    or dicts of tensors) that are not bit-equal, generator states
+    included."""
+    bad = []
+
+    def walk(x, y, name):
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                bad.append(name)
+        elif isinstance(x, torch.Generator):
+            if not torch.equal(x.get_state(), y.get_state()):
+                bad.append(name)
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), getattr(y, f.name),
+                     f"{name}.{f.name}")
+        elif isinstance(x, (tuple, list)):
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{name}[{i}]")
+        elif isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k], f"{name}.{k}")
+        elif x != y:
+            bad.append(name)
+
+    walk(a, b, "")
+    return bad
+
+
+def new_entries(before: set) -> dict:
+    """Capture statistics of the module cache's graphs that are not among
+    `before` (a set of ids)."""
+    gs = [g for g in compiled.graphs.entries() if id(g) not in before]
+    return dict(graphs_built=len(gs),
+                capture_s=sum(g.capture_s for g in gs),
+                instantiate_s=sum(g.instantiate_s for g in gs),
+                pool_mib=sum(g.pool_bytes for g in gs) / 2**20)
+
+
+# Each kernel family of the port: the names of its kernels in a profile
+# (one of them launched once a wrapper call), and the KERNELS entries of
+# the wrappers that launch them.
+LAUNCH_AUDIT = (
+    (("beam_weights_kernel",), ("beam_weights",)),
+    (("beam_weights_batched_kernel",),
+     ("beam_weights_batched", "beam_weights_stack")),
+    (("beamsub_kernel",), ("beam_weights_beamsub",)),
+    (("expand_block_kernel", "expand_copy_kernel"),
+     ("systematic_expand", "systematic_expand_batched")),
+    (("kmeans_kernel",), ("kmeans", "kmeans_batched")),
+)
+# The C entries' device launch counters and the kernels each counts.
+DEVICE_AUDIT = (
+    (("expand_block_kernel", "expand_scan_kernel", "expand_copy_kernel"),
+     expand.device_launches),
+    (("kmeans_kernel",), kmeans.device_launches),
+)
+
+
+def _kernel_count(names: dict, kernels) -> int:
+    """The launches of `kernels` among a profile's kernel counts by name
+    ("void (anonymous namespace)::kmeans_kernel<3, false>(...)")."""
+    return sum(n for name, n in names.items()
+               if any(f"::{k}<" in name or f"::{k}(" in name
+                      for k in kernels))
+
+
+@contextlib.contextmanager
+def launch_audit(what: str):
+    """torch.profiler over the block: the port's kernels that ran on the
+    card, by family, must equal the launches the wrappers' counters and
+    the C entries' device counters added in the block, or a raise.  Where
+    the block only replays graphs, each replay added its capture's counts:
+    this holds them against what the card ran.  Yields a dict that gets
+    the counts and the replays' share of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    launched, replays = counts(), replay_counts()
+    device = [f() for _, f in DEVICE_AUDIT]
+    row = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield row
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            names[ev.key] = names.get(ev.key, 0) + ev.count
+    launched = {k: v - launched[k] for k, v in counts().items()}
+    replays = {k: v - replays[k] for k, v in replay_counts().items()}
+    bad = []
+    for kernels, wrappers in LAUNCH_AUDIT:
+        ran = _kernel_count(names, kernels)
+        claimed = sum(launched[w] for w in wrappers)
+        row[kernels[0]] = dict(ran=ran, counted=claimed,
+                               replayed=sum(replays[w] for w in wrappers))
+        if ran != claimed:
+            bad.append((kernels, ran, claimed))
+    for (kernels, f), before in zip(DEVICE_AUDIT, device):
+        ran, claimed = _kernel_count(names, kernels), f() - before
+        if ran != claimed:
+            bad.append((kernels, ran, claimed))
+    say("graphs", what=what, audit="kernels run against launch counts",
+        **row)
+    if bad:
+        raise AssertionError(f"graphs {what}: the card ran other kernel "
+                             f"counts than the counters claim (kernels, "
+                             f"ran, counted): {bad}")
+
+
+def replay_profile(run) -> dict:
+    """torch.profiler over 3 calls of `run` (one graph replay each, after
+    one unprofiled call): per replay its device ms, the launches and syncs
+    on the host, and the port's kernels that ran inside it; the busy share
+    is that device time over the wall time of 5 unprofiled calls (the
+    profiler's own cost would lower it)."""
+    prof = device_profile(run, 3)
+    names = prof.pop("names")
+    ran = sorted(k for k in names if any(d in k for d in DEVICE_KERNELS))
+    _, wall_s = timed(lambda: [run() for _ in range(5)])
+    wall_ms = 1e3 * wall_s / 5
+    return dict(replay_wall_ms=wall_ms,
+                replay_wall_ms_profiled=prof["wall_ms_per_tick"],
+                replay_device_ms=prof["device_ms_per_tick"],
+                replay_busy_share=prof["device_ms_per_tick"] / wall_ms,
+                replay_device_ops=prof["device_ops_per_tick"],
+                host_launch_calls=prof["host_launch_calls_per_tick"],
+                host_sync_calls=prof["host_sync_calls_per_tick"],
+                kernels_in_replay=ran)
+
+
+def ab(what: str, run, ticks: int, audit=None, **fields) -> dict:
+    """run() from the same seeds eagerly (eager_ticks), then through the
+    graphs twice (the first builds and captures, the second replays): the
+    three results bit-equal or a raise; host seconds of each and the new
+    graphs' capture statistics.  A fourth run, of replays only, goes
+    through launch_audit; or `audit()`, where one run holds more kernels
+    than the profiler keeps."""
+    with eager_ticks():
+        eager, eager_s = timed(run)
+    before = {id(g) for g in compiled.graphs.entries()}
+    first, first_s = timed(run)
+    stats = new_entries(before)
+    graph, graph_s = timed(run)
+    with launch_audit(what) as audited:
+        (audit or run)()
+    bad = sorted(set(differing(eager, first) + differing(eager, graph)))
+    row = dict(what=what, ticks=ticks, bit_equal=not bad, eager_s=eager_s,
+               graph_first_s=first_s, graph_s=graph_s,
+               eager_ms_per_tick=1e3 * eager_s / ticks,
+               graph_ms_per_tick=1e3 * graph_s / ticks, **stats,
+               launch_audit=audited, **fields)
+    say("graphs", **row)
+    if bad:
+        raise AssertionError(f"graphs {what}: graph and eager ticks differ "
+                             f"in {bad[:8]}")
+    return row
+
+
+def sync_free(what: str, world, n_ep=None) -> None:
+    """One eager mcl_step under torch.cuda.set_sync_debug_mode("error"):
+    a tick that waits for the card anywhere raises, and could not be
+    captured.  The encoders come as Python floats (one filter) or tensors
+    (a batch)."""
+    m, cfg = world.maze, world.cfg
+    b = () if n_ep is None else (n_ep,)
+    scan = sensor.Scan(
+        angles=torch.as_tensor(world.angles, device=m.device),
+        ranges=sensor.simulate_scan(m, START, world.angles, cfg.sensor
+                                    ).ranges.expand(b + (len(world.angles),)
+                                                    ).contiguous(),
+        mask=torch.ones(b + (len(world.angles),), dtype=torch.bool,
+                        device=m.device))
+    enc = 0.1 if n_ep is None else torch.full(b, 0.1, device=m.device)
+    state = mcl.init_state(m, cfg, 30, batch=n_ep)
+    mcl.mcl_step(state, enc, enc, scan, m, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mcl.mcl_step(state, enc, enc, scan, m, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    say("graphs", what=what, eager_tick_host_syncs=0)
+
+
+def serve_lines(world, frames: int, seed: int) -> list:
+    """JSONL frames of a short drive from START, the ranges simulated."""
+    enc, truth = drive(frames)
+    ranges = scans(world.maze, truth, world.angles, world.cfg.sensor,
+                   seed=seed).cpu().numpy()
+    return [json.dumps(dict(encoder_left=float(e[0]),
+                            encoder_right=float(e[1]),
+                            ranges=[float(r) for r in z]))
+            for e, z in zip(enc, ranges)]
+
+
+def serve_replies(server, lines) -> tuple:
+    """(reply lines, host ms between consecutive replies)."""
+    out = Replies()
+    t0 = time.perf_counter()
+    server.serve(lines, out_stream=out)
+    torch.cuda.synchronize()
+    return out.lines, np.diff(np.array([t0] + out.times)) * 1e3
+
+
+def ab_server(what: str, make, lines, ticks: int, **fields) -> dict:
+    """A server built by make() answers `lines` eagerly, then a new one
+    through its graphs (built and captured at its first frame of each
+    shape): equal replies or a raise; median and p90 latency over the
+    first `ticks` replies, and the first frame's.  Three more frames on
+    the graphed server go through launch_audit."""
+    with eager_ticks():
+        eager, eager_lat = serve_replies(make(), lines)
+    server = make()
+    graph, graph_lat = serve_replies(server, lines)
+    g = server._graphs.stats()
+    with launch_audit(what) as audit:
+        serve_replies(server, lines[:3])
+    lat = {f"{side}_ms_{q}": float(np.percentile(v[:ticks], p))
+           for side, v in (("eager", eager_lat), ("graph", graph_lat))
+           for q, p in (("median", 50), ("p90", 90))}
+    errors = [r for r in eager + graph if '"error"' in r]
+    if errors:
+        raise AssertionError(f"graphs {what}: error replies {errors[:2]}")
+    row = dict(what=what, frames=len(lines), replies_equal=eager == graph,
+               **lat, graph_ms_first=float(graph_lat[0]),
+               graphs_built=g["entries"], capture_s=g["capture_s"],
+               instantiate_s=g["instantiate_s"],
+               pool_mib=g["pool_bytes"] / 2**20, launch_audit=audit,
+               **fields)
+    say("graphs", **row)
+    if not row["replies_equal"]:
+        diff = next((i for i, (a, b) in enumerate(zip(eager, graph))
+                     if a != b), min(len(eager), len(graph)))
+        raise AssertionError(f"graphs {what}: reply {diff} differs: "
+                             f"{eager[diff:diff + 1]} / "
+                             f"{graph[diff:diff + 1]}")
+    return row
+
+
+def episode_inputs(world, n_ep, seed):
+    """Encoders [.., T, 2] and ranges [.., T, B] of a drive for one filter,
+    of a wander for a batch."""
+    m, cfg = world.maze, world.cfg
+    if n_ep is None:
+        enc, truth = drive(GRAPH_T)
+        return (torch.as_tensor(enc, device=m.device),
+                scans(m, truth, world.angles, cfg.sensor, seed=seed))
+    gen = torch.Generator(device=m.device)
+    gen.manual_seed(seed)
+    enc, ranges, _ = robot.generate_wander_episode(
+        gen, m, cfg, world.angles, GRAPH_T, batch=n_ep, start_pose=START)
+    return enc, ranges
+
+
+def ab_episode(what: str, world, n_ep, seed: int, direct: bool = False,
+               **fields) -> dict:
+    """run_episode over GRAPH_T ticks from one state, eager and through
+    the graphs; with `direct`, also against mcl_step called tick by tick
+    outside any graph; then one K-tick replay profiled."""
+    m, cfg = world.maze, world.cfg
+    enc, ranges = episode_inputs(world, n_ep, seed)
+    state = mcl.init_state(m, cfg, seed, batch=n_ep)
+
+    def run():
+        return mcl.run_episode(
+            dataclasses.replace(state, gen=same_gen(state.gen)), enc, ranges,
+            world.angles, m, cfg)
+
+    row = ab(what, run, GRAPH_T, **fields)
+    if direct:
+        st = dataclasses.replace(state, gen=same_gen(state.gen))
+        angles = torch.as_tensor(world.angles, device=m.device)
+        lead = len(st.batch)
+        outs = []
+        for t in range(GRAPH_T):
+            e = enc.select(lead, t)
+            sc = sensor.Scan(angles=angles, ranges=ranges.select(lead, t),
+                             mask=torch.ones(ranges.select(lead, t).shape,
+                                             dtype=torch.bool,
+                                             device=m.device))
+            st, o = mcl.mcl_step(st, e[..., 0], e[..., 1], sc, m, cfg)
+            outs.append(o)
+        direct_out = mcl.MCLOutput(**{
+            f.name: torch.stack([getattr(o, f.name) for o in outs], dim=lead)
+            for f in dataclasses.fields(mcl.MCLOutput)})
+        bad = differing((st, direct_out), run())
+        say("graphs", what=what, against="mcl_step tick by tick",
+            bit_equal=not bad)
+        if bad:
+            raise AssertionError(f"graphs {what}: the graphs differ from "
+                                 f"mcl_step tick by tick in {bad[:8]}")
+    row.update(profile_ticks(what, state, enc, ranges, world.angles, m,
+                             cfg))
+    return row
+
+
+def tick_replay(state, enc, ranges, angles, m, cfg):
+    """A function that replays the filter's graph of TICKS_PER_GRAPH ticks
+    on the first ticks of the episode inputs enc and ranges, from `state`
+    and then from the state it left."""
+    k = compiled.TICKS_PER_GRAPH
+    sl = [v.narrow(len(state.batch), 0, k) for v in (enc, ranges)]
+    mask = torch.ones(sl[1].shape, dtype=torch.bool, device=m.device)
+    angles = torch.as_tensor(angles, device=m.device)
+    holder = [state]
+
+    def replay():
+        holder[0] = mcl.run_ticks(holder[0], sl[0], sl[1], mask, angles, m,
+                                  cfg)[0]
+
+    return replay
+
+
+def profile_ticks(what: str, state, enc, ranges, angles, m, cfg) -> dict:
+    """replay_profile of tick_replay."""
+    prof = replay_profile(tick_replay(state, enc, ranges, angles, m, cfg))
+    say("graphs", what=what,
+        profile=f"one replay of {compiled.TICKS_PER_GRAPH} ticks", **prof)
+    return prof
+
+
+def sweep_parts(world, n_ep, seed, maps=None):
+    """The sweep's two halves timed apart: the wander of n_ep robots and
+    the filter over their episodes; returns the results and the
+    seconds."""
+    m = world.maze if maps is None else maps
+    gen = torch.Generator(device=m.device)
+    gen.manual_seed(seed)
+    wander, wander_s = timed(lambda: robot.generate_wander_episode(
+        gen, m, world.cfg, world.angles, GRAPH_T, batch=n_ep,
+        start_pose=START))
+    filt, filter_s = timed(lambda: episodes.run_episode_batch(
+        seed + 1, m, world.cfg, wander[0], wander[1], world.angles))
+    return (wander, filt), wander_s, filter_s
+
+
+def ab_sweep(what: str, world, n_ep, seed: int, maps=None,
+             profile: bool = True, **fields) -> dict:
+    """A sweep's wander and filter over GRAPH_T ticks, eager and through
+    the graphs, each half timed; with `profile`, one replay of the
+    filter's graph profiled, else only that replay's launches audited
+    (path (a): a whole run holds more kernels than the profiler keeps)."""
+    split, last = {}, []
+    m = world.maze if maps is None else maps
+
+    def run():
+        out, w_s, f_s = sweep_parts(world, n_ep, seed, maps)
+        split.setdefault("wander_s", []).append(w_s)
+        split.setdefault("filter_s", []).append(f_s)
+        last[:] = [out]
+        return out
+
+    def one_replay():
+        # From a copy of the generator: the run's result stays as it was.
+        (enc, ranges, _), (final, _) = last[0]
+        tick_replay(dataclasses.replace(final, gen=same_gen(final.gen)),
+                    enc, ranges, world.angles, m, world.cfg)()
+
+    row = ab(what, run, GRAPH_T, audit=None if profile else one_replay,
+             **fields)
+    if profile:
+        (enc, ranges, _), (final, _) = run()
+        row.update(profile_ticks(what, final, enc, ranges, world.angles, m,
+                                 world.cfg))
+    ws, fs = split["wander_s"], split["filter_s"]
+    row.update(wander_ms_per_tick=dict(
+        eager=1e3 * ws[0] / GRAPH_T, graph=1e3 * min(ws[1:]) / GRAPH_T),
+        filter_ms_per_tick=dict(eager=1e3 * fs[0] / GRAPH_T,
+                                graph=1e3 * min(fs[1:]) / GRAPH_T))
+    say("graphs", what=what, split="wander / filter", **{
+        k: row[k] for k in ("wander_ms_per_tick", "filter_ms_per_tick")})
+    return row
+
+
+def ab_full(what: str, run, ticks: int, **fields) -> dict:
+    """A whole sweep eagerly (eager_ticks) and through the graphs: its
+    metrics (floats) equal or a raise, and the two wall times."""
+    with eager_ticks():
+        eager, eager_s = timed(run)
+    graph, graph_s = timed(run)
+    row = dict(what=what, ticks=ticks, metrics_equal=eager == graph,
+               eager_wall_s=eager_s, graph_wall_s=graph_s, **graph,
+               **fields)
+    say("graphs", **row)
+    if eager != graph:
+        raise AssertionError(f"graphs {what}: eager {eager} != graph "
+                             f"{graph}")
+    return row
+
+
+def bench_rows(dev) -> list:
+    """The port's bench at 1M x 34 (analytic, systematic), every tick
+    resampled and under the ESS gate, at --scan-chunk 1 and 8."""
+    rows = []
+    for ess in (None, ESS):
+        for chunk in (1, 8):
+            args = bench.parse_args(["--scan-chunk", str(chunk)] + (
+                [] if ess is None else ["--ess", str(ess)]))
+            r = bench.bench_full_step(bench.filter_config(args), args.beams,
+                                      10, scan_chunk=chunk)
+            rows.append(dict(scan_chunk=chunk, ess=ess,
+                             updates_per_sec=r["updates_per_sec"],
+                             ms_per_step=r["ms_per_step"]))
+            say("graphs", what="bench", particles=args.particles,
+                beams=args.beams, **rows[-1])
+    return rows
+
+
+def graphs_phase(dev) -> dict:
+    """Each configuration through the graphs against the same ticks run
+    eagerly (eager_ticks), from the same state and generator state: bit for
+    bit, or a raise.  The module cache is emptied after each, so that its
+    graphs' memory goes back."""
+    rows = []
+
+    def world(n, nb, mode, method, **kw):
+        return presets.make_world(num_particles=n, num_beams=nb,
+                                  ray_mode=mode, resample_method=method,
+                                  device=dev, **kw)
+
+    def done():
+        compiled.graphs.clear()
+        torch.cuda.empty_cache()
+
+    big = world(SERVE_N, SERVE_B, "analytic", "systematic")
+    big_ess = world(SERVE_N, SERVE_B, "analytic", "systematic",
+                    ess_threshold=ESS)
+    sync_free("1m_tick", big)
+    sync_free("1m_ess_tick", big_ess)
+    rows.append(ab_episode("1m_run_episode", big, None, 21, direct=True,
+                           particles=SERVE_N, beams=SERVE_B))
+    done()
+    rows.append(ab_episode("1m_ess_run_episode", big_ess, None, 22,
+                           particles=SERVE_N, beams=SERVE_B, ess=ESS))
+    done()
+    lines = serve_lines(big, SERVE_TICKS, seed=23)
+    for w, name in ((big, "1m_serve"), (big_ess, "1m_ess_serve")):
+        rows.append(ab_server(name, lambda w=w: MCLServer(
+            w.maze, w.cfg, w.angles, seed=0), lines, SERVE_TICKS,
+            particles=SERVE_N, beams=SERVE_B))
+    del big, big_ess
+    rows.append(dict(what="bench", rows=bench_rows(dev)))
+    done()
+    entry = world(ENTRY_N, ENTRY_B, "fixed", "multinomial")
+    sync_free("entry_tick", entry)
+    rows.append(ab_episode("entry_run_episode", entry, None, 24,
+                           particles=ENTRY_N, beams=ENTRY_B))
+    done()
+    cli = world(1500, SWEEP_B, "fixed", "multinomial")
+    rows.append(ab_server("cli_serve", lambda: MCLServer(
+        cli.maze, cli.cfg, cli.angles, seed=0), serve_lines(
+            cli, GRAPH_FRAMES, seed=25), GRAPH_FRAMES, particles=1500,
+        beams=SWEEP_B))
+    fleet = world(FLEET_N, FLEET_B, "fixed", "multinomial")
+    flines = fleet_lines(fleet, FLEET_TICKS, seed=26)
+    for pipe in (False, True):
+        rows.append(ab_server(
+            "fleet_pipelined" if pipe else "fleet", lambda pipe=pipe:
+            MCLFleetServer(fleet.maze, fleet.cfg, fleet.angles,
+                           n_robots=FLEET_R, seed=0, pipeline=pipe),
+            flines, FLEET_TICKS, robots=FLEET_R, particles=FLEET_N,
+            beams=FLEET_B))
+    sweep = world(SWEEP_N, SWEEP_B, "fixed", "systematic")
+    sync_free("sweep_tick", sweep, SWEEP_E)
+    rows.append(ab_sweep("sweep", sweep, SWEEP_E, 27, episodes=SWEEP_E,
+                         particles=SWEEP_N, beams=SWEEP_B))
+    rows.append(ab_full("sweep_full", lambda: presets.run_sweep(
+        sweep, batch=SWEEP_E, num_ticks=SWEEP_T, seed=0), SWEEP_T,
+        episodes=SWEEP_E, particles=SWEEP_N, beams=SWEEP_B))
+    done()
+    maps = generator.generate_map_batch(MULTIMAP_MAPS, style="mixed",
+                                        device=dev)
+    rows.append(ab_sweep("multimap", sweep, 2 * MULTIMAP_MAPS, 28,
+                         maps=repeat_maps(maps, 2),
+                         episodes=2 * MULTIMAP_MAPS, particles=SWEEP_N,
+                         beams=SWEEP_B))
+
+    def multimap():
+        final, _, truth = episodes.run_multimap_sweep(
+            0, maps, sweep.cfg, sweep.angles, SWEEP_T, episodes_per_map=2,
+            start_pose=START)
+        return episodes.sweep_rmse(final, truth)
+
+    rows.append(ab_full("multimap_full", multimap, SWEEP_T,
+                        maps=MULTIMAP_MAPS, episodes=2 * MULTIMAP_MAPS,
+                        particles=SWEEP_N, beams=SWEEP_B))
+    # A second sweep on the same stack replays the first one's graphs.
+    kept = (compiled.graphs.builds, len(compiled.graphs))
+    _, again_s = timed(multimap)
+    say("graphs", what="multimap_full", second_call_wall_s=again_s,
+        graphs_built=compiled.graphs.builds - kept[0],
+        graphs_kept=len(compiled.graphs))
+    if (compiled.graphs.builds, len(compiled.graphs)) != kept:
+        raise AssertionError("graphs multimap_full: a second sweep on the "
+                             "same stack built graphs")
+    del maps
+    done()
+    prod = world(SWEEP_N, SWEEP_B, "fixed", "systematic", refine_iters=2,
+                 ess_threshold=ESS)
+    sync_free("path_a_tick", prod, SWEEP_E)
+    rows.append(ab_sweep("path_a", prod, SWEEP_E, 29, profile=False,
+                         episodes=SWEEP_E, particles=SWEEP_N, beams=SWEEP_B,
+                         ess=ESS, refine_iters=2))
+    done()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, make, elines = elastic_session(dev, tmp)
+        rows.append(ab_server("path_b", make, elines, ELASTIC_FRAMES,
+                              adapt=list(ELASTIC), ess=ESS, refine_iters=2))
+    done()
+    return dict(rows=rows)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -2437,14 +3050,14 @@ def main() -> None:
     # (b) the elastic server, (c) the bench config under the ESS gate; and
     # the randomized-map sweeps (the published row, the full width), the
     # imported map, the CLI presets and the replay.
-    world, server, launched = serve_phase(dev)
+    world, server, launched, replayed = serve_phase(dev)
     entry_phase(dev)
     tick_phase(world, server.state)
     times = time_phase(world, server.state, gen)
     del server
-    sweep_launched = sweep_phase(dev)
+    sweep_launched, sweep_replayed = sweep_phase(dev)
     multimap_row_phase(dev)
-    multimap_launched = multimap_phase(dev)
+    multimap_launched, multimap_replayed = multimap_phase(dev)
     production_sweep_phase(dev)
     elastic_phase(dev)
     serve_phase(dev, ess=ESS)
@@ -2452,18 +3065,25 @@ def main() -> None:
     imported_map_phase(dev)
     cli_phase()
     replay_phase(dev)
+    graphs_phase(dev)
     profile_phase(dev)
     ab_launched = ab_phase(m, gen)
     times.update(batched_time_phase(m, gen))
     times["beam_weights_stack"] = stack_time(gen)
     f1_time(gen)
-    launches = {name: launched[name] for name in
-                ("beam_weights", "systematic_expand", "kmeans")}
-    launches.update({name: sweep_launched[name] for name in
-                     ("beam_weights_batched", "systematic_expand_batched",
-                      "kmeans_batched")})
+    launches = {name: launched[name] for name in SINGLE}
+    replays = {name: replayed[name] for name in SINGLE}
+    for name in ("beam_weights_batched", "systematic_expand_batched",
+                 "kmeans_batched"):
+        launches[name] = sweep_launched[name]
+        replays[name] = sweep_replayed[name]
     launches["beam_weights_stack"] = multimap_launched["beam_weights_stack"]
+    replays["beam_weights_stack"] = multimap_replayed["beam_weights_stack"]
     launches["beam_weights_beamsub"] = ab_launched["beam_weights_beamsub"]
+    replays["beam_weights_beamsub"] = 0    # on no filter path
+    if not all(replays[k] for k in KERNELS if k != "beam_weights_beamsub"):
+        raise AssertionError(f"a kernel of a filter path never ran inside a "
+                             f"CUDA graph replay: {replays}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on its path: "
                              f"{launches}")
@@ -2478,7 +3098,7 @@ def main() -> None:
     print(json.dumps(dict(kernels=[
         dict(name=name, route="cuda", source=k["source"],
              replaces=k["replaces"], launches=launches[name],
-             max_abs_err=errs[name]["max_abs_err"],
+             replayed=replays[name], max_abs_err=errs[name]["max_abs_err"],
              **{key: times[name][key] for key in keys})
         for name, k in KERNELS.items()])), flush=True)
     print(card(), flush=True)

@@ -2,27 +2,38 @@
 one CUDA card.
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", ...}.
-The metric and flags are those of the JAX package's root bench.py: the
-complete tick (hysteresis, motion, beam weights, adaptive-injection
-resampling, k-means confidence) at --particles x --beams, float32, by
-default 1M x 34 with the closed-form caster and systematic resampling.
-Ticks run one `mcl_step` call each, the serving form; the time is taken
-with CUDA events after one warm-up tick that also builds the kernels.
-vs_baseline is against the reference's implied ceiling, 1500 particles x
-34 beams x 10 Hz on a Raspberry Pi 4 (BASELINE.md).
+The metric and the flags below are those of the JAX package's root
+bench.py (without its --verbose and stall-retry flags, which serve its
+remote TPU runtime): the complete tick (hysteresis, motion, beam weights,
+adaptive-injection resampling, k-means confidence) at --particles x
+--beams, float32, by default 1M x 34 with the closed-form caster and
+systematic resampling, every tick fed the same encoders and scan.
+
+--scan-chunk K runs K full ticks a dispatch, as the JAX bench's lax.scan
+does (bench.py:73-88): one replay of a CUDA graph of K mcl_step calls
+(models/compiled), default 8; 1 is the serving form, one dispatch a tick.
+--ess T is the ESS-gated resampling schedule at threshold T
+(ResampleConfig.ess_threshold): the carried weights resample only when
+the effective sample size falls below T x N; by default every tick
+resamples, the reference schedule.  One warm-up dispatch builds the
+kernels and captures the graph; then --iters dispatches are timed with
+CUDA events, and the rate counts iters x K ticks.  vs_baseline is against
+the reference's implied ceiling, 1500 particles x 34 beams x 10 Hz on a
+Raspberry Pi 4 (BASELINE.md).
 
 Usage: python -m montecarlolocalisation_tpu_torch.bench [--particles N]
        [--beams B] [--iters I] [--ray-mode M] [--resample R]
-       [--beam-combine C]
+       [--beam-combine C] [--scan-chunk K] [--ess T]
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import subprocess
 
 import torch
+
+from .config import FilterConfig, ResampleConfig, SensorModelConfig
 
 BASELINE_UPDATES_PER_SEC = 1500 * 34 * 10.0
 
@@ -35,10 +46,21 @@ def card() -> str:
         text=True).stdout.strip()
 
 
-def bench_full_step(num_particles: int, num_beams: int, iters: int,
-                    ray_mode: str = "analytic",
-                    resample_method: str = "systematic",
-                    beam_combine: str = "sum") -> dict:
+def filter_config(args: argparse.Namespace) -> FilterConfig:
+    """The filter the bench ticks: the JAX bench's FilterConfig
+    (bench.py:60-65) from the parsed flags."""
+    return FilterConfig(
+        num_particles=args.particles,
+        sensor=SensorModelConfig(ray_mode=args.ray_mode,
+                                 beam_combine=args.beam_combine),
+        resample=ResampleConfig(method=args.resample,
+                                ess_threshold=args.ess))
+
+
+def bench_full_step(cfg: FilterConfig, num_beams: int, iters: int,
+                    scan_chunk: int = 8) -> dict:
+    """Time `iters` dispatches of `scan_chunk` ticks of `cfg` at
+    `num_beams` beams on the card (module docstring)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the port's bench measures a CUDA card; "
                            "torch.cuda.is_available() is False")
@@ -47,60 +69,76 @@ def bench_full_step(num_particles: int, num_beams: int, iters: int,
     from .models import sensor
 
     dev = torch.device("cuda")
-    world = presets.make_world(num_particles=num_particles,
-                               num_beams=num_beams, ray_mode=ray_mode,
-                               resample_method=resample_method, device=dev)
-    cfg = dataclasses.replace(world.cfg, sensor=dataclasses.replace(
-        world.cfg.sensor, beam_combine=beam_combine))
+    world = presets.make_world(num_beams=num_beams, device=dev)
     m = world.maze
     state = mcl.init_state(m, cfg, seed=0)
     scan = sensor.simulate_scan(m, [1.25, 1.25, 0.0], world.angles,
                                 cfg.sensor)
-    enc = torch.tensor(0.1, device=dev)
+    enc = torch.full((scan_chunk, 2), 0.1, device=dev)
+    ranges = scan.ranges.expand(scan_chunk, num_beams)
+    mask = torch.ones((scan_chunk, num_beams), dtype=torch.bool, device=dev)
 
-    state, _ = mcl.mcl_step(state, enc, enc, scan, m, cfg)   # warm-up
+    def dispatch(st):
+        return mcl.run_ticks(st, enc, ranges, mask, scan.angles, m, cfg)[0]
+
+    state = dispatch(state)   # warm-up: builds the kernels and captures
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
-        state, _ = mcl.mcl_step(state, enc, enc, scan, m, cfg)
+        state = dispatch(state)
     end.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / iters
-    steps_per_sec = 1e3 / ms
+    ms_dispatch = start.elapsed_time(end) / iters
+    steps_per_sec = 1e3 * scan_chunk / ms_dispatch
     return dict(steps_per_sec=steps_per_sec,
-                updates_per_sec=steps_per_sec * num_particles * num_beams,
-                ms_per_step=ms, num_particles=num_particles,
-                num_beams=num_beams,
+                updates_per_sec=steps_per_sec * cfg.num_particles
+                * num_beams,
+                ms_per_step=ms_dispatch / scan_chunk,
+                ms_per_dispatch=ms_dispatch,
+                num_particles=cfg.num_particles, num_beams=num_beams,
                 device=torch.cuda.get_device_name(0), card=card())
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="montecarlolocalisation_tpu_torch.bench")
     ap.add_argument("--particles", type=int, default=1_000_000)
     ap.add_argument("--beams", type=int, default=34)
     ap.add_argument("--iters", type=int, default=20,
-                    help="timed ticks, one mcl_step call each")
+                    help="timed dispatches (each runs --scan-chunk ticks)")
     ap.add_argument("--ray-mode", default="analytic",
                     choices=["fixed", "dda", "analytic"])
     ap.add_argument("--resample", default="systematic",
                     choices=["systematic", "multinomial"])
     ap.add_argument("--beam-combine", default="sum", choices=["sum", "log"])
+    ap.add_argument("--scan-chunk", type=int, default=8,
+                    help="full ticks a dispatch, one CUDA graph replay "
+                         "(the JAX bench's lax.scan); 1 = one dispatch a "
+                         "tick, the online-serving form")
+    ap.add_argument("--ess", type=float, default=None,
+                    help="ESS-gated resampling threshold (e.g. 0.5): carry "
+                         "the weights and resample only when ESS < ess * N "
+                         "(the production schedule).  Default: resample "
+                         "every tick, the reference schedule")
     args = ap.parse_args(argv)
-    for name in ("particles", "beams", "iters"):
+    for name in ("particles", "beams", "iters", "scan_chunk"):
         if getattr(args, name) < 1:
-            ap.error(f"--{name} must be >= 1")
-    r = bench_full_step(args.particles, args.beams, args.iters,
-                        ray_mode=args.ray_mode,
-                        resample_method=args.resample,
-                        beam_combine=args.beam_combine)
+            ap.error(f"--{name.replace('_', '-')} must be >= 1")
+    return args
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    r = bench_full_step(filter_config(args), args.beams, args.iters,
+                        scan_chunk=args.scan_chunk)
     print(json.dumps(dict(
         metric="particle_beam_updates_per_sec_full_mcl_step",
         value=r["updates_per_sec"], unit="updates/s",
         vs_baseline=r["updates_per_sec"] / BASELINE_UPDATES_PER_SEC,
         ms_per_step=r["ms_per_step"], particles=r["num_particles"],
-        beams=r["num_beams"], device=r["device"], card=r["card"])))
+        beams=r["num_beams"], scan_chunk=args.scan_chunk, ess=args.ess,
+        device=r["device"], card=r["card"])))
 
 
 if __name__ == "__main__":

@@ -33,7 +33,8 @@
 //   its xy in shared memory once, keeps the assignments there, and writes
 //   them to device memory once at the end; __syncthreads is the only
 //   barrier.  This covers the sweep's 500 and the fleet's 1500.
-// - Larger n: a persistent cooperative grid (cudaLaunchCooperativeKernel),
+// - Larger n: a persistent cooperative grid (cudaLaunchKernelEx with the
+//   cooperative attribute, which a CUDA graph capture records),
 //   as many blocks as can be resident, each owning groups g, g + grid, ...
 //   of all episodes.  A block keeps its groups' xy and assignments in
 //   shared memory when they fit (up to 2 groups a block: 96 KB each), else
@@ -432,9 +433,19 @@ cudaError_t launch(Args a, int one_block, int threads, cudaStream_t s) {
                                                         bytes);
     if (err != cudaSuccess) return err;
     if (occ < 1) continue;
-    const int blocks = min(T, occ * sms);
-    void* params[] = {&a};
-    err = cudaLaunchCooperativeKernel(fn, blocks, threads, params, bytes, s);
+    // A cooperative launch through cudaLaunchKernelEx, which stream
+    // capture records as a cooperative kernel node of a CUDA graph.
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(min(T, occ * sms));
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kmeans_kernel<K, true>, a);
     ++g_device_launches;
     return err != cudaSuccess ? err : cudaGetLastError();
   }

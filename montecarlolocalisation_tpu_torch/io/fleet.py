@@ -4,7 +4,12 @@ Torch counterpart of MCLFleetServer in montecarlolocalisation_tpu/io/
 fleet.py (fleet.py:65-290).  R robots' filter states live on the device as
 one batch ([R, N, 3] particles, [R] scalars), and every fleet frame runs
 ONE batched `mcl_step`: on the card, one launch of each batched kernel for
-the whole fleet.
+the whole fleet.  As the JAX fleet jits its tick (fleet.py:95, :330), the
+tick runs as one replay of a CUDA graph (models/compiled) that also packs
+the replies' numbers; the frame is copied into its static frame buffer,
+and a reset, a robot's reset or a restore hands the next tick a new state,
+which the graph copies into its buffers.  `state` is a copy of the fleet's
+state: the live one is the graph's buffers.
 
 Protocol (JSONL; one fleet frame per line, arrays indexed by robot):
 
@@ -48,14 +53,32 @@ import torch
 
 from ..config import FilterConfig
 from ..maps.grid import MazeMap
+from ..models import compiled
 from ..models import filter as mcl
 from ..models import sensor
 from . import logs
 from .server import raw_to_beams
 
-# Reply fields and their columns in the packed [R, 12] output.
+# Reply fields and their columns in the packed [R, 10] output.
 _COLUMNS = dict(exact_pose=slice(0, 3), cell_pose=slice(3, 6),
                 confidence=6, song=7, wanderer_cmd=8, n_injected=9)
+
+
+def _fleet_tick(state: mcl.MCLState, x: dict, consts, m: MazeMap,
+                cfg: FilterConfig, angles):
+    """One fleet tick on a frame [R, 2 + 2B] (each robot's encoders,
+    ranges and mask): (new state, the replies' numbers [R, 10])."""
+    frame = x["frame"]
+    nb = angles.shape[0]
+    scan = sensor.Scan(angles=angles, ranges=frame[:, 2:2 + nb].contiguous(),
+                       mask=frame[:, 2 + nb:] > 0.5)
+    state, o = mcl.mcl_step(state, frame[:, 0], frame[:, 1], scan, m, cfg)
+    return state, torch.cat([o.exact_pose, o.cell_pose.to(torch.float32),
+                             torch.stack([o.confidence,
+                                          o.song.to(torch.float32),
+                                          o.wanderer_cmd.to(torch.float32),
+                                          o.n_injected.to(torch.float32)],
+                                         dim=-1)], dim=-1)
 
 
 class MCLFleetServer:
@@ -73,18 +96,29 @@ class MCLFleetServer:
         self.pipeline = pipeline
         self._pending = None   # (tick index, staged outputs) in flight
         # [R, 2 + 2B] f32: ONE upload per fleet tick.
-        self._frame = np.zeros((n_robots, 2 + 2 * len(self.angles)),
-                               np.float32)
+        self._frames = compiled.HostFrames(
+            (n_robots, 2 + 2 * len(self.angles)), m.device)
         self.tick_count = 0
+        self._graphs = compiled.GraphCache()
+        # _fleet_tick's static arguments.
+        self._tick_args = dict(m=m, cfg=cfg, angles=self._angles_dev)
         self.reset(seed)
+
+    @property
+    def state(self) -> mcl.MCLState:
+        return compiled.detach_state(self._state)
+
+    @state.setter
+    def state(self, state: mcl.MCLState) -> None:
+        self._state = state
 
     # -- lifecycle -----------------------------------------------------------
 
     def reset(self, seed: int = 0) -> None:
         """Re-init the whole fleet from one generator seeded with `seed`."""
         self._pending = None
-        self.state = mcl.init_state(self.m, self.cfg, seed,
-                                    batch=self.n_robots)
+        self._state = mcl.init_state(self.m, self.cfg, seed,
+                                     batch=self.n_robots)
         self.tick_count = 0
 
     def reset_robot(self, robot: int, seed: int = 0) -> None:
@@ -108,11 +142,11 @@ class MCLFleetServer:
             out[robot] = one
             return out
 
-        self.state = put(self.state, fresh)
+        self._state = put(self._state, fresh)
 
     def checkpoint(self, path: str) -> None:
         """The fleet's state, after the tick in flight."""
-        logs.save_state(path, self.state, dict(tick=self.tick_count))
+        logs.save_state(path, self._state, dict(tick=self.tick_count))
 
     def restore(self, path: str) -> None:
         state, extra = logs.load_state(path, self.m.device)
@@ -120,7 +154,7 @@ class MCLFleetServer:
             raise ValueError(f"the checkpoint holds batch {state.batch}, "
                              f"not {self.n_robots} robots")
         self._pending = None
-        self.state = state
+        self._state = state
         self.tick_count = int(extra.get("tick", self.tick_count))
 
     # -- ticks ---------------------------------------------------------------
@@ -137,29 +171,32 @@ class MCLFleetServer:
             raise ValueError(
                 f"ranges has shape {ranges.shape}; fleet expects "
                 f"({r}, {nb}): one row per robot on the beam table")
-        f = self._frame
+        frame = self._frames.take()
+        f = frame.numpy()
         f[:, 0] = np.asarray(encoder_left, np.float32)
         f[:, 1] = np.asarray(encoder_right, np.float32)
         f[:, 2:2 + nb] = ranges
         f[:, 2 + nb:] = (1.0 if mask is None
                          else np.asarray(mask, np.float32))
-        # One host->device copy for the whole fleet frame; it is taken
-        # before this returns, so the buffer can be refilled next tick.
-        # A copy on the CPU too: the state keeps the encoder columns, and a
-        # tensor sharing the buffer would change under them.
-        frame = torch.tensor(f, device=self.m.device)
-        scan = sensor.Scan(angles=self._angles_dev,
-                           ranges=frame[:, 2:2 + nb].contiguous(),
-                           mask=frame[:, 2 + nb:] > 0.5)
-        self.state, out = mcl.mcl_step(self.state, frame[:, 0], frame[:, 1],
-                                       scan, self.m, self.cfg)
+        # One host->device copy for the whole fleet frame, into the graph's
+        # buffer, queued behind the tick in flight.
+        staged = self._stage(self._run_tick(frame))
+        self._frames.sent()
         self.tick_count += 1
-        staged = self._stage(out)
         if not self.pipeline:
             return self._reply(self.tick_count, staged)
         prev = self.flush()
         self._pending = (self.tick_count, staged)
         return prev
+
+    def _run_tick(self, frame: torch.Tensor) -> torch.Tensor:
+        """One fleet tick on the host frame [R, 2 + 2B] through the
+        graph: the replies' numbers [R, 10], on the device."""
+        xs = dict(frame=frame[:, None])
+        graph = compiled.cached(self._graphs, _fleet_tick, self._state, xs,
+                                None, 1, **self._tick_args)
+        self._state, ys = graph(self._state, xs)
+        return ys[:, 0]
 
     def tick_raw(self, encoder_left, encoder_right, raws):
         """A fleet update from R raw LaserScan dicts, each filtered onto
@@ -182,16 +219,12 @@ class MCLFleetServer:
         self._pending = None
         return self._reply(t, staged)
 
-    def _stage(self, o: mcl.MCLOutput):
-        """Pack the outputs into one [R, 12] tensor and start its copy to
-        the host; returns (host tensor, event or None)."""
-        v = torch.cat([o.exact_pose, o.cell_pose.to(torch.float32),
-                       torch.stack([o.confidence, o.song.to(torch.float32),
-                                    o.wanderer_cmd.to(torch.float32),
-                                    o.n_injected.to(torch.float32)],
-                                   dim=-1)], dim=-1)
+    def _stage(self, v: torch.Tensor):
+        """Start the copy of the replies' numbers [R, 10] (the graph's
+        output buffer) to the host; returns (host tensor, event or
+        None)."""
         if not v.is_cuda:
-            return v, None
+            return v.clone(), None
         host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
         host.copy_(v, non_blocking=True)
         event = torch.cuda.Event()
@@ -271,7 +304,7 @@ class MCLFleetServer:
         elif cmd == "stats":
             reply(dict(tick=self.tick_count, n_robots=self.n_robots,
                        confidence=np.round(
-                           self.state.confidence.cpu().numpy().astype(
+                           self._state.confidence.cpu().numpy().astype(
                                np.float64), 6).tolist()))
             return False
         elif cmd == "shutdown":

@@ -3,7 +3,14 @@
 Torch counterpart of MCLServer in montecarlolocalisation_tpu/io/server.py
 (server.py:54-333).  The filter state lives on the map's device and each
 sensor line runs one `mcl_step`, with one host-to-device copy for the
-frame and one device-to-host copy for the reply.
+frame and one device-to-host copy for the reply.  As the JAX server jits
+its tick (server.py:121, the KLD target riding the same program,
+:113-119), the tick runs as one replay of a CUDA graph
+(models/compiled): one graph a particle count, which holds the tick, the
+KLD target and the packing of the reply's numbers, and one a resize
+between two counts (:122).  The frame is copied into the graph's static
+frame buffer; a reset, a restore or a resize hands the next tick a new
+state, which the graph copies into its buffers.
 
 Protocol, one JSON object per line in and out:
 
@@ -49,6 +56,7 @@ import torch
 
 from ..config import FilterConfig, KLDConfig
 from ..maps.grid import MazeMap
+from ..models import compiled
 from ..models import filter as mcl
 from ..models import kld as kldmod
 from ..models import resample, sensor
@@ -69,6 +77,37 @@ def raw_to_beams(raw: dict, cfg: FilterConfig, nb: int):
     return radii, mask
 
 
+def _serve_tick(state: mcl.MCLState, x: dict, consts, m: MazeMap,
+                cfg: FilterConfig, angles, kld: Optional[KLDConfig]):
+    """One server tick on a frame [2 + 2B] (the encoders, the ranges and
+    the mask): (new state, the reply's numbers [10], with the KLD target
+    [11])."""
+    frame = x["frame"]
+    nb = angles.shape[0]
+    scan = sensor.Scan(angles=angles, ranges=frame[2:2 + nb],
+                       mask=frame[2 + nb:] > 0.5)
+    state, o = mcl.mcl_step(state, frame[0], frame[1], scan, m, cfg)
+    extra = ([] if kld is None else
+             [kldmod.particle_target(state.particles, m, kld).to(
+                 torch.float32)])
+    return state, torch.cat([o.exact_pose, o.cell_pose.to(torch.float32),
+                             torch.stack([o.confidence,
+                                          o.song.to(torch.float32),
+                                          o.wanderer_cmd.to(torch.float32),
+                                          o.n_injected.to(torch.float32),
+                                          *extra])])
+
+
+def _resize_tick(carry: dict, x: dict, consts, n_new: int):
+    """The elastic budget's redraw of the posterior x["particles"] [N, 3],
+    x["weights"] [N] at n_new particles, its offset drawn from
+    carry["gen"]."""
+    u0 = resample.draw_resize(carry["gen"], x["particles"].device)
+    parts, w = resample.resize_particles(x["particles"], x["weights"],
+                                         n_new, u0)
+    return carry, dict(particles=parts, weights=w)
+
+
 class MCLServer:
     """A live filter: device-resident state, one tick per sensor frame.
     The beam table is fixed at construction, as the reference fixes its
@@ -84,7 +123,10 @@ class MCLServer:
     ticks.  In both modes the lost song snaps it back to n_max.  A resize
     is a systematic redraw of the current posterior
     (resample.resize_particles) with an offset from the state's
-    generator."""
+    generator.
+
+    `state` is a copy of the filter state: the live one is the graphs'
+    buffers, which the next tick overwrites."""
 
     def __init__(self, m: MazeMap, cfg: FilterConfig, angles, seed: int = 0,
                  adapt=None, adapt_patience: int = 20,
@@ -107,11 +149,25 @@ class MCLServer:
         self.kld = kld or KLDConfig()
         self._kld_on = self.adapt is not None and adapt_mode == "kld"
         self._confident_run = 0
+        self._graphs = compiled.GraphCache()
+        self._frames = compiled.HostFrames((2 + 2 * len(self.angles),),
+                                           m.device)
+        # _serve_tick's static arguments.
+        self._tick_args = dict(m=m, cfg=cfg, angles=self._angles_dev,
+                               kld=self.kld if self._kld_on else None)
         self.reset(seed)
 
     @property
+    def state(self) -> mcl.MCLState:
+        return compiled.detach_state(self._state)
+
+    @state.setter
+    def state(self, state: mcl.MCLState) -> None:
+        self._state = state
+
+    @property
     def num_particles(self) -> int:
-        return int(self.state.particles.shape[0])
+        return int(self._state.particles.shape[0])
 
     # -- the elastic budget --------------------------------------------------
 
@@ -119,11 +175,29 @@ class MCLServer:
         """Redraw the live posterior at n_new particles."""
         if n_new == self.num_particles:
             return
-        st = self.state
-        u0 = resample.draw_resize(st.gen, self.m.device)
-        parts, w = resample.resize_particles(st.particles, st.weights, n_new,
-                                             u0)
-        self.state = dataclasses.replace(st, particles=parts, weights=w)
+        parts, w = self._resize(n_new)
+        self._state = dataclasses.replace(self._state, particles=parts,
+                                          weights=w)
+
+    def _resize(self, n_new: int):
+        """The resize graph from this count to n_new: (particles, weights),
+        copies the server keeps."""
+        st = self._state
+        carry = dict(gen=st.gen)
+        xs = dict(particles=st.particles[None], weights=st.weights[None])
+        graph = compiled.cached(self._graphs, _resize_tick, carry, xs, None,
+                                0, n_new=n_new)
+        _, ys = graph(carry, xs)
+        return ys["particles"][0].clone(), ys["weights"][0].clone()
+
+    def _run_tick(self, frame: torch.Tensor) -> torch.Tensor:
+        """One tick on the host frame [2 + 2B] through the graph of this
+        particle count: the reply's numbers, on the device."""
+        xs = dict(frame=frame[None])
+        graph = compiled.cached(self._graphs, _serve_tick, self._state, xs,
+                                None, 0, **self._tick_args)
+        self._state, ys = graph(self._state, xs)
+        return ys[0]
 
     def _lattice_size(self, target: float) -> int:
         """The smallest halving of n_max that covers `target`, clamped to
@@ -172,7 +246,7 @@ class MCLServer:
     # -- lifecycle -----------------------------------------------------------
 
     def reset(self, seed: int = 0) -> None:
-        self.state = mcl.init_state(self.m, self.cfg, seed)
+        self._state = mcl.init_state(self.m, self.cfg, seed)
         self.tick_count = 0
         self._confident_run = 0
         if self.adapt is not None:
@@ -180,14 +254,14 @@ class MCLServer:
             self._set_particle_count(self.adapt[1])
 
     def checkpoint(self, path: str) -> None:
-        logs.save_state(path, self.state, dict(
+        logs.save_state(path, self._state, dict(
             tick=self.tick_count, confident_run=self._confident_run))
 
     def restore(self, path: str) -> None:
         state, extra = logs.load_state(path, self.m.device)
         if state.batch:
             raise ValueError("the checkpoint holds a batch of filters")
-        self.state = state
+        self._state = state
         self.tick_count = int(extra.get("tick", self.tick_count))
         self._confident_run = int(extra.get("confident_run", 0))
 
@@ -203,20 +277,18 @@ class MCLServer:
                 f"{self.angles.shape}: pass a raw_scan or match the table")
         mask = (np.ones(self.angles.shape, bool) if mask is None
                 else np.asarray(mask, np.float32) > 0.5)
-        # One host->device copy for the frame.
-        frame = torch.as_tensor(np.concatenate(
-            [np.float32([encoder_left, encoder_right]), ranges,
-             mask.astype(np.float32)]), device=self.m.device)
+        # One host->device copy for the frame, into the graph's buffer.
         nb = len(self.angles)
-        scan = sensor.Scan(angles=self._angles_dev, ranges=frame[2:2 + nb],
-                           mask=frame[2 + nb:] > 0.5)
+        frame = self._frames.take()
+        f = frame.numpy()
+        f[:2] = (encoder_left, encoder_right)
+        f[2:2 + nb] = ranges
+        f[2 + nb:] = mask
         n_used = self.num_particles
-        self.state, out = mcl.mcl_step(self.state, frame[0], frame[1], scan,
-                                       self.m, self.cfg)
-        target = (kldmod.particle_target(self.state.particles, self.m,
-                                         self.kld) if self._kld_on else None)
+        reply = self._run_tick(frame)
+        self._frames.sent()
         self.tick_count += 1
-        d, tgt = self._out_dict(out, target)
+        d, tgt = self._out_dict(reply)
         if self.adapt is not None:
             d["particles"] = n_used
         if self._kld_on:
@@ -230,17 +302,10 @@ class MCLServer:
         radii, mask = raw_to_beams(raw, self.cfg, len(self.angles))
         return self.tick(encoder_left, encoder_right, radii, mask)
 
-    def _out_dict(self, o: mcl.MCLOutput, target=None):
+    def _out_dict(self, reply: torch.Tensor):
         """(reply, KLD target or 0.0) from one device->host copy of all the
-        reply's numbers, the KLD target among them."""
-        extra = [] if target is None else [target.to(torch.float32)]
-        v = torch.cat([o.exact_pose, o.cell_pose.to(torch.float32),
-                       torch.stack([o.confidence,
-                                    o.song.to(torch.float32),
-                                    o.wanderer_cmd.to(torch.float32),
-                                    o.n_injected.to(torch.float32),
-                                    *extra])]
-                      ).cpu().numpy().astype(np.float64)
+        reply's numbers, the KLD target among them (_serve_tick)."""
+        v = reply.cpu().numpy().astype(np.float64)
         return dict(
             tick=self.tick_count,
             exact_pose=[round(float(x), 6) for x in v[0:3]],
@@ -251,7 +316,7 @@ class MCLServer:
             song=int(v[7]),
             wanderer_cmd=int(v[8]),
             n_injected=int(v[9]),
-        ), (float(v[10]) if target is not None else 0.0)
+        ), (float(v[10]) if self._kld_on else 0.0)
 
     def serve(self, lines: Iterable[str],
               out_stream: Optional[IO[str]] = None) -> int:
@@ -299,7 +364,7 @@ class MCLServer:
             self.restore(msg["path"])
         elif cmd == "stats":
             reply(dict(tick=self.tick_count,
-                       confidence=round(float(self.state.confidence), 6)))
+                       confidence=round(float(self._state.confidence), 6)))
             return False
         elif cmd == "shutdown":
             reply(dict(ok=True))

@@ -298,7 +298,9 @@ def lookup(table: torch.Tensor, mx, my, maps=None):
                              f"coordinates {tuple(flat.shape)}")
         flat = flat + (maps.long() * (h * w)).reshape(
             lead + (1,) * (flat.dim() - len(lead)))
-    return inb & table.reshape(-1)[flat]
+    # take, not indexing: a 0-d index (one filter's best pose) would be
+    # read on the host, a synchronization that no CUDA graph can hold.
+    return inb & torch.take(table, flat)
 
 
 def is_occupied(m: MazeMap, wx, wy):

@@ -39,7 +39,7 @@ import torch
 from ..config import FilterConfig
 from ..maps.grid import MazeMap, is_valid_pos, world_to_cell
 from ..utils.angles import quantize_orientation
-from . import cluster, motion, refine, resample, sensor
+from . import cluster, compiled, motion, refine, resample, sensor
 
 # Wanderer command codes emitted per tick.
 WANDERER_NOOP = -1
@@ -304,6 +304,42 @@ def mcl_step(
     return new_state, out
 
 
+def _tick(state: MCLState, x: dict, consts: dict, m: MazeMap,
+          cfg: FilterConfig, known_map: Optional[MazeMap]):
+    """One mcl_step on a tick's inputs: encoders [..., 2], ranges and mask
+    [..., B], angles [B] (in `x` where they change by the tick, else in
+    `consts`) and, where given, the tick's draws."""
+    angles = x["angles"] if "angles" in x else consts["angles"]
+    scan = sensor.Scan(angles=angles, ranges=x["ranges"], mask=x["mask"])
+    enc = x["encoders"]
+    return mcl_step(state, enc[..., 0], enc[..., 1], scan, m, cfg,
+                    x.get("draws"), known_map=known_map)
+
+
+def run_ticks(state: MCLState, encoders, ranges, mask, angles,
+              m: MazeMap, cfg: FilterConfig,
+              draws: Optional[TickDraws] = None,
+              known_map: Optional[MazeMap] = None):
+    """K = encoders.shape[lead] ticks of mcl_step through one graph of
+    models/compiled (one replay on CUDA): encoders [..., K, 2], ranges and
+    mask [..., K, B], angles [B] or [K, B] (one filter only), `draws` one
+    TickDraws whose tensors carry the tick axis after the episode dims.
+    Returns (state, outputs [..., K, ...]), both the graph's buffers
+    (models/compiled), whose graph comes from compiled.graphs."""
+    lead = len(state.batch)
+    xs = dict(encoders=encoders, ranges=ranges, mask=mask)
+    consts = {}
+    if angles.dim() == 2:
+        xs["angles"] = angles
+    else:
+        consts["angles"] = angles
+    if draws is not None:
+        xs["draws"] = draws
+    graph = compiled.cached(None, _tick, state, xs, consts, lead, m=m,
+                            cfg=cfg, known_map=known_map)
+    return graph(state, xs, consts)
+
+
 def run_episode(
     state: MCLState,
     encoders,            # [..., T, 2] encoder_left/right (radians)
@@ -318,7 +354,12 @@ def run_episode(
     """Run the filter over a recorded episode, or over a batch of episodes
     with the state's leading dims; the outputs are stacked over ticks
     ([..., T, ...]).  A batch shares one static beam table [B].
-    `known_map` as in mcl_step."""
+    `known_map` as in mcl_step.
+
+    The JAX package's lax.scan over mcl_step (filter.py:274-298): the
+    ticks run in graphs of compiled.TICKS_PER_GRAPH ticks (run_ticks), one
+    replay each on CUDA, and the last graph takes the remainder.  The
+    final state and the outputs are the caller's own tensors."""
     dev = m.device
     encoders = torch.as_tensor(encoders, dtype=torch.float32, device=dev)
     ranges = torch.as_tensor(scan_ranges, dtype=torch.float32, device=dev)
@@ -329,17 +370,19 @@ def run_episode(
     lead = len(state.batch)
     if lead and angles.dim() != 1:
         raise ValueError("a batch of episodes shares one beam table [B]")
-    outs = []
-    for t in range(ranges.shape[lead]):
-        ang = angles[t] if angles.dim() == 2 else angles
-        sc = sensor.Scan(angles=ang, ranges=ranges[..., t, :],
-                         mask=mask[..., t, :])
-        state, out = mcl_step(state, encoders[..., t, 0],
-                              encoders[..., t, 1], sc, m, cfg,
-                              None if draws is None else draws[t],
-                              known_map=known_map)
-        outs.append(out)
-    stacked = MCLOutput(**{
-        f.name: torch.stack([getattr(o, f.name) for o in outs], dim=lead)
-        for f in dataclasses.fields(MCLOutput)})
-    return state, stacked
+    carry = [state]
+
+    def chunk(t0: int, n: int):
+        def part(v):
+            return v.narrow(lead, t0, n)
+
+        d = (None if draws is None
+             else compiled.stack_ticks(draws[t0:t0 + n], lead))
+        carry[0], ys = run_ticks(
+            carry[0], part(encoders), part(ranges), part(mask),
+            angles[t0:t0 + n] if angles.dim() == 2 else angles, m, cfg,
+            d, known_map)
+        return ys
+
+    outs = compiled.run_chunked(chunk, ranges.shape[lead], lead)
+    return compiled.detach_state(carry[0]), outs

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ..config import MotionModelConfig
@@ -37,6 +38,16 @@ class OdometryState:
                              encoder_right=z)
 
 
+def _on_device(v, device):
+    """`v` as a float32 tensor on `device`.  A Python number is filled in
+    there: a copy from the host would wait for the card."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    if np.ndim(v) == 0:
+        return torch.full((), float(v), dtype=torch.float32, device=device)
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
 def diff_drive_update(
     state: OdometryState, encoder_left, encoder_right, cfg: MotionModelConfig
 ) -> Tuple[OdometryState, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -44,8 +55,8 @@ def diff_drive_update(
     (diffDriveModel + the decomposition of sampleMotionModelOdometry,
     monte_carlo.cpp:695-739)."""
     dev = state.x.device
-    enc_l = torch.as_tensor(encoder_left, dtype=torch.float32, device=dev)
-    enc_r = torch.as_tensor(encoder_right, dtype=torch.float32, device=dev)
+    enc_l, enc_r = (_on_device(e, dev) for e in (encoder_left,
+                                                  encoder_right))
     d_left = (enc_l - state.encoder_left) * cfg.wheel_size * 0.5
     d_right = (enc_r - state.encoder_right) * cfg.wheel_size * 0.5
     d_center = 0.5 * (d_left + d_right)

@@ -136,6 +136,11 @@ def build() -> str:
     return out
 
 
+def loaded() -> bool:
+    """Whether the kernel library is loaded (built and opened) yet."""
+    return _lib is not None
+
+
 def library():
     """The loaded kernel library, built at first use."""
     global _lib

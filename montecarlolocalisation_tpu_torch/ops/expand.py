@@ -139,9 +139,15 @@ systematic_expand_batched_cuda.launches = 0
 
 
 def device_launches() -> int:
-    """Device launches the C entry has made since the library loaded
-    (LaunchPlan.device_launches a call)."""
-    return build.library().mcl_expand_device_launches()
+    """Device launches made since the library loaded
+    (LaunchPlan.device_launches a call): the C entry's count, which counts
+    the calls a CUDA graph captures, plus `graph_launches`, which
+    models/compiled lowers by a capture's calls and raises by a replay's."""
+    return (build.library().mcl_expand_device_launches()
+            + device_launches.graph_launches)
+
+
+device_launches.graph_launches = 0
 
 
 def systematic_expand(particles, cdf, u0):

@@ -164,9 +164,13 @@ kmeans_batched_cuda.launches = 0
 
 
 def device_launches() -> int:
-    """Device launches the C entry has made since the library loaded (one
-    a call)."""
-    return build.library().mcl_kmeans_device_launches()
+    """Device launches made since the library loaded (one a call), graph
+    replays included, as ops/expand.device_launches counts them."""
+    return (build.library().mcl_kmeans_device_launches()
+            + device_launches.graph_launches)
+
+
+device_launches.graph_launches = 0
 
 
 def kmeans(xy, centers0, reseed):

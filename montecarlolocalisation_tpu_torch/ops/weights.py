@@ -187,6 +187,14 @@ def _check_particles(m: MazeMap, particles, rank: int, what: str,
                          f"{particles.dtype} {tuple(particles.shape)}")
 
 
+def _check_scan(scan: sensor.Scan, device, what: str):
+    if any(v.device != device for v in (scan.angles, scan.ranges,
+                                         scan.mask)):
+        raise ValueError(f"{what} needs the scan on {device}, got angles, "
+                         f"ranges and mask on {scan.angles.device}, "
+                         f"{scan.ranges.device}, {scan.mask.device}")
+
+
 def _check_config(m: MazeMap, cfg: SensorModelConfig, nb: int):
     if cfg.ray_mode not in ("fixed", "analytic") or cfg.beam_combine not in (
             "sum", "log"):
@@ -245,6 +253,7 @@ def beam_weights_cuda(m: MazeMap, particles, scan: sensor.Scan,
 def _launch_k1(m: MazeMap, particles, scan: sensor.Scan,
                cfg: SensorModelConfig, form=None):
     _check_particles(m, particles, 2, "beam_weights_cuda")
+    _check_scan(scan, particles.device, "beam_weights_cuda")
     nb = scan.angles.shape[0]
     _check_config(m, cfg, nb)
     lib = build.library()
@@ -281,6 +290,7 @@ def _batched_launch(entry: str, m: MazeMap, particles, scan: sensor.Scan,
     [E, N, 3], angles [B], ranges and mask [E, B] -> [E, N]; `form` forces
     a raster form."""
     _check_particles(m, particles, 3, entry, stack=entry == STACK_ENTRY)
+    _check_scan(scan, particles.device, entry)
     n_ep, n = particles.shape[0], particles.shape[1]
     maps = ()
     if m.is_stack:

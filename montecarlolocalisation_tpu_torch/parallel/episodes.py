@@ -3,8 +3,8 @@
 Torch counterpart of montecarlolocalisation_tpu/parallel/episodes.py.  The
 JAX package runs a batch as vmap(init + lax.scan); here a batch of E
 episodes is the filter's leading episode dim ([E, N, 3] particles, [E]
-scalars), stepped tick by tick by models/filter.run_episode, so every
-tick is one batched launch of each kernel on the card.  Replicas are more
+scalars), run by models/filter.run_episode in CUDA graphs of several
+ticks (models/compiled), every tick one batched launch of each kernel.  Replicas are more
 episodes of the same batch ([R*E], replica-major), not a loop of R runs.
 A sweep over randomized maps (`run_multimap_sweep`) is one batch on a map
 stack (maps/grid), each episode reading its own map.
@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+import weakref
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,7 +52,8 @@ def run_episode_batch(
 
     `tick_chunk` is accepted for the JAX package's signature and changes
     nothing: the JAX package splits the tick scan to bound one device
-    execution, and here every tick is its own launches already."""
+    execution, and here one replay runs compiled.TICKS_PER_GRAPH ticks
+    whatever the episode's length."""
     if tick_chunk is not None and tick_chunk < 1:
         raise ValueError("tick_chunk must be >= 1")
     encoders = torch.as_tensor(encoders, dtype=torch.float32,
@@ -61,6 +63,22 @@ def run_episode_batch(
                                known_map=known_map)
     return mcl.run_episode(state, encoders, scan_ranges, scan_angles, m, cfg,
                            draws=draws, known_map=known_map)
+
+
+# The episode stacks of run_multimap_sweep, by (id of the caller's stack,
+# episodes_per_map), each dropped when the caller's stack dies: a second
+# sweep on the same stack reads the same episode stack, so it replays the
+# graphs (models/compiled) that the first built on it.
+_episode_stacks: Dict[Tuple[int, int], MazeMap] = {}
+
+
+def _repeated(maps: MazeMap, episodes_per_map: int) -> MazeMap:
+    key = (id(maps), episodes_per_map)
+    batch = _episode_stacks.get(key)
+    if batch is None:
+        batch = _episode_stacks[key] = repeat_maps(maps, episodes_per_map)
+        weakref.finalize(maps, _episode_stacks.pop, key, None).atexit = False
+    return batch
 
 
 def run_multimap_sweep(
@@ -78,7 +96,7 @@ def run_multimap_sweep(
     do not."""
     if not maps.is_stack:
         raise ValueError("run_multimap_sweep takes a map stack")
-    batch = repeat_maps(maps, episodes_per_map)
+    batch = _repeated(maps, episodes_per_map)
     sim_seed, filter_seed = (int(v) for v in
                              np.random.SeedSequence(seed).generate_state(2))
     gen = torch.Generator(device=maps.device)

@@ -6,10 +6,14 @@ integrate through the midpoint diff-drive kinematics the filter assumes
 wheel_size * 0.5), and scans come from the filter's own ray caster
 (models/sensor.simulate_scan).
 
-Every robot quantity has a leading [E]: the wander is a Python loop over
-ticks that advances E robots at once.  Its random numbers are an argument
-(WanderDraws), so a caller can replay another implementation's exact
-draws; `draw_wander` makes them from a torch.Generator.
+Every robot quantity has a leading [E]: the wander advances E robots at
+once, a tick at a time (`_wander_tick`), in CUDA graphs of
+models/compiled.TICKS_PER_GRAPH ticks (the JAX package runs its wander
+under jit).  Its random numbers are an argument (WanderDraws), so a caller
+can replay another implementation's exact draws; `draw_wander` makes them
+from a torch.Generator.  What changes by the tick (the draws, the kidnap
+and the moving obstacle's place) enters each tick as its slice of an
+input slab.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch
 
 from ..config import FilterConfig, MotionModelConfig
 from ..maps.grid import MazeMap, f32_reciprocal
-from ..models import sensor
+from ..models import compiled, sensor
 from ..models.raycast import raycast
 from ..utils.angles import normalize_angle
 
@@ -110,11 +114,95 @@ def draw_wander(gen: torch.Generator, batch: int, num_ticks: int,
     return WanderDraws(scan=scan, slip=slip, tie=tie, dur=dur)
 
 
-def _tick_scan_draws(d: sensor.ScanDraws, t: int) -> sensor.ScanDraws:
-    return sensor.ScanDraws(**{
-        f.name: (None if getattr(d, f.name) is None
-                 else getattr(d, f.name)[:, t])
-        for f in dataclasses.fields(d)})
+@dataclasses.dataclass(frozen=True)
+class _Wander:
+    """A wander's static settings (hashable: a graph's key)."""
+
+    speed: float
+    obstacle_stop: float
+    turn_ticks: int
+    scan_noise: float
+    kidnap_pose: tuple
+    dropout_p: float
+    outlier_p: float
+    obstacle: Optional[tuple]     # (cx, cy, orbit radius, disc radius)
+    slip_noise: float
+    explore: bool
+
+
+def _wander_tick(carry: dict, x: dict, consts: dict, m: MazeMap,
+                 cfg: FilterConfig, w: _Wander):
+    """One tick of E robots: carry holds the robots, their turn countdown
+    and turn side; x the tick's draws (x["scan"], "slip", "tie", "dur"),
+    its kidnap flag and the obstacle's cos/sin phase where those are on.
+    Returns the carry and (encoders [E, 2], ranges [E, B], poses
+    [E, 3])."""
+    mcfg = cfg.motion
+    turn_arc = (math.pi / 2) * mcfg.wheel_space / (2.0 * w.turn_ticks)
+    inv_tick = f32_reciprocal(mcfg.wheel_size * 0.5)
+    robot, turning, tsign = carry["robot"], carry["turning"], carry["tsign"]
+    if "kidnap" in x:
+        kid = x["kidnap"]
+        robot = dataclasses.replace(
+            robot, x=torch.where(kid, w.kidnap_pose[0], robot.x),
+            y=torch.where(kid, w.kidnap_pose[1], robot.y),
+            theta=torch.where(kid, w.kidnap_pose[2], robot.theta))
+    ahead = raycast(m, robot.x, robot.y, robot.theta, cfg.sensor)
+    start_turn = (ahead < w.obstacle_stop) & (turning == 0)
+    if w.explore:
+        free_l = raycast(m, robot.x, robot.y, robot.theta + math.pi / 3,
+                         cfg.sensor)
+        free_r = raycast(m, robot.x, robot.y, robot.theta - math.pi / 3,
+                         cfg.sensor)
+        tie = 0.05 * x["tie"]
+        new_sign = torch.where(free_l + tie > free_r, 1.0, -1.0)
+        dur = x["dur"].to(torch.int32)
+    else:
+        new_sign = torch.ones_like(tsign)
+        dur = torch.full_like(turning, w.turn_ticks)
+    tsign = torch.where(start_turn, new_sign, tsign)
+    turning = torch.where(start_turn, dur, turning)
+    is_turning = turning > 0
+    d_left = torch.where(is_turning, tsign * turn_arc, w.speed)
+    d_right = torch.where(is_turning, -tsign * turn_arc, w.speed)
+    if w.slip_noise:
+        eps = w.slip_noise * x["slip"]
+        enc_l, enc_r = robot.encoder_left, robot.encoder_right
+        robot = step_dynamics(robot, d_left * (1.0 + eps[:, 0]),
+                              d_right * (1.0 + eps[:, 1]), mcfg)
+        # The encoders record the COMMANDED arcs: the wheel turned as
+        # commanded and the ground contact slipped.
+        robot = dataclasses.replace(
+            robot, encoder_left=enc_l + d_left * inv_tick,
+            encoder_right=enc_r + d_right * inv_tick)
+    else:
+        robot = step_dynamics(robot, d_left, d_right, mcfg)
+    turning = torch.clamp(turning - 1, min=0)
+    obstacle = None
+    if w.obstacle is not None:
+        ocx, ocy, orbit_r, disc_r = w.obstacle
+        obstacle = (ocx + orbit_r * x["obstacle_cos"][:, None],
+                    ocy + orbit_r * x["obstacle_sin"][:, None], disc_r)
+    scan = sensor.simulate_scan(
+        m, robot.pose, consts["angles"], cfg.sensor,
+        noise_sigma=w.scan_noise, dropout_p=w.dropout_p,
+        outlier_p=w.outlier_p, obstacle=obstacle, draws=x["scan"])
+    enc = torch.stack([robot.encoder_left, robot.encoder_right], dim=-1)
+    return (dict(robot=robot, turning=turning, tsign=tsign),
+            (enc, scan.ranges, robot.pose))
+
+
+def _phases(omega: float, num_ticks: int, batch: int, device):
+    """The moving obstacle's cos and sin phase a tick, [E, T] each: each
+    tick's phase omega * tick and its cos and sin in float32 on the CPU,
+    one tick at a time."""
+    cos, sin = [], []
+    for tick in range(num_ticks):
+        phase = torch.tensor(omega, dtype=torch.float32) * float(tick)
+        cos.append(torch.cos(phase))
+        sin.append(torch.sin(phase))
+    return tuple(torch.stack(v).to(device).expand(batch, num_ticks)
+                 for v in (cos, sin))
 
 
 def generate_wander_episode(
@@ -154,67 +242,38 @@ def generate_wander_episode(
     numbers come from `draws`, or from `gen`."""
     dev = m.device
     angles = torch.as_tensor(scan_angles, dtype=torch.float32, device=dev)
-    mcfg = cfg.motion
     if draws is None:
         draws = draw_wander(gen, batch, num_ticks, angles.shape[0], dev,
                             turn_ticks, dropout_p, outlier_p, slip_noise,
                             explore)
-    turn_arc = (math.pi / 2) * mcfg.wheel_space / (2.0 * turn_ticks)
-    inv_tick = f32_reciprocal(mcfg.wheel_size * 0.5)
-    robot = make_robot(*start_pose, batch=batch, device=dev)
-    turning = torch.zeros(batch, dtype=torch.int32, device=dev)
-    tsign = torch.ones(batch, dtype=torch.float32, device=dev)
-    encs, ranges, poses = [], [], []
-    for tick in range(num_ticks):
-        if kidnap_tick is not None and tick == kidnap_tick:
-            robot = dataclasses.replace(
-                robot, x=torch.full_like(robot.x, kidnap_pose[0]),
-                y=torch.full_like(robot.y, kidnap_pose[1]),
-                theta=torch.full_like(robot.theta, kidnap_pose[2]))
-        ahead = raycast(m, robot.x, robot.y, robot.theta, cfg.sensor)
-        start_turn = (ahead < obstacle_stop) & (turning == 0)
-        if explore:
-            free_l = raycast(m, robot.x, robot.y, robot.theta + math.pi / 3,
-                             cfg.sensor)
-            free_r = raycast(m, robot.x, robot.y, robot.theta - math.pi / 3,
-                             cfg.sensor)
-            tie = 0.05 * draws.tie[:, tick]
-            new_sign = torch.where(free_l + tie > free_r, 1.0, -1.0)
-            dur = draws.dur[:, tick].to(torch.int32)
-        else:
-            new_sign = torch.ones_like(tsign)
-            dur = torch.full_like(turning, turn_ticks)
-        tsign = torch.where(start_turn, new_sign, tsign)
-        turning = torch.where(start_turn, dur, turning)
-        is_turning = turning > 0
-        d_left = torch.where(is_turning, tsign * turn_arc, speed)
-        d_right = torch.where(is_turning, -tsign * turn_arc, speed)
-        if slip_noise:
-            eps = slip_noise * draws.slip[:, tick]
-            enc_l, enc_r = robot.encoder_left, robot.encoder_right
-            robot = step_dynamics(robot, d_left * (1.0 + eps[:, 0]),
-                                  d_right * (1.0 + eps[:, 1]), mcfg)
-            # The encoders record the COMMANDED arcs: the wheel turned as
-            # commanded and the ground contact slipped.
-            robot = dataclasses.replace(
-                robot, encoder_left=enc_l + d_left * inv_tick,
-                encoder_right=enc_r + d_right * inv_tick)
-        else:
-            robot = step_dynamics(robot, d_left, d_right, mcfg)
-        turning = torch.clamp(turning - 1, min=0)
-        obstacle = None
-        if moving_obstacle is not None:
-            ocx, ocy, orbit_r, disc_r, omega = moving_obstacle
-            phase = torch.tensor(omega, dtype=torch.float32) * float(tick)
-            obstacle = (ocx + orbit_r * torch.cos(phase).to(dev),
-                        ocy + orbit_r * torch.sin(phase).to(dev), disc_r)
-        scan = sensor.simulate_scan(
-            m, robot.pose, angles, cfg.sensor, noise_sigma=scan_noise,
-            dropout_p=dropout_p, outlier_p=outlier_p, obstacle=obstacle,
-            draws=_tick_scan_draws(draws.scan, tick))
-        encs.append(torch.stack([robot.encoder_left, robot.encoder_right],
-                                dim=-1))
-        ranges.append(scan.ranges)
-        poses.append(robot.pose)
-    return (torch.stack(encs, dim=1), torch.stack(ranges, dim=1),
-            torch.stack(poses, dim=1))
+    w = _Wander(speed=speed, obstacle_stop=obstacle_stop,
+                turn_ticks=turn_ticks, scan_noise=scan_noise,
+                kidnap_pose=tuple(kidnap_pose), dropout_p=dropout_p,
+                outlier_p=outlier_p,
+                obstacle=(None if moving_obstacle is None
+                          else tuple(moving_obstacle[:4])),
+                slip_noise=slip_noise, explore=explore)
+    xs = dict(scan=draws.scan)
+    if slip_noise:
+        xs["slip"] = draws.slip
+    if explore:
+        xs["tie"], xs["dur"] = draws.tie, draws.dur
+    if kidnap_tick is not None:
+        xs["kidnap"] = (torch.arange(num_ticks, device=dev)
+                        == kidnap_tick).expand(batch, num_ticks)
+    if moving_obstacle is not None:
+        xs["obstacle_cos"], xs["obstacle_sin"] = _phases(
+            moving_obstacle[4], num_ticks, batch, dev)
+    carry = [dict(robot=make_robot(*start_pose, batch=batch, device=dev),
+                  turning=torch.zeros(batch, dtype=torch.int32, device=dev),
+                  tsign=torch.ones(batch, dtype=torch.float32, device=dev))]
+    consts = dict(angles=angles)
+
+    def chunk(t0: int, n: int):
+        part = compiled.tree_map(lambda v: v.narrow(1, t0, n), xs)
+        graph = compiled.cached(None, _wander_tick, carry[0], part, consts,
+                                1, m=m, cfg=cfg, w=w)
+        carry[0], ys = graph(carry[0], part, consts)
+        return ys
+
+    return compiled.run_chunked(chunk, num_ticks, 1)
