@@ -35,10 +35,26 @@ the filter through the entry points a user calls:
   map_server YAML + PGM, reloaded through presets.make_world and
   localised by the localisation preset at 1500 x 24 (its raster in the
   device-memory form), then tracked with its origin kept (keep_origin);
-- the CLI's localisation and moving presets, each line well-formed and
-  finite; and the shipped replay fixture replayed by 64 replicas of 500
-  particles with the DDA caster (raises if no replica ends confident
-  within 0.2 m of the truth);
+- the CLI's localisation, moving, planning and challenge presets, each
+  line well-formed and finite; and the shipped replay fixture replayed by
+  64 replicas of 500 particles with the DDA caster (raises if no replica
+  ends confident within 0.2 m of the truth);
+- the control stack (sim/closed_loop, the planners, the simulators): (a)
+  the published closed-loop row, 64 episodes x 400 ticks x 500 x 24,
+  fixed, multinomial, along the planning preset's 4-waypoint BFS plan
+  (median 4/4 and 70 % complete on the TPU; raises below 50 % complete);
+  (b) the same at 1024 episodes, where K1 batched and K3 batched must
+  replay once a tick and, by the profiler's count, launch once a tick in
+  one replay, an eager closed-loop tick must not synchronize with the
+  host, and 16 ticks through the graphs must equal the same ticks run
+  eagerly bit for bit (states, both generators, every output); (c)
+  presets.run_planning (1500 x 24, 800 ticks) and run_challenge (2000
+  ticks, 17 driven waypoints), K1 and K3 replayed once a tick (one
+  episode is chaotic: only a malformed or non-finite result raises); (d)
+  the host-driven simulators on the card with the JAX suite's checks
+  (execute_plan's square loop, one drive for a straight subgoal plan,
+  run_align centring the robot); each run's device busy share over one
+  graph replay;
 - the compiled tick (models/compiled, CUDA graphs of mcl_step), graph
   against eager: every entry point above runs its ticks as graph replays,
   and the graphs phase runs each configuration from one state and one
@@ -96,7 +112,7 @@ Output, in order: the card (nvidia-smi name and power limit), the build,
 the kernel checks (F1 and F2 among them), the serve phase, the entry
 config, the kernel-vs-plain tick, the kernel times, the sweep, the two
 randomized-map sweeps, paths (a), (b) and (c), the fleet, the imported
-map, the CLI, the replay, the graphs phase, a device profile of one
+map, the CLI, the replay, the control stack, the graphs phase, a device profile of one
 filter's eager tick at the serve's shapes and of one batched eager tick at
 the sweep's and the fleet's, the
 layout A/B, the batched kernels' times (the map-stack form's against
@@ -127,7 +143,8 @@ import torch
 from montecarlolocalisation_tpu_torch import bench, presets
 from montecarlolocalisation_tpu_torch.bench import card
 from montecarlolocalisation_tpu_torch.config import (
-    WALL_LEFT, WALL_TOP, FilterConfig, ResampleConfig, SensorModelConfig,
+    DIR_DOWN, DIR_LEFT, DIR_RIGHT, DIR_UP, WALL_LEFT, WALL_TOP, FilterConfig,
+    ResampleConfig, SensorModelConfig,
 )
 from montecarlolocalisation_tpu_torch.io.fleet import MCLFleetServer
 from montecarlolocalisation_tpu_torch.io.logs import EpisodeLog
@@ -147,7 +164,10 @@ from montecarlolocalisation_tpu_torch.models.raycast import march_steps
 from montecarlolocalisation_tpu_torch.ops import analytic, build, expand
 from montecarlolocalisation_tpu_torch.ops import kmeans, weights
 from montecarlolocalisation_tpu_torch.parallel import episodes
-from montecarlolocalisation_tpu_torch.sim import robot
+from montecarlolocalisation_tpu_torch.planning import bfs
+from montecarlolocalisation_tpu_torch.sim import (
+    align_sim, closed_loop, plan_exec, robot,
+)
 
 SERVE_N, SERVE_B, SERVE_TICKS = 1_048_576, 34, 20
 ENTRY_N, ENTRY_B, ENTRY_TICKS = 65_536, 12, 50
@@ -193,7 +213,11 @@ CLI_RUNS = (
     (["localisation", "--particles", "500", "--ticks", "200"],
      {"preset", "confidence", "best_pose", "true_pose", "position_error_m",
       "songs"}),
-    (["moving"], {"preset", "ticks", "distance_m", "final_pose"}))
+    (["moving"], {"preset", "ticks", "distance_m", "final_pose"}),
+    (["planning"], {"preset", "plan", "waypoints_reached", "waypoints_total",
+                    "final_confidence"}),
+    (["challenge"], {"preset", "tsp_gold_cost", "legs",
+                     "waypoints_reached"}))
 REPLAY_REPLICAS = 64
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "montecarlolocalisation_tpu", "data",
@@ -2385,9 +2409,17 @@ def imported_map_phase(dev) -> None:
         raise AssertionError(f"imported map keep_origin: {launched}")
 
 
+def _flat(v) -> list:
+    """The numbers of a JSON value, nested lists opened."""
+    if isinstance(v, list):
+        return [x for item in v for x in _flat(item)]
+    return [v]
+
+
 def cli_phase() -> None:
-    """The CLI's localisation and moving presets on the card, each line
-    well-formed and finite."""
+    """The CLI's localisation, moving, planning and challenge presets on
+    the card (the last two at their defaults: 1500 x 24, 800 and 2000
+    ticks), each line well-formed and finite."""
     for args, keys in CLI_RUNS:
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", PKG, *args],
@@ -2403,7 +2435,7 @@ def cli_phase() -> None:
             if k in ("preset", "songs") or (k == "position_error_m"
                                             and unlocalised):
                 continue
-            flat += v if isinstance(v, list) else [v]
+            flat += _flat(v)
         finite = all(isinstance(v, (int, float)) and math.isfinite(v)
                      for v in flat)
         say("cli", args=args, seconds=time.perf_counter() - t0, line=line,
@@ -3011,6 +3043,267 @@ def graphs_phase(dev) -> dict:
     return dict(rows=rows)
 
 
+# -- phase 12: the control stack -------------------------------------------
+
+# The closed-loop sweep (BASELINE config 5, BENCH_DETAILS.md:595-600): 64
+# episodes x 400 ticks at 500 particles x 24 beams, fixed march,
+# multinomial, the planning preset's plan (BFS from cell (2, 2) to (4, 4),
+# 4 driven waypoints); published on the TPU: median 4/4 waypoints, 70 % of
+# the episodes complete.  Its full width is the sweep's 1024 episodes.
+CL_E, CL_FULL_E, CL_N, CL_B, CL_T = 64, 1024, 500, 24, 400
+CL_GRAPH_T = 16
+CL_FLOOR = 0.5
+PLAN_START, PLAN_GOAL = (2, 2), (4, 4)
+PRESET_N, PLANNING_T, CHALLENGE_T = 1500, 800, 2000
+BOX = [[[0, 1, 2, 3]]]
+
+
+def closed_loop_world(dev):
+    """The closed-loop sweep's world and the planning preset's plan: the
+    waypoints after the first cell, the start at its centre, heading 0
+    (presets.run_planning)."""
+    world = presets.make_world(num_particles=CL_N, num_beams=CL_B,
+                               ray_mode="fixed",
+                               resample_method="multinomial", device=dev)
+    path = bfs.bfs_path(world.walls, PLAN_START, PLAN_GOAL)
+    wps = closed_loop.mission_waypoints(path)
+    return world, wps[1:], (float(wps[0][0]), float(wps[0][1]), 0.0)
+
+
+def closed_loop_run(world, wps, start, n_ep: int):
+    """run_closed_loop over CL_T ticks for n_ep episodes, the counts set
+    to 0 just before and read just after: (final state, outputs, row)."""
+    before = {id(g) for g in compiled.graphs.entries()}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    final, outs = closed_loop.run_closed_loop(
+        world.maze, world.cfg, wps, CL_T, world.angles, start_pose=start,
+        seed=0, batch=n_ep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reached = final.wp_idx.cpu().numpy()
+    row = dict(episodes=n_ep, particles=CL_N, beams=CL_B, ticks=CL_T,
+               ray_mode="fixed", resample="multinomial",
+               waypoints=len(wps),
+               median_waypoints_reached=float(np.median(reached)),
+               complete_share=float((reached == len(wps)).mean()),
+               wall_s=wall, ms_per_tick=1e3 * wall / CL_T,
+               launches=counts(), replayed=replay_counts(),
+               **new_entries(before))
+    if not bool(torch.isfinite(outs.true_pose).all()):
+        raise AssertionError(f"closed loop {n_ep}: non-finite poses")
+    return final, outs, row
+
+
+def closed_loop_busy(what: str, world, wps, state) -> dict:
+    """replay_profile of one rollout of TICKS_PER_GRAPH ticks (one graph
+    replay) from `state`: device and wall ms a tick, the busy share."""
+    k = compiled.TICKS_PER_GRAPH
+    prof = replay_profile(lambda: closed_loop.rollout(
+        _twin(state), wps, world.maze, world.cfg, k, world.angles))
+    row = dict(replay_device_ms_per_tick=prof["replay_device_ms"] / k,
+               replay_wall_ms_per_tick=prof["replay_wall_ms"] / k,
+               replay_busy_share=prof["replay_busy_share"],
+               device_ops_per_tick=prof["replay_device_ops"] / k,
+               host_sync_calls_per_replay=prof["host_sync_calls"])
+    say("closed_loop", what=what, profile=f"one replay of {k} ticks", **row)
+    return row
+
+
+def closed_loop_row_phase(dev) -> dict:
+    """(a) The published closed-loop row at 64 episodes: raises if fewer
+    than CL_FLOOR of them complete the plan (published: 70 %, whose
+    standard error at 64 episodes is about 5.7 points)."""
+    world, wps, start = closed_loop_world(dev)
+    final, _, row = closed_loop_run(world, wps, start, CL_E)
+    say("closed_loop", row="published", published_complete_share=0.70,
+        published_median_waypoints=4, **row)
+    row.update(closed_loop_busy("published row", world, wps, final))
+    if row["complete_share"] < CL_FLOOR:
+        raise AssertionError(f"closed loop: {row['complete_share']} of "
+                             f"{CL_E} episodes complete the plan, below "
+                             f"{CL_FLOOR}")
+    return row
+
+
+def _twin(state):
+    """The closed-loop state with copies of both generators."""
+    return dataclasses.replace(
+        state, gen=same_gen(state.gen),
+        filt=dataclasses.replace(state.filt, gen=same_gen(state.filt.gen)))
+
+
+def closed_loop_sync_free(world, wps, state) -> None:
+    """One eager closed_loop_step under set_sync_debug_mode("error"): a
+    tick that waits for the card anywhere raises."""
+    m = world.maze
+    args = (torch.as_tensor(wps, device=m.device), m, world.cfg,
+            torch.as_tensor(world.angles, device=m.device))
+    closed_loop.closed_loop_step(_twin(state), *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        closed_loop.closed_loop_step(_twin(state), *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    say("closed_loop", what="eager tick", batch=list(state.batch),
+        eager_tick_host_syncs=0)
+
+
+def closed_loop_full_phase(dev) -> dict:
+    """(b) The full width, 1024 episodes: wall time and time a tick (the
+    first call captures its graphs, the second replays them); K1 batched
+    and K3 batched replayed once a tick, and once a tick by the
+    profiler's count over one replay; no host sync in an eager tick, of
+    one robot or of the batch; and CL_GRAPH_T ticks from the run's final
+    state through the graphs against the same ticks run eagerly, bit for
+    bit (states, both generators, every output)."""
+    world, wps, start = closed_loop_world(dev)
+    m, cfg = world.maze, world.cfg
+    for batch in (None, CL_FULL_E):
+        closed_loop_sync_free(world, wps, closed_loop.init_closed_loop(
+            m, cfg, start, batch=batch))
+    _, _, first = closed_loop_run(world, wps, start, CL_FULL_E)
+    final, _, row = closed_loop_run(world, wps, start, CL_FULL_E)
+    say("closed_loop", row="full width", first_call={
+        k: first[k] for k in ("wall_s", "ms_per_tick", "graphs_built",
+                              "capture_s", "instantiate_s", "pool_mib",
+                              "complete_share")}, **row)
+    per_tick = ("beam_weights_batched", "kmeans_batched")
+    unbatched = ("beam_weights", "kmeans", "systematic_expand",
+                 "systematic_expand_batched")
+    if (any(row["replayed"][k] != CL_T for k in per_tick)
+            or any(row["launches"][k] for k in unbatched)):
+        raise AssertionError(f"closed loop: K1 batched and K3 batched not "
+                             f"replayed once a tick, or another kernel "
+                             f"ran: {row['launches']}")
+    k = compiled.TICKS_PER_GRAPH
+    with launch_audit("closed_loop_replay") as audited:
+        closed_loop.rollout(_twin(final), wps, m, cfg, k, world.angles)
+    ran = {name: audited[name]["ran"] for name in ("beam_weights_batched_"
+                                                   "kernel", "kmeans_kernel")}
+    if any(v != k for v in ran.values()):
+        raise AssertionError(f"closed loop: the card ran {ran} kernels in "
+                             f"one replay of {k} ticks")
+    row.update(closed_loop_busy("full width", world, wps, final))
+
+    def run():
+        return closed_loop.rollout(_twin(final), wps, m, cfg, CL_GRAPH_T,
+                                   world.angles)
+
+    ab_row = ab("closed_loop", run, CL_GRAPH_T, episodes=CL_FULL_E,
+                particles=CL_N, beams=CL_B)
+    return dict(row, graph_against_eager=ab_row)
+
+
+def presets_phase(dev) -> dict:
+    """(c) presets.run_planning (1500 x 24, 800 ticks) and run_challenge
+    (1500 x 24, 2000 ticks, 17 driven waypoints) on one robot: waypoints
+    reached, final confidence, time a tick, and K1 and K3 replayed once a
+    tick.  One episode is chaotic (a seed's success is not a result), so
+    only a malformed or non-finite line raises."""
+    world = presets.make_world(num_particles=PRESET_N, num_beams=CL_B,
+                               device=dev)
+    rows = {}
+    for name, ticks in (("planning", PLANNING_T), ("challenge", CHALLENGE_T)):
+        fn = getattr(presets, f"run_{name}")
+        before = {id(g) for g in compiled.graphs.entries()}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        plan, final, outs = fn(world, seed=0, num_ticks=ticks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched, replayed = counts(), replay_counts()
+        driven = (len(plan) if name == "planning" else 1 + sum(
+            len(leg.path) - 1 for leg in plan.legs)) - 1
+        row = dict(particles=PRESET_N, beams=CL_B, ticks=ticks,
+                   waypoints=driven, waypoints_reached=int(final.wp_idx),
+                   final_confidence=float(final.filt.confidence),
+                   wall_s=wall, ms_per_tick=1e3 * wall / ticks,
+                   launches=launched, replayed=replayed,
+                   **new_entries(before))
+        say("presets", preset=name, **row)
+        cells = plan if name == "planning" else [plan.legs[0].path[0]] + [
+            c for leg in plan.legs for c in leg.path[1:]]
+        row.update(closed_loop_busy(
+            name, world, closed_loop.mission_waypoints(cells)[1:], final))
+        finite = bool(torch.isfinite(outs.true_pose).all()) and math.isfinite(
+            row["final_confidence"])
+        if (not finite or outs.true_pose.shape != (ticks, 3)
+                or final.robot.x.shape != ()
+                or any(replayed[k] != ticks for k in ("beam_weights",
+                                                      "kmeans"))):
+            raise AssertionError(f"presets {name}: malformed or not finite, "
+                                 f"or K1 / K3 not replayed once a tick: "
+                                 f"{row}")
+        rows[name] = row
+    return rows
+
+
+def host_simulators_phase(dev) -> dict:
+    """(d) The host-driven simulators on the card, with the JAX suite's
+    checks (tests/test_plan_exec.py, tests/test_align.py:169):
+    execute_plan's square loop returns to its start, execute_plan_subgoals
+    drives a straight plan in one drive, and run_align centres the robot
+    in a closed cell from three starts.  Each one's seconds."""
+    cfg = FilterConfig()
+    out = {}
+
+    def one(x, y, theta):
+        return robot.make_robot(x, y, theta, batch=None, device=dev)
+
+    t0 = time.perf_counter()
+    _, trace = plan_exec.execute_plan(
+        one(2.0, 2.0, 0.0), [DIR_RIGHT, DIR_DOWN, DIR_LEFT, DIR_UP], cfg)
+    out["execute_plan_s"] = time.perf_counter() - t0
+    want = [(2.8, 2.0), (2.8, 2.8), (2.0, 2.8), (2.0, 2.0)]
+    out["square_loop_max_err_m"] = max(
+        float(np.hypot(g[0] - w[0], g[1] - w[1]))
+        for g, w in zip(trace, want))
+    t0 = time.perf_counter()
+    _, sub = plan_exec.execute_plan_subgoals(one(0.4, 2.0, 0.0),
+                                             [DIR_RIGHT] * 4, cfg)
+    out["execute_plan_subgoals_s"] = time.perf_counter() - t0
+    out["subgoal_drives"] = len(sub)
+    out["subgoal_err_m"] = float(np.hypot(sub[-1][0] - 3.6,
+                                          sub[-1][1] - 2.0))
+    box = from_walls(BOX, device=dev)
+    dda = FilterConfig(sensor=SensorModelConfig(ray_mode="dda"))
+    out["align"] = []
+    for start in [(0.3, 0.55, 0.3), (0.6, 0.3, -1.0), (0.45, 0.45, 2.0)]:
+        t0 = time.perf_counter()
+        rb, plan = align_sim.run_align(box, dda, start)
+        out["align"].append(dict(
+            start=start, seconds=time.perf_counter() - t0,
+            actions=len(plan),
+            second_rotation=abs(plan[2].value) if len(plan) > 2 else None,
+            centre_err_m=float(np.hypot(float(rb.x) - 0.45,
+                                        float(rb.y) - 0.45))))
+    say("host_simulators", **out)
+    bad_align = [a for a in out["align"] if a["actions"] != 4
+                 or abs(a["second_rotation"] - 90.0) >= 1e-6
+                 or a["centre_err_m"] >= 0.30]
+    if (out["square_loop_max_err_m"] >= 0.1 or out["subgoal_drives"] != 1
+            or out["subgoal_err_m"] >= 0.15 or bad_align):
+        raise AssertionError(f"host simulators: {out}")
+    return out
+
+
+def control_stack_phase(dev) -> dict:
+    """Phases (a) to (d) of the control stack; the module cache is emptied
+    after them."""
+    rows = dict(published=closed_loop_row_phase(dev),
+                full=closed_loop_full_phase(dev),
+                presets=presets_phase(dev),
+                host=host_simulators_phase(dev))
+    compiled.graphs.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -3049,7 +3342,8 @@ def main() -> None:
     # (A/B), the production schedule's paths: (a) the production sweep,
     # (b) the elastic server, (c) the bench config under the ESS gate; and
     # the randomized-map sweeps (the published row, the full width), the
-    # imported map, the CLI presets and the replay.
+    # imported map, the CLI presets, the replay, and the control stack's
+    # closed loop (the published row, the full width) and presets.
     world, server, launched, replayed = serve_phase(dev)
     entry_phase(dev)
     tick_phase(world, server.state)
@@ -3065,6 +3359,7 @@ def main() -> None:
     imported_map_phase(dev)
     cli_phase()
     replay_phase(dev)
+    control_stack_phase(dev)
     graphs_phase(dev)
     profile_phase(dev)
     ab_launched = ab_phase(m, gen)

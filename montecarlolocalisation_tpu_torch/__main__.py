@@ -8,6 +8,13 @@ default maze (or `--map`, a map.txt wall list or a ROS map_server YAML),
           (2.05, 2.05, 0), then the filter from a global cloud; prints the
           final confidence, the best and the true pose, the position
           error and the first songs.
+  planning  a BFS plan from cell (2, 2) to (4, 4) driven closed-loop
+          (sim/closed_loop) for `--ticks` (800) ticks from the first
+          cell's centre; prints the plan, the waypoints reached of those
+          driven and the final confidence.
+  challenge  the gold/pickup TSP mission from cell (5, 0) driven
+          closed-loop for `--ticks` (2000) ticks; prints the tour's gold
+          cost, the legs' goals and the waypoints reached.
   moving  the wanderer alone for `--ticks` (300) ticks; prints the
           distance driven and the final pose.
   serve   JSONL sensor frames on stdin, one reply per line on stdout and a
@@ -49,7 +56,8 @@ def _dumps(obj) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="montecarlolocalisation_tpu_torch")
-    ap.add_argument("preset", choices=["localisation", "moving", "serve",
+    ap.add_argument("preset", choices=["localisation", "planning",
+                                       "challenge", "moving", "serve",
                                        "sweep"])
     ap.add_argument("--map", dest="map_path", default=None,
                     help="map file: a reference map.txt wall list, or a ROS "
@@ -59,7 +67,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int, default=None,
                     help="ticks per episode (default: localisation 200, "
-                         "moving 300, sweep 150)")
+                         "planning 800, challenge 2000, moving 300, sweep "
+                         "150)")
     ap.add_argument("--batch", type=int, default=64,
                     help="sweep: episodes in the batch")
     ap.add_argument("--tick-chunk", type=int, default=None,
@@ -134,6 +143,22 @@ def main(argv=None) -> None:
             true_pose=[round(float(v), 4) for v in tp],
             position_error_m=round(err, 4),
             songs=[int(s) for s in outs.song.cpu().numpy() if s != 0][:8])))
+    elif args.preset == "planning":
+        path, final, _ = presets.run_planning(
+            world, seed=args.seed, num_ticks=args.ticks or 800)
+        print(_dumps(dict(
+            preset="planning", plan=[list(c) for c in path],
+            waypoints_reached=int(final.wp_idx),
+            waypoints_total=max(len(path) - 1, 1),  # start cell not driven
+            final_confidence=float(final.filt.confidence))))
+    elif args.preset == "challenge":
+        plan, final, _ = presets.run_challenge(
+            world, seed=args.seed, num_ticks=args.ticks or 2000)
+        print(_dumps(dict(
+            preset="challenge", tsp_gold_cost=plan.gold_cost,
+            legs=[list(leg.goal) for leg in plan.legs],
+            waypoints_reached=(int(final.wp_idx) if final is not None
+                               else 0))))
     elif args.preset == "moving":
         out = presets.run_moving(world, seed=args.seed,
                                  num_ticks=args.ticks or 300)

@@ -1,7 +1,7 @@
 """The port's configuration dataclasses.
 
-A copy of the filter's part of montecarlolocalisation_tpu/config.py: the
-same class names, fields, defaults and frozen=True, so a config means the
+A copy of the filter's and the controllers' part of
+montecarlolocalisation_tpu/config.py: the same class names, fields, defaults and frozen=True, so a config means the
 same thing in both packages (tests/test_torch_config.py holds them equal
 field for field).  Each default is the reference value; the JAX package's
 file cites the reference line of each.  `interop.config_from` rebuilds one
@@ -15,6 +15,7 @@ from typing import Optional
 
 # Wall / direction conventions (reference: msg/Cell.msg).
 WALL_RIGHT, WALL_TOP, WALL_LEFT, WALL_BOTTOM = 0, 1, 2, 3
+DIR_RIGHT, DIR_UP, DIR_LEFT, DIR_DOWN = 0, 1, 2, 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +178,101 @@ class FilterConfig:
 
     def replace(self, **kw) -> "FilterConfig":
         return dataclasses.replace(self, **kw)
+
+
+# --------------------------------------------------------------------------
+# Controller configs (montecarlolocalisation_tpu/config.py:444-531)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class PIDConfig:
+    """Two-phase PID point-to-point drive (src/PID_drive.cpp)."""
+
+    heading_gain: float = 8.0
+    rotate_exit_rad: float = 0.05
+    dist_exit_m: float = 0.05
+    max_wheel_speed: float = 100.0
+    rate_hz: float = 10.0
+    max_phase_ticks: int = 600
+
+
+@dataclasses.dataclass(frozen=True)
+class APFConfig:
+    """Artificial-potential-field drive.  Presets for each reference node."""
+
+    attract_gain: float = 90.0
+    repel_gain: float = 0.0
+    influence_radius: float = 0.2
+    heading_gain: float = 8.0
+    fade_exponent: float = 1.0
+    repel_half: bool = True           # the *0.5 factor (avf.cpp:265)
+    repel_sign: float = 1.0           # avf.cpp uses +u (toward point!); pf.cpp -u
+    min_obstacle_dist: float = 0.005
+    dist_exit_m: float = 0.1
+    attract_mag_exit: float = 40.0
+    use_attract_exit: bool = True
+    mix_sign: float = 1.0             # motor mixing: +1 avf.cpp, -1 potential_field
+    subtract_theta: bool = True       # avf.cpp: err = heading - theta; pf.cpp: heading
+    near_goal_dist: float = 0.2
+    near_goal_repel: float = 0.0
+    near_goal_radius: float = 0.2
+    rate_hz: float = 10.0
+    max_ticks: int = 600
+
+    @staticmethod
+    def avf() -> "APFConfig":
+        """src/avf.cpp:73-79 gains (service Potential_drive)."""
+        return APFConfig()
+
+    @staticmethod
+    def potential_field() -> "APFConfig":
+        """src/potential_field.cpp:70-74 (service Potential_drive_1)."""
+        return APFConfig(
+            attract_gain=100.0, repel_gain=0.05, influence_radius=0.5,
+            heading_gain=1.0, repel_half=False, repel_sign=-1.0,
+            mix_sign=-1.0, subtract_theta=False, use_attract_exit=False,
+            near_goal_dist=0.3, near_goal_repel=0.01, near_goal_radius=0.2,
+            fade_exponent=0.0,
+        )
+
+    @staticmethod
+    def global_apf() -> "APFConfig":
+        """src/moveToPosition_server.cpp:54-56 global-frame APF."""
+        return APFConfig(attract_gain=50.0, repel_gain=0.0,
+                         influence_radius=0.6, heading_gain=4.0,
+                         subtract_theta=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class WandererConfig:
+    """Reactive obstacle-avoidance (src/wanderer_try_final.cpp)."""
+
+    threshold: float = 0.20
+    forward_speed: float = 8.0
+    turn_speed: float = 5.0
+    turn_angle: float = 3.14 / 3
+    wheel_space: float = 0.265
+    wheel_size: float = 0.062
+
+
+@dataclasses.dataclass(frozen=True)
+class AVFWandererConfig:
+    """Pure-repulsion wanderer (src/avf_wanderer.cpp:173-248)."""
+
+    repel_gain: float = 0.001
+    influence_radius: float = 0.4
+    heading_gain: float = 5.0
+    base_speed: float = 8.0
+
+
+@dataclasses.dataclass(frozen=True)
+class AlignConfig:
+    """RANSAC wall alignment (src/align_server.cpp)."""
+
+    distance_threshold: float = 0.05
+    max_iterations: int = 100
+    min_inliers: int = 50
+    max_lines: int = 2
+    wall_standoff: float = 0.40
 
 
 DEFAULT_CONFIG = FilterConfig()

@@ -1,6 +1,8 @@
 """World construction and the presets of the JAX package's CLI
-(presets.py:46-172): `localisation` (wander, then the filter), `moving`
-(the wanderer alone) and `sweep` (a batch of episodes)."""
+(presets.py:46-172): `localisation` (wander, then the filter), `planning`
+(a BFS plan driven closed-loop), `challenge` (the gold/pickup TSP mission
+driven closed-loop), `moving` (the wanderer alone) and `sweep` (a batch of
+episodes)."""
 from __future__ import annotations
 
 import dataclasses
@@ -80,6 +82,56 @@ def run_localisation(world: World, seed: int = 0, num_ticks: int = 200,
     final, outs = mcl.run_episode(state, enc[0], scans[0], world.angles,
                                   world.maze, world.cfg)
     return final, outs, truth[0]
+
+
+def _drive(world: World, cells, seed: int, num_ticks: int):
+    """The closed loop along a cell path from its first cell's centre,
+    heading 0.  The reference executor skips the first plan cell (the
+    robot already stands there, moveToPosition_server.cpp:578); otherwise
+    a cold-start robot must wander BACK to its origin before making
+    progress.  Returns (final ClosedLoopState, outputs [T, ...])."""
+    from .sim import closed_loop
+
+    wps = closed_loop.mission_waypoints(cells)
+    sx, sy = wps[0]
+    drive_wps = wps[1:] if len(wps) > 1 else wps
+    return closed_loop.run_closed_loop(
+        world.maze, world.cfg, drive_wps, num_ticks, world.angles,
+        start_pose=(float(sx), float(sy), 0.0), seed=seed)
+
+
+def run_planning(world: World, start_cell=(2, 2), goal_cell=(4, 4),
+                 seed: int = 0, num_ticks: int = 800):
+    """BFS plan + closed-loop waypoint following under MCL
+    (presets.py:89-106 of the JAX package): returns (path, final state,
+    outputs)."""
+    from .planning import bfs
+
+    path = bfs.bfs_path(world.walls, start_cell, goal_cell)
+    final, outs = _drive(world, path, seed, num_ticks)
+    return path, final, outs
+
+
+def run_challenge(world: World, start_cell=(5, 0),
+                  gold_path: str = DEFAULT_GOLD,
+                  pickup_path: str = DEFAULT_PICKUP,
+                  seed: int = 0, num_ticks: int = 2000):
+    """Gold/pickup TSP mission closed-loop (executeChallenge.cpp;
+    presets.py:109-133 of the JAX package): returns (mission plan, final
+    state, outputs), the last two None when there is nothing to drive."""
+    from .planning import mission
+
+    gold = mission.load_waypoints(gold_path)
+    pickup = mission.load_waypoints(pickup_path)
+    plan = mission.plan_mission(world.walls, start_cell, gold, pickup)
+    if not plan.legs or not plan.legs[0].path:
+        # Empty waypoint files or unreachable first goal: nothing to drive.
+        return plan, None, None
+    cells = [plan.legs[0].path[0]]
+    for leg in plan.legs:
+        cells.extend(leg.path[1:])
+    final, outs = _drive(world, cells, seed, num_ticks)
+    return plan, final, outs
 
 
 def run_moving(world: World, seed: int = 0, num_ticks: int = 300,

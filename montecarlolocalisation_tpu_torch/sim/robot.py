@@ -6,7 +6,7 @@ integrate through the midpoint diff-drive kinematics the filter assumes
 wheel_size * 0.5), and scans come from the filter's own ray caster
 (models/sensor.simulate_scan).
 
-Every robot quantity has a leading [E]: the wander advances E robots at
+The wander's robots have a leading [E]: it advances E robots at
 once, a tick at a time (`_wander_tick`), in CUDA graphs of
 models/compiled.TICKS_PER_GRAPH ticks (the JAX package runs its wander
 under jit).  Its random numbers are an argument (WanderDraws), so a caller
@@ -32,7 +32,8 @@ from ..utils.angles import normalize_angle
 
 @dataclasses.dataclass(frozen=True)
 class RobotState:
-    """Ground-truth poses + cumulative encoder readings (radians), [E]."""
+    """Ground-truth poses + cumulative encoder readings (radians), [E] or
+    0-d for one robot."""
 
     x: torch.Tensor
     y: torch.Tensor
@@ -45,10 +46,14 @@ class RobotState:
         return torch.stack([self.x, self.y, self.theta], dim=-1)
 
 
-def make_robot(x, y, theta, batch: int = 1, device="cpu") -> RobotState:
-    """`batch` robots at one pose, encoders at zero."""
+def make_robot(x, y, theta, batch: Optional[int] = 1,
+               device="cpu") -> RobotState:
+    """`batch` robots at one pose, encoders at zero; batch=None is one
+    robot of 0-d tensors, the JAX package's robot."""
+    shape = () if batch is None else (batch,)
+
     def full(v):
-        return torch.full((batch,), float(v), dtype=torch.float32,
+        return torch.full(shape, float(v), dtype=torch.float32,
                           device=device)
 
     return RobotState(x=full(x), y=full(y), theta=full(theta),

@@ -1,5 +1,6 @@
 """The port's own config dataclasses against the JAX package's: the same
-classes, fields, defaults and frozen=True; and interop.config_from, which
+classes, fields, defaults and frozen=True (the filter's and the
+controllers'), the same APF presets; and interop.config_from, which
 rebuilds a port config from a JAX one, round-trips."""
 import dataclasses
 
@@ -14,7 +15,9 @@ torch.set_num_threads(1)
 
 CLASSES = ["GridConfig", "SensorModelConfig", "MotionModelConfig",
            "ResampleConfig", "RefineConfig", "ClusterConfig",
-           "HysteresisConfig", "InitConfig", "FilterConfig", "KLDConfig"]
+           "HysteresisConfig", "InitConfig", "FilterConfig", "KLDConfig",
+           "PIDConfig", "APFConfig", "WandererConfig", "AVFWandererConfig",
+           "AlignConfig"]
 
 
 @pytest.mark.parametrize("name", CLASSES)
@@ -36,13 +39,22 @@ def test_dataclass_matches_jax_field_for_field(name):
 
 
 def test_constants_match_jax():
-    for name in ("WALL_RIGHT", "WALL_TOP", "WALL_LEFT", "WALL_BOTTOM"):
+    for name in ("WALL_RIGHT", "WALL_TOP", "WALL_LEFT", "WALL_BOTTOM",
+                 "DIR_RIGHT", "DIR_UP", "DIR_LEFT", "DIR_DOWN"):
         assert getattr(tconfig, name) == getattr(jconfig, name)
     assert interop.config_from(jconfig.DEFAULT_CONFIG) == \
         tconfig.DEFAULT_CONFIG
     assert tconfig.SensorModelConfig().num_ray_steps == \
         jconfig.SensorModelConfig().num_ray_steps
     assert tconfig.GridConfig().resolution == jconfig.GridConfig().resolution
+
+
+@pytest.mark.parametrize("preset", ["avf", "potential_field", "global_apf"])
+def test_apf_presets_match_jax(preset):
+    want = getattr(jconfig.APFConfig, preset)()
+    got = getattr(tconfig.APFConfig, preset)()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert interop.config_from(want) == got
 
 
 def test_config_from_round_trips():
@@ -63,5 +75,9 @@ def test_config_from_round_trips():
     kld = jconfig.KLDConfig(epsilon=0.02, subsample=4096)
     assert interop.config_from(kld) == tconfig.KLDConfig(epsilon=0.02,
                                                          subsample=4096)
+    for name in ("PIDConfig", "WandererConfig", "AVFWandererConfig",
+                 "AlignConfig"):
+        assert interop.config_from(getattr(jconfig, name)()) == \
+            getattr(tconfig, name)()
     with pytest.raises(TypeError):
         interop.config_from(jconfig.SLAMConfig())

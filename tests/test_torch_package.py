@@ -103,10 +103,11 @@ def test_entry_points_ask_for_the_card_by_default():
         maps.from_map_file(presets.DEFAULT_MAP)
     with pytest.raises((RuntimeError, AssertionError)):
         maps.from_walls([[[0, 1, 2, 3]]])
-    r = subprocess.run([sys.executable, "-m", PKG, "sweep", "--batch", "2",
-                        "--ticks", "2", "--particles", "16"], cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0 and "CUDA" in r.stderr
+    for args in (["sweep", "--batch", "2"], ["planning"]):
+        r = subprocess.run([sys.executable, "-m", PKG, *args, "--ticks",
+                            "2", "--particles", "16"], cwd=ROOT,
+                           capture_output=True, text=True, timeout=300)
+        assert r.returncode != 0 and "CUDA" in r.stderr, args
 
 
 def _isolate_build(monkeypatch, tmp_path):
