@@ -16,7 +16,7 @@ the filter through the entry points a user calls:
 - the layout A/B of the two episode-batched beam weight kernels (K1
   batched against K4) in device time, the port's counterpart of
   tools/ab_beamsub.py;
-- the production schedule: (a) the sweep at 1024 x 500 x 24 x 300 with
+- the production schedule: (a) the sweep at 512 x 500 x 24 x 300 with
   the ESS gate at 0.5 and 2 rounds of gradient refinement (raises below
   0.95 converged or alias-converged, or above 0.15 m alias RMSE); (b) the
   elastic server, MCLServer with the KLD budget on [1024, 65,536], the
@@ -35,10 +35,10 @@ the filter through the entry points a user calls:
   map_server YAML + PGM, reloaded through presets.make_world and
   localised by the localisation preset at 1500 x 24 (its raster in the
   device-memory form), then tracked with its origin kept (keep_origin);
-- the CLI's localisation, moving, planning and challenge presets, each
-  line well-formed and finite; and the shipped replay fixture replayed by
-  64 replicas of 500 particles with the DDA caster (raises if no replica
-  ends confident within 0.2 m of the truth);
+- the CLI's localisation, moving, planning, challenge, mapping and slam
+  presets, each line well-formed and finite; and the port's copy of the
+  replay fixture replayed by 64 replicas of 500 particles with the DDA
+  caster (raises if no replica ends confident within 0.2 m of the truth);
 - the control stack (sim/closed_loop, the planners, the simulators): (a)
   the published closed-loop row, 64 episodes x 400 ticks x 500 x 24,
   fixed, multinomial, along the planning preset's 4-waypoint BFS plan
@@ -55,6 +55,25 @@ the filter through the entry points a user calls:
   (execute_plan's square loop, one drive for a straight subgoal plan,
   run_align centring the robot); each run's device busy share over one
   graph replay;
+- mapping and RBPF SLAM (models/mapping, models/slam, their presets,
+  servers and the render tool): (a) the published SLAM row, 16 wander
+  episodes x 4 replicas x 128 particles x 1000 ticks at 24 beams, 8 %
+  slip, keyframes 0.15 m / 0.5 rad, as one [16, 4] state (explored-edge
+  F1 0.798 to 0.853 and 12 to 15 of 16 episodes beating dead reckoning on
+  the TPU; raises below a mean F1 of 0.75 or 10 of 16), and the inverse
+  sensor model's share of its tick; (b) a [4] x 128 state with K = 3
+  candidates, keyframes and the closure: 16 ticks through the graphs
+  equal to the same ticks eager bit for bit, no host sync in an eager
+  tick, the beam-accumulated map update equal to the one-shot form; (c)
+  run_mapping (8 x 600 from true poses, raises below F1 0.95; and from
+  dead-reckoned poses at 3 % slip) and run_slam at the CLI's defaults
+  with the mission, K3 batched replayed once a reloc and track tick and
+  K1 and K3 once a mission tick, each audited with the profiler; (d)
+  SLAMServer over 200 frames equal to run_slam_episode bit for bit, with
+  3 replicas, export_map read back, and a 4-robot SLAMFleetServer whose
+  robots equal their standalone servers bit for bit; (e) the CLI's
+  mapping and slam lines and `serve --slam-serve` (one robot and two);
+  (f) the render tool on its three sources;
 - the compiled tick (models/compiled, CUDA graphs of mcl_step), graph
   against eager: every entry point above runs its ticks as graph replays,
   and the graphs phase runs each configuration from one state and one
@@ -112,7 +131,8 @@ Output, in order: the card (nvidia-smi name and power limit), the build,
 the kernel checks (F1 and F2 among them), the serve phase, the entry
 config, the kernel-vs-plain tick, the kernel times, the sweep, the two
 randomized-map sweeps, paths (a), (b) and (c), the fleet, the imported
-map, the CLI, the replay, the control stack, the graphs phase, a device profile of one
+map, the CLI, the replay, the control stack, mapping and SLAM, the
+graphs phase, a device profile of one
 filter's eager tick at the serve's shapes and of one batched eager tick at
 the sweep's and the fleet's, the
 layout A/B, the batched kernels' times (the map-stack form's against
@@ -144,11 +164,13 @@ from montecarlolocalisation_tpu_torch import bench, presets
 from montecarlolocalisation_tpu_torch.bench import card
 from montecarlolocalisation_tpu_torch.config import (
     DIR_DOWN, DIR_LEFT, DIR_RIGHT, DIR_UP, WALL_LEFT, WALL_TOP, FilterConfig,
-    ResampleConfig, SensorModelConfig,
+    ResampleConfig, SensorModelConfig, SLAMConfig,
 )
-from montecarlolocalisation_tpu_torch.io.fleet import MCLFleetServer
+from montecarlolocalisation_tpu_torch.io.fleet import (
+    MCLFleetServer, SLAMFleetServer,
+)
 from montecarlolocalisation_tpu_torch.io.logs import EpisodeLog
-from montecarlolocalisation_tpu_torch.io.server import MCLServer
+from montecarlolocalisation_tpu_torch.io.server import MCLServer, SLAMServer
 from montecarlolocalisation_tpu_torch.kernel_ab import device_ms, forced_plan
 from montecarlolocalisation_tpu_torch.maps import (
     from_walls, generator, pgm, repeat_maps, select_maps, stack_maps,
@@ -158,7 +180,7 @@ from montecarlolocalisation_tpu_torch.maps.grid import (
 )
 from montecarlolocalisation_tpu_torch.models import filter as mcl
 from montecarlolocalisation_tpu_torch.models import (
-    compiled, motion, refine, resample, sensor,
+    compiled, mapping, motion, refine, resample, sensor, slam,
 )
 from montecarlolocalisation_tpu_torch.models.raycast import march_steps
 from montecarlolocalisation_tpu_torch.ops import analytic, build, expand
@@ -172,6 +194,9 @@ from montecarlolocalisation_tpu_torch.sim import (
 SERVE_N, SERVE_B, SERVE_TICKS = 1_048_576, 34, 20
 ENTRY_N, ENTRY_B, ENTRY_TICKS = 65_536, 12, 50
 SWEEP_E, SWEEP_N, SWEEP_B, SWEEP_T = 1024, 500, 24, 300
+# Path (a)'s episodes: half the sweep's 1024 since the SLAM phases joined
+# the run (its published cell's shares do not depend on the count).
+PROD_E = 512
 FLEET_R, FLEET_N, FLEET_B, FLEET_TICKS = 64, 1500, 34, 20
 AB_E, AB_SIZES, AB_B = 64, (500, 768, 2000), 24
 # The layout A/B's other shapes: the fleet's, and the CLI serve's one filter.
@@ -217,14 +242,32 @@ CLI_RUNS = (
     (["planning"], {"preset", "plan", "waypoints_reached", "waypoints_total",
                     "final_confidence"}),
     (["challenge"], {"preset", "tsp_gold_cost", "legs",
-                     "waypoints_reached"}))
+                     "waypoints_reached"}),
+    (["mapping", "--ticks", "200"],
+     {"preset", "robots", "ticks_per_robot", "explored_frac", "precision",
+      "recall", "f1", "reloc_converged_frac", "reloc_median_error_m",
+      "reloc_in_coverage_n", "reloc_in_coverage_frac"}),
+    (["slam", "--ticks", "300", "--slam-replicas", "2"],
+     {"preset", "particles", "ticks", "slip_noise", "explore_mode",
+      "slam_final_err_m", "explored_edge_frac", "precision_explored",
+      "recall_explored", "f1_explored", "precision", "recall", "f1",
+      "dead_reckon_final_err_m", "reloc_converged_frac",
+      "reloc_median_error_m", "reloc_in_coverage_n",
+      "reloc_in_coverage_frac", "track_on_learned_frac",
+      "track_median_error_m", "track_in_coverage_n",
+      "track_in_coverage_frac", "track_to_coverage_edge_frac"}))
+# Values that a line writes as null where no episode qualifies (the JAX
+# CLI's NaN), and the string-valued keys.
+CLI_NULLABLE = {"reloc_median_error_m", "reloc_in_coverage_frac",
+                "track_in_coverage_frac", "track_to_coverage_edge_frac"}
+CLI_TEXT = {"preset", "songs", "explore_mode"}
 REPLAY_REPLICAS = 64
-FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "montecarlolocalisation_tpu", "data",
-                       "replay_6x6.npz")
+PKG = "montecarlolocalisation_tpu_torch"
+# The port's own copy of the replay fixture.
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), PKG,
+                       "data", "replay_6x6.npz")
 START = (1.25, 1.25, 0.0)     # the bench's pose, a free spot of the maze
 WHEELS = (0.5, 0.45)          # encoder step per tick (rad): a gentle arc
-PKG = "montecarlolocalisation_tpu_torch"
 TPU = "montecarlolocalisation_tpu/ops"
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): device
 # memory rate and float32 outside the tensor cores.
@@ -1912,7 +1955,7 @@ def check_f2(gen) -> None:
 # -- phase 8b: path (a), the composed production sweep ----------------------
 
 def production_sweep_phase(dev) -> dict:
-    """The sweep at 1024 x 500 x 24 x 300, fixed march, systematic, ESS
+    """The sweep at PROD_E x 500 x 24 x 300, fixed march, systematic, ESS
     0.5 and 2 rounds of refinement (BENCH_DETAILS.md:226-236, published
     99.8 % converged and alias-converged at 0.074 m on the TPU): raises
     below 0.95 converged or alias-converged or above 0.15 m alias RMSE.
@@ -1930,7 +1973,7 @@ def production_sweep_phase(dev) -> dict:
     reset_counts()
     k2_before = expand.device_launches()
     t0 = time.perf_counter()
-    metrics = presets.run_sweep(world, batch=SWEEP_E, num_ticks=SWEEP_T,
+    metrics = presets.run_sweep(world, batch=PROD_E, num_ticks=SWEEP_T,
                                 seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1939,7 +1982,7 @@ def production_sweep_phase(dev) -> dict:
     check_k2_device_launches("production sweep",
                              expand.device_launches() - k2_before,
                              launched["systematic_expand_batched"], SWEEP_N,
-                             SWEEP_E)
+                             PROD_E)
     # One batched tick with and without refinement, and refinement alone.
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
@@ -1961,11 +2004,12 @@ def production_sweep_phase(dev) -> dict:
     peak_refine = torch.cuda.max_memory_allocated() - base
     with_ms = float(np.median([tick_ms[0], tick_ms[3]]))
     without_ms = float(np.median(tick_ms[1:3]))
-    say("production_sweep", episodes=SWEEP_E, particles=SWEEP_N,
+    say("production_sweep", episodes=PROD_E, particles=SWEEP_N,
         beams=SWEEP_B, ticks=SWEEP_T, ray_mode="fixed",
         resample="systematic", ess=ESS, refine_iters=2, launches=launched,
         wall_s=wall, ticks_per_sec=SWEEP_T / wall,
-        updates_per_sec=SWEEP_E * SWEEP_N * SWEEP_B * SWEEP_T / wall,
+        updates_per_sec=PROD_E * SWEEP_N * SWEEP_B * SWEEP_T / wall,
+        tick_episodes=SWEEP_E,
         peak_memory_gib_sweep=peak_sweep / 2**30,
         peak_memory_gib_refine=peak_refine / 2**30,
         tick_ms_refine=with_ms, tick_ms_no_refine=without_ms,
@@ -2417,9 +2461,10 @@ def _flat(v) -> list:
 
 
 def cli_phase() -> None:
-    """The CLI's localisation, moving, planning and challenge presets on
-    the card (the last two at their defaults: 1500 x 24, 800 and 2000
-    ticks), each line well-formed and finite."""
+    """The CLI's localisation, moving, planning, challenge, mapping and
+    slam presets on the card (planning and challenge at their defaults:
+    1500 x 24, 800 and 2000 ticks), each line well-formed and finite
+    (CLI_NULLABLE values may be null)."""
     for args, keys in CLI_RUNS:
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", PKG, *args],
@@ -2432,8 +2477,8 @@ def cli_phase() -> None:
         unlocalised = line.get("best_pose", [0.0])[0] < 0
         flat = []
         for k, v in line.items():
-            if k in ("preset", "songs") or (k == "position_error_m"
-                                            and unlocalised):
+            if k in CLI_TEXT or (k == "position_error_m" and unlocalised) \
+                    or (k in CLI_NULLABLE and v is None):
                 continue
             flat += _flat(v)
         finite = all(isinstance(v, (int, float)) and math.isfinite(v)
@@ -3304,6 +3349,461 @@ def control_stack_phase(dev) -> dict:
     return rows
 
 
+# -- the mapping and SLAM phases ------------------------------------------
+
+# (a) The published RBPF SLAM row (BENCH_DETAILS.md:858-870, the JAX
+# tools/slam_sweep.py): episodes x replicas x particles x ticks on the
+# default maze, 24 beams, 8 % wheel slip, keyframes 0.15 m / 0.5 rad;
+# published on the TPU over four seed sets: mean explored-edge F1 0.798 to
+# 0.853, SLAM beats dead reckoning in 12 to 15 of 16, final-quarter error
+# 0.215 to 0.348 m, an F1 band of about +-0.03 at 16 episodes.
+SLAM_E, SLAM_K, SLAM_P, SLAM_T, SLAM_B = 16, 4, 128, 1000, 24
+SLAM_SLIP, SLAM_KF = 0.08, (0.15, 0.5)
+SLAM_F1_FLOOR, SLAM_BEATS_FLOOR = 0.75, 10
+SLAM_START = (1.25, 1.25, 0.0)
+# (b) the tick's invariants; (c) the presets; (d) the servers; (f) render.
+INV_E, INV_T, ISM_MAPS = 4, 16, 64
+MAPPING_ROBOTS, MAPPING_T, MAPPING_FLOOR = 8, 600, 0.95
+# The slam preset at the CLI's defaults, with the mission.
+SLAM_PRESET = dict(num_ticks=1000, num_particles=128, slip_noise=0.03,
+                   mission=True, mission_ticks=2000)
+AUDIT_T = 16
+SERVE_FRAMES, FLEET_ROBOTS, FLEET_FRAMES = 200, 4, 40
+RENDER_T, RENDER_EVERY = 40, 5
+
+
+def slam_config(m, **kw):
+    fc = FilterConfig()
+    return SLAMConfig(**dict(dict(
+        num_particles=SLAM_P, mapping=presets._mapping_config(m),
+        sensor=fc.sensor, motion=fc.motion, keyframe_trans=SLAM_KF[0],
+        keyframe_rot=SLAM_KF[1]), **kw))
+
+
+def slam_row_phase(dev) -> dict:
+    """(a) The published SLAM row as one [E, K] state, scored as the JAX
+    tools/slam_sweep.py:200-238 scores it: per episode the final-quarter
+    error of the winner's estimate against dead reckoning's, and the
+    explored-edge F1 of the winner's best map.  Raises below a mean F1 of
+    SLAM_F1_FLOOR or SLAM_BEATS_FLOOR episodes beating dead reckoning.
+    Then the ISM's share of the tick: one replay's device time against
+    update_map's alone at the row's shape, and its bound."""
+    world = presets.make_world(num_beams=SLAM_B, device=dev)
+    m = world.maze
+    cfg = slam_config(m)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    enc, scans, truth = robot.generate_wander_episode(
+        gen, m, world.cfg, world.angles, SLAM_T, batch=SLAM_E,
+        start_pose=SLAM_START, slip_noise=SLAM_SLIP, explore=True)
+    before = {id(g) for g in compiled.graphs.entries()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, est, info = slam.run_slam_replicas(
+        100, enc, scans, world.angles, cfg, SLAM_START, replicas=SLAM_K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = new_entries(before)
+    dr = mapping.dead_reckon_poses(enc, SLAM_START, world.cfg.motion)
+    tail = max(SLAM_T // 4, 1)
+    tr, est_n, dr = (v.cpu().numpy() for v in (truth, est, dr))
+    slam_err = np.hypot(est_n[..., 0] - tr[..., 0],
+                        est_n[..., 1] - tr[..., 1])[:, -tail:].mean(axis=1)
+    dr_err = np.hypot(dr[..., 0] - tr[..., 0],
+                      dr[..., 1] - tr[..., 1])[:, -tail:].mean(axis=1)
+    maps = slam.best_map(final).cpu().numpy()
+    truth_walls = m.walls.cpu().numpy()
+    f1s = []
+    for lo in maps:
+        walls, seen = mapping.fit_walls(lo, cell_px=8, return_explored=True)
+        f1s.append(mapping.wall_metrics(walls, truth_walls, mask=seen)["f1"])
+    f1s = np.asarray(f1s)
+    beats = int((slam_err < dr_err).sum())
+    if not (np.isfinite(est_n).all() and np.isfinite(maps).all()):
+        raise AssertionError("SLAM row: non-finite estimates or maps")
+    row = dict(episodes=SLAM_E, replicas=SLAM_K, particles=SLAM_P,
+               ticks=SLAM_T, beams=SLAM_B, slip=SLAM_SLIP,
+               keyframe=list(SLAM_KF), mean_f1=float(f1s.mean()),
+               min_f1=float(f1s.min()), beats_dead_reckoning=beats,
+               mean_pose_err_m=float(slam_err.mean()),
+               p90_pose_err_m=float(np.percentile(slam_err, 90)),
+               mean_dead_reckoning_err_m=float(dr_err.mean()),
+               wall_s=wall, ms_per_tick=1e3 * wall / SLAM_T,
+               chosen=info["chosen"].tolist(), **stats,
+               published=dict(mean_f1=[0.798, 0.853], beats=[12, 15],
+                              pose_err_m=[0.215, 0.348]))
+    say("slam", row="published", **row)
+    if row["mean_f1"] < SLAM_F1_FLOOR or beats < SLAM_BEATS_FLOOR:
+        raise AssertionError(f"SLAM row: mean F1 {row['mean_f1']} (floor "
+                             f"{SLAM_F1_FLOOR}) or beats {beats}/{SLAM_E} "
+                             f"(floor {SLAM_BEATS_FLOOR})")
+    row.update(ism_share(world, cfg, enc, scans))
+    compiled.graphs.clear()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _twin_slam(state):
+    """The SLAM state with a copy of its generator."""
+    return dataclasses.replace(state, gen=same_gen(state.gen))
+
+
+def ism_share(world, cfg, enc, scans) -> dict:
+    """One replay of the row's graph (TICKS_PER_GRAPH ticks, on the state
+    after the episodes' first graph) profiled against update_map alone at
+    the row's shape: device ms of each, the ISM's share of the tick, and
+    the ISM's bound (its maps read and written once; about 20 float ops a
+    pixel a beam)."""
+    k = compiled.TICKS_PER_GRAPH
+    b = (SLAM_E, SLAM_K)
+    angles = torch.as_tensor(world.angles, device=enc.device)
+    e, r = enc[:, None, :k].expand(b + (k, 2)), scans[:, None, :k].expand(
+        b + (k, SLAM_B))
+    ones = torch.ones_like(r)
+    state, _ = slam.run_slam_ticks(
+        slam.init_slam(100, SLAM_START, cfg, b, enc.device), e, r, ones,
+        angles, cfg)
+    state = compiled.detach_state(state)
+    prof = replay_profile(lambda: slam.run_slam_ticks(
+        _twin_slam(state), e, r, ones, angles, cfg))
+    tick_ms = prof["replay_device_ms"] / k
+    ism_ms = device_ms(lambda: mapping.update_map(
+        state.logodds, state.poses, r[..., 0, None, :], angles,
+        ones[..., 0, None, :], cfg.mapping, cfg.sensor), reps=5)
+    maps = state.logodds.numel()
+    bnd = bound(2 * 4 * maps, 20.0 * maps * SLAM_B)
+    out = dict(tick_device_ms=tick_ms, tick_wall_ms=prof["replay_wall_ms"]
+               / k, replay_busy_share=prof["replay_busy_share"],
+               device_ops_per_tick=prof["replay_device_ops"] / k,
+               ism_device_ms=ism_ms, ism_share=ism_ms / tick_ms,
+               ism_bound_ms=bnd["bound_ms"], ism_bound_by=bnd["bound_by"])
+    say("slam", what="ISM share of the row's tick", **out)
+    return out
+
+
+def slam_invariants_phase(dev) -> dict:
+    """(b) On a [INV_E] x SLAM_P state with K = 3 candidates, keyframes and
+    the closure: INV_T ticks through the graphs against the same ticks
+    eager (every state tensor, the generator, every info field, bit for
+    bit); no host sync in an eager slam_step; the beam-accumulated ISM
+    equal to the one-shot form on [ISM_MAPS] maps."""
+    world = presets.make_world(num_beams=SLAM_B, device=dev)
+    m = world.maze
+    cfg = slam_config(m, proposal_candidates=3, closure=True,
+                      closure_margin=0.5, closure_min_beams=4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    enc, scans, _ = robot.generate_wander_episode(
+        gen, m, world.cfg, world.angles, 40 + INV_T, batch=INV_E,
+        start_pose=SLAM_START, slip_noise=0.05, explore=True)
+    start, _ = slam.run_slam_episode(3, enc[:, :40], scans[:, :40],
+                                     world.angles, cfg, SLAM_START)
+    angles = torch.as_tensor(world.angles, device=dev)
+    ones = torch.ones_like(scans)
+    k = compiled.TICKS_PER_GRAPH
+
+    def run():
+        st, infos = _twin_slam(start), []
+        for t0 in range(40, 40 + INV_T, k):
+            st, ys = slam.run_slam_ticks(
+                st, enc[:, t0:t0 + k], scans[:, t0:t0 + k],
+                ones[:, t0:t0 + k], angles, cfg)
+            st = compiled.detach_state(st)
+            infos.append({key: v.clone() for key, v in ys.items()})
+        return st, infos
+
+    row = ab("slam_tick", run, INV_T, episodes=INV_E, particles=SLAM_P,
+             candidates=3, closure=True)
+    st = _twin_slam(start)
+    args = (enc[:, 40, 0], enc[:, 40, 1], scans[:, 40], angles,
+            ones[:, 40], cfg)
+    slam.slam_step(st, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slam.slam_step(st, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    maps = start.logodds.reshape(-1, m.height, m.width)[:ISM_MAPS]
+    poses = start.poses.reshape(-1, 3)[:ISM_MAPS]
+    one = mapping.update_map(maps, poses, scans[0, 40], angles,
+                             ones[0, 40], cfg.mapping, cfg.sensor,
+                             beam_chunk=SLAM_B)
+    acc = mapping.update_map(maps, poses, scans[0, 40], angles,
+                             ones[0, 40], cfg.mapping, cfg.sensor,
+                             beam_chunk=1)
+    ism_equal = bool(torch.equal(one, acc))
+    say("slam", what="invariants", eager_tick_host_syncs=0,
+        ism_accumulated_equals_one_shot=ism_equal, ism_maps=ISM_MAPS)
+    if not ism_equal:
+        raise AssertionError("SLAM: the beam-accumulated ISM differs from "
+                             "the one-shot form")
+    compiled.graphs.clear()
+    return row
+
+
+def slam_presets_phase(dev) -> dict:
+    """(c) run_mapping (MAPPING_ROBOTS x MAPPING_T, true poses; raises
+    below MAPPING_FLOOR F1) and with dead-reckoned poses at 3 % slip (no
+    gate, no relocalization); run_slam at the CLI's defaults with the
+    mission (one episode is chaotic: only a malformed or non-finite value
+    raises), K3 batched replayed once a tick in reloc and track and K1 and
+    K3 once a tick in the mission where one is driven; then launch_audit
+    over AUDIT_T ticks of each."""
+    world = presets.make_world(num_particles=PRESET_N, device=dev)
+    rows = {}
+    for source, slip in (("true", 0.0), ("odom", 0.03)):
+        t0 = time.perf_counter()
+        out = presets.run_mapping(world, seed=0, num_ticks=MAPPING_T,
+                                  robots=MAPPING_ROBOTS, pose_source=source,
+                                  slip_noise=slip,
+                                  relocalize=source == "true")
+        torch.cuda.synchronize()
+        rows[source] = dict(out, seconds=time.perf_counter() - t0)
+        say("slam_presets", preset="mapping", pose_source=source, slip=slip,
+            **rows[source])
+    if rows["true"]["f1"] < MAPPING_FLOOR:
+        raise AssertionError(f"mapping: F1 {rows['true']['f1']} below "
+                             f"{MAPPING_FLOOR} from true poses")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = presets.run_slam(world, seed=0, **SLAM_PRESET)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched, replayed = counts(), replay_counts()
+    say("slam_presets", preset="slam", seconds=wall, launches=launched,
+        replayed=replayed, **out)
+    flat = [v for k, v in out.items()
+            if k not in ("explore_mode", "mission_legs") and v is not None]
+    bad = [v for v in flat if not isinstance(v, (int, float))
+           or (isinstance(v, float) and not math.isfinite(v)
+               and v == v)]
+    reloc_t = min(max(SLAM_PRESET["num_ticks"] // 2, 150), 300)
+    # No mission is driven where the learned map walls off the plan.
+    mission_t = (SLAM_PRESET["mission_ticks"]
+                 if out["mission_waypoints_total"] else 0)
+    if (bad or replayed["kmeans_batched"] != 2 * reloc_t
+            or replayed["beam_weights"] != mission_t
+            or replayed["kmeans"] != mission_t):
+        raise AssertionError(f"slam preset: malformed ({bad}) or K3 batched "
+                             f"not replayed once a reloc and track tick, "
+                             f"K1 / K3 not once a mission tick: {replayed}")
+    rows["slam"] = dict(out, seconds=wall)
+    rows["audit"] = slam_preset_audit(world)
+    compiled.graphs.clear()
+    return rows
+
+
+def slam_preset_audit(world) -> dict:
+    """launch_audit over AUDIT_T ticks of the preset's reloc, track and
+    mission on a learned map (the true maze's walls, fitted as the preset
+    fits them): the card's kernels equal the counters, K3 batched replayed
+    once a reloc and track tick, K1 and K3 once a mission tick."""
+    m = world.maze
+    learned = presets._maze_from_wall_tensor(m.walls.cpu().numpy(),
+                                             m.device)
+    explored = np.ones((m.height, m.width), bool)
+    runs = dict(
+        reloc=lambda: presets._relocalize_on(
+            learned, m, world, AUDIT_T, 1000, known_maze=learned,
+            explored_px=explored),
+        track=lambda: presets._track_on(
+            learned, m, world, AUDIT_T, 2000, known_maze=learned,
+            explored_px=explored),
+        mission=lambda: presets._mission_on(
+            learned, m.walls.cpu().numpy(), world, AUDIT_T, 2,
+            presets.DEFAULT_GOLD, presets.DEFAULT_PICKUP))
+    want = dict(reloc=("kmeans_batched",), track=("kmeans_batched",),
+                mission=("beam_weights", "kmeans"))
+    out = {}
+    for name, run in runs.items():
+        run()       # builds the graphs; the audited run replays them
+        torch.cuda.synchronize()
+        reset_counts()
+        with launch_audit(f"slam_preset_{name}") as audited:
+            run()
+        replayed = replay_counts()
+        out[name] = dict(audited, replayed={k: replayed[k]
+                                            for k in want[name]})
+        if any(replayed[k] != AUDIT_T for k in want[name]):
+            raise AssertionError(f"slam preset {name}: {want[name]} not "
+                                 f"replayed once a tick: {replayed}")
+    return out
+
+
+def slam_servers_phase(dev, tmp: str) -> dict:
+    """(d) SLAMServer over SERVE_FRAMES frames of a wander equal to
+    run_slam_episode from the same seed, bit for bit (the reply poses and
+    the final state); replicas=3; export_map read back by maps/pgm; a
+    fleet of FLEET_ROBOTS robots, each equal to its standalone server bit
+    for bit; ms a frame for each."""
+    world = presets.make_world(num_beams=SLAM_B, device=dev)
+    m = world.maze
+    cfg = slam_config(m)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    enc, scans, _ = robot.generate_wander_episode(
+        gen, m, world.cfg, world.angles, SERVE_FRAMES, batch=FLEET_ROBOTS,
+        start_pose=SLAM_START, slip_noise=0.03, explore=True)
+    enc_h, scans_h = enc.cpu().numpy(), scans.cpu().numpy()
+
+    def frame(k, r=0):
+        return (float(enc_h[r, k, 0]), float(enc_h[r, k, 1]), scans_h[r, k])
+
+    server = SLAMServer(cfg, world.angles, seed=9, device=dev)
+    server.tick(*frame(0))          # builds and captures the graph
+    server.reset(9)
+    t0 = time.perf_counter()
+    replies = [server.tick(*frame(k)) for k in range(SERVE_FRAMES)]
+    serve_s = time.perf_counter() - t0
+    final, poses = slam.run_slam_episode(9, enc[0], scans[0], world.angles,
+                                         cfg, SLAM_START)
+    want = [[round(float(v), 6) for v in p] for p in poses.cpu().numpy()]
+    st = server.state
+    same = ([r["pose"] for r in replies] == want and not differing(
+        [st.poses, st.logodds, st.weights, st.scores, st.log_evidence],
+        [final.poses, final.logodds, final.weights, final.scores,
+         final.log_evidence]))
+    exported = server.export_map(os.path.join(tmp, "slam_learned"))
+    back = pgm.from_pgm(exported["yaml"], device=dev)
+    rep = SLAMServer(cfg, world.angles, seed=9, replicas=3, device=dev)
+    rep.tick(*frame(0))
+    t0 = time.perf_counter()
+    for k in range(1, FLEET_FRAMES):
+        reply = rep.tick(*frame(k))
+    rep_s = time.perf_counter() - t0
+    ev = rep.state.log_evidence
+    rep_ok = reply["replica"] == int(torch.argmax(ev))
+    starts = [SLAM_START] * FLEET_ROBOTS
+    fleet = SLAMFleetServer(cfg, world.angles, starts, seed=2, device=dev)
+    singles = [SLAMServer(cfg, world.angles, start_pose=starts[r],
+                          seed=2 * FLEET_ROBOTS + r, device=dev)
+               for r in range(FLEET_ROBOTS)]
+    fleet_s, fleet_same = 0.0, True
+    for k in range(FLEET_FRAMES):
+        t0 = time.perf_counter()
+        fr = fleet.tick(enc_h[:, k, 0], enc_h[:, k, 1], scans_h[:, k])
+        fleet_s += time.perf_counter() - t0 if k else 0.0
+        for r in range(FLEET_ROBOTS):
+            one = singles[r].tick(*frame(k, r))
+            fleet_same &= all(fr[key][r] == one[key]
+                              for key in ("pose", "best_pose", "ess",
+                                          "mapped"))
+    fst = fleet.state
+    fleet_same &= all(not differing(
+        [fst.poses[r], fst.logodds[r], fst.log_evidence[r]],
+        [s.state.poses, s.state.logodds, s.state.log_evidence])
+        for r, s in enumerate(singles))
+    row = dict(particles=SLAM_P, beams=SLAM_B, frames=SERVE_FRAMES,
+               server_equals_episode=same,
+               server_ms_per_frame=1e3 * serve_s / SERVE_FRAMES,
+               export_yaml_read_back=list(back.occ.shape),
+               replicas=3, replica_picks_argmax=rep_ok,
+               replicas_ms_per_frame=1e3 * rep_s / (FLEET_FRAMES - 1),
+               fleet_robots=FLEET_ROBOTS, fleet_frames=FLEET_FRAMES,
+               fleet_equals_standalone=fleet_same,
+               fleet_ms_per_frame=1e3 * fleet_s / (FLEET_FRAMES - 1))
+    say("slam_servers", **row)
+    if not (same and rep_ok and fleet_same
+            and list(back.occ.shape) == [m.height, m.width]):
+        raise AssertionError(f"SLAM servers: {row}")
+    return row
+
+
+SLAM_SERVE_RUNS = (1, 2)
+
+
+def slam_serve_cli_phase() -> None:
+    """(e) `serve --slam-serve` on 20 JSONL frames, one robot and
+    --robots 2: a reply a frame with the JAX server's keys, the summary
+    line on stderr."""
+    world = presets.make_world(device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    enc, scans, _ = robot.generate_wander_episode(
+        gen, world.maze, world.cfg, world.angles, 20, batch=2,
+        start_pose=SLAM_START)
+    keys = {"tick", "pose", "best_pose", "ess", "mapped"}
+    for robots in SLAM_SERVE_RUNS:
+        if robots == 1:
+            lines = [json.dumps(dict(encoder_left=float(enc[0, k, 0]),
+                                     encoder_right=float(enc[0, k, 1]),
+                                     ranges=scans[0, k].tolist()))
+                     for k in range(20)]
+        else:
+            lines = [json.dumps(dict(encoder_left=enc[:, k, 0].tolist(),
+                                     encoder_right=enc[:, k, 1].tolist(),
+                                     ranges=scans[:, k].tolist()))
+                     for k in range(20)]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", PKG, "serve",
+                            "--slam-serve", "--robots", str(robots)],
+                           input="\n".join(lines) + "\n",
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"serve --slam-serve: {r.stderr[-2000:]}")
+        replies = [json.loads(x) for x in r.stdout.splitlines()]
+        summary = json.loads(r.stderr.strip().splitlines()[-1])
+        want = keys | ({"replica", "log_evidence"} if robots == 1 else set())
+        ok = (len(replies) == 20 and all(set(x) == want for x in replies)
+              and summary == dict(preset="serve", slam=True, robots=robots,
+                                  ticks=20))
+        say("cli", args=["serve", "--slam-serve", "--robots", str(robots)],
+            seconds=time.perf_counter() - t0, frames=20, last=replies[-1],
+            summary=summary, ok=ok)
+        if not ok:
+            raise AssertionError(f"serve --slam-serve: {replies[-1]}")
+
+
+def render_phase(dev) -> dict:
+    """(f) The render tool on each source at RENDER_T ticks: frames, their
+    shape and seconds."""
+    from montecarlolocalisation_tpu_torch.tools import render_episode
+
+    m = presets.make_world(device=dev).maze
+    log = EpisodeLog.load(FIXTURE)
+    log = EpisodeLog(encoders=log.encoders[:RENDER_T],
+                     scan_ranges=log.scan_ranges[:RENDER_T],
+                     scan_angles=log.scan_angles,
+                     true_poses=log.true_poses[:RENDER_T])
+    runs = dict(
+        log=lambda: render_episode.run_and_capture(
+            m, FilterConfig(), log, RENDER_EVERY, 4),
+        closed_loop=lambda: render_episode.run_closed_loop_capture(
+            m, FilterConfig(), RENDER_T, 0, RENDER_EVERY, 4, SLAM_B),
+        slam=lambda: render_episode.run_slam_capture(
+            m, RENDER_T, 0, RENDER_EVERY, 4, SLAM_B))
+    out = {}
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        frames, labels = run()
+        out[name] = dict(frames=len(frames), shape=list(frames[0].shape),
+                         ticks=[labels[0], labels[-1]],
+                         seconds=time.perf_counter() - t0)
+        if not frames or any(f.dtype != np.uint8 or f.shape != frames[0].shape
+                             for f in frames):
+            raise AssertionError(f"render {name}: {out[name]}")
+    say("render", ticks=RENDER_T, every=RENDER_EVERY, **out)
+    return out
+
+
+def slam_stack_phase(dev) -> dict:
+    """The mapping and SLAM phases (a) to (f); (e)'s mapping and slam CLI
+    lines run in the CLI phase."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = dict(row=slam_row_phase(dev),
+                    invariants=slam_invariants_phase(dev),
+                    presets=slam_presets_phase(dev),
+                    servers=slam_servers_phase(dev, tmp))
+    slam_serve_cli_phase()
+    rows["render"] = render_phase(dev)
+    compiled.graphs.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -3360,6 +3860,7 @@ def main() -> None:
     cli_phase()
     replay_phase(dev)
     control_stack_phase(dev)
+    slam_stack_phase(dev)
     graphs_phase(dev)
     profile_phase(dev)
     ab_launched = ab_phase(m, gen)

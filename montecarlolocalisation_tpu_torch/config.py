@@ -1,8 +1,9 @@
 """The port's configuration dataclasses.
 
-A copy of the filter's and the controllers' part of
-montecarlolocalisation_tpu/config.py: the same class names, fields, defaults and frozen=True, so a config means the
-same thing in both packages (tests/test_torch_config.py holds them equal
+A copy of the filter's, the mapper's, SLAM's and the controllers' part
+of montecarlolocalisation_tpu/config.py: the same class names, fields,
+defaults and frozen=True, so a config means the same thing in both
+packages (tests/test_torch_config.py holds them equal
 field for field).  Each default is the reference value; the JAX package's
 file cites the reference line of each.  `interop.config_from` rebuilds one
 of these from any object with the same field names.
@@ -122,6 +123,66 @@ class KLDConfig:
     bin_xy: float = 0.5
     bin_theta: float = math.pi / 18.0
     subsample: int = 8192
+
+
+@dataclasses.dataclass(frozen=True)
+class MappingConfig:
+    """Occupancy-grid mapping (models/mapping).  The defaults are the
+    reference raster's geometry (publish_map_rviz.cpp:272-274: 49 px at
+    0.1 m a pixel), so a map learned on the default maze is pixel for
+    pixel comparable with the published one."""
+
+    height: int = 49
+    width: int = 49
+    resolution: float = 0.1
+    origin_x: float = 0.0
+    origin_y: float = 0.0
+    l_occ: float = 0.9               # log-odds a hit observation
+    l_free: float = 0.35             # log-odds a free-space crossing
+    clamp: float = 8.0               # saturation
+    half_width: float = 0.055        # beam half-width, m
+    hit_margin: float = 0.04         # near-side hit slack, m
+    hit_depth: float = 0.07          # far-side hit depth, m
+    max_trusted_range: float = 1.02  # drops the 1.05 NaN sentinel
+
+
+@dataclasses.dataclass(frozen=True)
+class SLAMConfig:
+    """Rao-Blackwellized particle-filter SLAM (models/slam): each particle
+    carries a pose and its own occupancy grid.  The fields' meaning and
+    the measurements behind each default are in the JAX package's
+    config.py:245-359."""
+
+    num_particles: int = 128
+    mapping: MappingConfig = MappingConfig()
+    sensor: SensorModelConfig = SensorModelConfig()
+    motion: MotionModelConfig = MotionModelConfig()
+    z_hit: float = 0.85
+    z_rand: float = 0.15
+    field_sigma_px: float = 1.0
+    field_radius_px: int = 4
+    z_short: float = 0.5
+    free_samples: int = 6
+    free_margin: float = 0.18
+    alpha_scale: float = 1.0
+    ess_threshold: float = 0.7
+    refine_iters: int = 0
+    refine_step_xy: float = 0.01
+    refine_step_theta: float = 0.01
+    proposal_candidates: int = 1
+    keyframe_trans: float = 0.0
+    keyframe_rot: float = 0.0
+    closure: bool = False
+    closure_xy_range: float = 0.15
+    closure_xy_steps: int = 7
+    closure_theta_range: float = 0.10
+    closure_theta_steps: int = 7
+    closure_margin: float = 2.0
+    closure_gain: float = 1.0
+    closure_min_beams: int = 8
+    closure_max_turn: float = 0.05
+    closure_cooldown: int = 2
+    closure_theta_margin: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)

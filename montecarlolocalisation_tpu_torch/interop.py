@@ -2,12 +2,12 @@
 port.
 
 Everything crosses as numpy arrays or plain values: `config_from`,
-`maze_from_numpy` and `state_from_numpy` read the fields of the JAX
-package's configs, MazeMap and MCLState (any object with those attribute
-names, so this module never imports the JAX package) into the port's
-dataclasses; `state_to_numpy` goes back.  A state batched over episodes
-(the JAX package's vmap-ed MCLState) crosses the same way and keeps its
-leading [E] on every field.  The JAX PRNG key cannot become a torch
+`maze_from_numpy`, `state_from_numpy` and `slam_state_from_numpy` read
+the fields of the JAX package's configs, MazeMap, MCLState and SLAMState
+(any object with those attribute names, so this module never imports the
+JAX package) into the port's dataclasses; `state_to_numpy` goes back.  A
+state batched over episodes (the JAX package's vmap-ed MCLState) crosses
+the same way and keeps its leading [E] on every field.  The JAX PRNG key cannot become a torch
 stream; it seeds the state's torch.Generator instead.
 """
 from __future__ import annotations
@@ -106,3 +106,27 @@ def state_to_numpy(state: MCLState) -> dict:
         cluster_threshold=n(state.cluster_threshold),
         confident_threshold=n(state.confident_threshold),
         best_pose=n(state.best_pose), seed=state.gen.initial_seed())
+
+
+def slam_state_from_numpy(src, device="cpu"):
+    """The port's SLAMState of a JAX SLAMState (one filter or a vmapped
+    batch, the leading dims kept); the PRNG key seeds the generator."""
+    from .models.slam import SLAMState
+
+    f32 = torch.float32
+    gen = torch.Generator(device=device)
+    gen.manual_seed(key_to_seed(src.key))
+    o = src.odom
+    return SLAMState(
+        poses=_t(src.poses, f32, device),
+        logodds=_t(src.logodds, f32, device),
+        weights=_t(src.weights, f32, device),
+        scores=_t(src.scores, f32, device),
+        odom=motion.OdometryState(
+            x=_t(o.x, f32, device), y=_t(o.y, f32, device),
+            theta=_t(o.theta, f32, device),
+            encoder_left=_t(o.encoder_left, f32, device),
+            encoder_right=_t(o.encoder_right, f32, device)),
+        gen=gen, kf_pose=_t(src.kf_pose, f32, device),
+        closure_cool=_t(src.closure_cool, torch.int32, device),
+        log_evidence=_t(src.log_evidence, f32, device))

@@ -40,6 +40,13 @@ to pinned host memory behind an event; waiting on that event does not
 wait for the tick just enqueued, so the fetch of tick t-1 overlaps the
 card computing tick t.  Replies lag one tick, each carries its own "tick"
 index, and `flush()` drains the tick in flight.
+
+`SLAMFleetServer` (fleet.py:293-462) serves R SLAM robots as one [R]
+SLAMState, one graph replay a fleet frame; robot r draws from its own
+generator, seeded seed * R + r, so it runs what a standalone SLAMServer
+of that seed runs.  Replies {"tick", "pose" [R][3], "best_pose", "ess"
+[R], "mapped" [R]}; `export_map` writes the robots' best maps fused by
+log-odds addition.
 """
 from __future__ import annotations
 
@@ -57,7 +64,8 @@ from ..models import compiled
 from ..models import filter as mcl
 from ..models import sensor
 from . import logs
-from .server import raw_to_beams
+from .server import (_serve_loop, _slam_frame_tick, export_learned,
+                     raw_to_beams)
 
 # Reply fields and their columns in the packed [R, 10] output.
 _COLUMNS = dict(exact_pose=slice(0, 3), cell_pose=slice(3, 6),
@@ -315,3 +323,138 @@ class MCLFleetServer:
             return False
         reply(dict(ok=True))
         return False
+
+
+class SLAMFleetServer:
+    """R live SLAM robots in one batched tick (module docstring).  The
+    robots share a world frame through their known start poses, as the
+    offline multi-robot mapper does; `reset_robot` redeploys one.  The
+    frame is copied into the graph's input from pinned host memory, one
+    buffer of two at a time, so a frame is never overwritten while the
+    card may still read it."""
+
+    def __init__(self, cfg, angles, start_poses, seed: int = 0,
+                 device="cuda"):
+        self.cfg = cfg                      # SLAMConfig
+        self.device = torch.device(device)
+        self.angles = np.asarray(angles, np.float32)
+        self._angles_dev = torch.as_tensor(self.angles, device=self.device)
+        self.start_poses = np.asarray(start_poses, np.float32)
+        if self.start_poses.ndim != 2 or self.start_poses.shape[1] != 3:
+            raise ValueError("start_poses must be [R, 3] (x, y, theta)")
+        self.n_robots = self.start_poses.shape[0]
+        self.tick_count = 0
+        self._graphs = compiled.GraphCache()
+        self._frames = compiled.HostFrames(
+            (1, self.n_robots, 2 + 2 * len(self.angles)), self.device)
+        self.reset(seed)
+
+    @property
+    def state(self):
+        return compiled.detach_state(self._carry["state"])
+
+    def _gen(self, seed: int, robot: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed * self.n_robots + robot)
+        return gen
+
+    def reset(self, seed: int = 0) -> None:
+        """Every robot anew at its start pose; robot r's stream seeded
+        seed * R + r."""
+        from ..models import slam
+
+        state = slam.init_slam(seed, self.start_poses, self.cfg,
+                               (self.n_robots,), self.device)
+        self._carry = dict(state=state, gens=tuple(
+            self._gen(seed, r) for r in range(self.n_robots)))
+        self.tick_count = 0
+
+    def reset_robot(self, robot: int, seed: int = 0) -> None:
+        """Redeploy ONE robot (its start pose, an empty map, its stream
+        seeded seed * R + robot); the others are untouched."""
+        from ..models import slam
+
+        if not 0 <= robot < self.n_robots:
+            raise ValueError(f"robot {robot} out of range "
+                             f"[0, {self.n_robots})")
+        fresh = slam.init_slam(0, self.start_poses[robot], self.cfg, (),
+                               self.device)
+
+        def put(batch, one):
+            if isinstance(batch, torch.Generator):
+                return batch            # the fleet state's own, unused
+            out = batch.clone()
+            out[robot] = one
+            return out
+
+        gens = list(self._carry["gens"])
+        gens[robot] = self._gen(seed, robot)
+        self._carry = dict(
+            state=compiled.tree_map(put, self._carry["state"], fresh),
+            gens=tuple(gens))
+
+    def checkpoint(self, path: str) -> None:
+        logs.save_tree(path, self._carry, dict(tick=self.tick_count))
+
+    def restore(self, path: str) -> None:
+        self._carry, extra = logs.load_tree(path, self._carry, self.device)
+        self.tick_count = int(extra.get("tick", self.tick_count))
+
+    def tick(self, encoder_left, encoder_right, ranges, mask=None) -> dict:
+        r, nb = self.n_robots, len(self.angles)
+        ranges = np.asarray(ranges, np.float32)
+        if ranges.shape != (r, nb):
+            raise ValueError(
+                f"ranges has shape {ranges.shape}; fleet expects "
+                f"({r}, {nb})")
+        frame = self._frames.take()
+        f = frame.numpy()[0]
+        f[:, 0] = np.asarray(encoder_left, np.float32)
+        f[:, 1] = np.asarray(encoder_right, np.float32)
+        f[:, 2:2 + nb] = ranges
+        f[:, 2 + nb:] = (1.0 if mask is None
+                         else np.asarray(mask, np.float32))
+        xs = dict(frame=frame)
+        graph = compiled.cached(self._graphs, _slam_frame_tick, self._carry,
+                                xs, None, 0, cfg=self.cfg,
+                                angles=self._angles_dev,
+                                robot_streams=True)
+        self._carry, ys = graph(self._carry, xs)
+        self._frames.sent()
+        v = ys[0].cpu().numpy().astype(np.float64)
+        self.tick_count += 1
+        return dict(tick=self.tick_count,
+                    pose=np.round(v[:, 0:3], 6).tolist(),
+                    best_pose=np.round(v[:, 3:6], 6).tolist(),
+                    ess=np.round(v[:, 6], 2).tolist(),
+                    mapped=[bool(x) for x in v[:, 7]])
+
+    def tick_raw(self, encoder_left, encoder_right, raws) -> dict:
+        """A fleet frame from R raw LaserScan dicts."""
+        if len(raws) != self.n_robots:
+            raise ValueError(f"got {len(raws)} raw scans for "
+                             f"{self.n_robots} robots")
+        nb = len(self.angles)
+        beams = [raw_to_beams(raw, self.cfg, nb) for raw in raws]
+        return self.tick(encoder_left, encoder_right,
+                         np.stack([b[0] for b in beams]),
+                         np.stack([b[1] for b in beams]))
+
+    def fused_logodds(self) -> np.ndarray:
+        """Each robot's best-particle map, fused by log-odds addition."""
+        from ..models import mapping, slam
+
+        return mapping.fuse_maps(
+            slam.best_map(self._carry["state"])).cpu().numpy()
+
+    def export_map(self, path: str) -> dict:
+        return export_learned(self.fused_logodds(), self.cfg, path)
+
+    def serve(self, lines: Iterable[str],
+              out_stream: Optional[IO[str]] = None) -> int:
+        """Drain a JSONL stream; returns the number of fleet frames run."""
+        return _serve_loop(self, lines, out_stream or sys.stdout,
+                           raw_key="raw_scans")
+
+    def _stats(self) -> dict:
+        return dict(tick=self.tick_count, robots=self.n_robots)

@@ -12,6 +12,10 @@ reference persists nothing (its filter state lives in memory):
   `extra` carries the caller's own integers (a server's tick count).  The
   format is the port's own; the JAX package's checkpoints hold a PRNG key,
   not a generator state.
+- `save_tree` / `load_tree`: any tree of dataclasses, dicts and tuples of
+  tensors and generators (a SLAMState, a SLAM fleet's state and per-robot
+  generators) in the same form, read back into the shape of a template,
+  as the JAX package's save_pytree / load_pytree do.
 """
 from __future__ import annotations
 
@@ -112,3 +116,83 @@ def load_state(path: str, device) -> Tuple[MCLState, Dict[str, int]]:
         inj=resample.InjectionState(**{k: t(f"inj.{k}") for k in _INJ}),
         gen=gen)
     return state, json.loads(bytes(z["extra_json"]).decode())
+
+
+def _join(name: str, key) -> str:
+    return f"{name}.{key}" if name else str(key)
+
+
+def _flat(tree, name: str, out: dict) -> None:
+    """`tree`'s tensors and generators by dotted name."""
+    if isinstance(tree, (torch.Tensor, torch.Generator)):
+        out[name] = tree
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            _flat(getattr(tree, f.name), _join(name, f.name), out)
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            _flat(v, _join(name, k), out)
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            _flat(v, _join(name, i), out)
+
+
+def save_tree(path: str, tree,
+              extra: Optional[Dict[str, int]] = None) -> None:
+    """Write every tensor and generator state of `tree` (and the integers
+    of `extra`) to an .npz at `path`."""
+    leaves: dict = {}
+    _flat(tree, "", leaves)
+    arrays = {}
+    for name, v in leaves.items():
+        if isinstance(v, torch.Generator):
+            arrays[name + ".gen_state"] = v.get_state().numpy()
+            arrays[name + ".gen_device"] = np.frombuffer(
+                v.device.type.encode(), dtype=np.uint8)
+        else:
+            arrays[name] = v.detach().cpu().numpy()
+    arrays["extra_json"] = np.frombuffer(
+        json.dumps(extra or {}).encode(), dtype=np.uint8)
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **arrays)
+
+
+def load_tree(path: str, like, device) -> Tuple[Any, Dict[str, int]]:
+    """Read a save_tree checkpoint onto `device` in the structure of
+    `like` (whose shapes it must have): (tree, extra).  Its generators
+    are new ones of `device`'s type, which must be the saved one."""
+    z = np.load(path)
+    device = torch.device(device)
+
+    def load(v, name):
+        if isinstance(v, torch.Generator):
+            saved = bytes(z[name + ".gen_device"]).decode()
+            if saved != device.type:
+                raise ValueError(f"the checkpoint holds a {saved} generator,"
+                                 f" not a {device.type} one")
+            gen = torch.Generator(device=device)
+            gen.set_state(torch.as_tensor(z[name + ".gen_state"],
+                                          dtype=torch.uint8))
+            return gen
+        t = torch.as_tensor(z[name], device=device)
+        if t.shape != v.shape or t.dtype != v.dtype:
+            raise ValueError(f"{name}: the checkpoint holds {t.dtype} "
+                             f"{tuple(t.shape)}, not {v.dtype} "
+                             f"{tuple(v.shape)}")
+        return t
+
+    def walk(tree, name):
+        if isinstance(tree, (torch.Tensor, torch.Generator)):
+            return load(tree, name)
+        if dataclasses.is_dataclass(tree):
+            return dataclasses.replace(tree, **{
+                f.name: walk(getattr(tree, f.name), _join(name, f.name))
+                for f in dataclasses.fields(tree)})
+        if isinstance(tree, dict):
+            return {k: walk(v, _join(name, k)) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(walk(v, _join(name, i))
+                              for i, v in enumerate(tree))
+        return tree
+
+    return walk(like, ""), json.loads(bytes(z["extra_json"]).decode())

@@ -42,6 +42,12 @@ generator, the tick count and the adapt policy's counter, so a restored
 server repeats the replies of the uninterrupted session exactly.  A line
 that is not JSON, misses keys or fails gets an {"error": ...} reply and the
 session goes on.
+
+`SLAMServer` (server.py:336-523) serves robots without a map: the same
+frames, one SLAM tick (models/slam) a frame, replies
+{"tick", "pose", "best_pose", "ess", "mapped"} (with replicas also
+"replica" and "log_evidence"), and the command
+{"cmd": "export_map", "path": p}, which writes the learned map.
 """
 from __future__ import annotations
 
@@ -374,3 +380,221 @@ class MCLServer:
             return False
         reply(dict(ok=True))
         return False
+
+
+def _slam_frame_tick(state, x: dict, consts, cfg, angles,
+                     robot_streams: bool = False):
+    """One SLAM tick on a frame [..., 2 + 2B] (each filter's encoders,
+    ranges and mask): (new state, the replies' numbers [..., 9]: pose,
+    best pose, ESS, mapped, log evidence).  With `robot_streams` the carry
+    is dict(state=, gens=), and filter r draws from gens[r] (a fleet of
+    robots, each its own stream)."""
+    from ..models import slam
+
+    gens = None
+    if robot_streams:
+        state, gens = state["state"], state["gens"]
+    frame = x["frame"]
+    nb = angles.shape[0]
+    draws = None
+    if gens is not None:
+        per = [slam.draw_slam(g, cfg, (), frame.device) for g in gens]
+        draws = slam.SLAMDraws(
+            normals=torch.stack([d.normals for d in per]),
+            gumbel=(None if per[0].gumbel is None
+                    else torch.stack([d.gumbel for d in per])),
+            u0=torch.stack([d.u0 for d in per]))
+    new, info = slam.slam_step(state, frame[..., 0], frame[..., 1],
+                               frame[..., 2:2 + nb], angles,
+                               frame[..., 2 + nb:], cfg, draws)
+    reply = torch.cat([info["pose"], info["best_pose"],
+                       torch.stack([info["ess"],
+                                    info["mapped"].to(torch.float32),
+                                    info["log_evidence"]], dim=-1)], dim=-1)
+    if gens is not None:
+        new = dict(state=new, gens=gens)
+    return new, reply
+
+
+def export_learned(lo, cfg, path: str) -> dict:
+    """Write a learned log-odds grid (host numpy) as a map_server PGM +
+    YAML and return the reply: its YAML path and the fitted wall tensor
+    as map.txt rows (server.py:467-483 of the JAX package)."""
+    from ..models import mapping
+
+    base = path[:-5] if path.endswith(".yaml") else path
+    mapping.export_learned_map(lo, cfg.mapping, base + ".pgm",
+                               base + ".yaml")
+    cell_px = int(round(0.8 / cfg.mapping.resolution))
+    walls = mapping.fit_walls(lo, cell_px=cell_px)
+    tensor = [[[e for e in range(4) if walls[r, c, e]]
+               for c in range(walls.shape[1])]
+              for r in range(walls.shape[0])]
+    return dict(ok=True, yaml=base + ".yaml", walls=tensor)
+
+
+class SLAMServer:
+    """Live SLAM for a robot without a map: a device-resident SLAMState,
+    one tick a frame, each one replay of this server's CUDA graph with the
+    frame copied from pinned host memory (as MCLServer's).
+
+    `replicas` > 1: K independent filters advance on every frame as one
+    [K] state, and the replies report the replica with the highest
+    accumulated log evidence (slam.run_slam_replicas' live form).
+    `state` is a copy of the live state, which the graph's buffers hold."""
+
+    def __init__(self, cfg, angles, start_pose=(1.25, 1.25, 0.0),
+                 seed: int = 0, replicas: int = 1, device="cuda"):
+        if replicas < 1:
+            raise ValueError("replicas must be >= 1")
+        self.cfg = cfg                     # SLAMConfig
+        self.device = torch.device(device)
+        self.angles = np.asarray(angles, np.float32)
+        self._angles_dev = torch.as_tensor(self.angles, device=self.device)
+        self.start_pose = tuple(float(v) for v in start_pose)
+        self.replicas = int(replicas)
+        self.tick_count = 0
+        self._graphs = compiled.GraphCache()
+        self._frames = compiled.HostFrames((1, 2 + 2 * len(self.angles)),
+                                           self.device)
+        self.reset(seed)
+
+    @property
+    def state(self):
+        return compiled.detach_state(self._state)
+
+    def reset(self, seed: int = 0) -> None:
+        from ..models import slam
+
+        batch = () if self.replicas == 1 else (self.replicas,)
+        self._state = slam.init_slam(seed, self.start_pose, self.cfg, batch,
+                                     self.device)
+        self.tick_count = 0
+
+    def checkpoint(self, path: str) -> None:
+        logs.save_tree(path, self._state, dict(tick=self.tick_count))
+
+    def restore(self, path: str) -> None:
+        self._state, extra = logs.load_tree(path, self._state, self.device)
+        self.tick_count = int(extra.get("tick", self.tick_count))
+
+    def _run_tick(self, frame: torch.Tensor) -> np.ndarray:
+        xs = dict(frame=frame)
+        graph = compiled.cached(self._graphs, _slam_frame_tick, self._state,
+                                xs, None, 0, cfg=self.cfg,
+                                angles=self._angles_dev)
+        self._state, ys = graph(self._state, xs)
+        return ys[0].cpu().numpy().astype(np.float64)
+
+    def tick(self, encoder_left: float, encoder_right: float, ranges,
+             mask=None) -> dict:
+        ranges = np.asarray(ranges, np.float32)
+        if ranges.shape != self.angles.shape:
+            raise ValueError(
+                f"ranges has shape {ranges.shape}, beam table has "
+                f"{self.angles.shape}")
+        nb = len(self.angles)
+        frame = self._frames.take()
+        f = frame.numpy()
+        f[0, :2] = (encoder_left, encoder_right)
+        f[0, 2:2 + nb] = ranges
+        f[0, 2 + nb:] = 1.0 if mask is None else np.asarray(mask, np.float32)
+        v = self._run_tick(frame)
+        self._frames.sent()
+        self.tick_count += 1
+        if self.replicas > 1:
+            pick = int(np.argmax(v[:, 8]))
+            return dict(tick=self.tick_count,
+                        pose=[round(float(x), 6) for x in v[pick, 0:3]],
+                        best_pose=[round(float(x), 6)
+                                   for x in v[pick, 3:6]],
+                        ess=round(float(v[pick, 6]), 2),
+                        mapped=bool(v[pick, 7]), replica=pick,
+                        log_evidence=[round(float(e), 2) for e in v[:, 8]])
+        return dict(tick=self.tick_count,
+                    pose=[round(float(x), 6) for x in v[0:3]],
+                    best_pose=[round(float(x), 6) for x in v[3:6]],
+                    ess=round(float(v[6]), 2), mapped=bool(v[7]))
+
+    def tick_raw(self, encoder_left: float, encoder_right: float,
+                 raw: dict) -> dict:
+        """One SLAM tick from a raw LaserScan message dict."""
+        radii, mask = raw_to_beams(raw, self.cfg, len(self.angles))
+        return self.tick(encoder_left, encoder_right, radii, mask)
+
+    def export_map(self, path: str) -> dict:
+        """Write the best particle's map (of the replica with the most
+        evidence) as a map_server PGM + YAML; the reply holds the fitted
+        wall tensor as map.txt rows."""
+        from ..models import slam
+
+        lo = slam.best_map(self._state)
+        if self.replicas > 1:
+            lo = lo[torch.argmax(self._state.log_evidence)]
+        return export_learned(lo.cpu().numpy(), self.cfg, path)
+
+    def serve(self, lines: Iterable[str],
+              out_stream: Optional[IO[str]] = None) -> int:
+        """Drain a JSONL stream; returns the number of frames run."""
+        return _serve_loop(self, lines, out_stream or sys.stdout,
+                           raw_key="raw_scan")
+
+    def _stats(self) -> dict:
+        return dict(tick=self.tick_count,
+                    particles=int(self._state.poses.shape[-2]))
+
+
+def _serve_loop(server, lines, out_stream, raw_key: str) -> int:
+    """The SLAM servers' JSONL loop: frames, and the commands reset
+    (with "robot" on a fleet), checkpoint, restore, export_map, stats and
+    shutdown.  A bad line gets an {"error": ...} reply."""
+    def reply(obj):
+        print(json.dumps(obj), file=out_stream, flush=True)
+
+    for line in lines:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            msg = json.loads(line)
+        except json.JSONDecodeError as e:
+            reply(dict(error=f"bad json: {e}"))
+            continue
+        try:
+            if "cmd" not in msg:
+                if raw_key in msg:
+                    reply(server.tick_raw(msg["encoder_left"],
+                                          msg["encoder_right"],
+                                          msg[raw_key]))
+                else:
+                    reply(server.tick(msg["encoder_left"],
+                                      msg["encoder_right"], msg["ranges"],
+                                      msg.get("mask")))
+                continue
+            cmd = msg["cmd"]
+            if cmd == "reset":
+                if "robot" in msg and hasattr(server, "reset_robot"):
+                    server.reset_robot(int(msg["robot"]),
+                                       int(msg.get("seed", 0)))
+                else:
+                    server.reset(int(msg.get("seed", 0)))
+                reply(dict(ok=True))
+            elif cmd == "checkpoint":
+                server.checkpoint(msg["path"])
+                reply(dict(ok=True))
+            elif cmd == "restore":
+                server.restore(msg["path"])
+                reply(dict(ok=True))
+            elif cmd == "export_map":
+                reply(server.export_map(msg["path"]))
+            elif cmd == "stats":
+                reply(server._stats())
+            elif cmd == "shutdown":
+                reply(dict(ok=True))
+                break
+            else:
+                reply(dict(error=f"unknown cmd {cmd!r}"))
+        except Exception as e:  # noqa: BLE001 — a long-lived server must
+            # survive any bad line: reply with the error instead.
+            reply(dict(error=f"{type(e).__name__}: {e}"))
+    return server.tick_count

@@ -1,7 +1,8 @@
 """The port's own config dataclasses against the JAX package's: the same
-classes, fields, defaults and frozen=True (the filter's and the
-controllers'), the same APF presets; and interop.config_from, which
-rebuilds a port config from a JAX one, round-trips."""
+classes, fields, defaults and frozen=True (the filter's, the mapper's,
+SLAM's and the controllers'), the same APF presets; and
+interop.config_from, which rebuilds a port config from a JAX one,
+round-trips."""
 import dataclasses
 
 import pytest
@@ -17,7 +18,7 @@ CLASSES = ["GridConfig", "SensorModelConfig", "MotionModelConfig",
            "ResampleConfig", "RefineConfig", "ClusterConfig",
            "HysteresisConfig", "InitConfig", "FilterConfig", "KLDConfig",
            "PIDConfig", "APFConfig", "WandererConfig", "AVFWandererConfig",
-           "AlignConfig"]
+           "AlignConfig", "MappingConfig", "SLAMConfig"]
 
 
 @pytest.mark.parametrize("name", CLASSES)
@@ -79,5 +80,16 @@ def test_config_from_round_trips():
                  "AlignConfig"):
         assert interop.config_from(getattr(jconfig, name)()) == \
             getattr(tconfig, name)()
+    scfg = jconfig.SLAMConfig(num_particles=32, proposal_candidates=3,
+                              closure=True,
+                              mapping=jconfig.MappingConfig(height=97))
+    tscfg = interop.config_from(scfg)
+    assert type(tscfg.mapping) is tconfig.MappingConfig
+    assert dataclasses.asdict(tscfg) == dataclasses.asdict(scfg)
+
+    @dataclasses.dataclass(frozen=True)
+    class NotAPortConfig:
+        x: int = 0
+
     with pytest.raises(TypeError):
-        interop.config_from(jconfig.SLAMConfig())
+        interop.config_from(NotAPortConfig())

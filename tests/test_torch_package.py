@@ -103,11 +103,16 @@ def test_entry_points_ask_for_the_card_by_default():
         maps.from_map_file(presets.DEFAULT_MAP)
     with pytest.raises((RuntimeError, AssertionError)):
         maps.from_walls([[[0, 1, 2, 3]]])
-    for args in (["sweep", "--batch", "2"], ["planning"]):
+    for args in (["sweep", "--batch", "2"], ["planning"], ["slam"]):
         r = subprocess.run([sys.executable, "-m", PKG, *args, "--ticks",
                             "2", "--particles", "16"], cwd=ROOT,
                            capture_output=True, text=True, timeout=300)
         assert r.returncode != 0 and "CUDA" in r.stderr, args
+    from montecarlolocalisation_tpu_torch.config import SLAMConfig
+    from montecarlolocalisation_tpu_torch.io.server import SLAMServer
+
+    with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+        SLAMServer(SLAMConfig(num_particles=8), np.zeros(4, np.float32))
 
 
 def _isolate_build(monkeypatch, tmp_path):

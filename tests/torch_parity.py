@@ -6,7 +6,8 @@ port runs on CPU tensors, where every kernel wrapper takes its plain
 version.  `jax_tick_draws` rebuilds the JAX package's key-split tree for
 one filter tick (filter.py:193, motion.py:80, resample.py:388,
 cluster.py:40-47), so the port can replay JAX's exact random numbers;
-`jax_episode_draws` does so for every tick of a batch of episodes.
+`jax_episode_draws` does so for every tick of a batch of episodes, and
+`jax_slam_draws` for one SLAM tick.
 """
 from __future__ import annotations
 
@@ -119,3 +120,24 @@ def jax_episode_draws(states, jm, n, cfg, num_ticks):
         out.append(stack([jax_tick_draws(k, jm, n, cfg) for k in keys]))
         keys = [jax.random.split(k, 4)[0] for k in keys]
     return out
+
+
+def jax_slam_draws(key, cfg):
+    """The random numbers JAX's slam_step draws from state key `key`
+    (slam.py:534-537, motion.py:80-86, :589-591, :639), as a port
+    SLAMDraws, and the next state key."""
+    from montecarlolocalisation_tpu_torch.models import slam as tslam
+
+    p, k = cfg.num_particles, cfg.proposal_candidates
+    if k > 1:
+        k_noise, k_pick, k_draw, k_next = jax.random.split(key, 4)
+    else:
+        k_noise, k_draw, k_next = jax.random.split(key, 3)
+    shape = (p, k) if k > 1 else (p,)
+    normals = jnp.stack([jax.random.normal(kk, shape)
+                         for kk in jax.random.split(k_noise, 3)])
+    gumbel = (t(jax.random.uniform(k_pick, (p, k),
+                                   minval=jnp.float32(1e-37), maxval=1.0))
+              if k > 1 else None)
+    return tslam.SLAMDraws(normals=t(normals), gumbel=gumbel,
+                           u0=t(jax.random.uniform(k_draw, ()))), k_next
