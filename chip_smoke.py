@@ -72,8 +72,24 @@ the filter through the entry points a user calls:
   SLAMServer over 200 frames equal to run_slam_episode bit for bit, with
   3 replicas, export_map read back, and a 4-robot SLAMFleetServer whose
   robots equal their standalone servers bit for bit; (e) the CLI's
-  mapping and slam lines and `serve --slam-serve` (one robot and two);
+  mapping and slam lines and `serve --slam-serve` (one robot and two),
+  the replica server's `stats` counting its replicas and `--particles 16`
+  serving 128 SLAM particles, as the JAX CLI does;
   (f) the render tool on its three sources;
+- calibration, frontier exploration and profiling: (a) the calibrate
+  preset (raises unless the wheel constants are within 2 % and 5 % and
+  sigma within 15 %, or unless its 500 and 400 epochs ran as CUDA graph
+  replays, none eagerly); (b) the slam preset with the frontier explorer
+  at the CLI's defaults and the mission (raises if the coverage ever
+  falls or does not grow, unless one explore graph served every phase,
+  or unless K3 batched replayed once a reloc and track tick), the
+  hybrid explorer at 1920 ticks and the mission on its map (raises
+  unless a mission is planned and K1 and K3 replayed once a mission
+  tick), then the hybrid policy and the wall follower at 3 phases; (c)
+  the stage knockout of the filter tick at 1,048,576 x 34 and 65,536 x
+  12 (raises unless K1, K2 where the resampler is systematic, and K3
+  replayed once a replay of every variant that keeps their stage), and
+  a profiler trace of one replay;
 - the compiled tick (models/compiled, CUDA graphs of mcl_step), graph
   against eager: every entry point above runs its ticks as graph replays,
   and the graphs phase runs each configuration from one state and one
@@ -131,8 +147,9 @@ Output, in order: the card (nvidia-smi name and power limit), the build,
 the kernel checks (F1 and F2 among them), the serve phase, the entry
 config, the kernel-vs-plain tick, the kernel times, the sweep, the two
 randomized-map sweeps, paths (a), (b) and (c), the fleet, the imported
-map, the CLI, the replay, the control stack, mapping and SLAM, the
-graphs phase, a device profile of one
+map, the CLI, the replay, the control stack, mapping and SLAM,
+calibration, exploration and profiling, the graphs phase, a device
+profile of one
 filter's eager tick at the serve's shapes and of one batched eager tick at
 the sweep's and the fleet's, the
 layout A/B, the batched kernels' times (the map-stack form's against
@@ -180,7 +197,7 @@ from montecarlolocalisation_tpu_torch.maps.grid import (
 )
 from montecarlolocalisation_tpu_torch.models import filter as mcl
 from montecarlolocalisation_tpu_torch.models import (
-    compiled, mapping, motion, refine, resample, sensor, slam,
+    calibrate, compiled, mapping, motion, refine, resample, sensor, slam,
 )
 from montecarlolocalisation_tpu_torch.models.raycast import march_steps
 from montecarlolocalisation_tpu_torch.ops import analytic, build, expand
@@ -188,8 +205,9 @@ from montecarlolocalisation_tpu_torch.ops import kmeans, weights
 from montecarlolocalisation_tpu_torch.parallel import episodes
 from montecarlolocalisation_tpu_torch.planning import bfs
 from montecarlolocalisation_tpu_torch.sim import (
-    align_sim, closed_loop, plan_exec, robot,
+    align_sim, closed_loop, frontier, plan_exec, robot,
 )
+from montecarlolocalisation_tpu_torch.utils import profiling
 
 SERVE_N, SERVE_B, SERVE_TICKS = 1_048_576, 34, 20
 ENTRY_N, ENTRY_B, ENTRY_TICKS = 65_536, 12, 50
@@ -2464,29 +2482,48 @@ def cli_phase() -> None:
     """The CLI's localisation, moving, planning, challenge, mapping and
     slam presets on the card (planning and challenge at their defaults:
     1500 x 24, 800 and 2000 ticks), each line well-formed and finite
-    (CLI_NULLABLE values may be null)."""
-    for args, keys in CLI_RUNS:
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", PKG, *args],
-                           capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            raise AssertionError(f"CLI {args}: {r.stderr[-2000:]}")
-        line = json.loads(r.stdout.strip().splitlines()[-1])
-        # position_error_m is null exactly where the filter is not
-        # localised (best_pose at the -1 sentinel).
-        unlocalised = line.get("best_pose", [0.0])[0] < 0
-        flat = []
-        for k, v in line.items():
-            if k in CLI_TEXT or (k == "position_error_m" and unlocalised) \
-                    or (k in CLI_NULLABLE and v is None):
-                continue
-            flat += _flat(v)
-        finite = all(isinstance(v, (int, float)) and math.isfinite(v)
-                     for v in flat)
-        say("cli", args=args, seconds=time.perf_counter() - t0, line=line,
-            finite=finite)
-        if set(line) != keys or not finite:
-            raise AssertionError(f"CLI {args}: {line}")
+    (CLI_NULLABLE values may be null).  The processes run together, each
+    with its own CUDA context: a line's seconds run from their common
+    start to its process's end."""
+    t0 = time.perf_counter()
+    runs = []
+    try:
+        for args, _ in CLI_RUNS:
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile(
+                "w+")
+            runs.append((subprocess.Popen([sys.executable, "-m", PKG, *args],
+                                          stdout=out, stderr=err,
+                                          text=True), out, err))
+        for (args, keys), (proc, out, err) in zip(CLI_RUNS, runs):
+            proc.wait(timeout=600)
+            out.seek(0)
+            err.seek(0)
+            if proc.returncode != 0:
+                raise AssertionError(f"CLI {args}: {err.read()[-2000:]}")
+            line = json.loads(out.read().strip().splitlines()[-1])
+            # position_error_m is null exactly where the filter is not
+            # localised (best_pose at the -1 sentinel).
+            unlocalised = line.get("best_pose", [0.0])[0] < 0
+            flat = []
+            for k, v in line.items():
+                if k in CLI_TEXT or (k == "position_error_m"
+                                     and unlocalised) \
+                        or (k in CLI_NULLABLE and v is None):
+                    continue
+                flat += _flat(v)
+            finite = all(isinstance(v, (int, float)) and math.isfinite(v)
+                         for v in flat)
+            say("cli", args=args, seconds=time.perf_counter() - t0,
+                line=line, finite=finite)
+            if set(line) != keys or not finite:
+                raise AssertionError(f"CLI {args}: {line}")
+    finally:
+        for proc, out, err in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
 
 
 def replay_phase(dev) -> dict:
@@ -3372,6 +3409,29 @@ SERVE_FRAMES, FLEET_ROBOTS, FLEET_FRAMES = 200, 4, 40
 RENDER_T, RENDER_EVERY = 40, 5
 
 
+# The slam preset's keys that are NaN where no episode qualifies (none
+# converged, none stayed on explored pixels): every other number of its
+# line must be finite.
+SLAM_MAYBE_UNDEFINED = frozenset((
+    "reloc_median_error_m", "reloc_in_coverage_frac",
+    "track_in_coverage_frac", "track_to_coverage_edge_frac"))
+
+
+def slam_line_faults(out: dict) -> list:
+    """The keys of a slam preset line whose values are not numbers, or
+    not finite (NaN allowed only for SLAM_MAYBE_UNDEFINED)."""
+    bad = []
+    for key, v in out.items():
+        if key in ("explore_mode", "mission_legs"):
+            continue
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            bad.append(key)
+        elif not math.isfinite(v) and not (
+                key in SLAM_MAYBE_UNDEFINED and v != v):
+            bad.append(key)
+    return bad
+
+
 def slam_config(m, **kw):
     fc = FilterConfig()
     return SLAMConfig(**dict(dict(
@@ -3575,11 +3635,7 @@ def slam_presets_phase(dev) -> dict:
     launched, replayed = counts(), replay_counts()
     say("slam_presets", preset="slam", seconds=wall, launches=launched,
         replayed=replayed, **out)
-    flat = [v for k, v in out.items()
-            if k not in ("explore_mode", "mission_legs") and v is not None]
-    bad = [v for v in flat if not isinstance(v, (int, float))
-           or (isinstance(v, float) and not math.isfinite(v)
-               and v == v)]
+    bad = slam_line_faults(out)
     reloc_t = min(max(SLAM_PRESET["num_ticks"] // 2, 150), 300)
     # No mission is driven where the learned map walls off the plan.
     mission_t = (SLAM_PRESET["mission_ticks"]
@@ -3718,7 +3774,9 @@ SLAM_SERVE_RUNS = (1, 2)
 def slam_serve_cli_phase() -> None:
     """(e) `serve --slam-serve` on 20 JSONL frames, one robot and
     --robots 2: a reply a frame with the JAX server's keys, the summary
-    line on stderr."""
+    line on stderr; the one robot's 4 replicas answer `stats` with K = 4
+    (D1), and `--particles 16 --slam-replicas 1` serves 128 SLAM
+    particles, as the JAX CLI does (D2)."""
     world = presets.make_world(device="cpu")
     gen = torch.Generator()
     gen.manual_seed(1)
@@ -3726,12 +3784,14 @@ def slam_serve_cli_phase() -> None:
         gen, world.maze, world.cfg, world.angles, 20, batch=2,
         start_pose=SLAM_START)
     keys = {"tick", "pose", "best_pose", "ess", "mapped"}
+    stats = '{"cmd": "stats"}'
+    single = [json.dumps(dict(encoder_left=float(enc[0, k, 0]),
+                              encoder_right=float(enc[0, k, 1]),
+                              ranges=scans[0, k].tolist()))
+              for k in range(20)]
     for robots in SLAM_SERVE_RUNS:
         if robots == 1:
-            lines = [json.dumps(dict(encoder_left=float(enc[0, k, 0]),
-                                     encoder_right=float(enc[0, k, 1]),
-                                     ranges=scans[0, k].tolist()))
-                     for k in range(20)]
+            lines = single + [stats]
         else:
             lines = [json.dumps(dict(encoder_left=enc[:, k, 0].tolist(),
                                      encoder_right=enc[:, k, 1].tolist(),
@@ -3747,7 +3807,11 @@ def slam_serve_cli_phase() -> None:
         replies = [json.loads(x) for x in r.stdout.splitlines()]
         summary = json.loads(r.stderr.strip().splitlines()[-1])
         want = keys | ({"replica", "log_evidence"} if robots == 1 else set())
-        ok = (len(replies) == 20 and all(set(x) == want for x in replies)
+        # D1: a replica server's stats count its 4 replicas, as JAX's.
+        stats_ok = robots != 1 or replies.pop() == dict(tick=20,
+                                                        particles=4)
+        ok = (stats_ok and len(replies) == 20
+              and all(set(x) == want for x in replies)
               and summary == dict(preset="serve", slam=True, robots=robots,
                                   ticks=20))
         say("cli", args=["serve", "--slam-serve", "--robots", str(robots)],
@@ -3755,6 +3819,20 @@ def slam_serve_cli_phase() -> None:
             summary=summary, ok=ok)
         if not ok:
             raise AssertionError(f"serve --slam-serve: {replies[-1]}")
+    # D2: --particles is the slam preset's alone, as in the JAX CLI: one
+    # replica of 128 SLAM particles, whatever --particles says.
+    args = ["serve", "--slam-serve", "--particles", "16", "--slam-replicas",
+            "1"]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", PKG, *args],
+                       input="\n".join(single[:3] + [stats]) + "\n",
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"serve --slam-serve: {r.stderr[-2000:]}")
+    reply = json.loads(r.stdout.strip().splitlines()[-1])
+    say("cli", args=args, seconds=time.perf_counter() - t0, stats=reply)
+    if reply != dict(tick=3, particles=128):
+        raise AssertionError(f"serve --slam-serve --particles 16: {reply}")
 
 
 def render_phase(dev) -> dict:
@@ -3802,6 +3880,258 @@ def slam_stack_phase(dev) -> dict:
     compiled.graphs.clear()
     torch.cuda.empty_cache()
     return rows
+
+
+# Calibration, frontier exploration and profiling (utils/profiling).
+CAL_STEPS = dict(fit_motion_params=500, fit_sensor_sigma=400)
+CAL_TOL = dict(wheel_size=0.02, wheel_space=0.05, sigma=0.15)
+# run_slam with the frontier explorer at the CLI's defaults, the mission
+# on; then the other explorers at EXPLORE_PHASES phases of 120 ticks.
+FRONTIER_PRESET = dict(SLAM_PRESET, explore_mode="frontier")
+# The CLI's default budget maps half the maze, and the mission is planned
+# on known-open edges only, so none is plannable there.  At this budget
+# seed 0's hybrid explorer maps enough of it (0.715 of the edges) for the
+# mission to plan and run, on the learned map, through K1 and K3.
+MISSION_EXPLORE = dict(SLAM_PRESET, num_ticks=1920, explore_mode="hybrid",
+                       relocalize=False)
+EXPLORE_PHASES, EXPLORE_PHASE_T = 3, 120
+KNOCKOUT_CONFIGS = (
+    dict(n=SERVE_N, beams=SERVE_B, ray_mode="analytic",
+         resample_method="systematic"),
+    dict(n=ENTRY_N, beams=ENTRY_B, ray_mode="fixed",
+         resample_method="multinomial"))
+KNOCKOUT_ITERS = 20
+
+
+@contextlib.contextmanager
+def recording(module, name: str, rows: list, after=None):
+    """Inside, module.name records each call: its arguments, its result,
+    its host seconds (the card synchronized at both ends) and `after()`
+    read just after it, appended to `rows`."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        before = {id(g) for g in compiled.graphs.entries()}
+        out, seconds = timed(lambda: fn(*args, **kw))
+        rows.append(dict(args=args, kw=kw, out=out, seconds=seconds,
+                         graphs=new_entries(before),
+                         after=None if after is None else after()))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield rows
+    finally:
+        setattr(module, name, fn)
+
+
+def epoch_runs() -> dict:
+    """The epochs that the calibration's epoch graphs in compiled.graphs
+    ran, by their own count: as CUDA graph replays and eagerly."""
+    ran = dict(replayed=0, eager=0)
+    for g in compiled.graphs.entries():
+        if g.step is calibrate._epoch:
+            ran["replayed" if g.cuda else "eager"] += g.replays
+    return ran
+
+
+def calibrate_phase(dev) -> dict:
+    """(a) presets.run_calibrate on the card: the JAX suite's recoveries
+    (CAL_TOL: the wheel constants within 2 % and 5 %, sigma within 15 %)
+    or a raise; every epoch a graph replay (500 and 400, none eager); the
+    wall time of each fit, its capture and ms an epoch."""
+    world = presets.make_world(device=dev)
+    compiled.graphs.clear()
+    fits = []
+    with contextlib.ExitStack() as stack:
+        for name in CAL_STEPS:
+            stack.enter_context(recording(
+                calibrate, name, fits, epoch_runs))
+        out, wall = timed(lambda: presets.run_calibrate(world, seed=0))
+    rows = {}
+    for name, fit in zip(CAL_STEPS, fits):
+        g = fit["graphs"]
+        steps = fit["kw"]["steps"]
+        epochs_s = fit["seconds"] - g["capture_s"] - g["instantiate_s"]
+        rows[name] = dict(seconds=fit["seconds"], steps=steps,
+                          ms_per_epoch=1e3 * epochs_s / steps, **g)
+    err = {k: abs(out[f"{k}_fit"] - out[f"{k}_true"]) / out[f"{k}_true"]
+           for k in CAL_TOL}
+    epochs = epoch_runs()
+    row = dict(out, relative_error=err, seconds=wall, epochs=epochs, **rows)
+    say("calibrate", **row)
+    want = sum(CAL_STEPS.values())
+    if (any(not math.isfinite(v) for v in out.values())
+            or any(err[k] >= tol for k, tol in CAL_TOL.items())
+            or epochs != dict(replayed=want, eager=0)
+            or [f["after"]["replayed"] for f in fits]
+            != [CAL_STEPS["fit_motion_params"], want]):
+        raise AssertionError(f"calibrate: {row}")
+    compiled.graphs.clear()
+    return row
+
+
+def _coverage_ok(cov) -> bool:
+    return (all(b >= a - 1e-9 for a, b in zip(cov, cov[1:]))
+            and cov[-1] > cov[0] and all(map(math.isfinite, cov)))
+
+
+def frontier_phase(dev) -> dict:
+    """(b) run_slam(explore_mode="frontier") at the CLI's defaults with the
+    mission: coverage by phase (never down, up from the first phase to
+    the last, or a raise), the explored-edge F1, the SLAM error, ms an
+    explore tick; one explore graph for every phase, replayed once a
+    chunk; K3 batched replayed once a reloc and track tick, K1 and K3
+    once a mission tick.  Then the mission after the hybrid explorer's
+    MISSION_EXPLORE run, which must plan one and replay K1 and K3 once a
+    mission tick; then the hybrid policy and the wall follower at
+    EXPLORE_PHASES phases."""
+    world = presets.make_world(num_particles=PRESET_N, device=dev)
+    m = world.maze
+    runs, phase_runs = [], []
+    reset_counts()
+    with recording(frontier, "run_frontier_slam", runs,
+                   lambda: [(g.replays, id(g))
+                            for g in compiled.graphs.entries()
+                            if g.step is frontier._tick]), \
+            recording(frontier, "explore_phase", phase_runs):
+        out, wall = timed(lambda: presets.run_slam(world, seed=0,
+                                                   **FRONTIER_PRESET))
+    launched, replayed = counts(), replay_counts()
+    (run,) = runs
+    cov = run["out"][1]["coverage"]
+    ticks = len(run["out"][1]["truth"])
+    k = compiled.TICKS_PER_GRAPH
+    graphs = run["after"]
+    phases = ticks // EXPLORE_PHASE_T
+    # The phases after the first replay a captured graph: their ms a
+    # tick, apart from the host's planning between phases.
+    later = phase_runs[1:]
+    row = dict(out, seconds=wall, explore_seconds=run["seconds"],
+               explore_ms_per_tick=1e3 * run["seconds"] / max(ticks, 1),
+               phase_seconds=[r["seconds"] for r in phase_runs],
+               phase_ms_per_tick=1e3 * sum(r["seconds"] for r in later)
+               / max(len(later) * EXPLORE_PHASE_T, 1),
+               coverage_by_phase=cov, explore_graphs=len(graphs),
+               explore_replays=sum(r for r, _ in graphs),
+               explore_graphs_built=run["graphs"]["graphs_built"],
+               launches=launched, replayed=replayed)
+    say("explore", preset="slam", **row)
+    reloc_t = min(max(ticks // 2, 150), 300)
+    mission_t = (FRONTIER_PRESET["mission_ticks"]
+                 if out["mission_waypoints_total"] else 0)
+    bad = slam_line_faults(out)
+    if (bad or not _coverage_ok(cov) or ticks != phases * EXPLORE_PHASE_T
+            or len(graphs) != 1
+            or row["explore_replays"] != phases * -(-EXPLORE_PHASE_T // k)
+            or replayed["kmeans_batched"] != 2 * reloc_t
+            or replayed["beam_weights"] != mission_t
+            or replayed["kmeans"] != mission_t):
+        raise AssertionError(f"frontier slam preset: {row}")
+    rows = dict(frontier=row)
+    reset_counts()
+    out, wall = timed(lambda: presets.run_slam(world, seed=0,
+                                               **MISSION_EXPLORE))
+    replayed = replay_counts()
+    mission_t = MISSION_EXPLORE["mission_ticks"]
+    rows["mission"] = dict(out, seconds=wall, replayed=replayed)
+    say("explore", preset="slam", what="mission after exploring",
+        **rows["mission"])
+    if (slam_line_faults(out) or not out["mission_waypoints_total"]
+            or replayed["beam_weights"] != mission_t
+            or replayed["kmeans"] != mission_t):
+        raise AssertionError(f"no mission after exploring, or K1 and K3 not "
+                             f"replayed once a mission tick: "
+                             f"{rows['mission']}")
+    scfg = slam_config(m)
+    for policy, kw in (("hybrid", {}),
+                       ("wallfollow", dict(wander_style="wallfollow"))):
+        (fst, info), seconds = timed(lambda: frontier.run_frontier_slam(
+            0, m, scfg, world.angles, phases=EXPLORE_PHASES,
+            phase_ticks=EXPLORE_PHASE_T, policy=policy, **kw))
+        cov = info["coverage"]
+        lo = slam.best_map(fst.slam).cpu().numpy()
+        walls, seen = mapping.fit_walls(lo, cell_px=8, return_explored=True)
+        f1 = mapping.wall_metrics(walls, m.walls.cpu().numpy(),
+                                  mask=seen)["f1"]
+        tail = max(len(info["truth"]) // 4, 1)
+        err = float(np.hypot(*(info["est"][-tail:, :2]
+                               - info["truth"][-tail:, :2]).T).mean())
+        rows[policy] = dict(coverage_by_phase=cov, f1_explored=f1,
+                            slam_final_err_m=err, seconds=seconds,
+                            ms_per_tick=1e3 * seconds
+                            / max(len(info["truth"]), 1))
+        say("explore", policy=policy, phases=EXPLORE_PHASES, **rows[policy])
+        if not (_coverage_ok(cov) and math.isfinite(err)):
+            raise AssertionError(f"explore {policy}: {rows[policy]}")
+    compiled.graphs.clear()
+    return rows
+
+
+def knockout_phase(dev) -> dict:
+    """(c) profiling.stage_knockout_times at the bench's 1,048,576 x 34
+    analytic systematic and at 65,536 x 12 fixed multinomial (each skip
+    set its own one-tick graph), K1, K2 (systematic only) and K3 replayed
+    once a replay of every variant that keeps their stage; then profiling.trace around one replay
+    of a filter graph, whose file must exist and be non-empty."""
+    rows = {}
+    for c in KNOCKOUT_CONFIGS:
+        world = presets.make_world(num_particles=c["n"], num_beams=c["beams"],
+                                   ray_mode=c["ray_mode"],
+                                   resample_method=c["resample_method"],
+                                   device=dev)
+        state = mcl.init_state(world.maze, world.cfg, seed=4)
+        scan = sensor.simulate_scan(world.maze, torch.tensor(
+            START, device=dev), world.angles, world.cfg.sensor)
+        reset_counts()
+        out = profiling.stage_knockout_times(world.maze, world.cfg, scan,
+                                             state, iters=KNOCKOUT_ITERS)
+        replayed = replay_counts()
+        # Each variant replays its graph iters + 1 times, and a stage's
+        # kernel runs in the variants that keep the stage: the full tick
+        # and the knockouts of the other stages.
+        kept = len(profiling.STAGES) * (KNOCKOUT_ITERS + 1)
+        want = dict(beam_weights=kept, kmeans=kept, systematic_expand=(
+            kept if c["resample_method"] == "systematic" else 0))
+        name = f"{c['n']}x{c['beams']}"
+        rows[name] = {k: 1e3 * v for k, v in out.items()}
+        say("profile", what="stage knockout (ms)", config=name,
+            ray_mode=c["ray_mode"], resample=c["resample_method"],
+            iters=KNOCKOUT_ITERS, replayed=replayed, **rows[name])
+        if not all(math.isfinite(v) for v in out.values()) \
+                or out["full"] <= 0.0 \
+                or any(replayed[k] != n for k, n in want.items()):
+            raise AssertionError(f"stage knockout {name}: {out}, kernels "
+                                 f"replayed {replayed}, want {want}")
+        del world, state
+        torch.cuda.empty_cache()
+    world = presets.make_world(num_particles=ENTRY_N, num_beams=ENTRY_B,
+                               device=dev)
+    enc, truth = drive(compiled.TICKS_PER_GRAPH)
+    ranges = scans(world.maze, truth, world.angles, world.cfg.sensor, 3)
+    state = mcl.init_state(world.maze, world.cfg, seed=4)
+    args = (torch.as_tensor(enc, device=dev), ranges,
+            torch.ones_like(ranges, dtype=torch.bool),
+            torch.as_tensor(world.angles, device=dev), world.maze, world.cfg)
+    mcl.run_ticks(state, *args)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            mcl.run_ticks(state, *args)
+        size = os.path.getsize(os.path.join(tmp, "trace.json"))
+    rows["trace_bytes"] = size
+    say("profile", what="trace of one replay", bytes=size)
+    if size <= 0:
+        raise AssertionError("profiling.trace wrote an empty trace")
+    compiled.graphs.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def explore_stack_phase(dev) -> dict:
+    """Calibration, frontier exploration and profiling: (a) to (c); (d)
+    runs in the SLAM CLI phase."""
+    return dict(calibrate=calibrate_phase(dev), explore=frontier_phase(dev),
+                knockout=knockout_phase(dev))
 
 
 def main() -> None:
@@ -3861,6 +4191,7 @@ def main() -> None:
     replay_phase(dev)
     control_stack_phase(dev)
     slam_stack_phase(dev)
+    explore_stack_phase(dev)
     graphs_phase(dev)
     profile_phase(dev)
     ab_launched = ab_phase(m, gen)

@@ -28,9 +28,14 @@ default maze (or `--map`, a map.txt wall list or a ROS map_server YAML),
           from their true poses (`--pose-source odom`: dead-reckoned, with
           `--slip`), the maps fuse, snap onto the cell lattice and a sweep
           relocalizes on the learned map; prints the wall metrics.
+  calibrate  a `--ticks` (200) wander log with 0.05 m range noise; fits
+          the wheel constants from guesses 15 % off and the sensor sigma
+          from a guess 3 times off (models/calibrate); prints the true and
+          fitted values.
   slam    RBPF SLAM (`--particles`, default 128, each with its own map) over
           a `--ticks` (1000) wander with `--slip` (0.03) wheel slip,
-          `--slam-replicas` (4) evidence-raced replicas, then
+          `--slam-replicas` (4) evidence-raced replicas (or `--explore
+          frontier|hybrid`, the closed-loop explorer), then
           relocalization and tracking on the learned map and, with
           `--mission`, the gold/pickup mission driven on it.
 
@@ -70,20 +75,22 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="montecarlolocalisation_tpu_torch")
     ap.add_argument("preset", choices=["localisation", "planning",
                                        "challenge", "moving", "serve",
-                                       "sweep", "mapping", "slam"])
+                                       "sweep", "calibrate", "mapping",
+                                       "slam"])
     ap.add_argument("--map", dest="map_path", default=None,
                     help="map file: a reference map.txt wall list, or a ROS "
                          "map_server YAML (+ PGM raster)")
     ap.add_argument("--particles", type=int, default=None,
-                    help="particles (default 1500; slam and serve "
-                         "--slam-serve: 128 SLAM particles, each with its "
-                         "own map)")
+                    help="particles (default 1500; slam: SLAM "
+                         "particles, default 128, each with its own map; "
+                         "serve --slam-serve runs 128 SLAM particles "
+                         "whatever this says, as the JAX CLI does)")
     ap.add_argument("--beams", type=int, default=24)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ticks", type=int, default=None,
                     help="ticks per episode (default: localisation 200, "
                          "planning 800, challenge 2000, moving 300, sweep "
-                         "150, mapping 600, slam 1000)")
+                         "150, calibrate 200, mapping 600, slam 1000)")
     ap.add_argument("--batch", type=int, default=64,
                     help="sweep: episodes in the batch")
     ap.add_argument("--tick-chunk", type=int, default=None,
@@ -123,8 +130,12 @@ def main(argv=None) -> None:
                          "--map)")
     ap.add_argument("--explore", default="wander",
                     choices=["wander", "frontier", "hybrid"],
-                    help="slam: the explorer; 'frontier' and 'hybrid' need "
-                         "sim/frontier, which the port does not have yet")
+                    help="slam: the explorer; 'wander' (the default) the "
+                         "scripted freer-side wanderer, 'frontier' the "
+                         "closed-loop explorer that targets the nearest "
+                         "frontier on the robot's own map (sim/frontier), "
+                         "'hybrid' wander phases, then frontier phases once "
+                         "coverage growth decays")
     ap.add_argument("--slam-replicas", type=int, default=None,
                     help="slam and serve --slam-serve (one robot): "
                          "replicas an episode, the winner by accumulated "
@@ -150,8 +161,11 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     slam = args.preset == "slam" or (args.preset == "serve"
                                      and args.slam_serve)
-    slam_particles = args.particles if slam else None
-    if args.particles is None or slam:
+    # --particles counts SLAM particles for the slam preset only, as in
+    # the JAX CLI (__main__.py:133 there): serve --slam-serve runs 128
+    # whatever it says.
+    slam_particles = args.particles if args.preset == "slam" else None
+    if args.particles is None or args.preset == "slam":
         args.particles = 1500
     for name, presets_ in (("pose_source", ("mapping",)),
                            ("slip", ("mapping", "slam")),
@@ -169,8 +183,6 @@ def main(argv=None) -> None:
             ap.error("--explore applies to the slam preset")
         if args.slam_replicas is not None:
             ap.error("--slam-replicas runs the wander explorer only")
-        ap.error(f"--explore {args.explore} needs sim/frontier, which the "
-                 f"port does not have yet (ROADMAP item 23)")
     if args.slam_replicas is not None and not (
             args.preset == "slam" or (slam and args.robots == 1)):
         ap.error("--slam-replicas applies to the slam preset and to serve "
@@ -259,6 +271,11 @@ def main(argv=None) -> None:
                                     seed=args.seed,
                                     tick_chunk=args.tick_chunk)
         print(_dumps({k: round(float(v), 4) for k, v in metrics.items()}))
+    elif args.preset == "calibrate":
+        out = presets.run_calibrate(world, seed=args.seed,
+                                    num_ticks=args.ticks or 200)
+        print(_dumps(dict(preset="calibrate", **{
+            k: round(float(v), 5) for k, v in out.items()})))
     elif args.preset == "mapping":
         out = presets.run_mapping(
             world, seed=args.seed, num_ticks=args.ticks or 600,
@@ -274,6 +291,7 @@ def main(argv=None) -> None:
             mission=args.mission, export=args.export,
             proposal_candidates=args.slam_candidates or 1,
             replicas=args.slam_replicas or 4,
+            explore_mode=args.explore,
             **({} if kf is None else dict(keyframe=kf)))
         print(_dumps(dict(preset="slam", **_rounded(out))))
     elif args.slam_serve:

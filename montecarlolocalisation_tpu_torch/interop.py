@@ -2,8 +2,9 @@
 port.
 
 Everything crosses as numpy arrays or plain values: `config_from`,
-`maze_from_numpy`, `state_from_numpy` and `slam_state_from_numpy` read
-the fields of the JAX package's configs, MazeMap, MCLState and SLAMState
+`maze_from_numpy`, `state_from_numpy`, `slam_state_from_numpy` and
+`explore_state_from_numpy` read the fields of the JAX package's configs,
+MazeMap, MCLState, SLAMState and ExploreState
 (any object with those attribute names, so this module never imports the
 JAX package) into the port's dataclasses; `state_to_numpy` goes back.  A
 state batched over episodes (the JAX package's vmap-ed MCLState) crosses
@@ -130,3 +131,25 @@ def slam_state_from_numpy(src, device="cpu"):
         gen=gen, kf_pose=_t(src.kf_pose, f32, device),
         closure_cool=_t(src.closure_cool, torch.int32, device),
         log_evidence=_t(src.log_evidence, f32, device))
+
+
+def explore_state_from_numpy(src, seed: int = 0, device="cpu"):
+    """The port's ExploreState of a JAX ExploreState (sim/frontier): the
+    robot, the SLAM state (slam_state_from_numpy) and the control fields;
+    the JAX state holds no key for the simulator, whose generator `seed`
+    seeds."""
+    from .sim.frontier import ExploreState
+    from .sim.robot import RobotState
+
+    f32 = torch.float32
+    r = src.robot
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return ExploreState(
+        robot=RobotState(**{k: _t(getattr(r, k), f32, device) for k in (
+            "x", "y", "theta", "encoder_left", "encoder_right")}),
+        slam=slam_state_from_numpy(src.slam, device),
+        est=_t(src.est, f32, device),
+        wp_idx=_t(src.wp_idx, torch.int32, device),
+        turn_left=_t(src.turn_left, torch.int32, device),
+        turn_sign=_t(src.turn_sign, f32, device), gen=gen)

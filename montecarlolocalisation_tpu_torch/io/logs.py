@@ -15,7 +15,8 @@ reference persists nothing (its filter state lives in memory):
 - `save_tree` / `load_tree`: any tree of dataclasses, dicts and tuples of
   tensors and generators (a SLAMState, a SLAM fleet's state and per-robot
   generators) in the same form, read back into the shape of a template,
-  as the JAX package's save_pytree / load_pytree do.
+  as the JAX package's save_pytree / load_pytree do; `save_pytree` /
+  `load_pytree` are those two with the JAX package's signatures.
 """
 from __future__ import annotations
 
@@ -196,3 +197,27 @@ def load_tree(path: str, like, device) -> Tuple[Any, Dict[str, int]]:
         return tree
 
     return walk(like, ""), json.loads(bytes(z["extra_json"]).decode())
+
+
+def _device_of(tree):
+    """The device of the first tensor of `tree` (the CPU if none)."""
+    leaves: dict = {}
+    _flat(tree, "", leaves)
+    for v in leaves.values():
+        if isinstance(v, torch.Tensor):
+            return v.device
+    return torch.device("cpu")
+
+
+def save_pytree(path: str, tree: Any) -> None:
+    """Checkpoint any tree of tensors and generators (an MCLState, a
+    SLAMState) to .npz: save_tree without extras, the JAX package's
+    signature (logs.py:65).  The format is the port's (save_tree's)."""
+    save_tree(path, tree)
+
+
+def load_pytree(path: str, like: Any) -> Any:
+    """Restore a save_pytree checkpoint into the structure of `like` (the
+    same shapes), on like's device (load_tree; logs.py:74 of the JAX
+    package)."""
+    return load_tree(path, like, _device_of(like))[0]

@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import sys
 from typing import IO, Iterable, Optional
 
@@ -66,6 +65,7 @@ from ..models import compiled
 from ..models import filter as mcl
 from ..models import kld as kldmod
 from ..models import resample, sensor
+from ..utils.angles import yaw_to_quaternion_z
 from . import logs
 
 
@@ -316,7 +316,7 @@ class MCLServer:
             tick=self.tick_count,
             exact_pose=[round(float(x), 6) for x in v[0:3]],
             # ExactPose.thetaQuaternion analog (msg/ExactPose.msg).
-            theta_quaternion=round(math.sin(0.5 * float(v[2])), 6),
+            theta_quaternion=round(yaw_to_quaternion_z(float(v[2])), 6),
             cell_pose=[int(x) for x in v[3:6]],
             confidence=round(float(v[6]), 6),
             song=int(v[7]),
@@ -540,8 +540,10 @@ class SLAMServer:
                            raw_key="raw_scan")
 
     def _stats(self) -> dict:
+        # The state's leading size, as the JAX server replies: the
+        # particles of one filter, the replicas K in replica mode.
         return dict(tick=self.tick_count,
-                    particles=int(self._state.poses.shape[-2]))
+                    particles=int(self._state.poses.shape[0]))
 
 
 def _serve_loop(server, lines, out_stream, raw_key: str) -> int:

@@ -303,6 +303,17 @@ def lookup(table: torch.Tensor, mx, my, maps=None):
     return inb & torch.take(table, flat)
 
 
+def get_cell(m: MazeMap, mx, my):
+    """Occupancy at pixel (mx, my) of one map, clamped to the raster
+    (getCell, monte_carlo.cpp:317-321; the caller masks out-of-bounds
+    pixels)."""
+    mx = torch.clamp(torch.as_tensor(mx, device=m.device), 0,
+                     m.width - 1).long()
+    my = torch.clamp(torch.as_tensor(my, device=m.device), 0,
+                     m.height - 1).long()
+    return m.occ[my, mx]
+
+
 def is_occupied(m: MazeMap, wx, wy):
     """True when the pixel under (wx, wy) is a wall; False out of map
     (monte_carlo.cpp:322-329)."""

@@ -60,7 +60,12 @@ def diff_drive_update(
     d_left = (enc_l - state.encoder_left) * cfg.wheel_size * 0.5
     d_right = (enc_r - state.encoder_right) * cfg.wheel_size * 0.5
     d_center = 0.5 * (d_left + d_right)
-    delta_theta = (d_left - d_right) * f32_reciprocal(cfg.wheel_space)
+    if isinstance(cfg.wheel_space, torch.Tensor):
+        # A trial value being fitted (models/calibrate): divided by, as
+        # JAX divides by its traced value, so the gradient flows.
+        delta_theta = (d_left - d_right) / cfg.wheel_space
+    else:
+        delta_theta = (d_left - d_right) * f32_reciprocal(cfg.wheel_space)
     theta = state.theta + delta_theta
     x = state.x + d_center * torch.cos(state.theta + 0.5 * delta_theta)
     y = state.y + d_center * torch.sin(state.theta + 0.5 * delta_theta)

@@ -66,6 +66,12 @@ def bfs_path(walls, start, goal) -> List[Tuple[int, int]]:
     return path[::-1]
 
 
+
+# The JAX package's name of its pure-Python path, of which this module is
+# the copy.
+bfs_path_py = bfs_path
+
+
 def bfs_distance(walls, start, goal) -> int:
     """Node count of the shortest path (0 = unreachable)."""
     return len(bfs_path(walls, start, goal))

@@ -54,6 +54,12 @@ def held_karp(dist) -> Tuple[int, List[int]]:
     return int(best - dist[last][0]), [0] + order[::-1]
 
 
+
+# The JAX package's name of its pure-Python path, of which this module is
+# the copy.
+held_karp_py = held_karp
+
+
 def plan_tour(walls, start_cell, waypoints: Sequence[Tuple[int, int]]):
     """generateTSPGraph + tsp_held_karp (executeChallenge.cpp:148-247).
 

@@ -385,8 +385,10 @@ def run_slam(world: World, seed: int = 0, num_ticks: int = 600,
              explore_mode: str = "wander", proposal_candidates: int = 1,
              keyframe=(0.15, 0.5), replicas: int = 4) -> dict:
     """The SLAM loop (presets.py:423-606 of the JAX package): a wander
-    with wheel slip (the encoders lie), RBPF SLAM over it (`replicas`
-    evidence-raced replicas, models/slam.run_slam_replicas), the best
+    with wheel slip (the encoders lie) and RBPF SLAM over it (`replicas`
+    evidence-raced replicas, models/slam.run_slam_replicas), or with
+    explore_mode "frontier" or "hybrid" the closed-loop explorer of
+    sim/frontier (phases of 120 ticks, `replicas` unused), then the best
     particle's map snapped onto the cell lattice, then relocalization and
     tracking sweeps on the learned map and, with `mission`, the gold /
     pickup TSP mission planned on the learned map and driven closed-loop
@@ -394,13 +396,9 @@ def run_slam(world: World, seed: int = 0, num_ticks: int = 600,
     the map updates; None updates every tick.  Every metric is computed
     on host copies after the runs."""
     from .models import mapping, slam
-    from .sim import robot
+    from .sim import frontier, robot
 
-    if explore_mode in ("frontier", "hybrid"):
-        raise ValueError(
-            f"explore_mode {explore_mode!r} needs sim/frontier, which the "
-            f"port does not have yet (ROADMAP item 23); use 'wander'")
-    if explore_mode != "wander":
+    if explore_mode not in ("wander", "frontier", "hybrid"):
         raise ValueError(f"unknown explore_mode {explore_mode!r}")
     m = world.maze
     dev = m.device
@@ -411,24 +409,36 @@ def run_slam(world: World, seed: int = 0, num_ticks: int = 600,
                       proposal_candidates=proposal_candidates,
                       keyframe_trans=kf_t, keyframe_rot=kf_r)
     start = (1.25, 1.25, 0.0)
-    sim_seed, slam_seed = _seeds(seed)
-    enc, scans, truth = robot.generate_wander_episode(
-        _gen(sim_seed, dev), m, world.cfg, world.angles, num_ticks,
-        start_pose=start, slip_noise=slip_noise, explore=True)
-    enc, scans = enc[0], scans[0]
-    if replicas > 1:
-        final, est, _ = slam.run_slam_replicas(
-            slam_seed, enc, scans, world.angles, scfg, start,
-            replicas=replicas)
+    if explore_mode == "wander":
+        sim_seed, slam_seed = _seeds(seed)
+        enc, scans, truth = robot.generate_wander_episode(
+            _gen(sim_seed, dev), m, world.cfg, world.angles, num_ticks,
+            start_pose=start, slip_noise=slip_noise, explore=True)
+        enc, scans = enc[0], scans[0]
+        if replicas > 1:
+            final, est, _ = slam.run_slam_replicas(
+                slam_seed, enc, scans, world.angles, scfg, start,
+                replicas=replicas)
+        else:
+            final, est = slam.run_slam_episode(slam_seed, enc, scans,
+                                               world.angles, scfg, start)
+        dr = mapping.dead_reckon_poses(enc, start, world.cfg.motion)
+        tn, est, dr = (v.cpu().numpy() for v in (truth[0], est, dr))
     else:
-        final, est = slam.run_slam_episode(slam_seed, enc, scans,
-                                           world.angles, scfg, start)
-    dr = mapping.dead_reckon_poses(enc, start, world.cfg.motion)
+        # Closed-loop exploration steered by the SLAM posterior
+        # (sim/frontier), in phases of 120 ticks; it runs no dead
+        # reckoning to compare with.
+        phase_ticks = 120
+        fst, finfo = frontier.run_frontier_slam(
+            seed, m, scfg, world.angles, start_pose=start,
+            phases=max(num_ticks // phase_ticks, 1),
+            phase_ticks=phase_ticks, slip_noise=slip_noise,
+            policy=explore_mode, static_map=True)
+        final = fst.slam
+        tn, est, dr = finfo["truth"], finfo["est"], None
+        num_ticks = len(tn)
     lo = slam.best_map(final).cpu().numpy()
-    tn, est, dr = (v.cpu().numpy() for v in (truth[0], est, dr))
     tail = max(num_ticks // 4, 1)   # the final stretch's mean error
-    dr_err = float(np.hypot(dr[:, 0] - tn[:, 0],
-                            dr[:, 1] - tn[:, 1])[-tail:].mean())
     slam_err = float(np.hypot(est[:, 0] - tn[:, 0],
                               est[:, 1] - tn[:, 1])[-tail:].mean())
     cell_px = int(round(m.cell_meters / m.resolution))
@@ -442,18 +452,42 @@ def run_slam(world: World, seed: int = 0, num_ticks: int = 600,
                slam_final_err_m=round(slam_err, 4),
                explored_edge_frac=round(float(np.mean(seen)), 4),
                **{k + "_explored": v for k, v in expl.items()},
-               **mapping.wall_metrics(learned_walls, truth_walls),
-               dead_reckon_final_err_m=round(dr_err, 4))
+               **mapping.wall_metrics(learned_walls, truth_walls))
+    if dr is not None:
+        out["dead_reckon_final_err_m"] = round(float(np.hypot(
+            dr[:, 0] - tn[:, 0], dr[:, 1] - tn[:, 1])[-tail:].mean()), 4)
     if export:
         base = export[:-5] if export.endswith(".yaml") else export
         mapping.export_learned_map(lo, mc, base + ".pgm", base + ".yaml")
         out["exported"] = base + ".yaml"
+    out.update(_on_learned_map(lo, world, num_ticks, seed, relocalize,
+                               mission, mission_ticks, gold_path,
+                               pickup_path, start))
+    return out
+
+
+def _on_learned_map(lo, world: World, num_ticks: int, seed: int,
+                    relocalize: bool = True, mission: bool = False,
+                    mission_ticks: int = 2000, gold_path: str = DEFAULT_GOLD,
+                    pickup_path: str = DEFAULT_PICKUP,
+                    start=(1.25, 1.25, 0.0)) -> dict:
+    """run_slam's steps after mapping, on the learned log-odds `lo`
+    [H, W] (host numpy) of a run of `num_ticks` ticks: the relocalization
+    and tracking sweeps and, with `mission`, the mission, each sensing
+    the true maze world.maze."""
+    from .models import mapping
+
+    m = world.maze
+    dev = m.device
+    cell_px = int(round(m.cell_meters / m.resolution))
+    learned_walls = mapping.fit_walls(lo, cell_px=cell_px)
     learned_maze = _maze_from_wall_tensor(learned_walls, dev)
     # The conservative maze keeps hypotheses and routes out of unexplored
     # space; the known-walls-only fit lets the sensor model credit beams
     # that cross the exploration frontier (sensor.beam_weights_partial).
     known_maze = _maze_from_wall_tensor(mapping.fit_walls(
         lo, cell_px=cell_px, unexplored_is_wall=False), dev)
+    out = {}
     if relocalize:
         ticks = min(max(num_ticks // 2, 150), 300)
         out.update(_relocalize_on(learned_maze, m, world, ticks, seed + 1000,
@@ -499,3 +533,40 @@ def _mission_on(learned_maze: MazeMap, learned_walls, world: World,
     return dict(mission_waypoints_reached=int(final.wp_idx),
                 mission_waypoints_total=len(drive_wps),
                 mission_legs=[list(leg.goal) for leg in plan.legs])
+
+
+def run_calibrate(world: World, seed: int = 0, num_ticks: int = 200) -> dict:
+    """Differentiable calibration (presets.py:609-640 of the JAX package):
+    simulate a wander log with the true constants and 0.05 m range noise,
+    fit (wheel_size, wheel_space) from guesses 15 % off (500 Adam epochs
+    at 5e-3) and sigma from a guess 3 times off (400 at 5e-2), through
+    models/calibrate; returns the true and fitted values and the motion
+    fit's last loss, as floats."""
+    from .models import calibrate
+    from .sim import robot
+
+    m = world.maze
+    mcfg = world.cfg.motion
+    start = (2.05, 2.05, 0.0)
+    scan_noise = 0.05   # the log's true range noise, what the fit recovers
+    enc, ranges, poses = robot.generate_wander_episode(
+        _gen(seed, m.device), m, world.cfg, world.angles, num_ticks,
+        start_pose=start, scan_noise=scan_noise)
+    enc, ranges, poses = enc[0], ranges[0], poses[0]
+    fit = calibrate.fit_motion_params(
+        enc, poses, mcfg,
+        init=dict(wheel_size=mcfg.wheel_size * 1.15,
+                  wheel_space=mcfg.wheel_space * 0.85),
+        steps=500, lr=5e-3, start_poses=start)
+    sig = calibrate.fit_sensor_sigma(
+        m, poses, ranges, world.angles, world.cfg.sensor,
+        init_sigma=3.0 * scan_noise, steps=400, lr=5e-2)
+    return dict(
+        wheel_size_true=mcfg.wheel_size,
+        wheel_size_fit=float(fit["wheel_size"]),
+        wheel_space_true=mcfg.wheel_space,
+        wheel_space_fit=float(fit["wheel_space"]),
+        sigma_true=scan_noise,
+        sigma_fit=float(sig["sigma"]),
+        motion_loss=float(fit["loss"]),
+    )

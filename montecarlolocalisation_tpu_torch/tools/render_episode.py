@@ -4,10 +4,13 @@ GIF.  The port's counterpart of tools/render_episode.py.
 When an episode locks onto a maze alias the convergence numbers alone
 cannot show it; a strip of the particle cloud over time can (the
 reference's analog: the RViz PoseArray topics, monte_carlo.cpp:563-608).
-Three sources:
+Four sources:
 
   --log PATH      replay an EpisodeLog (.npz; default: the port's copy of
                   the replay fixture) through the filter
+  --simulate      a wander episode on the map (sim/robot), through the
+                  filter; `--kidnap T` teleports the truth to (3.65, 3.65,
+                  1.57) at tick T while the encoders integrate on
   --closed-loop   closed-loop plan execution, with the heading-error arrow
                   (moveToPosition_server.cpp:94-130) and the APF force
                   panel (avf.cpp:292-294) the reference publishes
@@ -17,6 +20,8 @@ Three sources:
 
 Usage:
   python -m montecarlolocalisation_tpu_torch.tools.render_episode --log
+  python -m montecarlolocalisation_tpu_torch.tools.render_episode \\
+      --simulate --kidnap 60 --ticks 150 --device cpu
   python -m montecarlolocalisation_tpu_torch.tools.render_episode \\
       --closed-loop --ticks 150 --device cpu
   python -m montecarlolocalisation_tpu_torch.tools.render_episode --slam
@@ -90,6 +95,25 @@ def run_and_capture(m, cfg: FilterConfig, log: EpisodeLog, every: int,
 
 def _beam_table(beams: int) -> np.ndarray:
     return np.deg2rad(np.linspace(-118.0, 118.0, beams)).astype(np.float32)
+
+
+def simulated_log(m, cfg: FilterConfig, num_ticks: int, seed: int,
+                  beams: int, kidnap: int = 0) -> EpisodeLog:
+    """A wander episode from (1.25, 1.25, 0) as an EpisodeLog with its
+    true poses; with `kidnap` > 0 the truth jumps to (3.65, 3.65, 1.57)
+    at that tick (tools/render_episode.py:282-296 of the JAX package)."""
+    from ..sim import robot
+
+    angles = _beam_table(beams)
+    kw = (dict(kidnap_tick=kidnap, kidnap_pose=(3.65, 3.65, 1.57))
+          if kidnap else {})
+    gen = torch.Generator(device=m.device)
+    gen.manual_seed(seed)
+    enc, ranges, poses = robot.generate_wander_episode(
+        gen, m, cfg, angles, num_ticks, **kw)
+    return EpisodeLog(encoders=enc[0].cpu().numpy(),
+                      scan_ranges=ranges[0].cpu().numpy(),
+                      scan_angles=angles, true_poses=poses[0].cpu().numpy())
 
 
 def run_closed_loop_capture(m, cfg: FilterConfig, num_ticks: int, seed: int,
@@ -243,6 +267,8 @@ def main(argv=None) -> None:
     src.add_argument("--log", nargs="?", const=FIXTURE,
                      help="EpisodeLog .npz to replay (default: the replay "
                           "fixture)")
+    src.add_argument("--simulate", action="store_true",
+                     help="a wander episode on the map")
     src.add_argument("--closed-loop", action="store_true",
                      help="closed-loop plan execution with the controller "
                           "debug markers")
@@ -250,7 +276,7 @@ def main(argv=None) -> None:
                      help="RBPF SLAM map growth")
     ap.add_argument("--map", default=DEFAULT_MAP)
     ap.add_argument("--ticks", type=int, default=150,
-                    help="closed-loop and slam: ticks to run")
+                    help="simulate, closed-loop and slam: ticks to run")
     ap.add_argument("--particles", type=int, default=1500)
     ap.add_argument("--beams", type=int, default=24)
     ap.add_argument("--every", type=int, default=5,
@@ -258,6 +284,8 @@ def main(argv=None) -> None:
     ap.add_argument("--scale", type=int, default=8,
                     help="image pixels a map pixel")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kidnap", type=int, default=0,
+                    help="simulate: a kidnap at this tick (0 = none)")
     ap.add_argument("--out", default="episode.gif")
     ap.add_argument("--strip", default="episode_strip.ppm")
     ap.add_argument("--device", default="cuda")
@@ -265,6 +293,10 @@ def main(argv=None) -> None:
     for name in ("ticks", "particles", "beams", "every", "scale"):
         if getattr(args, name) < 1:
             ap.error(f"--{name} must be >= 1")
+    if args.kidnap and not args.simulate:
+        ap.error("--kidnap applies to --simulate")
+    if args.kidnap < 0:
+        ap.error("--kidnap must be >= 0")
 
     m = from_map_file(args.map, device=args.device)
     cfg = FilterConfig(num_particles=args.particles,
@@ -277,8 +309,11 @@ def main(argv=None) -> None:
             m, cfg, args.ticks, args.seed, args.every, args.scale,
             args.beams)
     else:
-        frames, labels = run_and_capture(m, cfg, EpisodeLog.load(args.log),
-                                         args.every, args.scale)
+        log = (simulated_log(m, cfg, args.ticks, args.seed, args.beams,
+                             args.kidnap)
+               if args.simulate else EpisodeLog.load(args.log))
+        frames, labels = run_and_capture(m, cfg, log, args.every,
+                                         args.scale)
     save_strip(frames, args.strip)
     print(f"wrote {args.strip} ({len(frames)} frames, ticks {labels[0]}..."
           f"{labels[-1]})")

@@ -30,6 +30,16 @@ def quantize_orientation(theta):
     return out.to(torch.int32)
 
 
+def yaw_to_quaternion_z(theta):
+    """Yaw -> the z component sin(theta / 2) of the pure-yaw quaternion,
+    the ExactPose.thetaQuaternion field (msg/ExactPose.msg), which the
+    reference declares and never assigns.  A tensor in, a tensor out; a
+    Python number in, a float out (in double precision)."""
+    if isinstance(theta, torch.Tensor):
+        return torch.sin(0.5 * theta)
+    return math.sin(0.5 * theta)
+
+
 def circular_mean(theta, weights=None, dim=None):
     """Mean angle via sin/cos sums (reference: monte_carlo.cpp:925-934)."""
     s = torch.sin(theta)

@@ -103,7 +103,8 @@ def test_entry_points_ask_for_the_card_by_default():
         maps.from_map_file(presets.DEFAULT_MAP)
     with pytest.raises((RuntimeError, AssertionError)):
         maps.from_walls([[[0, 1, 2, 3]]])
-    for args in (["sweep", "--batch", "2"], ["planning"], ["slam"]):
+    for args in (["sweep", "--batch", "2"], ["planning"], ["slam"],
+                 ["calibrate"], ["slam", "--explore", "frontier"]):
         r = subprocess.run([sys.executable, "-m", PKG, *args, "--ticks",
                             "2", "--particles", "16"], cwd=ROOT,
                            capture_output=True, text=True, timeout=300)
@@ -113,6 +114,18 @@ def test_entry_points_ask_for_the_card_by_default():
 
     with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
         SLAMServer(SLAMConfig(num_particles=8), np.zeros(4, np.float32))
+    from montecarlolocalisation_tpu_torch.models import calibrate
+    from montecarlolocalisation_tpu_torch.sim import frontier
+
+    with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+        frontier.init_explore(0, (1.25, 1.25, 0.0),
+                              SLAMConfig(num_particles=8))
+    with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+        calibrate.integrate_odometry(np.zeros((3, 2), np.float32),
+                                     (0.0, 0.0, 0.0),
+                                     presets.FilterConfig().motion)
+    # run_calibrate and run_frontier_slam take their device from the
+    # world's map: a world on the card cannot be made here (above).
 
 
 def _isolate_build(monkeypatch, tmp_path):

@@ -17,8 +17,10 @@
 - _maze_from_wall_tensor builds JAX's maze; run_mapping and run_slam (at
   small sizes) return the keys of the JAX presets (presets.py:175-606),
   and the CLI's mapping and slam lines carry the JAX CLI's keys
-  (__main__.py:193-232) with the flags passed through; `--explore
-  frontier` and its `--slam-replicas` are refused.
+  (__main__.py:193-232) with the flags passed through, `--explore`
+  among them; an unknown explore_mode, `--slam-replicas` under a
+  non-wander explorer and `--explore` outside the slam preset are
+  refused (tests/test_torch_frontier.py runs the frontier explorer).
 """
 import json
 import os.path as osp
@@ -216,8 +218,8 @@ def test_run_mapping_and_run_slam_return_the_jax_keys(tmp_path):
     for k in ("slam_final_err_m", "dead_reckon_final_err_m", "f1",
               "track_median_error_m"):
         assert np.isfinite(out[k]), k
-    with pytest.raises(ValueError, match="item 23"):
-        tpresets.run_slam(world, explore_mode="frontier")
+    with pytest.raises(ValueError, match="unknown explore_mode"):
+        tpresets.run_slam(world, explore_mode="spiral")
 
 
 def _main(capsys, *argv):
@@ -250,7 +252,8 @@ def test_cli_slam_line_passes_its_flags(capsys, monkeypatch):
     assert seen == dict(seed=0, num_ticks=30, num_particles=64,
                         slip_noise=0.08, mission=True, export=None,
                         proposal_candidates=3, replicas=2,
-                        keyframe=(0.1, 0.35), world_particles=1500)
+                        explore_mode="wander", keyframe=(0.1, 0.35),
+                        world_particles=1500)
     seen.clear()
     _main(capsys, "slam")
     assert (seen["num_ticks"], seen["num_particles"], seen["slip_noise"],
@@ -259,7 +262,7 @@ def test_cli_slam_line_passes_its_flags(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["slam", "--explore", "frontier"], "item 23"),
+    (["localisation", "--explore", "frontier"], "--explore applies"),
     (["slam", "--explore", "hybrid", "--slam-replicas", "2"],
      "wander explorer only"),
     (["mapping", "--mission"], "--mission applies"),

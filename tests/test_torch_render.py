@@ -2,9 +2,10 @@
 render_episode.py) on the CPU, checked as tests/test_tools.py:27-72
 checks the JAX tool: frames at ticks 0, every, 2 every, ... and the last,
 of the map's shape times the scale, uint8 RGB, changing over the episode;
-the strip's PPM header and width.  Each of the three sources runs (the
-replay fixture, the closed loop with its APF panel, SLAM), and a SLAM frame
-of a given log-odds grid and poses is byte-equal to the JAX tool's.
+the strip's PPM header and width.  Each of the four sources runs (the
+replay fixture, a simulated wander with a kidnap, the closed loop with its
+APF panel, SLAM), and a SLAM frame of a given log-odds grid and poses is
+byte-equal to the JAX tool's.
 """
 import os.path as osp
 import subprocess
@@ -64,6 +65,28 @@ def test_log_replay_frames(tmp_path):
     with open(strip, "rb") as f:
         data = f.read()
     assert data[:2] == b"P6" and f"{3 * 2 * w} {2 * h}".encode() in data
+
+
+def test_simulated_kidnap_frames():
+    m = _maze()
+    cfg = FilterConfig(num_particles=128)
+    log = tool.simulated_log(m, cfg, num_ticks=13, seed=0, beams=8,
+                             kidnap=6)
+    assert log.encoders.shape == (13, 2) and log.scan_ranges.shape == (13, 8)
+    # The truth jumps to the kidnap pose at tick 6 (and moves on from it
+    # within that tick).
+    np.testing.assert_allclose(log.true_poses[6, :2], (3.65, 3.65),
+                               atol=0.05)
+    assert np.hypot(*(log.true_poses[6, :2] - log.true_poses[5, :2])) > 1.0
+    frames, labels = tool.run_and_capture(m, cfg, log, every=4, scale=2)
+    h, w = m.occ.shape
+    _check_frames(frames, labels, [0, 4, 8, 12], (2 * h, 2 * w, 3))
+
+
+def test_cli_kidnap_needs_simulate(capsys):
+    with pytest.raises(SystemExit):
+        tool.main(["--log", "--kidnap", "5", "--device", "cpu"])
+    assert "--kidnap applies to --simulate" in capsys.readouterr().err
 
 
 def test_closed_loop_frames():

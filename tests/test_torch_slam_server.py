@@ -13,9 +13,14 @@ are the model).
 - Robot r of a fleet equals a standalone server of seed seed * R + r, bit
   for bit; the fused map covers more than one robot's; reset_robot leaves
   the others untouched; a fleet checkpoint repeats its replies.
-- `serve --slam-serve` answers a session, one robot and --robots 2.
+- `serve --slam-serve` answers a session, one robot and --robots 2, with
+  128 SLAM particles whatever --particles says (the JAX CLI's
+  behaviour).
+- In replica mode (K = 2, P = 16) `stats` replies what the JAX server
+  replies: particles = K, the state's leading size.
 """
 import json
+import os
 import subprocess
 import sys
 
@@ -228,6 +233,38 @@ def test_fleet_robots_equal_standalone_servers_bit_for_bit(tmp_path):
     assert replies[2]["error"].startswith("ValueError")
 
 
+def _jax_cfg(particles):
+    jw = jax_world(num_particles=64, num_beams=BEAMS)
+    m = jw.maze
+    return jw, JSLAM(num_particles=particles,
+                     mapping=JMapping(height=m.height, width=m.width,
+                                      resolution=float(m.resolution)),
+                     sensor=jw.cfg.sensor, motion=jw.cfg.motion,
+                     keyframe_trans=0.15, keyframe_rot=0.5)
+
+
+def test_replica_stats_match_jax_server():
+    world = _world()
+    enc, scans = _episode(world, batch=1, ticks=2)
+    lines = [json.dumps(_frame(enc, scans, k)) for k in range(2)]
+    lines += ['{"cmd": "stats"}']
+    cfg = SLAMConfig(num_particles=16,
+                     mapping=presets._mapping_config(world.maze),
+                     sensor=world.cfg.sensor, motion=world.cfg.motion,
+                     keyframe_trans=0.15, keyframe_rot=0.5)
+    _, replies = _serve(SLAMServer(cfg, world.angles, replicas=2,
+                                   device="cpu"), lines)
+    jw, jcfg = _jax_cfg(16)
+    sink = _Sink()
+    JaxSLAMServer(jcfg, jw.angles, replicas=2).serve(lines, sink)
+    jreplies = [json.loads(x) for x in sink.text.splitlines()]
+    assert replies[-1] == jreplies[-1] == {"tick": 2, "particles": 2}
+    # One filter: the particles.
+    _, replies = _serve(SLAMServer(cfg, world.angles, device="cpu"),
+                        lines[2:])
+    assert replies == [{"tick": 0, "particles": 16}]
+
+
 @pytest.mark.parametrize("robots", [1, 2])
 def test_serve_slam_cli(robots):
     world = _world()
@@ -239,6 +276,8 @@ def test_serve_slam_cli(robots):
                                  encoder_right=enc[:, k, 1].tolist(),
                                  ranges=scans[:, k].tolist()))
                  for k in range(3)]
+    if robots == 1:
+        lines.append('{"cmd": "stats"}')
     r = subprocess.run(
         [sys.executable, "-m", "montecarlolocalisation_tpu_torch", "serve",
          "--slam-serve", "--robots", str(robots), "--particles", "16",
@@ -248,6 +287,11 @@ def test_serve_slam_cli(robots):
         timeout=300)
     assert r.returncode == 0, r.stderr
     replies = [json.loads(s) for s in r.stdout.splitlines()]
+    if robots == 1:
+        # --particles 16 is not the SLAM server's count: the JAX CLI sets
+        # it for the slam preset only, and serve --slam-serve runs 128
+        # (here in 2 replicas, which stats counts).
+        assert replies.pop() == {"tick": 3, "particles": 2}
     assert [x["tick"] for x in replies] == [1, 2, 3]
     keys = {"tick", "pose", "best_pose", "ess", "mapped"}
     assert set(replies[0]) == (keys | {"replica", "log_evidence"}
@@ -255,3 +299,28 @@ def test_serve_slam_cli(robots):
     summary = json.loads(r.stderr.strip().splitlines()[-1])
     assert summary == dict(preset="serve", slam=True, robots=robots,
                            ticks=3)
+
+
+def test_serve_slam_cli_particles_match_jax_cli():
+    """serve --slam-serve --particles 16 runs 128 SLAM particles in both
+    CLIs: --particles counts SLAM particles for the slam preset only (JAX
+    __main__.py:133).  One replica, so stats counts the particles."""
+    world = _world()
+    enc, scans = _episode(world, batch=1, ticks=2)
+    text = "\n".join([json.dumps(_frame(enc, scans, k)) for k in range(2)]
+                     + ['{"cmd": "stats"}']) + "\n"
+    argv = ["serve", "--slam-serve", "--particles", "16", "--beams",
+            str(BEAMS), "--slam-replicas", "1"]
+    stats = []
+    for pkg, extra in (("montecarlolocalisation_tpu_torch",
+                        ["--device", "cpu"]),
+                       ("montecarlolocalisation_tpu", [])):
+        r = subprocess.run([sys.executable, "-m", pkg, *argv, *extra],
+                           input=text, capture_output=True, text=True,
+                           timeout=300,
+                           env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert r.returncode == 0, r.stderr[-2000:]
+        out = r.stdout.strip().splitlines()
+        assert len(out) == 3, out
+        stats.append(json.loads(out[-1]))
+    assert stats[0] == stats[1] == {"tick": 2, "particles": 128}
