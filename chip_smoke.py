@@ -90,6 +90,20 @@ the filter through the entry points a user calls:
   12 (raises unless K1, K2 where the resampler is systematic, and K3
   replayed once a replay of every variant that keeps their stage), and
   a profiler trace of one replay;
+- multi-GPU (parallel/distributed, parallel/multihost) at world size 1
+  under NCCL, every collective a real NCCL call captured in the graphs:
+  (a) make_sharded_step at 1,048,576 x 34 (analytic, systematic, sum) in
+  8-tick graphs against mcl_step's on the same draws (>= 99.9 % of rows
+  within 1e-5, confidence and best pose within 1e-4, n_injected equal),
+  K1 replayed once a tick and audited, and the ms a tick of both; (b)
+  make_sharded_step_batched at 1024 x 500 x 24 (fixed, systematic) for 16
+  ticks against run_episode_batch, K1 batched once a tick; (c)
+  slam_step_sharded at 128 particles x 49 x 49 px for 16 ticks against
+  slam_step; (d) run_multihost_episode_batch at 1024 x 500 x 24 x 300
+  from its own draws, bit for bit equal to run_episode_batch from the
+  same seed (raises below 0.65 converged), K1, K2 and K3 batched
+  replayed once a tick; (e) the production configuration (ESS
+  0.5, one round of refinement) through (a)'s step for 8 ticks;
 - the compiled tick (models/compiled, CUDA graphs of mcl_step), graph
   against eager: every entry point above runs its ticks as graph replays,
   and the graphs phase runs each configuration from one state and one
@@ -148,16 +162,17 @@ the kernel checks (F1 and F2 among them), the serve phase, the entry
 config, the kernel-vs-plain tick, the kernel times, the sweep, the two
 randomized-map sweeps, paths (a), (b) and (c), the fleet, the imported
 map, the CLI, the replay, the control stack, mapping and SLAM,
-calibration, exploration and profiling, the graphs phase, a device
-profile of one
+calibration, exploration and profiling, the graphs phase, the multi-GPU
+phase, a device profile of one
 filter's eager tick at the serve's shapes and of one batched eager tick at
 the sweep's and the fleet's, the
 layout A/B, the batched kernels' times (the map-stack form's against
 single-map K1 batched in device time), the two raster forms' device
 times, a {"kernels": [...]} line, the card again, and last {"ok": true,
 "device": {...}}.  In the kernels line, "launches" counts every launch on
-the kernel's main path (a graph's warm-up tick and its replays) and
-"replayed" the launches inside CUDA graph replays.
+the kernel's main path (a graph's warm-up tick and its replays),
+"replayed" the launches inside CUDA graph replays and
+"distributed_launches" the launches of the multi-GPU phase's paths.
 
 Usage: python3 chip_smoke.py
 """
@@ -2650,6 +2665,11 @@ def new_entries(before: set) -> dict:
                 pool_mib=sum(g.pool_bytes for g in gs) / 2**20)
 
 
+# Idle time at each end of a launch audit's profile (launch_audit): at
+# least AUDIT_MARGIN_S, and after the block at least the block's own wall
+# time.  With no margin a profile lost the block's last kernel in 2 of 25
+# probes; with 50 ms, none of 25 probes and 120 audits did.
+AUDIT_MARGIN_S = 0.05
 # Each kernel family of the port: the names of its kernels in a profile
 # (one of them launched once a wrapper call), and the KERNELS entries of
 # the wrappers that launch them.
@@ -2692,9 +2712,17 @@ def launch_audit(what: str):
     launched, replays = counts(), replay_counts()
     device = [f() for _, f in DEVICE_AUDIT]
     row = {}
+    # The profile's margins: stopped right after the block's last kernel,
+    # a profile at times lost that kernel's tick (the last of a replay,
+    # or the last frame of a server), though kernels launched after it
+    # were recorded.  Idle time at each end, the tail's growing with the
+    # block's length, keeps the block's kernels inside the profile.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(AUDIT_MARGIN_S)
+        t0 = time.perf_counter()
         yield row
         torch.cuda.synchronize()
+        time.sleep(max(AUDIT_MARGIN_S, time.perf_counter() - t0))
     names = {}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -4134,6 +4162,374 @@ def explore_stack_phase(dev) -> dict:
                 knockout=knockout_phase(dev))
 
 
+# -- phase: multi-GPU (parallel/distributed, parallel/multihost) ----------
+
+# World size 1 under NCCL (one card): every collective is a real NCCL
+# call, and the ring has no step.  (a) and (e) tick 1M x 34 in one graph of
+# 8 ticks; (b) and (c) run 16 ticks; (d) is the sweep's full width.
+DIST_T, DIST_LONG_T, DIST_TIMING_REPLAYS = 8, 16, 5
+# The kernels of each path that must replay once a tick.
+DIST_KERNELS = dict(
+    a=("beam_weights",), b=("beam_weights_batched",),
+    d=("beam_weights_batched", "systematic_expand_batched",
+       "kmeans_batched"), e=("beam_weights",))
+DIST_FLOOR = 0.65          # PERF.md section 2's plain sweep limit
+
+
+def nccl_world(dev, tmp: str):
+    """A one-rank NCCL process group on the card (its communicator made at
+    once: device_id), and the (1 x 1) mesh."""
+    import torch.distributed as dist
+
+    from montecarlolocalisation_tpu_torch.parallel import distributed as sd
+
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'rdzv')}",
+            world_size=1, rank=0,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+    return sd.make_mesh(1, 1)
+
+
+def shard_draws(d):
+    """mcl_step's TickDraws as one rank's ShardDraws: at world size 1 the
+    rank's block is the whole cloud and every draw means the same."""
+    from montecarlolocalisation_tpu_torch.parallel import distributed as sd
+
+    return sd.ShardDraws(motion_normals=d.motion_normals, resample=d.resample,
+                         kmeans_init=d.kmeans_init,
+                         kmeans_reseed=d.kmeans_reseed)
+
+
+def tick_draws(m, cfg, ticks: int, seed: int, batch=()):
+    gen = torch.Generator(device=m.device)
+    gen.manual_seed(seed)
+    return [mcl.draw_tick(gen, m, cfg.num_particles, cfg, batch)
+            for _ in range(ticks)]
+
+
+def hold_ticks(what: str, got, want, got_out, want_out) -> dict:
+    """A sharded run against its single-process counterpart on the same
+    draws: >= 99.9 % of particle rows within 1e-5, weights rtol 1e-5,
+    confidence and best pose within 1e-4, n_injected, songs and wanderer
+    commands equal; or a raise."""
+    close = torch.all(torch.abs(got.particles - want.particles) <= 1e-5,
+                      dim=-1)
+    row = dict(rows_within_1em5=float(close.float().mean()),
+               rows_bit_equal=float(torch.all(
+                   got.particles == want.particles, dim=-1).float().mean()),
+               weights_max_rel=float(torch.max(
+                   torch.abs(got.weights - want.weights)
+                   / torch.clamp(want.weights.abs(), min=1e-30))),
+               confidence_max_abs=float(torch.max(torch.abs(
+                   got_out.confidence - want_out.confidence))),
+               best_pose_max_abs=float(torch.max(torch.abs(
+                   got.best_pose - want.best_pose))),
+               finite=bool(torch.isfinite(got.particles).all()))
+    equal = all(torch.equal(getattr(got_out, f), getattr(want_out, f))
+                for f in ("n_injected", "song", "wanderer_cmd"))
+    say("distributed", what=what, against="single process", **row,
+        counts_equal=equal)
+    if not (row["finite"] and row["rows_within_1em5"] >= 0.999
+            and row["weights_max_rel"] <= 1e-5
+            and row["confidence_max_abs"] <= 1e-4
+            and row["best_pose_max_abs"] <= 1e-4 and equal):
+        raise AssertionError(f"distributed {what}: the sharded run differs "
+                             f"from its single-process counterpart: {row}")
+    return row
+
+
+def replayed_once_a_tick(what: str, names, ticks: int, graphs: int) -> dict:
+    """The launches of the kernels `names` since reset_counts(): each
+    replayed once a tick, and launched once more a graph (its warm-up);
+    no other kernel launched.  Raises otherwise."""
+    c, r = counts(), replay_counts()
+    row = dict(launches={k: c[k] for k in names},
+               replayed={k: r[k] for k in names})
+    say("distributed", what=what, **row)
+    bad = [k for k in names if r[k] != ticks or c[k] != ticks + graphs]
+    others = [k for k in KERNELS if k not in names and c[k]]
+    if bad or others:
+        raise AssertionError(f"distributed {what}: kernels {bad} did not "
+                             f"replay once a tick over {ticks} ticks "
+                             f"({graphs} graphs), or {others} launched")
+    return c
+
+
+def sharded_ticks_path(what: str, world, mesh, seed: int) -> dict:
+    """(a) and (e): make_sharded_step's 8-tick graph at 1M x 34 against
+    mcl_step's (run_ticks) on the same draws; K1 counted, replayed once a
+    tick and audited; the ms a tick of both, one replay each."""
+    from montecarlolocalisation_tpu_torch.parallel import distributed as sd
+
+    m, cfg = world.maze, world.cfg
+    enc, truth = drive(DIST_T)
+    enc = torch.as_tensor(enc, device=m.device)
+    ranges = scans(m, truth, world.angles, cfg.sensor, seed=seed)
+    mask = torch.ones(ranges.shape, dtype=torch.bool, device=m.device)
+    angles = torch.as_tensor(world.angles, device=m.device)
+    draws = tick_draws(m, cfg, DIST_T, seed)
+    state = mcl.init_state(m, cfg, seed)
+    step = sd.make_sharded_step(mesh, m, cfg)
+    block = sd.shard_state(state, mesh)
+    reset_counts()
+    (got, got_out), first_s = timed(lambda: step.ticks(
+        block, enc, ranges, mask, angles,
+        compiled.stack_ticks([shard_draws(d) for d in draws], 0)))
+    launched = replayed_once_a_tick(what, DIST_KERNELS[what[0]], DIST_T, 1)
+    got, got_out = compiled.detach_state(got), compiled.tree_map(
+        torch.clone, got_out)
+    want, want_out = mcl.run_ticks(state, enc, ranges, mask, angles, m, cfg,
+                                   compiled.stack_ticks(draws, 0))
+    row = hold_ticks(what, got, want, got_out, want_out)
+    if what.startswith("a"):
+        # The generators' graphs (no draws slab), built before the clock.
+        reps = DIST_TIMING_REPLAYS
+
+        def sharded():
+            step.ticks(block, enc, ranges, mask, angles)
+
+        def single():
+            mcl.run_ticks(state, enc, ranges, mask, angles, m, cfg)
+
+        sharded()
+        single()
+        sd_ms = 1e3 * timed(lambda: [sharded() for _ in range(reps)])[1] / (
+            reps * DIST_T)
+        one_ms = 1e3 * timed(lambda: [single() for _ in range(reps)])[1] / (
+            reps * DIST_T)
+        with launch_audit(f"distributed {what}") as audited:
+            sharded()
+        row.update(sharded_ms_per_tick=sd_ms, mcl_step_ms_per_tick=one_ms,
+                   launch_audit=audited)
+    say("distributed", what=what, particles=cfg.num_particles,
+        beams=len(world.angles), ticks=DIST_T, first_call_s=first_s, **{
+            k: v for k, v in row.items() if k.endswith("per_tick")})
+    compiled.graphs.clear()
+    del step
+    torch.cuda.empty_cache()
+    return dict(row, launches=launched)
+
+
+def batched_path(dev, mesh) -> dict:
+    """(b) make_sharded_step_batched at the sweep's 1024 x 500 x 24, fixed,
+    systematic, 16 ticks (two replays of one 8-tick graph) against
+    run_episode_batch on the same draws; K1 batched once a tick."""
+    from montecarlolocalisation_tpu_torch.parallel import distributed as sd
+
+    w = presets.make_world(num_particles=SWEEP_N, num_beams=SWEEP_B,
+                           ray_mode="fixed", resample_method="systematic",
+                           device=dev)
+    m, cfg = w.maze, w.cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    enc, ranges, _ = robot.generate_wander_episode(
+        gen, m, cfg, w.angles, DIST_LONG_T, batch=SWEEP_E,
+        start_pose=(2.05, 2.05, 0.0))
+    draws = tick_draws(m, cfg, DIST_LONG_T, 42, (SWEEP_E,))
+    state = sd.init_batched_state(43, m, cfg, SWEEP_E)
+    step = sd.make_sharded_step_batched(mesh, m, cfg)
+    reset_counts()
+    (got, got_out), wall_s = timed(lambda: step.episode(
+        sd.shard_state(state, mesh, episode_axis="episode"), enc, ranges,
+        w.angles, draws=[shard_draws(d) for d in draws]))
+    launched = replayed_once_a_tick("b", DIST_KERNELS["b"], DIST_LONG_T, 1)
+    (want, want_out), single_s = timed(lambda: episodes.run_episode_batch(
+        43, m, cfg, enc, ranges, w.angles, state=state, draws=draws))
+    row = hold_ticks("b", got, want, got_out, want_out)
+    # The same runs again: replays of the graphs the first runs built.
+    _, sd_s = timed(lambda: step.episode(
+        sd.shard_state(state, mesh, episode_axis="episode"), enc, ranges,
+        w.angles, draws=[shard_draws(d) for d in draws]))
+    _, one_s = timed(lambda: episodes.run_episode_batch(
+        43, m, cfg, enc, ranges, w.angles, state=state, draws=draws))
+    row.update(sharded_ms_per_tick=1e3 * sd_s / DIST_LONG_T,
+               run_episode_batch_ms_per_tick=1e3 * one_s / DIST_LONG_T)
+    say("distributed", what="b", episodes=SWEEP_E, particles=SWEEP_N,
+        beams=SWEEP_B, ticks=DIST_LONG_T, first_call_s=wall_s,
+        single_first_call_s=single_s, **{
+            k: v for k, v in row.items() if k.endswith("per_tick")})
+    k = compiled.TICKS_PER_GRAPH
+
+    def replay():
+        step.ticks(got, enc[:, :k], ranges[:, :k], None, w.angles)
+
+    replay()    # builds the generators' graph: the audit holds a replay
+    with launch_audit("distributed b") as audited:
+        replay()
+    compiled.graphs.clear()
+    del step
+    torch.cuda.empty_cache()
+    return dict(row, launches=launched, wall_s=wall_s, launch_audit=audited)
+
+
+def slam_shard_path(dev, mesh) -> dict:
+    """(c) slam_step_sharded at the SLAM row's width (128 particles, 49 x
+    49 maps, 24 beams) for 16 ticks against slam_step on the same draws;
+    ms a tick of both."""
+    from montecarlolocalisation_tpu_torch.parallel import distributed as sd
+
+    w = presets.make_world(num_beams=SLAM_B, device=dev)
+    cfg = slam_config(w.maze)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(44)
+    enc, ranges, _ = (v[0] for v in robot.generate_wander_episode(
+        gen, w.maze, FilterConfig(), w.angles, DIST_LONG_T,
+        start_pose=SLAM_START))
+    dgen = torch.Generator(device=dev)
+    dgen.manual_seed(45)
+    draws = [slam.draw_slam(dgen, cfg, (), dev) for _ in range(DIST_LONG_T)]
+    state = slam.init_slam(46, SLAM_START, cfg, device=dev)
+    step = sd.make_sharded_slam_step(mesh, cfg)
+
+    def sharded():
+        return step.episode(sd.shard_slam_state(state, mesh), enc, ranges,
+                            w.angles, draws=draws)
+
+    def single():
+        return slam.run_slam_episode(46, enc, ranges, w.angles, cfg,
+                                     SLAM_START, state0=state, draws=draws)
+
+    (got, infos), _ = timed(sharded)
+    (want, poses), _ = timed(single)
+    _, sd_s = timed(sharded)
+    _, one_s = timed(single)
+    rows = torch.all(torch.abs(got.poses - want.poses) <= 1e-5, dim=-1)
+    pixels = torch.abs(got.logodds - want.logodds) <= 1e-5
+    row = dict(ticks=DIST_LONG_T, particles=cfg.num_particles,
+               rows_within_1em5=float(rows.float().mean()),
+               pixels_within_1em5=float(pixels.float().mean()),
+               weights_max_rel=float(torch.max(
+                   torch.abs(got.weights - want.weights)
+                   / torch.clamp(want.weights, min=1e-30))),
+               log_evidence_abs=float(torch.abs(
+                   got.log_evidence - want.log_evidence)),
+               mean_pose_max_abs=float(torch.max(torch.abs(
+                   infos["pose"] - poses))),
+               resampled_ticks=int(infos["resampled"].sum()),
+               sharded_ms_per_tick=1e3 * sd_s / DIST_LONG_T,
+               slam_step_ms_per_tick=1e3 * one_s / DIST_LONG_T)
+    say("distributed", what="c", against="slam_step", **row)
+    if not (row["rows_within_1em5"] >= 0.999
+            and row["pixels_within_1em5"] >= 0.999
+            and row["weights_max_rel"] <= 1e-4
+            and row["log_evidence_abs"] <= 1e-4
+            and row["mean_pose_max_abs"] <= 1e-4
+            and bool(torch.isfinite(got.logodds).all())):
+        raise AssertionError(f"distributed c: the sharded SLAM differs from "
+                             f"slam_step: {row}")
+    compiled.graphs.clear()
+    del step
+    torch.cuda.empty_cache()
+    return row
+
+
+def multihost_path(dev) -> dict:
+    """(d) run_multihost_episode_batch at the sweep's 1024 x 500 x 24 x
+    300, fixed, systematic, from its own draws, against run_episode_batch
+    from the same seed, which draws the same numbers: bit for bit (the
+    tick tolerance reported beside), or a raise; raises below DIST_FLOOR
+    converged; K1, K2 and K3 batched replay once a tick, audited over one
+    more replay."""
+    from montecarlolocalisation_tpu_torch.maps import symmetry
+    from montecarlolocalisation_tpu_torch.parallel import multihost
+
+    w = presets.make_world(num_particles=SWEEP_N, num_beams=SWEEP_B,
+                           ray_mode="fixed", resample_method="systematic",
+                           device=dev)
+    m, cfg = w.maze, w.cfg
+    start, count = multihost.process_episode_slice(SWEEP_E)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(47)
+    enc, ranges, truth = robot.generate_wander_episode(
+        gen, m, cfg, w.angles, SWEEP_T, batch=count,
+        start_pose=(2.05, 2.05, 0.0))
+    k = compiled.TICKS_PER_GRAPH
+    reset_counts()
+    (final, outs), wall_s = timed(
+        lambda: multihost.run_multihost_episode_batch(
+            48, m, cfg, enc, ranges, w.angles))
+    graphs = 1 + (SWEEP_T % k > 0)
+    launched = replayed_once_a_tick("d", DIST_KERNELS["d"], SWEEP_T, graphs)
+    (want, want_out), single_s = timed(lambda: episodes.run_episode_batch(
+        48, m, cfg, enc, ranges, w.angles))
+    held = hold_ticks("d", final, want, outs, want_out)
+    got_t, want_t = (
+        [v for v in compiled.leaves(tree) if isinstance(v, torch.Tensor)]
+        for tree in ((final, outs), (want, want_out)))
+    bit_equal = (len(got_t) == len(want_t)
+                 and all(torch.equal(a, b) for a, b in zip(got_t, want_t))
+                 and torch.equal(final.gen.get_state(),
+                                 want.gen.get_state()))
+    if not bit_equal:
+        raise AssertionError(f"distributed d: the multihost sweep differs "
+                             f"from run_episode_batch: {held}")
+    sym = symmetry.maze_symmetries(m.walls.cpu().numpy(),
+                                   float(m.cell_meters))
+    metrics = episodes.sweep_rmse(final, truth, sym=sym)
+    with launch_audit("distributed d") as audited:
+        multihost.run_multihost_episode_batch(
+            48, m, cfg, enc[:, :k], ranges[:, :k], w.angles)
+    row = dict(episodes=SWEEP_E, particles=SWEEP_N, beams=SWEEP_B,
+               ticks=SWEEP_T, slice=[start, count], wall_s=wall_s,
+               ms_per_tick=1e3 * wall_s / SWEEP_T,
+               run_episode_batch_ms_per_tick=1e3 * single_s / SWEEP_T,
+               bit_equal=bit_equal, **metrics)
+    say("distributed", what="d", launch_audit=audited, **row)
+    if metrics["converged_frac"] < DIST_FLOOR:
+        raise AssertionError(f"distributed d: converged "
+                             f"{metrics['converged_frac']} < {DIST_FLOOR}")
+    compiled.graphs.clear()
+    torch.cuda.empty_cache()
+    return dict(row, launches=launched)
+
+
+def distributed_phase(dev) -> dict:
+    """Multi-GPU at world size 1 under NCCL: (a) make_sharded_step at the
+    bench's 1M x 34 (analytic, systematic, sum) in 8-tick graphs against
+    mcl_step; (b) make_sharded_step_batched at 1024 x 500 x 24 against
+    run_episode_batch; (c) slam_step_sharded against slam_step; (d)
+    run_multihost_episode_batch at 1024 x 500 x 24 x 300; (e) the
+    production configuration (ESS 0.5, one round of refinement) through
+    (a)'s step.  Returns each path's kernel launches (every count set to 0
+    just before the path)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # The group goes down on a failure too: a live NCCL group keeps
+        # the process from exiting until its monitor times out.
+        try:
+            mesh = nccl_world(dev, tmp)
+            say("distributed", what="world", backend=dist.get_backend(),
+                world_size=dist.get_world_size(),
+                mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)))
+            big = presets.make_world(
+                num_particles=SERVE_N, num_beams=SERVE_B,
+                ray_mode="analytic", resample_method="systematic",
+                device=dev)
+            rows = dict(a=sharded_ticks_path("a", big, mesh, 40))
+            del big
+            rows["b"] = batched_path(dev, mesh)
+            rows["c"] = slam_shard_path(dev, mesh)
+            rows["d"] = multihost_path(dev)
+            prod = presets.make_world(
+                num_particles=SERVE_N, num_beams=SERVE_B,
+                ray_mode="analytic", resample_method="systematic",
+                ess_threshold=ESS, refine_iters=1, device=dev)
+            rows["e"] = sharded_ticks_path("e", prod, mesh, 49)
+            del prod
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    say("distributed", what="phase", seconds=time.perf_counter() - t0)
+    launches = {name: 0 for name in KERNELS}
+    for path in rows.values():
+        for name, n in path.get("launches", {}).items():
+            launches[name] += n
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -4193,6 +4589,7 @@ def main() -> None:
     slam_stack_phase(dev)
     explore_stack_phase(dev)
     graphs_phase(dev)
+    dist_launched = distributed_phase(dev)
     profile_phase(dev)
     ab_launched = ab_phase(m, gen)
     times.update(batched_time_phase(m, gen))
@@ -4225,7 +4622,9 @@ def main() -> None:
     print(json.dumps(dict(kernels=[
         dict(name=name, route="cuda", source=k["source"],
              replaces=k["replaces"], launches=launches[name],
-             replayed=replays[name], max_abs_err=errs[name]["max_abs_err"],
+             replayed=replays[name],
+             distributed_launches=dist_launched[name],
+             max_abs_err=errs[name]["max_abs_err"],
              **{key: times[name][key] for key in keys})
         for name, k in KERNELS.items()])), flush=True)
     print(card(), flush=True)

@@ -12,6 +12,7 @@ cluster.py:40-47), so the port can replay JAX's exact random numbers;
 from __future__ import annotations
 
 import dataclasses
+import os
 import os.path as osp
 
 import jax
@@ -141,3 +142,128 @@ def jax_slam_draws(key, cfg):
               if k > 1 else None)
     return tslam.SLAMDraws(normals=t(normals), gumbel=gumbel,
                            u0=t(jax.random.uniform(k_draw, ()))), k_next
+
+
+def jax_shard_tick_draws(key, jm, n_loc, n_shards, cfg):
+    """Per shard s, the port ShardDraws of the random numbers JAX's
+    mcl_step_sharded draws on shard s from the replicated state key
+    `key` (distributed.py:433, :443, :228-245, :166-172, :356-373): the
+    per-shard keys fold in s, the shard-invariant ones do not."""
+    from montecarlolocalisation_tpu_torch.parallel import distributed as sd
+
+    _, k_motion, k_resample, k_cluster = jax.random.split(key, 4)
+    rc = cfg.resample
+    systematic = rc.method == "systematic"
+    ring = rc.sharded_exchange == "ring"
+    init, reseed = jax_kmeans_indices(k_cluster, n_loc * n_shards,
+                                      cfg.cluster)
+    u_key, _ = jax.random.split(jax.random.fold_in(k_resample, 0))
+    mn_key = jax.random.split(jax.random.fold_in(k_resample, 0), 8)[7]
+    tiny = jnp.float32(1e-37)
+    out = []
+    for s in range(n_shards):
+        shared = cfg.motion.shared_noise
+        k_m = k_motion if shared else jax.random.fold_in(k_motion, s)
+        normals = jnp.stack([jax.random.normal(k, () if shared else (n_loc,))
+                             for k in jax.random.split(k_m, 3)])
+        k_draw, k_inj, k_jx, k_jy, k_jt, k_fresh = jax.random.split(
+            jax.random.fold_in(k_resample, s), 6)
+        jitter = jnp.stack([jax.random.uniform(k, (n_loc,), minval=-1.0,
+                                               maxval=1.0)
+                            for k in (k_jx, k_jy, k_jt)])
+        fresh = jresample.sample_uniform_particles(k_fresh, jm, n_loc,
+                                                   cfg.init)
+        u = u0 = inject_r = spacings = extra = None
+        if systematic:
+            u0 = t(jax.random.uniform(u_key, ()))
+        if systematic or ring:
+            inject_r = t(jax.random.uniform(k_inj, (n_loc,)))
+        else:
+            u = t(jax.random.uniform(k_draw, (n_loc,)))
+        if ring and not systematic:
+            spacings = t(jax.random.uniform(jax.random.fold_in(mn_key, s),
+                                            (n_loc,), minval=tiny,
+                                            maxval=1.0))
+            extra = t(jax.random.uniform(
+                jax.random.fold_in(mn_key, n_shards), (), minval=tiny,
+                maxval=1.0))
+        out.append(sd.ShardDraws(
+            motion_normals=t(normals),
+            resample=tresample.ResampleDraws(jitter=t(jitter), fresh=t(fresh),
+                                             u=u, u0=u0, inject_r=inject_r),
+            kmeans_init=t(init, torch.int64),
+            kmeans_reseed=t(reseed, torch.int64),
+            spacings=spacings, spacing_extra=extra))
+    return out
+
+
+def jax_shard_slam_draws(key, p_loc, n_shards):
+    """Per shard, the port SLAMDraws of JAX's slam_step_sharded from state
+    key `key` (distributed.py:649-650, :667-668, :691), and the next state
+    key."""
+    from montecarlolocalisation_tpu_torch.models import slam as tslam
+
+    k_noise, k_draw, k_next = jax.random.split(key, 3)
+    u0 = t(jax.random.uniform(k_draw, ()))
+    out = []
+    for s in range(n_shards):
+        ks = jax.random.split(jax.random.fold_in(k_noise, s), 3)
+        normals = jnp.stack([jax.random.normal(k, (p_loc,)) for k in ks])
+        out.append(tslam.SLAMDraws(normals=t(normals), gumbel=None, u0=u0))
+    return out, k_next
+
+
+def as_numpy(tree):
+    """A JAX pytree of dataclasses (or a MazeMap) -> nested dicts of numpy
+    arrays, the form tests/torch_dist_child.py rebuilds with interop."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return {f.name: as_numpy(getattr(tree, f.name))
+                for f in dataclasses.fields(tree)}
+    if isinstance(tree, (int, float, bool)) or tree is None:
+        return tree
+    return np.asarray(tree)
+
+
+CHILD = osp.join(osp.dirname(osp.abspath(__file__)), "torch_dist_child.py")
+
+
+def spawn_ranks(world, jobs, tmp_path, timeout=240, env_of=None):
+    """Run `jobs` ((name, task, kwargs) of tests/torch_dist_child.py) on
+    `world` gloo ranks, each a process with one thread, joined by a file
+    rendezvous under tmp_path or, with `env_of` (rank -> variables), by
+    multihost.initialize reading those variables; returns one
+    {name: result} dict a rank."""
+    import subprocess
+    import sys
+    import uuid
+
+    run = tmp_path / f"ranks{world}-{uuid.uuid4().hex[:8]}"
+    run.mkdir()
+    job = run / "job.pt"
+    torch.save(jobs, job)
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root)
+    procs, logs = [], []
+    for r in range(world):
+        log = open(run / f"rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, CHILD, str(r), str(world),
+             "env" if env_of else str(run / "rdzv"), str(job), str(run)],
+            stdout=log, stderr=subprocess.STDOUT,
+            env=dict(env, **(env_of(r) if env_of else {}))))
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    if any(rcs):
+        tails = [(r, (run / f"rank{r}.log").read_text()[-3000:])
+                 for r in range(world) if rcs[r]]
+        raise AssertionError(f"ranks failed {rcs}: {tails}")
+    return [torch.load(run / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
