@@ -104,6 +104,20 @@ the filter through the entry points a user calls:
   same seed (raises below 0.65 converged), K1, K2 and K3 batched
   replayed once a tick; (e) the production configuration (ESS
   0.5, one round of refinement) through (a)'s step for 8 ticks;
+- the study tools (montecarlolocalisation_tpu_torch/tools/, the root
+  tools/ scripts' counterparts), each tool's main once at full width and
+  small depth: convergence_study (64 x 500 x 60, and 8 episodes with 2
+  rounds of refinement), reloc_sweep (16 episodes x 8 replicas x 1500 on
+  the half-explored maze), slam_sweep (2 episodes x 4 replicas x 128 x
+  200), explore_sweep (2 worlds, 480 ticks, every world in one map's
+  buffers: 3 graphs built), bench_fleet (64 robots), bench_slam,
+  bench_mapping, slam_scale and coverage_bound; every number they print
+  finite, each kernel family audited against the profiler on the first
+  run that launches it, the SLAM tools launching none; then
+  bench_matrix's 10k x 360 analytic and 4M x
+  34 rows, one dispatch each, after K1 at 360 beams (0.0 max-abs error),
+  K2 at 4,000,000 rows (bit-exact) and K3 at 4,000,000 points (centers
+  within 1e-4) are held against their plain versions;
 - the compiled tick (models/compiled, CUDA graphs of mcl_step), graph
   against eager: every entry point above runs its ticks as graph replays,
   and the graphs phase runs each configuration from one state and one
@@ -163,7 +177,7 @@ config, the kernel-vs-plain tick, the kernel times, the sweep, the two
 randomized-map sweeps, paths (a), (b) and (c), the fleet, the imported
 map, the CLI, the replay, the control stack, mapping and SLAM,
 calibration, exploration and profiling, the graphs phase, the multi-GPU
-phase, a device profile of one
+phase, the study tools, a device profile of one
 filter's eager tick at the serve's shapes and of one batched eager tick at
 the sweep's and the fleet's, the
 layout A/B, the batched kernels' times (the map-stack form's against
@@ -171,8 +185,9 @@ single-map K1 batched in device time), the two raster forms' device
 times, a {"kernels": [...]} line, the card again, and last {"ok": true,
 "device": {...}}.  In the kernels line, "launches" counts every launch on
 the kernel's main path (a graph's warm-up tick and its replays),
-"replayed" the launches inside CUDA graph replays and
-"distributed_launches" the launches of the multi-GPU phase's paths.
+"replayed" the launches inside CUDA graph replays,
+"distributed_launches" the launches of the multi-GPU phase's paths and
+"tools_launches" those of the study tools' runs.
 
 Usage: python3 chip_smoke.py
 """
@@ -4530,6 +4545,244 @@ def distributed_phase(dev) -> dict:
     return launches
 
 
+# -- the study tools ---------------------------------------------------------
+
+# Each study tool's main at full width and small depth: (tool, argv, the
+# kernels its path must launch).  The SLAM tools launch none.
+TOOL_BATCHED = ("beam_weights_batched", "systematic_expand_batched",
+                "kmeans_batched")
+TOOL_RUNS = (
+    ("convergence_study", ["--batch", "64", "--ticks", "60", "--particles",
+                           "500"], TOOL_BATCHED),
+    ("convergence_study", ["--batch", "8", "--ticks", "60", "--particles",
+                           "500", "--refine-iters", "2"], TOOL_BATCHED),
+    # Multinomial (the JAX tool's default) on a partial map: the weights
+    # are plain torch in both packages, so K3 batched alone.
+    ("reloc_sweep", ["--seeds", "7", "--replicas", "8", "--ticks", "100"],
+     ("kmeans_batched",)),
+    ("slam_sweep", ["--episodes", "2", "--ticks", "200", "--particles",
+                    "128", "--replicas", "4", "--keyframe-trans", "0.15",
+                    "--keyframe-rot", "0.5"], ()),
+    ("explore_sweep", ["--maps", "2", "--seeds-per-map", "1", "--ticks",
+                       "480"], ()),
+    ("bench_fleet", ["--robots", "64", "--ticks", "5"],
+     ("beam_weights_batched", "kmeans_batched")),
+    ("bench_slam", ["--particles", "32", "128", "--ticks", "80", "--fleet",
+                    "4", "--iters", "1"], ()),
+    ("bench_mapping", ["--episodes", "32", "--ticks", "80", "--iters", "1"],
+     ()),
+    ("slam_scale", ["--particles", "128", "--worlds", "6x6", "16x12",
+                    "--iters", "4"], ()),
+    ("coverage_bound", ["--ticks", "2400"], ()),
+)
+# bench_matrix's rows that no earlier phase runs as a whole tick, one
+# dispatch each through the port's bench, and the kernels each launches.
+MATRIX_ROWS = (("full fidelity: 10k x 360 analytic",
+                ("beam_weights", "systematic_expand", "kmeans")),
+               ("scaling: 4M x 34", ("beam_weights", "systematic_expand",
+                                     "kmeans")))
+NUMBER = r"-?(?:\d+(?:,\d{3})*(?:\.\d*)?(?:e[-+]?\d+)?|nan|inf)"
+
+
+def printed(main, argv) -> tuple:
+    """(the lines main(argv) prints, seconds); the lines are echoed."""
+    import io
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        main(list(argv))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    return lines, seconds
+
+
+def tool_lines(name: str, argv) -> tuple:
+    """(the lines tools.<name>.main prints on the card, seconds)."""
+    import importlib
+
+    tool = importlib.import_module(f"{PKG}.tools.{name}")
+    return printed(tool.main, list(argv) + (
+        [] if name == "coverage_bound" else ["--device", "cuda"]))
+
+
+def tool_numbers(name: str, lines) -> dict:
+    """The numbers of a tool's lines by key (JSON lines) or in order (text
+    lines), raising on one that is not finite, except where no episode
+    qualified: the error means of a sweep with none converged or tracked
+    and the median error of a reloc seed with no hit."""
+    import re
+
+    nums = {}
+    for i, line in enumerate(lines):
+        if line.startswith("{"):
+            row = json.loads(line)
+            for k, v in row.items():
+                if isinstance(v, (int, float)) and not isinstance(v, bool):
+                    nums[f"{i}.{k}"] = float(v)
+            if row.get("converged_frac") == 0.0 or row.get(
+                    "tracked_episodes_frac") == 0.0:
+                nums = {k: v for k, v in nums.items()
+                        if not ("rmse" in k and v != v)}
+        else:
+            vals = [float(v.replace(",", "")) for v in
+                    re.findall(NUMBER, line.split(": ", 1)[-1])]
+            if line.startswith("converged 0/"):
+                vals = vals[:-1]          # median_err(hit) of no hit: nan
+            for j, v in enumerate(vals):
+                nums[f"{i}.{j}"] = v
+    bad = [k for k, v in nums.items() if not math.isfinite(v)]
+    if bad or not nums:
+        raise AssertionError(f"tools {name}: non-finite or missing numbers "
+                             f"{bad}: {lines}")
+    return nums
+
+
+def tool_checks(name: str, lines, nums: dict) -> dict:
+    """The tool's own checks on its output; raises on a failed one."""
+    import re
+
+    row = {}
+    if name == "convergence_study":
+        row["converged_frac"] = json.loads(lines[0])["converged_frac"]
+        ok = row["converged_frac"] > 0.0
+    elif name == "reloc_sweep":
+        hit = re.match(r"converged (\d+)/(\d+)", lines[0])
+        row["converged"] = f"{hit.group(1)}/{hit.group(2)}"
+        ok = int(hit.group(2)) == 16
+    elif name == "slam_sweep":
+        f1 = [float(v) for v in re.findall(r"F1 (\S+) \(min", " ".join(
+            lines))]
+        row["mean_f1"] = f1
+        ok = len(lines) == 2 and all(0.0 <= v <= 1.0 for v in f1)
+    elif name == "explore_sweep":
+        out = json.loads(lines[-1])
+        cov = [v for k, v in out.items() if "_cov" in k
+               and isinstance(v, float)]
+        # One wander, one SLAM and one explore graph for both worlds.
+        row.update(captures=out["captures"],
+                   wander_cov=out["wander_cov@480"],
+                   frontier_cov=out["frontier_cov@480"])
+        ok = out["captures"] == 3 and all(0.0 <= v <= 1.0 for v in cov)
+    elif name == "bench_fleet":
+        out = json.loads(lines[0])
+        row.update(tick_ms=out["tick_ms"], device_ms=out["device_ms"])
+        ok = out["device_ms"] > 0.0 and out["robots"] == 64
+    else:
+        ok = len(lines) >= 2
+    if not ok:
+        raise AssertionError(f"tools {name}: a check failed: {lines}")
+    return row
+
+
+def check_matrix_kernels(dev, gen) -> dict:
+    """The kernels at bench_matrix's new shapes against their plain
+    versions: K1 at 10,000 x 360 beams (analytic, both combines; 0.0
+    max-abs error), K2 at 4,000,000 rows (bit-exact) and K3 at 4,000,000
+    points (centers within 1e-4).  These launches are not the path's."""
+    m = presets.make_world(device=dev).maze
+    err = 0.0
+    for comb in ("sum", "log"):
+        cfg = SensorModelConfig(ray_mode="analytic", beam_combine=comb)
+        parts, scan = k1_inputs(m, 10_000, 360, cfg, gen)
+        got = weights.beam_weights_cuda(m, parts, scan, cfg)
+        want = weights.beam_weights_plain(m, parts, scan, cfg)
+        e = (got - want).abs().max().item()
+        say("tools", check="beam_weights", n=10_000, beams=360,
+            combine=comb, max_abs_err=e)
+        if not (e == 0.0 and torch.isfinite(got).all()):
+            raise AssertionError(f"K1 at 360 beams ({comb}): {e}")
+        err = max(err, e)
+    n = 4_000_000
+    parts = k2_rows((n,), gen, dev)
+    for kind in ("uniform", "skewed", "glitched"):
+        u0 = torch.rand((), generator=gen, device=dev)
+        cdf = k2_cdf(kind, n, u0, gen, dev)
+        got, _ = run_k2(expand.systematic_expand_cuda, parts, cdf, u0)
+        if not torch.equal(got, expand.systematic_expand_plain(parts, cdf,
+                                                               u0)):
+            raise AssertionError(f"K2 at 4M ({kind}): not bit-exact")
+    say("tools", check="systematic_expand", n=n, bit_exact=True)
+    xy = torch.cat([blobs(n, gen, dev),
+                    torch.randn((n, 1), generator=gen, device=dev)], 1)[:, :2]
+    c0 = xy[torch.randint(0, n, (3,), generator=gen, device=dev)]
+    rs = xy[torch.randint(0, n, (20, 3), generator=gen, device=dev)]
+    k3 = k3_against_plain(kmeans.kmeans_cuda, xy, c0, rs, n=n)
+    return dict(beam_weights=err, systematic_expand=0.0, kmeans=k3)
+
+
+def tools_phase(dev) -> tuple:
+    """The study tools (montecarlolocalisation_tpu_torch/tools/): each
+    tool's main once (TOOL_RUNS), every line finite and each tool's check
+    held, each run's kernels launched alike (once a tick) and the first
+    run of each kernel family audited against the profiler
+    (launch_audit), the SLAM tools launching none; then bench_matrix's
+    10k x 360 analytic and 4M x 34 rows, one dispatch each, after their
+    kernels are held against their plain versions at those shapes.
+    Returns (the launches of every run, counted from 0 before the first,
+    the check's max-abs errors)."""
+    import importlib
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(131)
+    errs = check_matrix_kernels(dev, gen)
+    say("tools", what="checks", at_s=time.perf_counter() - t0)
+    matrix = importlib.import_module(f"{PKG}.tools.bench_matrix")
+    reset_counts()
+    audited_kernels = set()
+    for name, argv, kernels in TOOL_RUNS:
+        before = counts()
+        # A run is audited where it launches a kernel no audited run of
+        # the phase launched: a profile costs seconds a run (the
+        # refinement run's holds some 10^5 kernels), and bench_fleet,
+        # which profiles the card itself, cannot nest in one.
+        if not set(kernels) <= audited_kernels:
+            audited_kernels.update(kernels)
+            with launch_audit(f"tools {name}") as audited:
+                lines, seconds = tool_lines(name, argv)
+        else:
+            lines, seconds = tool_lines(name, argv)
+            audited = None
+        nums = tool_numbers(name, lines)
+        launched = {k: v - before[k] for k, v in counts().items() if
+                    v - before[k]}
+        say("tools", tool=name, argv=argv, seconds=seconds,
+            at_s=time.perf_counter() - t0,
+            launches=launched, numbers=len(nums), audit=audited,
+            **tool_checks(name, lines, nums))
+        if sorted(launched) != sorted(kernels) or len(
+                set(launched.values())) > 1:
+            raise AssertionError(f"tools {name}: launched {launched}, its "
+                                 f"path's kernels are {kernels}, each once "
+                                 f"a tick")
+    configs = dict(matrix.CONFIGS)
+    for row, kernels in MATRIX_ROWS:
+        argv = list(configs[row])
+        argv[argv.index("--iters") + 1] = "1"
+        before = counts()
+        with launch_audit(f"tools bench_matrix {row}") as audited:
+            lines, seconds = printed(bench.main, argv)
+        out = json.loads(lines[-1])
+        launched = {k: v - before[k] for k, v in counts().items() if
+                    v - before[k]}
+        say("tools", tool="bench_matrix", row=row, argv=argv,
+            seconds=seconds, at_s=time.perf_counter() - t0,
+            launches=launched, audit=audited,
+            ms_per_step=out["ms_per_step"], value=out["value"])
+        if not (math.isfinite(out["value"]) and out["value"] > 0) or \
+                sorted(launched) != sorted(kernels):
+            raise AssertionError(f"tools bench_matrix {row}: {out}, "
+                                 f"launched {launched}")
+    compiled.graphs.clear()
+    torch.cuda.empty_cache()
+    say("tools", what="phase", seconds=time.perf_counter() - t0)
+    return counts(), errs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card; "
@@ -4590,6 +4843,9 @@ def main() -> None:
     explore_stack_phase(dev)
     graphs_phase(dev)
     dist_launched = distributed_phase(dev)
+    tools_launched, tools_errs = tools_phase(dev)
+    for name, err in tools_errs.items():
+        errs[name]["max_abs_err"] = max(errs[name]["max_abs_err"], err)
     profile_phase(dev)
     ab_launched = ab_phase(m, gen)
     times.update(batched_time_phase(m, gen))
@@ -4624,6 +4880,7 @@ def main() -> None:
              replaces=k["replaces"], launches=launches[name],
              replayed=replays[name],
              distributed_launches=dist_launched[name],
+             tools_launches=tools_launched[name],
              max_abs_err=errs[name]["max_abs_err"],
              **{key: times[name][key] for key in keys})
         for name, k in KERNELS.items()])), flush=True)

@@ -21,15 +21,20 @@ CUDA events, and the rate counts iters x K ticks.  vs_baseline is against
 the reference's implied ceiling, 1500 particles x 34 beams x 10 Hz on a
 Raspberry Pi 4 (BASELINE.md).
 
+--device cpu runs the same ticks eagerly on the CPU, timed with the host
+clock (the study tools' bench_matrix passes it through); its numbers are
+the CPU's, never the card's.
+
 Usage: python -m montecarlolocalisation_tpu_torch.bench [--particles N]
        [--beams B] [--iters I] [--ray-mode M] [--resample R]
-       [--beam-combine C] [--scan-chunk K] [--ess T]
+       [--beam-combine C] [--scan-chunk K] [--ess T] [--device D]
 """
 from __future__ import annotations
 
 import argparse
 import json
 import subprocess
+import time
 
 import torch
 
@@ -58,17 +63,18 @@ def filter_config(args: argparse.Namespace) -> FilterConfig:
 
 
 def bench_full_step(cfg: FilterConfig, num_beams: int, iters: int,
-                    scan_chunk: int = 8) -> dict:
+                    scan_chunk: int = 8, device="cuda") -> dict:
     """Time `iters` dispatches of `scan_chunk` ticks of `cfg` at
-    `num_beams` beams on the card (module docstring)."""
-    if not torch.cuda.is_available():
+    `num_beams` beams on `device` (module docstring): CUDA events on a
+    card; on the CPU, where the ticks run eagerly, the host clock."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the port's bench measures a CUDA card; "
                            "torch.cuda.is_available() is False")
     from . import presets
     from .models import filter as mcl
     from .models import sensor
 
-    dev = torch.device("cuda")
     world = presets.make_world(num_beams=num_beams, device=dev)
     m = world.maze
     state = mcl.init_state(m, cfg, seed=0)
@@ -82,23 +88,31 @@ def bench_full_step(cfg: FilterConfig, num_beams: int, iters: int,
         return mcl.run_ticks(st, enc, ranges, mask, scan.angles, m, cfg)[0]
 
     state = dispatch(state)   # warm-up: builds the kernels and captures
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        state = dispatch(state)
-    end.record()
-    torch.cuda.synchronize()
-    ms_dispatch = start.elapsed_time(end) / iters
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            state = dispatch(state)
+        end.record()
+        torch.cuda.synchronize()
+        ms_dispatch = start.elapsed_time(end) / iters
+    else:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            state = dispatch(state)
+        ms_dispatch = 1e3 * (time.perf_counter() - t0) / iters
     steps_per_sec = 1e3 * scan_chunk / ms_dispatch
+    cuda = dev.type == "cuda"
     return dict(steps_per_sec=steps_per_sec,
                 updates_per_sec=steps_per_sec * cfg.num_particles
                 * num_beams,
                 ms_per_step=ms_dispatch / scan_chunk,
                 ms_per_dispatch=ms_dispatch,
                 num_particles=cfg.num_particles, num_beams=num_beams,
-                device=torch.cuda.get_device_name(0), card=card())
+                device=torch.cuda.get_device_name(dev) if cuda else str(dev),
+                card=card() if cuda else None)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -121,6 +135,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the weights and resample only when ESS < ess * N "
                          "(the production schedule).  Default: resample "
                          "every tick, the reference schedule")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device the bench runs on; the CPU runs the "
+                         "ticks eagerly and times them with the host clock")
     args = ap.parse_args(argv)
     for name in ("particles", "beams", "iters", "scan_chunk"):
         if getattr(args, name) < 1:
@@ -131,9 +148,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> None:
     args = parse_args(argv)
     r = bench_full_step(filter_config(args), args.beams, args.iters,
-                        scan_chunk=args.scan_chunk)
+                        scan_chunk=args.scan_chunk, device=args.device)
     print(json.dumps(dict(
-        metric="particle_beam_updates_per_sec_full_mcl_step",
+        # A CPU run's rate is the CPU's: it never takes the card's name.
+        metric="particle_beam_updates_per_sec_full_mcl_step"
+        + ("" if r["card"] else "_cpu"),
         value=r["updates_per_sec"], unit="updates/s",
         vs_baseline=r["updates_per_sec"] / BASELINE_UPDATES_PER_SEC,
         ms_per_step=r["ms_per_step"], particles=r["num_particles"],

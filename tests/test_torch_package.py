@@ -126,6 +126,16 @@ def test_entry_points_ask_for_the_card_by_default():
                                      presets.FilterConfig().motion)
     # run_calibrate and run_frontier_slam take their device from the
     # world's map: a world on the card cannot be made here (above).
+    # The study tools ask for the card unless given --device cpu
+    # (coverage_bound is host numpy and has no device).
+    import importlib
+
+    for name in ("convergence_study", "reloc_sweep", "slam_sweep",
+                 "explore_sweep", "bench_fleet", "bench_slam",
+                 "bench_mapping", "slam_scale", "bench_matrix"):
+        tool = importlib.import_module(f"{PKG}.tools.{name}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tool.main([])
 
 
 def _isolate_build(monkeypatch, tmp_path):
