@@ -1,0 +1,134 @@
+"""The check of what the window produced, against the plain reference.
+
+A check unit is a stretch of ticks the program ran in the window: from
+the program's own state at its start (a copy the driver kept, with its
+generator's state), or from the filter's seed where the stretch starts a
+filter; the inputs the program was handed; the program's published
+answers; and the program's particles at its end.  The reference
+(mclbench/reference) runs the same ticks from the same start with the
+same random stream, and the numbers below compare the two:
+
+  rows_off   the share of particle rows, at the ends of the units, that
+             differ from the reference's by more than 1e-4 (m, rad);
+  pose_gap   the widest gap of a published pose from the reference's:
+             the larger of the xy distance (m) and the heading difference
+             (rad) to the reference's best pose, or, where the program's
+             pose is the center of another of the reference's k-means
+             clusters (a near tie of cluster weights), the xy distance to
+             that center; 99 where one side publishes a pose and the
+             other the (-1, -1, -1) sentinel with the confidence clear of
+             the threshold;
+  conf_gap   the widest gap of a published confidence.
+
+Diagnostics, not compared: songs_off (songs that differ, outside ticks
+whose confidence sits within CONF_MARGIN of its threshold) and gen_off
+(units after which the program's generator state differs from the
+reference's, i.e. it drew other random numbers than the stream gives).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from .reference import filter as ref
+
+ROW_TOL = 1e-4
+CONF_MARGIN = 0.02
+SENTINEL_GAP = 99.0
+
+
+@dataclasses.dataclass
+class Unit:
+    """One stretch of ticks of E filters (see the module docstring)."""
+
+    start: Optional[ref.State]      # None: from `seed`
+    gen_state: Optional[torch.Tensor]
+    seed: int
+    enc: torch.Tensor               # [E, T, 2]
+    ranges: torch.Tensor            # [E, T, B]
+    confidence: torch.Tensor        # [E, T] published
+    song: torch.Tensor              # [E, T]
+    best_pose: torch.Tensor         # [E, T, 3] each tick's best pose
+    after: Optional[torch.Tensor]   # [E, N, 3] particles at the end
+    gen_after: Optional[torch.Tensor] = None
+
+
+def wrap(a):
+    return torch.atan2(torch.sin(a), torch.cos(a))
+
+
+def run_reference(world, u: Unit):
+    """The reference over a unit: (State, [Output a tick], generator)."""
+    e = u.enc.shape[0]
+    if u.start is None:
+        st, gen = ref.init(world.mz, world.filter, u.seed, e)
+    else:
+        st = ref.State(**{k: v.to(world.device)
+                          for k, v in vars(u.start).items()})
+        gen = torch.Generator(device=world.device)
+        gen.set_state(u.gen_state)
+    mask = torch.ones(u.ranges.shape, dtype=torch.bool,
+                      device=world.device)
+    st, outs = ref.run(st, gen, u.enc.to(world.device),
+                       u.ranges.to(world.device), mask, world.angles,
+                       world.mz, world.filter)
+    return st, outs, gen
+
+
+def pose_gaps(best, out: ref.Output):
+    """Gaps [E] of the program's best poses [E, 3] from one reference
+    tick's (module docstring)."""
+    dev = out.pose.device
+    best = best.to(dev, torch.float32)
+    p_ok = best[:, 0] >= 0
+    r_ok = out.pose[:, 0] >= 0
+    near_thr = torch.abs(out.confidence - out.threshold) < CONF_MARGIN
+    d_best = torch.maximum(
+        torch.hypot(best[:, 0] - out.pose[:, 0], best[:, 1] - out.pose[:, 1]),
+        torch.abs(wrap(best[:, 2] - out.pose[:, 2])))
+    # The other clusters: every center but the best one's.
+    other = torch.hypot(out.centers[..., 0] - out.pose[:, None, 0],
+                        out.centers[..., 1] - out.pose[:, None, 1]) > 0
+    d_other = torch.where(other, torch.hypot(
+        best[:, None, 0] - out.centers[..., 0],
+        best[:, None, 1] - out.centers[..., 1]), math.inf).amin(-1)
+    both = torch.minimum(d_best, d_other)
+    gap = torch.where(p_ok & r_ok, both, 0.0)
+    return torch.where((p_ok != r_ok) & ~near_thr, SENTINEL_GAP, gap)
+
+
+def check(world, units: list) -> dict:
+    """The compared numbers and the diagnostics over `units`."""
+    rows = rows_off = 0
+    pose_gap = conf_gap = 0.0
+    songs_off = gen_off = 0
+    answers = 0
+    for u in units:
+        st, outs, gen = run_reference(world, u)
+        for t, o in enumerate(outs):
+            pose_gap = max(pose_gap, float(pose_gaps(
+                u.best_pose[:, t], o).max()))
+            conf_gap = max(conf_gap, float(torch.abs(
+                u.confidence[:, t].to(o.confidence) - o.confidence).max()))
+            prev = (o.prev_confidence, o.prev_threshold)
+            clear = torch.abs(prev[0] - prev[1]) >= CONF_MARGIN
+            songs_off += int(((u.song[:, t].to(o.song.device) != o.song)
+                              & clear).sum())
+            answers += o.song.numel()
+        if u.after is not None:
+            a = u.after.to(st.particles.device)
+            d = torch.maximum(torch.abs(a[..., :2] - st.particles[..., :2])
+                              .amax(-1),
+                              torch.abs(wrap(a[..., 2]
+                                             - st.particles[..., 2])))
+            rows += d.numel()
+            rows_off += int((d > ROW_TOL).sum())
+        if u.gen_after is not None:
+            gen_off += int(not torch.equal(gen.get_state(), u.gen_after))
+    return dict(rows_off=rows_off / max(rows, 1), pose_gap=pose_gap,
+                conf_gap=conf_gap, songs_off=songs_off, gen_off=gen_off,
+                units=len(units), answers=answers, rows=rows,
+                rows_off_count=rows_off)

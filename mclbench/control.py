@@ -1,0 +1,139 @@
+"""The control: the plain reference put in the program's place, computed
+in the nearest precision below the configuration's (float32): the
+particles' move and the beam weights in bfloat16.  Its runs have to come
+out as not correct; the limits lie between the program's readings and
+the control's.
+
+    python3 -m mclbench.control --workload NAME --seeds 1,2,3 --seconds S
+        [--which program,control]
+
+runs the cell once a seed with the port and with the control, in one
+process, and prints one JSON line a run with every compared number and
+diagnostic.  The benchmark's own runs never run it.
+"""
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import os
+import sys
+
+import torch
+
+from .reference import filter as ref
+
+CONTROL_DTYPE = torch.bfloat16
+
+
+def _ref_state(st: ref.State) -> ref.State:
+    return ref.State(**{k: v.clone() for k, v in vars(st).items()})
+
+
+class RefFleetServer:
+    """The fleet server's JSONL protocol on the reference tick."""
+
+    def __init__(self, world, robots: int, seed: int, dtype):
+        self.world = world
+        self.dtype = dtype
+        self.state, self.gen = ref.init(world.mz, world.filter, seed, robots)
+        self.tick_count = 0
+
+    def serve(self, lines, out) -> int:
+        w = self.world
+        for line in lines:
+            msg = json.loads(line)
+            dev = w.device
+            enc = torch.tensor([msg["encoder_left"], msg["encoder_right"]],
+                               dtype=torch.float32, device=dev).T
+            ranges = torch.tensor(msg["ranges"], dtype=torch.float32,
+                                  device=dev)
+            mask = torch.tensor(msg["mask"], device=dev).to(torch.bool)
+            d = ref.draw_tick(self.gen, w.mz, w.filter, enc.shape[0])
+            self.state, o = ref.tick(self.state, enc, ranges, mask,
+                                     w.angles, w.mz, w.filter, d,
+                                     self.dtype)
+            self.tick_count += 1
+            print(json.dumps(dict(
+                tick=self.tick_count,
+                exact_pose=[[round(float(v), 6) for v in p]
+                            for p in o.exact_pose.cpu()],
+                cell_pose=o.cell_pose.cpu().tolist(),
+                confidence=[round(float(v), 6) for v in o.confidence.cpu()],
+                song=o.song.cpu().tolist())), file=out, flush=True)
+        return self.tick_count
+
+
+class FleetControl:
+    def __init__(self, world, robots: int, seed: int,
+                 dtype=CONTROL_DTYPE):
+        self.server = RefFleetServer(world, robots, seed, dtype)
+
+    def snapshot(self):
+        s = self.server
+        return _ref_state(s.state), s.gen.get_state()
+
+
+class _RefReplayState:
+    def __init__(self, st, gen):
+        self.st, self.gen = st, gen
+
+
+class ReplayControl:
+    """run_episode / run_episode_batch on the reference tick."""
+
+    def __init__(self, world, entry: str, episodes: int,
+                 dtype=CONTROL_DTYPE):
+        self.world, self.e, self.dtype = world, episodes, dtype
+
+    def segment(self, state, seed: int, enc, ranges):
+        w = self.world
+        if state is None:
+            state = _RefReplayState(*ref.init(w.mz, w.filter, seed, self.e))
+        mask = torch.ones(ranges.shape, dtype=torch.bool, device=w.device)
+        st, outs = ref.run(state.st, state.gen, enc, ranges, mask,
+                           w.angles, w.mz, w.filter, self.dtype)
+        return _RefReplayState(st, state.gen), outs
+
+    def snapshot(self, state):
+        return _ref_state(state.st), state.gen.get_state()
+
+    def answers(self, outs) -> dict:
+        return dict(
+            exact_pose=torch.stack([o.exact_pose for o in outs], dim=1),
+            confidence=torch.stack([o.confidence for o in outs], dim=1),
+            song=torch.stack([o.song for o in outs], dim=1))
+
+
+def factory(driver: str):
+    return FleetControl if driver == "fleet" else ReplayControl
+
+
+def main(argv=None) -> int:
+    from . import harness
+
+    ap = argparse.ArgumentParser(prog="mclbench.control")
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--which", default="program,control")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    root = os.getcwd()
+    cell = harness.load_cell(root, args.workload)
+    for seed in (int(s) for s in args.seeds.split(",")):
+        for which in args.which.split(","):
+            prog = None if which == "program" else factory(
+                cell.traffic["driver"])
+            res = harness.run_cell(root, args.workload, seed, args.seconds,
+                                   False, args.device, program=prog,
+                                   out=io.StringIO(), err=io.StringIO())
+            print(json.dumps(dict(workload=args.workload, seed=seed,
+                                  which=which, correct=res["correct"],
+                                  numbers=res["diagnostics"],
+                                  metrics=res["metrics"])), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,116 @@
+"""The system under test: the port's entry points, as the drivers call
+them.  Only this module imports the port.
+
+Each adapter also reads the port's filter state back (`snapshot`) and the
+answers of a replay (`answers`) in the reference's form, for the check
+that follows the window.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .reference import filter as ref
+
+
+def filter_config(d: dict):
+    """The port's FilterConfig from a configuration's `filter` dict."""
+    from montecarlolocalisation_tpu_torch import config as pc
+
+    def build(cls, values):
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if f.name not in values:
+                continue
+            v = values[f.name]
+            default = f.default
+            if dataclasses.is_dataclass(default):
+                v = build(type(default), v)
+            kw[f.name] = v
+        return cls(**kw)
+
+    return build(pc.FilterConfig, d)
+
+
+class PortWorld:
+    """The port's map, config and beam table for a World."""
+
+    def __init__(self, world):
+        from montecarlolocalisation_tpu_torch import maps
+
+        self.m = maps.from_map_file(world.map_path, device=world.device)
+        self.cfg = filter_config(world.filter)
+        self.angles = world.angles.cpu().numpy()
+        self.angles_dev = world.angles
+
+
+def snapshot(state):
+    """(reference State, generator state) of a port MCLState."""
+    return ref.from_program(state), state.gen.get_state()
+
+
+class FleetProgram:
+    """MCLFleetServer as `serve --robots R` starts it: synchronous
+    replies."""
+
+    def __init__(self, world, robots: int, seed: int):
+        from montecarlolocalisation_tpu_torch.io.fleet import MCLFleetServer
+
+        pw = PortWorld(world)
+        self.server = MCLFleetServer(pw.m, pw.cfg, pw.angles,
+                                     n_robots=robots, seed=seed,
+                                     pipeline=False)
+
+    def snapshot(self):
+        return snapshot(self.server.state)
+
+
+class ReplayProgram:
+    """models.filter.run_episode (one filter, `episodes` 1) or
+    parallel.episodes.run_episode_batch over a log, one call a segment."""
+
+    def __init__(self, world, entry: str, episodes: int):
+        from montecarlolocalisation_tpu_torch.models import filter as mcl
+        from montecarlolocalisation_tpu_torch.parallel import episodes as ep
+
+        if entry == "run_episode" and episodes != 1:
+            raise ValueError("run_episode replays one filter's log")
+        if entry not in ("run_episode", "run_episode_batch"):
+            raise ValueError(f"unknown replay entry {entry!r}")
+        self.pw = PortWorld(world)
+        self.entry = entry
+        self._mcl, self._ep = mcl, ep
+
+    def segment(self, state, seed: int, enc, ranges):
+        """The next ticks of a pass: enc [E, n, 2], ranges [E, n, B];
+        `state` None starts the pass from the filter seed `seed`.
+        Returns (state, outputs)."""
+        pw = self.pw
+        if self.entry == "run_episode":
+            if state is None:
+                state = self._mcl.init_state(pw.m, pw.cfg, seed)
+            return self._mcl.run_episode(state, enc[0], ranges[0],
+                                         pw.angles_dev, pw.m, pw.cfg)
+        return self._ep.run_episode_batch(seed, pw.m, pw.cfg, enc, ranges,
+                                          pw.angles_dev, state=state)
+
+    def snapshot(self, state):
+        return snapshot(state)
+
+    def answers(self, outs) -> dict:
+        """The published numbers [E, n, ...]."""
+        one = self.entry == "run_episode"
+
+        def lead(v):
+            return v[None] if one else v
+
+        return dict(exact_pose=lead(outs.exact_pose),
+                    confidence=lead(outs.confidence), song=lead(outs.song))
+
+    def free(self) -> None:
+        """Drop the graphs this program's calls captured, and their memory
+        pools."""
+        from montecarlolocalisation_tpu_torch.models import compiled
+
+        compiled.graphs.clear()
