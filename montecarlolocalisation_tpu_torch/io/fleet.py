@@ -28,7 +28,15 @@ Protocol (JSONL; one fleet frame per line, arrays indexed by robot):
                                                  untouched
     {"cmd": "checkpoint"|"restore", "path": p}   the fleet's state (.npz)
     {"cmd": "stats"}                             per-robot confidence
+    {"cmd": "telemetry"}                         the process's counters
+                                                 and the frames' spans
     {"cmd": "shutdown"}
+
+  The telemetry reply: {"counters": {name: total}, "spans": {name:
+  {"n", "p50_ms", "p99_ms"}}}, the counters of utils/profiling's
+  recorder (graph builds, hits, capture and instantiation seconds, the
+  kernels' launches) and each fleet span's median and 99th percentile
+  (nearest rank) over the frames in the recorder's ring.
 
 A line that is not JSON, misses keys or fails gets an {"error": ...}
 reply and the session goes on.  A checkpoint (io/logs.save_state) holds
@@ -40,6 +48,16 @@ to pinned host memory behind an event; waiting on that event does not
 wait for the tick just enqueued, so the fetch of tick t-1 overlaps the
 card computing tick t.  Replies lag one tick, each carries its own "tick"
 index, and `flush()` drains the tick in flight.
+
+Spans (utils/profiling): a `serve` session is one span `fleet.serve`, and
+each fleet frame one span `fleet.frame` whose id is the tick it runs,
+with six children in order: `fleet.decode` (json.loads), `fleet.stage`
+(the frame into the pinned HostFrames buffer), `fleet.launch` (the graph's
+lookup, copy-in and replay, models/compiled's `graph.*` spans, and the
+replies' copy to the host behind its event), `fleet.wait` (that event),
+`fleet.reply` (the reply's rounding) and `fleet.write` (json.dumps, print,
+flush).  In pipelined mode the last three answer the tick before, and
+carry its id.  Command lines get no frame span.
 
 `SLAMFleetServer` (fleet.py:293-462) serves R SLAM robots as one [R]
 SLAMState, one graph replay a fleet frame; robot r draws from its own
@@ -53,6 +71,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import sys
+import time
 from typing import IO, Iterable, Optional
 
 import numpy as np
@@ -63,6 +82,7 @@ from ..maps.grid import MazeMap
 from ..models import compiled
 from ..models import filter as mcl
 from ..models import sensor
+from ..utils import profiling
 from . import logs
 from .server import (_serve_loop, _slam_frame_tick, export_learned,
                      raw_to_beams)
@@ -87,6 +107,20 @@ def _fleet_tick(state: mcl.MCLState, x: dict, consts, m: MazeMap,
                                           o.wanderer_cmd.to(torch.float32),
                                           o.n_injected.to(torch.float32)],
                                          dim=-1)], dim=-1)
+
+
+def telemetry() -> dict:
+    """The `telemetry` command's reply (module docstring)."""
+    spans, counters = profiling.recorded()
+    ms = {}
+    for s in spans:
+        if s.name.startswith("fleet.") and s.name != "fleet.serve":
+            ms.setdefault(s.name, []).append((s.end - s.start) * 1e-6)
+    out = {}
+    for name, v in sorted(ms.items()):
+        p50, p99 = np.percentile(v, [50, 99], method="inverted_cdf")
+        out[name] = dict(n=len(v), p50_ms=float(p50), p99_ms=float(p99))
+    return dict(counters=counters, spans=out)
 
 
 class MCLFleetServer:
@@ -179,18 +213,21 @@ class MCLFleetServer:
             raise ValueError(
                 f"ranges has shape {ranges.shape}; fleet expects "
                 f"({r}, {nb}): one row per robot on the beam table")
-        frame = self._frames.take()
-        f = frame.numpy()
-        f[:, 0] = np.asarray(encoder_left, np.float32)
-        f[:, 1] = np.asarray(encoder_right, np.float32)
-        f[:, 2:2 + nb] = ranges
-        f[:, 2 + nb:] = (1.0 if mask is None
-                         else np.asarray(mask, np.float32))
+        tick = self.tick_count + 1
+        with profiling.span("fleet.stage", tick):
+            frame = self._frames.take()
+            f = frame.numpy()
+            f[:, 0] = np.asarray(encoder_left, np.float32)
+            f[:, 1] = np.asarray(encoder_right, np.float32)
+            f[:, 2:2 + nb] = ranges
+            f[:, 2 + nb:] = (1.0 if mask is None
+                             else np.asarray(mask, np.float32))
         # One host->device copy for the whole fleet frame, into the graph's
         # buffer, queued behind the tick in flight.
-        staged = self._stage(self._run_tick(frame))
-        self._frames.sent()
-        self.tick_count += 1
+        with profiling.span("fleet.launch", tick):
+            staged = self._stage(self._run_tick(frame))
+            self._frames.sent()
+        self.tick_count = tick
         if not self.pipeline:
             return self._reply(self.tick_count, staged)
         prev = self.flush()
@@ -241,61 +278,83 @@ class MCLFleetServer:
 
     def _reply(self, tick: int, staged) -> dict:
         host, event = staged
-        if event is not None:
-            event.synchronize()
-        v = host.numpy().astype(np.float64)
-        pose = v[:, _COLUMNS["exact_pose"]]
-        return dict(
-            tick=tick,
-            exact_pose=np.round(pose, 6).tolist(),
-            # ExactPose.thetaQuaternion analog per robot.
-            theta_quaternion=np.round(np.sin(0.5 * pose[:, 2]), 6).tolist(),
-            cell_pose=v[:, _COLUMNS["cell_pose"]].astype(int).tolist(),
-            confidence=np.round(v[:, _COLUMNS["confidence"]], 6).tolist(),
-            song=v[:, _COLUMNS["song"]].astype(int).tolist(),
-            wanderer_cmd=v[:, _COLUMNS["wanderer_cmd"]].astype(int).tolist(),
-            n_injected=v[:, _COLUMNS["n_injected"]].astype(int).tolist(),
-        )
+        with profiling.span("fleet.wait", tick):
+            if event is not None:
+                event.synchronize()
+        with profiling.span("fleet.reply", tick):
+            v = host.numpy().astype(np.float64)
+            pose = v[:, _COLUMNS["exact_pose"]]
+
+            def ints(key):
+                return v[:, _COLUMNS[key]].astype(int).tolist()
+
+            return dict(
+                tick=tick,
+                exact_pose=np.round(pose, 6).tolist(),
+                # ExactPose.thetaQuaternion analog per robot.
+                theta_quaternion=np.round(np.sin(0.5 * pose[:, 2]),
+                                          6).tolist(),
+                cell_pose=ints("cell_pose"),
+                confidence=np.round(v[:, _COLUMNS["confidence"]],
+                                    6).tolist(),
+                song=ints("song"), wanderer_cmd=ints("wanderer_cmd"),
+                n_injected=ints("n_injected"))
 
     # -- stream loop ---------------------------------------------------------
 
     def serve(self, lines: Iterable[str],
               out_stream: Optional[IO[str]] = None) -> int:
-        """Drain a JSONL stream; returns the number of fleet ticks run."""
-        out_stream = out_stream or sys.stdout
+        """Drain a JSONL stream; returns the number of fleet ticks run.
+        Records the spans of the module docstring."""
+        with profiling.span("fleet.serve"):
+            return self._serve(lines, out_stream or sys.stdout)
 
+    def _serve(self, lines: Iterable[str], out_stream: IO[str]) -> int:
         def reply(obj):
             if obj is not None:
                 print(json.dumps(obj), file=out_stream, flush=True)
+
+        def write(obj):
+            """A tick's reply, under the span `fleet.write`."""
+            if obj is not None:
+                with profiling.span("fleet.write", obj["tick"]):
+                    reply(obj)
 
         for line in lines:
             line = line.strip()
             if not line:
                 continue
+            t0 = time.time_ns()
             try:
                 msg = json.loads(line)
             except json.JSONDecodeError as e:
                 reply(dict(error=f"bad json: {e}"))
                 continue
+            t1 = time.time_ns()
             try:
                 if "cmd" in msg:
                     # Drain the tick in flight first, so replies stay in
                     # order across commands.
-                    reply(self.flush())
+                    write(self.flush())
                     if self._handle_cmd(msg, reply):
                         return self.tick_count
-                elif "raw_scans" in msg:
-                    reply(self.tick_raw(msg["encoder_left"],
-                                        msg["encoder_right"],
-                                        msg["raw_scans"]))
-                else:
-                    reply(self.tick(msg["encoder_left"],
-                                    msg["encoder_right"], msg["ranges"],
-                                    msg.get("mask")))
+                    continue
+                with profiling.span("fleet.frame", self.tick_count + 1,
+                                    start=t0):
+                    profiling.record("fleet.decode", t0, t1)
+                    if "raw_scans" in msg:
+                        rep = self.tick_raw(msg["encoder_left"],
+                                            msg["encoder_right"],
+                                            msg["raw_scans"])
+                    else:
+                        rep = self.tick(msg["encoder_left"],
+                                        msg["encoder_right"], msg["ranges"],
+                                        msg.get("mask"))
+                    write(rep)
             except Exception as e:  # noqa: BLE001 — a long-lived server
                 # must survive any bad line: reply with the error instead.
                 reply(dict(error=f"{type(e).__name__}: {e}"))
-        reply(self.flush())
+        write(self.flush())
         return self.tick_count
 
     def _handle_cmd(self, msg: dict, reply) -> bool:
@@ -314,6 +373,9 @@ class MCLFleetServer:
                        confidence=np.round(
                            self._state.confidence.cpu().numpy().astype(
                                np.float64), 6).tolist()))
+            return False
+        elif cmd == "telemetry":
+            reply(telemetry())
             return False
         elif cmd == "shutdown":
             reply(dict(ok=True))

@@ -40,6 +40,15 @@ tick runs eagerly on a side stream (the warm-up of the torch
 documentation): it loads the kernels' library and their modules, sets
 their launch attributes and gives the output slab its shapes.
 
+Telemetry (utils/profiling): the captured region opens with the stage
+mark `begin` and closes with `end`, so a trace of the card shows each
+replay's extent; `cached` records the span `graph.lookup` (with
+`graph.build` inside it when the key is new), a call `graph.copy_in` and
+`graph.replay`, and `run_chunked` `episode.copy_out`.  The recorder's
+counters `graph.builds`, `graph.hits`, `graph.capture_s` and
+`graph.instantiate_s` count every graph of every cache, those dropped
+since too.
+
 Launch counts: a kernel wrapper's `launches` counter and the C entries'
 device launch counters count what reaches the card.  The calls that a
 capture records do not launch, so a capture takes its own counts back
@@ -70,6 +79,7 @@ from typing import Callable, Hashable, Optional
 import torch
 
 from ..ops import build, expand, kmeans, weights
+from ..utils import profiling
 
 # Ticks a graph for an episode: the JAX bench's default --scan-chunk
 # (bench.py:156-161).  An episode of T ticks replays T // TICKS_PER_GRAPH
@@ -261,6 +271,7 @@ class TickGraph:
             device=t.device), y)
         if self.cuda:
             self._capture()
+        profiling.count("graph.builds")
 
     def _tick_inputs(self, k: int):
         return tree_map(lambda t: t.select(self.lead, k), self._xs)
@@ -284,13 +295,16 @@ class TickGraph:
         return y
 
     def _body(self) -> None:
-        """The K ticks on the buffers: what a replay runs."""
+        """The K ticks on the buffers, between the marks `begin` and `end`
+        (utils/profiling.mark): what a replay runs."""
+        profiling.mark("begin", self.device)
         c = self._carry
         for k in range(self.k):
             c, y = self._tick(c, self._tick_inputs(k))
             tree_map(lambda d, s, k=k: d.select(self.lead, k).copy_(s),
                      self._ys, y)
         tree_map(_keep, self._carry, c)
+        profiling.mark("end", self.device)
 
     def _capture(self) -> None:
         dev = self.device
@@ -311,6 +325,8 @@ class TickGraph:
         t0 = time.perf_counter()
         graph.instantiate()
         self.instantiate_s = time.perf_counter() - t0
+        profiling.count("graph.capture_s", self.capture_s)
+        profiling.count("graph.instantiate_s", self.instantiate_s)
         self._delta = [a - b for a, b in zip(_counts(), before)]
         _add_counts([-d for d in self._delta], replay=False)
         self._graph = graph
@@ -318,14 +334,16 @@ class TickGraph:
     def __call__(self, carry, xs, consts=None):
         """K ticks from `carry` on the inputs `xs` -> (state, output
         slab), both the graph's buffers (module docstring)."""
-        tree_map(_copy_in, self._carry, carry)
-        tree_map(_copy_in, self._xs, xs)
-        tree_map(_copy_in, self._consts, consts)
-        if self._graph is None:
-            self._body()
-        else:
-            self._graph.replay()
-            _add_counts(self._delta, replay=True)
+        with profiling.span("graph.copy_in"):
+            tree_map(_copy_in, self._carry, carry)
+            tree_map(_copy_in, self._xs, xs)
+            tree_map(_copy_in, self._consts, consts)
+        with profiling.span("graph.replay"):
+            if self._graph is None:
+                self._body()
+            else:
+                self._graph.replay()
+                _add_counts(self._delta, replay=True)
         self.replays += 1
         return tree_map(_copy_out, self._carry, carry), self._ys
 
@@ -334,23 +352,31 @@ class GraphCache:
     """TickGraphs by key (module docstring): `get` builds on a new key and
     returns the entry of a known one.  With a `limit`, the entries used
     least recently go beyond it; every entry goes when an object it holds
-    weakly dies."""
+    weakly dies.  `stats` counts every graph the cache built, those gone
+    too."""
 
     def __init__(self, limit: Optional[int] = None):
         self.limit = limit
         self._graphs: "collections.OrderedDict[Hashable, tuple]" = \
             collections.OrderedDict()
         self.builds = 0
+        self.hits = 0
+        # The capture, instantiation and replays of the entries gone.
+        self._gone = dict(capture_s=0.0, instantiate_s=0.0, replays=0)
 
     def get(self, key: Hashable, build_graph: Callable[[], TickGraph],
             held=()) -> TickGraph:
-        """The entry of `key`, built by build_graph() if there is none;
-        it is dropped when an object of `held` dies."""
+        """The entry of `key`, built by build_graph() if there is none
+        (span `graph.build`); it is dropped when an object of `held`
+        dies."""
         entry = self._graphs.get(key)
         if entry is not None:
             self._graphs.move_to_end(key)
+            self.hits += 1
+            profiling.count("graph.hits")
             return entry[0]
-        graph = build_graph()
+        with profiling.span("graph.build"):
+            graph = build_graph()
         # The finalizers hold the cache weakly: a server's cache dies with
         # the server, whatever outlives it.  None runs at exit.
         ref = weakref.ref(self)
@@ -364,9 +390,11 @@ class GraphCache:
         return graph
 
     def _pop(self, key: Hashable) -> None:
-        _, finalizers = self._graphs.pop(key)
+        graph, finalizers = self._graphs.pop(key)
         for f in finalizers:
             f.detach()
+        for k in self._gone:
+            self._gone[k] += getattr(graph, k)
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -381,12 +409,14 @@ class GraphCache:
             self._pop(key)
 
     def stats(self) -> dict:
+        """The live entries and their pools' bytes; the builds, hits,
+        capture and instantiation seconds and replays of every graph the
+        cache built."""
         gs = self.entries()
-        return dict(entries=len(gs), builds=self.builds,
-                    capture_s=sum(g.capture_s for g in gs),
-                    instantiate_s=sum(g.instantiate_s for g in gs),
-                    pool_bytes=sum(g.pool_bytes for g in gs),
-                    replays=sum(g.replays for g in gs))
+        return dict(entries=len(gs), builds=self.builds, hits=self.hits,
+                    **{k: v + sum(getattr(g, k) for g in gs)
+                       for k, v in self._gone.items()},
+                    pool_bytes=sum(g.pool_bytes for g in gs))
 
 
 def _drop(ref, key) -> None:
@@ -439,11 +469,12 @@ def run_chunked(run: Callable, total: int, lead: int):
     for t0 in range(0, total, TICKS_PER_GRAPH):
         n = min(TICKS_PER_GRAPH, total - t0)
         ys = run(t0, n)
-        if out is None:
-            out = tree_map(lambda t: torch.empty(
-                t.shape[:lead] + (total,) + t.shape[lead + 1:],
-                dtype=t.dtype, device=t.device), ys)
-        tree_map(lambda d, s: d.narrow(lead, t0, n).copy_(s), out, ys)
+        with profiling.span("episode.copy_out"):
+            if out is None:
+                out = tree_map(lambda t: torch.empty(
+                    t.shape[:lead] + (total,) + t.shape[lead + 1:],
+                    dtype=t.dtype, device=t.device), ys)
+            tree_map(lambda d, s: d.narrow(lead, t0, n).copy_(s), out, ys)
     return out
 
 
@@ -468,10 +499,11 @@ def cached(cache: Optional[GraphCache], step: Callable, carry, xs, consts,
     consts, **static), built on a new key: the tick function, `static`
     (module docstring) and the signature of what the tick reads."""
     cache = graphs if cache is None else cache
-    key = (step, lead, tuple(
-        (k, ("id", id(v)) if _by_identity(v) else v)
-        for k, v in sorted(static.items())),
-        signature((carry, xs, consts)))
-    return cache.get(
-        key, lambda: TickGraph(step, carry, xs, consts, lead, static),
-        held=[v for v in static.values() if _by_identity(v)])
+    with profiling.span("graph.lookup"):
+        key = (step, lead, tuple(
+            (k, ("id", id(v)) if _by_identity(v) else v)
+            for k, v in sorted(static.items())),
+            signature((carry, xs, consts)))
+        return cache.get(
+            key, lambda: TickGraph(step, carry, xs, consts, lead, static),
+            held=[v for v in static.values() if _by_identity(v)])

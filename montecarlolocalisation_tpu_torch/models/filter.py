@@ -14,6 +14,11 @@ reference's order:
   6. k-means confidence with the post-hysteresis thresholds (importance-
      weighted under the ESS gate)
 
+On CUDA, a stage mark (utils/profiling.mark) precedes motion, the
+weights, resampling and the cluster, and `emit` follows the cluster: five
+empty kernels a tick, which a captured graph replays in stream order, so
+a trace attributes every device operation of the tick to its stage.
+
 With `known_map` (a partial learned map: `m` the conservative fit,
 `known_map` the same fit with unexplored edges open) the weights come
 from sensor.beam_weights_partial, and InitConfig.partial_map_cells may
@@ -38,6 +43,7 @@ import torch
 
 from ..config import FilterConfig
 from ..maps.grid import MazeMap, is_valid_pos, world_to_cell
+from ..utils import profiling
 from ..utils.angles import quantize_orientation
 from . import cluster, compiled, motion, refine, resample, sensor
 
@@ -246,6 +252,7 @@ def mcl_step(
     """One 10 Hz filter tick, of one filter or of every episode of a batch
     (encoders [...], scan ranges and mask [..., B]).  `known_map` switches
     the weights to the partial-map scorer (module docstring)."""
+    dev = state.particles.device
     cell_mask = injection_cells(m, cfg, known_map)
     if draws is None:
         draws = draw_tick(state.gen, m, state.particles.shape[-2], cfg,
@@ -259,7 +266,9 @@ def mcl_step(
     exact_pose = state.best_pose
     cell_pose = cell_pose_msg(state.best_pose, m.cell_meters)
 
-    # 3-4. Odometry + propagate.
+    # 3-4. Odometry + propagate.  Each stage follows its mark
+    # (utils/profiling.mark); the opt-in refinement falls under `motion`.
+    profiling.mark("motion", dev)
     odom, particles = motion.motion_update(
         state.particles, state.odom, encoder_left, encoder_right,
         cfg.motion, draws.motion_normals)
@@ -269,6 +278,7 @@ def mcl_step(
 
     # 5. Weights + resample (jitter regime = was_lost after hysteresis,
     #    monte_carlo.cpp:1087).
+    profiling.mark("weights", dev)
     if known_map is None:
         weights = sensor.beam_weights(m, particles, scan, cfg.sensor,
                                       cfg.valid_pos_offset)
@@ -277,6 +287,7 @@ def mcl_step(
                                               cfg.sensor,
                                               cfg.valid_pos_offset)
     gated = cfg.resample.ess_threshold is not None
+    profiling.mark("resample", dev)
     if gated:
         particles, weights, inj, info = resample.ess_gated_resample(
             particles, weights, state.weights, state.inj, was_lost, m, cfg,
@@ -287,9 +298,11 @@ def mcl_step(
 
     # 6. Cluster confidence with the post-hysteresis threshold, importance-
     #    weighted where the gate carries non-uniform weights.
+    profiling.mark("cluster", dev)
     confidence, best_pose = cluster.cluster_confidence(
         particles, weights, conf_thr, cfg.cluster, draws.kmeans_init,
         draws.kmeans_reseed, weighted=gated)
+    profiling.mark("emit", dev)
 
     new_state = MCLState(
         particles=particles, weights=weights, odom=odom, inj=inj,
@@ -359,30 +372,42 @@ def run_episode(
     The JAX package's lax.scan over mcl_step (filter.py:274-298): the
     ticks run in graphs of compiled.TICKS_PER_GRAPH ticks (run_ticks), one
     replay each on CUDA, and the last graph takes the remainder.  The
-    final state and the outputs are the caller's own tensors."""
-    dev = m.device
-    encoders = torch.as_tensor(encoders, dtype=torch.float32, device=dev)
-    ranges = torch.as_tensor(scan_ranges, dtype=torch.float32, device=dev)
-    angles = torch.as_tensor(scan_angles, dtype=torch.float32, device=dev)
-    mask = (torch.ones(ranges.shape, dtype=torch.bool, device=dev)
-            if scan_mask is None
-            else torch.as_tensor(scan_mask, device=dev).to(torch.bool))
-    lead = len(state.batch)
-    if lead and angles.dim() != 1:
-        raise ValueError("a batch of episodes shares one beam table [B]")
-    carry = [state]
+    final state and the outputs are the caller's own tensors.
 
-    def chunk(t0: int, n: int):
-        def part(v):
-            return v.narrow(lead, t0, n)
+    The call is one span `episode.call` (utils/profiling) whose id the
+    spans inside take: `episode.prep` (the inputs' conversions),
+    models/compiled's `graph.*` and `episode.copy_out`."""
+    with profiling.span("episode.call"):
+        with profiling.span("episode.prep"):
+            dev = m.device
+            encoders = torch.as_tensor(encoders, dtype=torch.float32,
+                                       device=dev)
+            ranges = torch.as_tensor(scan_ranges, dtype=torch.float32,
+                                     device=dev)
+            angles = torch.as_tensor(scan_angles, dtype=torch.float32,
+                                     device=dev)
+            mask = (torch.ones(ranges.shape, dtype=torch.bool, device=dev)
+                    if scan_mask is None
+                    else torch.as_tensor(scan_mask, device=dev).to(
+                        torch.bool))
+        lead = len(state.batch)
+        if lead and angles.dim() != 1:
+            raise ValueError("a batch of episodes shares one beam table "
+                             "[B]")
+        carry = [state]
 
-        d = (None if draws is None
-             else compiled.stack_ticks(draws[t0:t0 + n], lead))
-        carry[0], ys = run_ticks(
-            carry[0], part(encoders), part(ranges), part(mask),
-            angles[t0:t0 + n] if angles.dim() == 2 else angles, m, cfg,
-            d, known_map)
-        return ys
+        def chunk(t0: int, n: int):
+            def part(v):
+                return v.narrow(lead, t0, n)
 
-    outs = compiled.run_chunked(chunk, ranges.shape[lead], lead)
-    return compiled.detach_state(carry[0]), outs
+            d = (None if draws is None
+                 else compiled.stack_ticks(draws[t0:t0 + n], lead))
+            carry[0], ys = run_ticks(
+                carry[0], part(encoders), part(ranges), part(mask),
+                angles[t0:t0 + n] if angles.dim() == 2 else angles, m, cfg,
+                d, known_map)
+            return ys
+
+        outs = compiled.run_chunked(chunk, ranges.shape[lead], lead)
+        with profiling.span("episode.copy_out"):
+            return compiled.detach_state(carry[0]), outs

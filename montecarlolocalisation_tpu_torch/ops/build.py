@@ -63,6 +63,8 @@ SIGNATURES = {
     "mcl_kmeans": [_P, _L, _L, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I,
                    _I, _I, _P],
     "mcl_kmeans_device_launches": [],
+    # mark index (ops/marks.MARKS), stream
+    "mcl_mark": [_I, _P],
 }
 
 _lib = None

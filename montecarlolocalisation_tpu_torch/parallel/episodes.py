@@ -24,6 +24,7 @@ from ..maps import symmetry as _sym
 from ..maps.grid import MazeMap, repeat_maps
 from ..models import filter as mcl
 from ..sim import robot
+from ..utils import profiling
 
 
 def simulate_episode_batch(gen: torch.Generator, m: MazeMap,
@@ -56,13 +57,16 @@ def run_episode_batch(
     whatever the episode's length."""
     if tick_chunk is not None and tick_chunk < 1:
         raise ValueError("tick_chunk must be >= 1")
-    encoders = torch.as_tensor(encoders, dtype=torch.float32,
-                               device=m.device)
-    if state is None:
-        state = mcl.init_state(m, cfg, seed, batch=encoders.shape[0],
-                               known_map=known_map)
-    return mcl.run_episode(state, encoders, scan_ranges, scan_angles, m, cfg,
-                           draws=draws, known_map=known_map)
+    # One call, one span: run_episode's spans take its id.
+    with profiling.span("episode.call"):
+        with profiling.span("episode.prep"):
+            encoders = torch.as_tensor(encoders, dtype=torch.float32,
+                                       device=m.device)
+            if state is None:
+                state = mcl.init_state(m, cfg, seed, batch=encoders.shape[0],
+                                       known_map=known_map)
+        return mcl.run_episode(state, encoders, scan_ranges, scan_angles, m,
+                               cfg, draws=draws, known_map=known_map)
 
 
 # The episode stacks of run_multimap_sweep, by (id of the caller's stack,

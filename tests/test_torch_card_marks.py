@@ -1,0 +1,72 @@
+"""The stage marks on a CUDA card (marked `card`: skips without one).
+
+A profiled replay of a captured 8-tick graph runs the mark kernels in
+stage order, five a tick and `begin` and `end` once, and the recorder's
+span around the replay begins, on the profiler's clock, before the
+replay's `begin` mark.  The suite's conftest imports JAX, which a card's
+host may lack, so run this file alone there:
+
+    python -m pytest --noconftest -p no:cacheprovider -m card \\
+        tests/test_torch_card_marks.py
+"""
+import time
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.card
+
+TICKS, EPISODES = 8, 4
+
+
+@pytest.fixture
+def card():
+    """The CUDA device, or a skip where there is none (decided when the
+    test runs, never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the stage marks run on the card")
+    return torch.device("cuda")
+
+
+def test_replay_runs_the_marks_in_stage_order(card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from montecarlolocalisation_tpu_torch import presets
+    from montecarlolocalisation_tpu_torch.models import filter as mcl
+    from montecarlolocalisation_tpu_torch.sim import robot
+    from montecarlolocalisation_tpu_torch.utils import profiling
+
+    world = presets.make_world(num_particles=1500, num_beams=34,
+                               device=card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    enc, ranges, _ = robot.generate_wander_episode(
+        gen, world.maze, world.cfg, world.angles, TICKS, batch=EPISODES)
+    mask = torch.ones(ranges.shape, dtype=torch.bool, device=card)
+    angles = torch.as_tensor(world.angles, device=card)
+
+    def replay(state):
+        return mcl.run_ticks(state, enc, ranges, mask, angles, world.maze,
+                             world.cfg)[0]
+
+    st = replay(mcl.init_state(world.maze, world.cfg, seed=0,
+                               batch=EPISODES))       # builds the graph
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        t0 = time.time_ns()
+        replay(st)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    marks = sorted((e.start_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if "CUDA" in str(e.device_type())
+                   and e.name().startswith("mcl_mark_"))
+    stages = ["motion", "weights", "resample", "cluster", "emit"]
+    assert [n for _, n in marks] == (
+        ["mcl_mark_begin"] + [f"mcl_mark_{s}" for s in stages] * TICKS
+        + ["mcl_mark_end"])
+    (span,) = [s for s in profiling.recorded()[0]
+               if s.name == "graph.replay" and s.start >= t0]
+    assert span.start < marks[0][0]

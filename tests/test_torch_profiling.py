@@ -8,8 +8,8 @@ planning.
 - _knockout_step against JAX's on JAX's draws, for the full step and each
   stage knocked out: >= 99.9 % of the particle rows within 1e-5 (the
   one-tick tolerance).
-- stage_knockout_times and stage_times return JAX's keys, all finite, on
-  the CPU's TickGraphs; time_fn; trace writes a non-empty Chrome trace;
+- stage_knockout_times returns JAX's keys, all finite, on the CPU's
+  TickGraphs; time_fn; trace writes a non-empty Chrome trace;
   utils exports profiling as JAX's utils does.
 - io.save_pytree / load_pytree (round trip, like JAX's on the same tree),
   maps.grid.get_cell, utils.angles.yaw_to_quaternion_z,
@@ -153,14 +153,6 @@ def test_stage_knockout_times_returns_the_jax_keys():
     assert out["full"] > 0.0
     # The caller's state is left as it was.
     assert torch.equal(st.particles, before)
-
-
-def test_stage_times_returns_the_jax_keys():
-    tm, tcfg, scan, st = _timing_inputs()
-    out = tprof.stage_times(tm, tcfg, scan, st, iters=2)
-    assert list(out) == ["motion", "weights", "resample", "cluster", "full"]
-    assert all(np.isfinite(v) for v in out.values())
-    assert out["motion"] > 0.0 and out["full"] > 0.0
 
 
 def test_time_fn_and_trace(tmp_path):
