@@ -2604,6 +2604,7 @@ GRAPH_T = 20
 GRAPH_FRAMES = 30
 # The port's kernels as the profiler names them (csrc/*.cu).
 DEVICE_KERNELS = ("beam_weights_kernel", "beam_weights_batched_kernel",
+                  "beam_weights_cast_kernel",
                   "pack_kernel", "expand_block_kernel", "expand_scan_kernel",
                   "expand_copy_kernel", "kmeans_kernel", "beamsub_kernel")
 
@@ -2689,9 +2690,10 @@ AUDIT_MARGIN_S = 0.05
 # (one of them launched once a wrapper call), and the KERNELS entries of
 # the wrappers that launch them.
 LAUNCH_AUDIT = (
-    (("beam_weights_kernel",), ("beam_weights",)),
-    (("beam_weights_batched_kernel",),
-     ("beam_weights_batched", "beam_weights_stack")),
+    # In analytic mode K1 and K1 batched launch one kernel, the cast's.
+    (("beam_weights_kernel", "beam_weights_batched_kernel",
+      "beam_weights_cast_kernel"),
+     ("beam_weights", "beam_weights_batched", "beam_weights_stack")),
     (("beamsub_kernel",), ("beam_weights_beamsub",)),
     (("expand_block_kernel", "expand_copy_kernel"),
      ("systematic_expand", "systematic_expand_batched")),
@@ -3307,8 +3309,10 @@ def closed_loop_full_phase(dev) -> dict:
     k = compiled.TICKS_PER_GRAPH
     with launch_audit("closed_loop_replay") as audited:
         closed_loop.rollout(_twin(final), wps, m, cfg, k, world.angles)
-    ran = {name: audited[name]["ran"] for name in ("beam_weights_batched_"
-                                                   "kernel", "kmeans_kernel")}
+    # K1's family row (launch_audit's LAUNCH_AUDIT): here K1 batched
+    # alone, the launch counts above holding the unbatched ones at zero.
+    ran = {name: audited[name]["ran"] for name in ("beam_weights_kernel",
+                                                   "kmeans_kernel")}
     if any(v != k for v in ran.values()):
         raise AssertionError(f"closed loop: the card ran {ran} kernels in "
                              f"one replay of {k} ticks")

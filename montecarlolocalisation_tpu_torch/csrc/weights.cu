@@ -28,9 +28,10 @@
 // time, by montecarlolocalisation_tpu_torch/kernel_ab.py).  Of the cast, the band
 // scan pixel by pixel, whose data-dependent trip count makes a warp wait
 // for its longest lane, was a third on uniform particles and a fifth on
-// filtered ones; the rest is the exact float arithmetic of 2 axes x 3
-// candidate slabs a beam, ~100 lane instructions a candidate.  Bank
-// conflicts cost nothing measurable, expf under 1 %.
+// filtered ones; the rest is the exact float arithmetic of the candidate
+// slabs, ~100 lane instructions a candidate, which the schedule by ray
+// (below) cuts from 6 a beam to about 2.  Bank conflicts cost nothing
+// measurable, expf under 1 %.
 //
 // Design:
 // - Gridlines as bit words.  Each block packs the raster's gridlines into
@@ -41,12 +42,20 @@
 //   (forward) or __clz (backward), with no loop and no branch; longer bands
 //   (smax > 30 px) walk the words.  It is the row the plain version's pixel
 //   loop returns.
-// - Every candidate slab with selects, not branches.  Slabs come in ray
-//   order and the next starts 7 px past the last one's exit, so the first
-//   hit is the axis minimum and an axis could stop there; a beam needs 1.4
-//   of its 6 candidates on average, but a warp runs until its slowest lane
-//   is done, which nearly always needs all of them, and a per-lane stop
-//   measured 1 to 2 % slower than evaluating every candidate (PERF.md).
+// - The analytic cast scheduled by ray, not by warp (K1 and K1 batched in
+//   analytic mode: beam_weights_cast_kernel).  A beam reaches 1.8 of its 6
+//   candidate slabs on average, but a lane that stops where its ray does
+//   still waits for the warp's slowest lane at every beam, so a per-lane
+//   stop inside the beam loop gained nothing.  Instead every lane
+//   evaluates each axis's first slab ahead of its origin for every beam in
+//   lockstep and marks, in a bit of a register, the pairs whose next slab
+//   the ray enters before the beam's distance; only those, about 2 % of
+//   pairs at a 1 m range, go through a queue of the warp, 32 at a time, so
+//   a beam costs about 2.0 slab evaluations instead of 6 (cast_stats;
+//   PERF.md, section 6).  The pairs that stop provably miss nothing, and the
+//   distance is a minimum, whatever the order, so the bits are the
+//   all-candidate kernels'.  K4 and fixed mode keep evaluating every
+//   candidate with selects (axis_hits), their source unchanged.
 // - The fixed march reads a raster packed one bit a pixel (300 bytes for the
 //   49 x 49 maze, 7.3 KB for 241 x 241).  A sample costs a shift and a mask
 //   more than a byte raster's: 5 to 7 % of K1 batched's time.
@@ -75,8 +84,9 @@
 // K1 batched: a 2-D grid, x over particle blocks of one episode and y over
 // episodes, so no block straddles two episodes; each block stages its
 // episode's ranges and mask next to the shared beam table and the raster.
-// The per-particle body is K1's own (particle_weight), so each episode's
-// weights equal K1's on that episode bit for bit.  Its map-stack form
+// The per-particle body is K1's own (particle_weight; in analytic mode
+// both launch beam_weights_cast_kernel, K1 as its one episode), so each
+// episode's weights equal K1's on that episode bit for bit.  Its map-stack form
 // (mcl_beam_weights_stack) is the same kernel reading one raster per
 // episode, for sweeps over randomized maps: a block stages (or, in the
 // device-memory form, reads) the bit words of its episode's map and gates
@@ -545,6 +555,311 @@ __global__ void beam_weights_batched_kernel(
                          smem + 2 * nb, nb, B, dil + m * hw, P);
 }
 
+// -- The analytic cast, scheduled by ray (K1 and K1 batched, analytic) ----
+//
+// A (ray, axis) pair's candidate slabs come in ray order, and a slab's
+// entry time t_in = max(min(t_near, t_far), 0) never falls from one to the
+// next in float arithmetic: line_u - gu is monotone in line_u, and so is
+// its product with the one inv_du.  A hit is never earlier than its slab's
+// t_in.  So once a pair's next slab starts at or after a distance the beam
+// already has (smax where it has no hit), no slab from there on can lower
+// it, and the pair stops; the slab k0 behind an origin outside it (du >=
+// 0, gu >= 8 k0 + 1) has t_out <= 0, so axis_hits' ok is false there.
+// The distance is the least of the hits, whichever order they come in, so
+// it is the axis minimum of the selects above, bit for bit.
+
+constexpr int kChunk = 32;   // beams whose distances a block holds at once
+constexpr int kWarps = kThreads / 32;
+constexpr int kQueue = 64;   // a warp's queue: < 32 left and 32 pushed
+constexpr int kStats = 4;    // lockstep slabs, queued slabs, deferred
+                             // pairs, queue rounds
+static_assert(kChunk <= 32, "a chunk's pairs of an axis are bits of a word");
+
+// The cast's shared memory, after stage()'s: each thread's distances
+// (pixels) for the chunk's beams, each particle's origin (pixels) and each
+// warp's queue of deferred (ray, axis) pairs, each at its next candidate
+// slab: tag = lane | (beam of the chunk) << 5 | axis << 10 | candidate <<
+// 11, candidate 0 for the pair's first queued slab.
+struct CastShared {
+  float dist[kChunk][kThreads];
+  float gx[kThreads], gy[kThreads];
+  int queue[kWarps][kQueue];
+};
+constexpr int kCastWords = sizeof(CastShared) / 4;
+
+// One beam's ray against one axis's lines: u across them, v along them.
+struct AxisRay {
+  float du, dv, inv_du, inv_dv;
+  bool small, small_v;
+};
+
+// The ray of beam angle `angle` from a particle of heading th, as beam_prob
+// computes it, against the vertical lines (rv) and the horizontal (rh).
+__device__ __forceinline__ void cast_rays(float th, float angle,
+                                          const Params& P, AxisRay& rv,
+                                          AxisRay& rh) {
+  float ray = th + angle;
+  if (P.quantize) ray = rintf(ray * P.rad2deg) * P.deg2rad;
+  float dx, dy;
+  sincosf(ray, &dy, &dx);
+  const bool small_x = fabsf(dx) < kEps, small_y = fabsf(dy) < kEps;
+  const float inv_dx = 1.0f / (small_x ? kEps : dx);
+  const float inv_dy = 1.0f / (small_y ? kEps : dy);
+  rv = AxisRay{dx, dy, inv_dx, inv_dy, small_x, small_y};
+  rh = AxisRay{dy, dx, inv_dy, inv_dx, small_y, small_x};
+}
+
+// Candidate c (line k) of one axis with axis_hits' arithmetic: its hit s
+// (pixels) if it counts there, else kInf.
+template <bool G>
+__device__ __forceinline__ float slab_hit(float gu, float gv,
+                                          const AxisRay& a, bool inside0,
+                                          const Lines& L, int k, int c,
+                                          float smax, int span) {
+  const bool fwd = a.dv >= 0.0f;
+  const float line_u = (float)(k * kCellPx);
+  const float t_near = (line_u - gu) * a.inv_du;
+  const float t_far = (line_u + 1.0f - gu) * a.inv_du;
+  float t_in = fminf(t_near, t_far);
+  float t_out = fmaxf(t_near, t_far);
+  t_in = a.small ? (c == 0 && inside0 ? 0.0f : kInf) : t_in;
+  t_out = a.small ? (c == 0 && inside0 ? smax : -kInf) : t_out;
+  t_in = fmaxf(t_in, 0.0f);
+  const float t_out_c = fminf(t_out, smax);
+  const int r_in = (int)floorf(gv + t_in * a.dv);
+  const int r_out = (int)floorf(gv + t_out_c * a.dv);
+  const int lo = max(min(r_in, r_out), 0);
+  const int hi = min(max(r_in, r_out), L.length - 1);
+  const int cnt = min(hi - lo + 1, span);
+  const bool ok = t_in < t_out_c && k >= 0 && k < L.n_lines && cnt > 0;
+  const int rr = band_first<G>(L.words + (ok ? k : 0) * L.wpl, L.wpl,
+                               ok ? (fwd ? lo : hi - cnt + 1) : 0,
+                               ok ? cnt : 0, fwd, span);
+  const float row_edge = (float)(fwd ? rr : rr + 1);
+  const float t_row = a.small_v ? 0.0f : (row_edge - gv) * a.inv_dv;
+  const float s_hit = fmaxf(t_in, t_row);
+  return rr >= 0 && s_hit < smax ? s_hit : kInf;
+}
+
+// Whether a pair whose beam has a distance `bound` must look at candidate
+// c (line k): it exists and the ray enters it before the bound.  The
+// entry is slab_hit's t_in, whose min is t_near where du > 0 and t_far
+// where du < 0 (rays parallel to the lines never ask), so one product
+// gives it.
+__device__ __forceinline__ bool reaches(float gu, const AxisRay& a, int k,
+                                        int c, const Lines& L, float bound,
+                                        const Params& P) {
+  const float line_u = (float)(k * kCellPx);
+  const float t_in =
+      fmaxf(((a.du >= 0.0f ? line_u : line_u + 1.0f) - gu) * a.inv_du, 0.0f);
+  return (c < P.n_cand) & (k >= 0) & (k < L.n_lines) & (t_in < bound);
+}
+
+// The first candidate ahead of the origin: k0 where the ray runs toward it,
+// lies along the lines or starts inside it, else k0 + sgn.
+__device__ __forceinline__ int first_candidate(const AxisRay& a,
+                                               bool inside0) {
+  return a.small || a.du < 0.0f || inside0 ? 0 : 1;
+}
+
+__device__ __forceinline__ int axis_sign(const AxisRay& a) {
+  return a.du >= 0.0f ? 1 : -1;
+}
+
+// Append the lanes' tags that `want` to the warp's queue, in lane order.
+__device__ __forceinline__ void push(int* queue, int& count, bool want,
+                                     int tag) {
+  const unsigned m = __ballot_sync(0xffffffffu, want);
+  if (want)
+    queue[count + __popc(m & ((1u << (threadIdx.x & 31)) - 1u))] = tag;
+  count += __popc(m);
+}
+
+// One round of a warp's queue: lanes 0 .. take - 1 take its top `take`
+// pairs, each with its beam's distance as the round starts for bound, and
+// evaluate each at its candidate (the ray recomputed from the particle's
+// staged row), lower the beam's distance where the hit is earlier, and
+// queue the pair again at the next candidate where it must look further.
+template <bool G, bool Count>
+__device__ __forceinline__ void cast_round(CastShared& S, int* queue,
+                                           int& count, int take,
+                                           const float* s_rows,
+                                           const float* s_ang, int b0,
+                                           const Bits& B, const Params& P,
+                                           unsigned (&tally)[kStats]) {
+  __syncwarp();  // the pushes and the distances are in place
+  const int lane = threadIdx.x & 31;
+  const int base = count - take;
+  const bool mine = lane < take;
+  int tag = mine ? queue[base + lane] : 0;
+  const int p = (threadIdx.x & ~31) | (tag & 31);
+  const int b = (tag >> 5) & 31, axis = (tag >> 10) & 1;
+  float bound = mine ? S.dist[b][p] : 0.0f;
+  __syncwarp();  // read before the hits lower them and pushes reuse places
+  count = base;
+  bool again = false;
+  if (mine) {
+    AxisRay rv, rh;
+    cast_rays(s_rows[3 * p + 2], s_ang[b0 + b], P, rv, rh);
+    // Values, not references: a reference chosen at run time would put
+    // the rays and the bits in local memory.
+    const AxisRay a = axis ? rh : rv;
+    const float gu = axis ? S.gy[p] : S.gx[p];
+    const float gv = axis ? S.gx[p] : S.gy[p];
+    const Lines L = axis ? B.h : B.v;
+    const int k0 = (int)floorf(gu * 0.125f);
+    const float line_u0 = (float)(k0 * kCellPx);
+    int c = tag >> 11;
+    if (c == 0)
+      c = first_candidate(a, gu >= line_u0 && gu < line_u0 + 1.0f) + 1;
+    const int sgn = axis_sign(a);
+    const int k = k0 + sgn * c;
+    const float hit = slab_hit<G>(gu, gv, a, false, L, k, c, P.smax, P.span);
+    if (hit < bound)
+      atomicMin(reinterpret_cast<int*>(&S.dist[b][p]), __float_as_int(hit));
+    bound = fminf(bound, hit);
+    again = reaches(gu, a, k + sgn, c + 1, L, bound, P);
+    tag = (tag & 0x7ff) | (c + 1) << 11;
+    if constexpr (Count) tally[1] += 1;
+  }
+  if constexpr (Count) tally[3] += lane == 0;
+  push(queue, count, again, tag);
+}
+
+// p_b from the beam's distance (m): the truncated Gaussian plus the
+// max-range term.
+__device__ __forceinline__ float cast_prob(float dist, float obs,
+                                           const Params& P) {
+  float diff = fabsf(obs - dist);
+  float pdf = expf(-(diff * diff) * P.inv_two_sigma2) * P.inv_denom;
+  float gauss = (diff >= 0.0f && diff <= P.gauss_max_diff) ? pdf : 0.0f;
+  float p_rand = fabsf(obs - P.max_range) < P.rand_window ? 1.0f : 0.0f;
+  return P.w_hit * gauss + P.w_rand * p_rand;
+}
+
+// One particle's weight over all beams with the cast scheduled by ray, the
+// whole warp taking part.  Chunk by chunk of beams: the lockstep pass
+// evaluates each axis's first candidate for every beam, with no exchange
+// between lanes, and marks the pairs that must look further; the warp
+// queues them, one pair a lane at a time in lane order (a lane's vertical
+// pairs in beam order, then its horizontal ones), runs a round whenever 32
+// wait and, once all are queued, rounds until the queue is empty; then
+// each thread adds its beams' terms in beam order.  Count: tally the
+// schedule into stats (ops/weights.cast_stats).
+template <bool G, bool Count>
+__device__ float cast_weight(const float* s_rows, bool live,
+                             const float* s_ang, const float* s_obs,
+                             const float* s_msk, int nb, const Bits& B,
+                             const uint8_t* dil, const Params& P,
+                             CastShared& S, unsigned long long* stats) {
+  const int t = threadIdx.x, lane = t & 31;
+  int* queue = S.queue[t >> 5];
+  const float* row = s_rows + 3 * t;
+  const Particle q = prepare<G>(live ? row[0] : 0.0f, live ? row[1] : 0.0f,
+                                live ? row[2] : 0.0f, B, P);
+  const bool cast = live && q.inb;
+  S.gx[t] = q.gx;
+  S.gy[t] = q.gy;
+  const float bound0 = q.pv.origin0 || q.ph.origin0 ? 0.0f : P.smax;
+  unsigned tally[kStats] = {0u, 0u, 0u, 0u};
+  float prob = 0.0f;
+  const int chunks = (nb + kChunk - 1) / kChunk;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int b0 = ch * nb / chunks, b1 = (ch + 1) * nb / chunks;
+    unsigned more_v = 0u, more_h = 0u;  // bit b - b0: the pair looks on
+    for (int b = b0; b < b1; ++b) {
+      float s = P.smax;
+      if (cast) {
+        AxisRay rv, rh;
+        cast_rays(q.th, s_ang[b], P, rv, rh);
+        const int cv = first_candidate(rv, q.pv.inside0);
+        const int chh = first_candidate(rh, q.ph.inside0);
+        const int kv = q.pv.k0 + axis_sign(rv) * cv;
+        const int kh = q.ph.k0 + axis_sign(rh) * chh;
+        const float hv = slab_hit<G>(q.gx, q.gy, rv, q.pv.inside0, B.v, kv,
+                                     cv, P.smax, P.span);
+        const float hh = slab_hit<G>(q.gy, q.gx, rh, q.ph.inside0, B.h, kh,
+                                     chh, P.smax, P.span);
+        s = fminf(bound0, fminf(hv, hh));
+        more_v |= (unsigned)(!rv.small & reaches(q.gx, rv, kv + axis_sign(rv),
+                                                 cv + 1, B.v, s, P))
+                  << (b - b0);
+        more_h |= (unsigned)(!rh.small & reaches(q.gy, rh, kh + axis_sign(rh),
+                                                 chh + 1, B.h, s, P))
+                  << (b - b0);
+        if constexpr (Count) tally[0] += 2;
+      }
+      S.dist[b - b0][t] = s;
+    }
+    if constexpr (Count) tally[2] += __popc(more_v) + __popc(more_h);
+    int count = 0;
+    for (;;) {
+      const bool pending = (more_v | more_h) != 0u;
+      if (count < 32 && __any_sync(0xffffffffu, pending)) {
+        const int axis = more_v != 0u ? 0 : 1;
+        const unsigned bits = axis ? more_h : more_v;
+        const int tag = lane | (__ffs(bits) - 1) << 5 | axis << 10;
+        if (axis)
+          more_h &= more_h - 1u;
+        else
+          more_v &= more_v - 1u;
+        push(queue, count, pending, tag);
+      } else if (count > 0) {
+        cast_round<G, Count>(S, queue, count, min(count, 32), s_rows, s_ang,
+                             b0, B, P, tally);
+      } else {
+        break;
+      }
+    }
+    __syncwarp();  // the chunk's distances are final
+    if (live)
+      for (int b = b0; b < b1; ++b)
+        prob = accumulate(prob,
+                          cast_prob(S.dist[b - b0][t] * P.res, s_obs[b], P),
+                          s_msk[b], P);
+    __syncwarp();  // read before the next chunk's distances overwrite them
+  }
+  if constexpr (Count) {
+    for (int i = 0; i < kStats; ++i) {
+      const unsigned v = __reduce_add_sync(0xffffffffu, tally[i]);
+      if (lane == 0) atomicAdd(stats + i, (unsigned long long)v);
+    }
+  }
+  return gate(q, prob, dil, P, B.h_px, B.w);
+}
+
+// K1 and K1 batched in analytic mode, both raster forms and the map stack:
+// K1 batched's grid and arguments (K1 is its one episode), the cast
+// scheduled by ray; stats: the Count instantiation's tallies.
+template <bool G, bool Count>
+__global__ void __launch_bounds__(kThreads) beam_weights_cast_kernel(
+    const float* __restrict__ parts, int n, const float* __restrict__ ang,
+    const float* __restrict__ obs, const float* __restrict__ msk, int nb,
+    const uint8_t* __restrict__ occ, const uint32_t* __restrict__ gwords,
+    const uint8_t* __restrict__ dil, const int* __restrict__ map_idx, int h,
+    int w, Params P, float* __restrict__ out,
+    unsigned long long* __restrict__ stats) {
+  extern __shared__ float smem[];
+  const size_t e = blockIdx.y;
+  const int i0 = blockIdx.x * blockDim.x;
+  const int rows = min((int)blockDim.x, n - i0);
+  const size_t k0 = e * (size_t)n + i0;
+  const size_t m = map_idx == nullptr ? 0 : (size_t)map_idx[e];
+  const size_t hw = (size_t)h * w;
+  const uint32_t* words = G ? gwords + m * raster_words(P, h, w) : gwords;
+  Bits B = stage<G>(smem, ang, obs + e * nb, msk + e * nb, nb,
+                    parts + 3 * k0, rows, blockDim.x, occ + m * hw, words,
+                    h, w, P);
+  CastShared& S = *reinterpret_cast<CastShared*>(
+      smem + 3 * nb + 3 * kThreads + (G ? 0 : raster_words(P, h, w)));
+  const int t = threadIdx.x;
+  if ((t & ~31) >= rows) return;  // a warp with no particle
+  const float wgt = cast_weight<G, Count>(
+      smem + 3 * nb, t < rows, smem, smem + nb, smem + 2 * nb, nb, B,
+      dil + m * hw, P, S, stats);
+  if (t < rows) out[k0 + t] = wgt;
+}
+
 // K4's prepared particles in shared memory: field f of particle j at
 // s[f * per + j].
 __device__ __forceinline__ void put_particle(float* s, int per, int j,
@@ -724,6 +1039,44 @@ cudaError_t pack_global(uint32_t* gwords, const uint8_t* occ, int h, int w,
   return cudaGetLastError();
 }
 
+// The analytic kernel over `episodes` episodes of n particles (K1: one),
+// in launches of at most kMaxGridY episodes each, their pointers offset as
+// launch_batched offsets them; stats: null, or the counting launch's four
+// tallies.
+cudaError_t launch_cast(const float* particles, int episodes, int n,
+                        const float* angles, const float* ranges,
+                        const float* mask, int nb, const uint8_t* occ,
+                        const uint8_t* dil, int maps, const int* map_idx,
+                        int h, int w, const Params& P, float* out,
+                        uint32_t* gwords, unsigned long long* stats,
+                        cudaStream_t s) {
+  const bool G = gwords != nullptr;
+  auto* kernel = stats == nullptr
+                     ? (G ? beam_weights_cast_kernel<true, false>
+                          : beam_weights_cast_kernel<false, false>)
+                     : (G ? beam_weights_cast_kernel<true, true>
+                          : beam_weights_cast_kernel<false, true>);
+  size_t smem;
+  cudaError_t err = smem_for((const void*)kernel, P, nb,
+                             3 * kThreads + kCastWords, h, w, G, &smem);
+  if (err != cudaSuccess) return err;
+  if (maps < 1) return cudaErrorInvalidValue;
+  if (n <= 0 || episodes <= 0) return cudaGetLastError();
+  if (G && (err = pack_global(gwords, occ, h, w, P, s, maps)) != cudaSuccess)
+    return err;
+  for (int e0 = 0; e0 < episodes; e0 += kMaxGridY) {
+    const dim3 grid((n + kThreads - 1) / kThreads,
+                    std::min(kMaxGridY, episodes - e0));
+    kernel<<<grid, kThreads, smem, s>>>(
+        particles + 3 * (size_t)e0 * n, n, angles, ranges + (size_t)e0 * nb,
+        mask + (size_t)e0 * nb, nb, occ, gwords, dil,
+        map_idx == nullptr ? nullptr : map_idx + e0, h, w, P,
+        out + (size_t)e0 * n, stats);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // particles [n, 3] f32; beam_tab [3, nb] f32 (signed angles, ranges,
@@ -740,6 +1093,10 @@ extern "C" int mcl_beam_weights(const float* particles, int n,
                                 uint32_t* gwords, void* stream) {
   Params P;
   unpack(fparams, iparams, &P);
+  if (P.mode != kFixed)
+    return (int)launch_cast(particles, 1, n, beam_tab, beam_tab + nb,
+                            beam_tab + 2 * nb, nb, occ, dil, 1, nullptr, h, w,
+                            P, out, gwords, nullptr, (cudaStream_t)stream);
   const bool G = gwords != nullptr;
   const void* kernel = G ? (const void*)beam_weights_kernel<true>
                          : (const void*)beam_weights_kernel<false>;
@@ -775,6 +1132,9 @@ cudaError_t launch_batched(const float* particles, int episodes, int n,
                            cudaStream_t s) {
   Params P;
   unpack(fparams, iparams, &P);
+  if (P.mode != kFixed)
+    return launch_cast(particles, episodes, n, angles, ranges, mask, nb, occ,
+                       dil, maps, map_idx, h, w, P, out, gwords, nullptr, s);
   const bool G = gwords != nullptr;
   const void* kernel = G ? (const void*)beam_weights_batched_kernel<true>
                          : (const void*)beam_weights_batched_kernel<false>;
@@ -836,6 +1196,26 @@ extern "C" int mcl_beam_weights_stack(
   return (int)launch_batched(particles, episodes, n, angles, ranges, mask,
                              nb, occ, dil, maps, map_idx, h, w, fparams,
                              iparams, out, gwords, (cudaStream_t)stream);
+}
+
+// The analytic kernel's counting instantiation: the arguments of
+// mcl_beam_weights_stack (maps = 1 and map_idx null for one map), then
+// stats, four unsigned 64-bit tallies of device memory that the launch adds
+// to (the caller zeroes them): slabs in the lockstep pass, slabs taken from
+// the queues, pairs deferred to a queue, queue rounds.  Fixed mode has no
+// slabs and is refused.  Returns the first CUDA error.
+extern "C" int mcl_beam_weights_cast_stats(
+    const float* particles, int episodes, int n, const float* angles,
+    const float* ranges, const float* mask, int nb, const uint8_t* occ,
+    const uint8_t* dil, int maps, const int* map_idx, int h, int w,
+    const float* fparams, const int* iparams, float* out,
+    unsigned long long* stats, uint32_t* gwords, void* stream) {
+  Params P;
+  unpack(fparams, iparams, &P);
+  if (P.mode == kFixed || stats == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_cast(particles, episodes, n, angles, ranges, mask, nb,
+                          occ, dil, maps, map_idx, h, w, P, out, gwords,
+                          stats, (cudaStream_t)stream);
 }
 
 // K4: the arguments of mcl_beam_weights_batched, then T threads a particle

@@ -3,8 +3,8 @@ one GPU.
 
     python -m montecarlolocalisation_tpu_torch.kernel_ab OLD_CSRC [PART ...]
 
-PART is any of ptxas, sincosf, ablation, turns, expand, beamsub and
-batched; all of them without one.  OLD_CSRC holds the earlier sources the parts read:
+PART is any of ptxas, sincosf, ablation, turns, expand, beamsub, batched
+and cast; all of them without one.  OLD_CSRC holds the earlier sources the parts read:
 for ablation and turns, csrc/weights.cu and csrc/kmeans.cu with the C
 entries they had at commit 97cbc4c (a pixel-scan K1, a K3 of two launches
 an iteration); for expand, csrc/expand.cu as it was from 97cbc4c to
@@ -12,7 +12,9 @@ e1e0d5d (K2 taking offspring counts computed in torch); for beamsub,
 csrc/weights.cu as it was at commit 24f8e6e (K4 with eight threads a
 particle on a grid of particle blocks x episodes); for batched,
 csrc/weights.cu with the raster-words argument of commit 5c0d8c8 (K1
-batched on one map, before its map-stack form).  For example
+batched on one map, before its map-stack form); for cast, csrc/weights.cu
+as it was before the analytic cast was scheduled by ray (commit 2fb1a6a:
+every candidate slab of both axes with selects).  For example
 `git archive 97cbc4c montecarlolocalisation_tpu_torch/csrc | tar -x
 --strip-components=2 -C OLD_CSRC`.  Parts that need different commits run
 in separate invocations.  It prints one JSON line a result:
@@ -23,9 +25,10 @@ in separate invocations.  It prints one JSON line a result:
 3. `ablation`: the earlier K1 with one cost taken out at a time (the band
    scan cut to one pixel, the cast replaced by a constant, the trig by a
    fixed direction, expf by a polynomial, the raster read through L1), and
-   the current K1 with its axes stopped at each lane's first hit (the same
-   weights) or its cast replaced by a constant, at 1M x 34 and 1024 x 500 x
-   24, analytic and fixed, in device time, on two kinds of particles:
+   the current fixed-mode K1 with its march replaced by a constant or its
+   registers capped (in analytic mode K1 launches the cast kernel, which
+   `cast` times), at 1M x 34 and 1024 x 500 x 24, analytic and fixed, in
+   device time, on two kinds of particles:
    "uniform" (drawn over the map) and "filtered" (after 20 ticks of the
    filter along a wander, so neighbouring particles are resampled copies
    of one source, as in the serve's and the sweep's ticks).  The variants
@@ -65,6 +68,14 @@ in separate invocations.  It prints one JSON line a result:
 7. `batched`: K1 batched of OLD_CSRC against the current one on one map
    at the sweep's shape (1024 x 500 x 24), fixed and analytic, bit for bit
    and in device time, old, new, new, old.
+8. `cast`: the analytic K1 of OLD_CSRC against the current one (the cast
+   scheduled by ray) at 1M x 34 on uniform and on filtered particles,
+   1024 x 500 x 24 batched and 10k x 360, in device time, old, new, new,
+   old; the outputs compared bit for bit with each other and with the
+   plain version; `cast_stats` at each shape beside the 2 x n_cand
+   candidate slabs a beam of the earlier kernel; the kernels one current
+   call runs, by name; and both sources' ptxas usage, the fixed-mode K1
+   and K1 batched kernels' compared entry by entry.
 
 It needs a CUDA card and nvcc, and fails without them.
 """
@@ -85,7 +96,7 @@ from .config import SensorModelConfig
 from .models import filter as mcl
 from .models import resample, sensor
 from .sim import robot
-from .ops import build, expand, kmeans, weights
+from .ops import analytic, build, expand, kmeans, weights
 
 START = (1.25, 1.25, 0.0)
 
@@ -138,15 +149,9 @@ OLD_ABLATIONS = {
         "*raster_in_smem = 0;")],
 }
 
-# Variants of the current weights.cu: each lane stops an axis at its first
-# hit (the same weights; the branch this kernel's selects replace), and the
-# cast replaced by a constant.
+# Variants of the current weights.cu's fixed-mode K1: the march replaced by
+# a constant, and register caps.
 NEW_ABLATIONS = {
-    "first_hit": [
-        ("  float best = p.origin0 ? 0.0f : kInf;\n",
-         "  if (p.origin0) return 0.0f;\n  float best = kInf;\n"),
-        ("    best = (rr >= 0 && s_hit < smax) ? fminf(best, s_hit) : best;",
-         "    if (rr >= 0 && s_hit < smax) return s_hit;")],
     "nocast": [("""  if (P.mode == kFixed) {
     dist = march<G>(""", """  if (true) {
     dist = 0.5f + 1e-3f * dx;
@@ -235,7 +240,20 @@ def compile_libs(sources: dict, workdir: str) -> dict:
             raise RuntimeError(f"nvcc failed on {name}:\n{err}")
         say("ptxas", source=name, lines=ptxas_lines(err))
         libs[name] = ctypes.CDLL(so)
+        libs[name].ptxas = ptxas_lines(err)
     return libs
+
+
+def ptxas_usage(lines) -> dict:
+    """Mangled kernel name -> its ptxas "Used ..." line (registers, stack,
+    shared memory), from ptxas_lines."""
+    usage, entry = {}, None
+    for ln in lines:
+        if "Compiling entry" in ln:
+            entry = ln.split("'")[1]
+        elif "Used" in ln and entry is not None:
+            usage[entry] = ln.split("Used", 1)[1].strip()
+    return usage
 
 
 # The beam weight entries of the earlier sources (97cbc4c, 24f8e6e): no
@@ -723,7 +741,7 @@ def beamsub_part(old_dir, workdir, gen):
 
 
 PARTS = ("ptxas", "sincosf", "ablation", "turns", "expand", "beamsub",
-         "batched")
+         "batched", "cast")
 
 
 def batched_part(old_dir, workdir, gen):
@@ -744,6 +762,81 @@ def batched_part(old_dir, workdir, gen):
         say("batched", kernel="beam_weights_batched", ray_mode=mode,
             shape=[1024, 500, 24], bit_equal=same,
             old_device_ms=[t_old1, t_old2], new_device_ms=[t_new1, t_new2])
+
+
+def kernel_names(fn) -> list:
+    """The device kernels one call of fn runs, by name, from the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({ev.key for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA})
+
+
+# The fixed-mode K1 kernels, whose source the analytic schedule left as it
+# was: their mangled names in ptxas' lines.
+FIXED_K1 = ("19beam_weights_kernelI", "27beam_weights_batched_kernelI")
+
+
+def cast_part(old_dir, workdir, gen):
+    with open(os.path.join(old_dir, "weights.cu")) as f:
+        old_src = f.read()
+    with open(os.path.join(build.CSRC, "weights.cu")) as f:
+        new_src = f.read()
+    libs = compile_libs({"cast_old": old_src, "cast_new": new_src}, workdir)
+    old, new = (weight_entries(libs[k]) for k in ("cast_old", "cast_new"))
+    use_new = ptxas_usage(new.ptxas)
+    # The fixed-mode kernels by their mangled names from the length-
+    # prefixed name on: the anonymous namespace's part names the file.
+    strip = lambda use: {k[k.index(f):]: v for k, v in use.items()
+                         for f in FIXED_K1 if f in k}
+    fixed_new = strip(use_new)
+    fixed = {k: dict(old=v, new=fixed_new.get(k))
+             for k, v in strip(ptxas_usage(old.ptxas)).items()}
+    say("cast_ptxas", fixed=fixed, fixed_unchanged=bool(fixed) and all(
+        v["old"] == v["new"] for v in fixed.values()),
+        cast_kernels={k: v for k, v in use_new.items()
+                      if "beam_weights_cast_kernel" in k})
+    m = presets.make_world(device="cuda").maze
+    cfg = SensorModelConfig(ray_mode="analytic")
+    _, n_cand, _ = analytic.cast_constants(m, cfg.max_range)
+    rows = []
+    for kind, make in (("uniform", weight_inputs),
+                       ("filtered", filtered_inputs)):
+        parts, scan = make(m, 1_048_576, 34, cfg, gen)
+        rows.append(([1_048_576, 34, kind], parts, scan))
+    rows.append(([1024, 500, 24, "uniform"],
+                 *weight_inputs(m, 500, 24, cfg, gen, episodes=1024)))
+    rows.append(([10_000, 360, "uniform"],
+                 *weight_inputs(m, 10_000, 360, cfg, gen)))
+    for shape, parts, scan in rows:
+        if parts.dim() == 2:
+            call = lambda lib, p=parts, s=scan: k1(lib, m, p, s, cfg)
+        else:
+            call = lambda lib, p=parts, s=scan: k1_batched(
+                lib, "mcl_beam_weights_batched", m, p, s, cfg)
+        o_fn, n_fn = (lambda: call(old)), (lambda: call(new))
+        got = n_fn()
+        same = bool(torch.equal(o_fn(), got))
+        plain = bool(torch.equal(
+            got, weights.beam_weights_plain(m, parts, scan, cfg)))
+        o1, n1, n2, o2 = (device_ms(f) for f in (o_fn, n_fn, n_fn, o_fn))
+        stats = weights.cast_stats(m, parts, scan, cfg)
+        say("cast", shape=shape, old_device_ms=[o1, o2],
+            new_device_ms=[n1, n2], new_over_old=(n1 + n2) / (o1 + o2),
+            bit_equal=same, plain_bit_equal=plain,
+            slabs_per_beam=stats["slabs"] / stats["beams"],
+            old_slabs_per_beam=2 * n_cand, stats=stats,
+            kernels=kernel_names(
+                lambda p=parts, s=scan: (weights.beam_weights_cuda if
+                                         p.dim() == 2 else
+                                         weights.beam_weights_batched_cuda)(
+                    m, p, s, cfg)))
 
 
 def main(argv=None) -> None:
@@ -782,6 +875,8 @@ def main(argv=None) -> None:
             beamsub_part(old_dir, workdir, gen)
         if "batched" in parts:
             batched_part(old_dir, workdir, gen)
+        if "cast" in parts:
+            cast_part(old_dir, workdir, gen)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ of the gridline with __ffs/__clz; it gives this loop's row.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -86,45 +87,68 @@ def _band_scan(ax: _Axis, k, lo_r, hi_r, fwd, span):
     return found, rr
 
 
+class _Ray(NamedTuple):
+    """Rays against one axis's lines: direction u across them, v along."""
+
+    small: torch.Tensor     # |du| < EPS: parallel to the lines
+    inv_du: torch.Tensor
+    sgn: torch.Tensor       # the lines' order along the ray
+    fwd: torch.Tensor       # v grows along the ray
+    small_v: torch.Tensor
+    inv_dv: torch.Tensor
+    dv: torch.Tensor
+
+
+def _axis_ray(du, dv) -> _Ray:
+    small = torch.abs(du) < EPS
+    small_v = torch.abs(dv) < EPS
+    return _Ray(small=small, inv_du=1.0 / torch.where(small, EPS, du),
+                sgn=torch.where(du >= 0, 1, -1).to(torch.int32),
+                fwd=dv >= 0, small_v=small_v,
+                inv_dv=1.0 / torch.where(small_v, EPS, dv), dv=dv)
+
+
+def _slab(gu, gv, ray: _Ray, ax: _Axis, prep, c: int, smax, span):
+    """Candidate slab c of one axis, line k0 + sgn * c in ray order: its
+    entry time t_in (clamped at 0) and its hit s (pixel units), INF where
+    it has none."""
+    k0, inside0, _ = prep
+    k = k0 + ray.sgn * c
+    line_u = (k * CELL_PX).to(torch.float32)
+    t_near = (line_u - gu) * ray.inv_du
+    t_far = (line_u + 1.0 - gu) * ray.inv_du
+    t_in = torch.minimum(t_near, t_far)
+    t_out = torch.maximum(t_near, t_far)
+    if c == 0:
+        t_in = torch.where(ray.small, torch.where(inside0, 0.0, INF), t_in)
+        t_out = torch.where(ray.small, torch.where(inside0, smax, -INF),
+                            t_out)
+    else:
+        t_in = torch.where(ray.small, INF, t_in)
+        t_out = torch.where(ray.small, -INF, t_out)
+    t_in = torch.clamp(t_in, min=0.0)
+    t_out_c = torch.clamp(t_out, max=smax)
+    window = t_in < t_out_c
+    valid_k = (k >= 0) & (k < ax.n_lines)
+    r_in = torch.floor(gv + t_in * ray.dv).to(torch.int32)
+    r_out = torch.floor(gv + t_out_c * ray.dv).to(torch.int32)
+    lo_r = torch.minimum(r_in, r_out)
+    hi_r = torch.maximum(r_in, r_out)
+    any_hit, rr = _band_scan(ax, k, lo_r, hi_r, ray.fwd, span)
+    row_edge = torch.where(ray.fwd, rr, rr + 1).to(torch.float32)
+    t_row = torch.where(ray.small_v, 0.0, (row_edge - gv) * ray.inv_dv)
+    s_hit = torch.maximum(t_in, t_row)
+    ok = window & valid_k & any_hit & (s_hit < smax)
+    return t_in, torch.where(ok, s_hit, INF)
+
+
 def _axis_hits(gu, gv, du, dv, ax: _Axis, prep, smax, n_cand, span):
     """First-hit s (pixel units) against the slabs of one axis."""
-    k0, inside0, origin0 = prep
-    small = torch.abs(du) < EPS
-    inv_du = 1.0 / torch.where(small, EPS, du)
-    pos_dir = du >= 0
-    sgn = torch.where(pos_dir, 1, -1).to(torch.int32)
-    fwd = dv >= 0
-    small_v = torch.abs(dv) < EPS
-    inv_dv = 1.0 / torch.where(small_v, EPS, dv)
-    best = torch.where(origin0, 0.0, INF)
+    ray = _axis_ray(du, dv)
+    best = torch.where(prep[2], 0.0, INF)
     for c in range(n_cand):
-        k = k0 + sgn * c
-        line_u = (k * CELL_PX).to(torch.float32)
-        t_near = (line_u - gu) * inv_du
-        t_far = (line_u + 1.0 - gu) * inv_du
-        t_in = torch.minimum(t_near, t_far)
-        t_out = torch.maximum(t_near, t_far)
-        if c == 0:
-            t_in = torch.where(small, torch.where(inside0, 0.0, INF), t_in)
-            t_out = torch.where(small, torch.where(inside0, smax, -INF),
-                                t_out)
-        else:
-            t_in = torch.where(small, INF, t_in)
-            t_out = torch.where(small, -INF, t_out)
-        t_in = torch.clamp(t_in, min=0.0)
-        t_out_c = torch.clamp(t_out, max=smax)
-        window = t_in < t_out_c
-        valid_k = (k >= 0) & (k < ax.n_lines)
-        r_in = torch.floor(gv + t_in * dv).to(torch.int32)
-        r_out = torch.floor(gv + t_out_c * dv).to(torch.int32)
-        lo_r = torch.minimum(r_in, r_out)
-        hi_r = torch.maximum(r_in, r_out)
-        any_hit, rr = _band_scan(ax, k, lo_r, hi_r, fwd, span)
-        row_edge = torch.where(fwd, rr, rr + 1).to(torch.float32)
-        t_row = torch.where(small_v, 0.0, (row_edge - gv) * inv_dv)
-        s_hit = torch.maximum(t_in, t_row)
-        ok = window & valid_k & any_hit & (s_hit < smax)
-        best = torch.minimum(best, torch.where(ok, s_hit, INF))
+        best = torch.minimum(best, _slab(gu, gv, ray, ax, prep, c, smax,
+                                         span)[1])
     return best
 
 

@@ -51,6 +51,9 @@ SIGNATURES = {
     # H, W, fparams, iparams, out, raster words, stream
     "mcl_beam_weights_stack": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P,
                                _I, _I, _P, _P, _P, _P, _P],
+    # ... out, then the four tallies, raster words, stream
+    "mcl_beam_weights_cast_stats": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
+                                    _P, _I, _I, _P, _P, _P, _P, _P, _P],
     # ... out, then threads a particle, particles a block, item counter,
     # raster words, stream
     "mcl_beam_weights_beamsub": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I,

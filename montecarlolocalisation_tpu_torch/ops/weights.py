@@ -15,6 +15,11 @@ after its Pallas kernels (ops/weights_pallas.py:330, :371).
   (maps/grid) it launches its map-stack form (`beam_weights_stack_cuda`),
   which reads each episode's own map and equals, per episode, a
   single-map launch on that map.
+- In analytic mode K1 and both forms of K1 batched launch one kernel,
+  which schedules the cast by ray (csrc/weights.cu): each axis's first
+  slab ahead of the origin for every beam in lockstep, and the few pairs
+  that must look further through a queue of each warp.  `cast_stats`
+  counts what that schedule did on given inputs.
 - K4 (`beam_weights_beamsub`): the function of the beam-per-sublane
   layout of weights_pallas.py:432 (`beamsub_plain`): eight lane sums, lane
   s adding beams s, s+8, ... in order, then the eight added in lane order.
@@ -59,6 +64,13 @@ SHARED_RASTER_BYTES = 1024
 # K4's resident threads an SM: four blocks of BLOCK threads at its 60 to 64
 # registers a thread (ptxas; PERF.md, section 6).
 K4_THREADS_PER_SM = 1024
+# The analytic kernel's shared memory past the beam table, the particle
+# rows and the raster (csrc/weights.cu CastShared): the distances of
+# CAST_CHUNK beams a thread, each particle's origin, and each warp's queue
+# of CAST_QUEUE pairs, a word each.
+CAST_CHUNK = 32
+CAST_QUEUE = 64
+CAST_WORDS = CAST_CHUNK * BLOCK + 2 * BLOCK + BLOCK // 32 * CAST_QUEUE
 
 
 def _beam_terms(m: MazeMap, particles, scan: sensor.Scan,
@@ -219,9 +231,11 @@ def raster_words(m: MazeMap, cfg: SensorModelConfig) -> int:
 
 def smem_bytes(m: MazeMap, cfg: SensorModelConfig, nb: int) -> int:
     """Shared memory of one K1 block with the raster in it: the beam table,
-    its particle rows and the raster's words.  Past SMEM_MAX only the
-    device-memory form can take the raster."""
-    return 4 * (3 * nb + 3 * BLOCK + raster_words(m, cfg))
+    its particle rows, the raster's words and, in analytic mode, the cast's
+    (CAST_WORDS).  Past SMEM_MAX only the device-memory form can take the
+    raster."""
+    cast = CAST_WORDS if cfg.ray_mode == "analytic" else 0
+    return 4 * (3 * nb + 3 * BLOCK + raster_words(m, cfg) + cast)
 
 
 def raster_form(m: MazeMap, cfg: SensorModelConfig) -> str:
@@ -281,15 +295,20 @@ beam_weights_cuda.launches = 0
 
 
 STACK_ENTRY = "mcl_beam_weights_stack"
+STATS_ENTRY = "mcl_beam_weights_cast_stats"
 
 
 def _batched_launch(entry: str, m: MazeMap, particles, scan: sensor.Scan,
-                    cfg: SensorModelConfig, *plan: int, form=None):
-    """Launch a batched C entry (K1 batched, its map-stack form, or K4 with
-    its plan's threads a particle and particles a block): particles
-    [E, N, 3], angles [B], ranges and mask [E, B] -> [E, N]; `form` forces
-    a raster form."""
-    _check_particles(m, particles, 3, entry, stack=entry == STACK_ENTRY)
+                    cfg: SensorModelConfig, *plan: int, form=None,
+                    stats=None):
+    """Launch a batched C entry (K1 batched, its map-stack form, K4 with
+    its plan's threads a particle and particles a block, or the analytic
+    kernel's counting form with its tallies `stats`): particles [E, N, 3],
+    angles [B], ranges and mask [E, B] -> [E, N]; `form` forces a raster
+    form."""
+    counting = stats is not None
+    _check_particles(m, particles, 3, entry,
+                     stack=m.is_stack if counting else entry == STACK_ENTRY)
     _check_scan(scan, particles.device, entry)
     n_ep, n = particles.shape[0], particles.shape[1]
     maps = ()
@@ -299,6 +318,8 @@ def _batched_launch(entry: str, m: MazeMap, particles, scan: sensor.Scan,
             raise ValueError(f"a map stack's index {tuple(index.shape)} for "
                              f"{n_ep} episodes")
         maps = (m.maps, index.data_ptr())
+    elif counting:
+        maps = (1, None)
     nb = scan.angles.shape[0]
     _check_config(m, cfg, nb)
     if scan.angles.dim() != 1 or scan.ranges.shape != (n_ep, nb) \
@@ -319,6 +340,8 @@ def _batched_launch(entry: str, m: MazeMap, particles, scan: sensor.Scan,
     counter = torch.empty(1, dtype=torch.int32, device=parts.device) \
         if plan else None
     tail = (*plan, counter.data_ptr()) if plan else ()
+    if counting:
+        tail = (stats.data_ptr(),)
     words = _raster_buffer(m, cfg, form)
     err = getattr(lib, entry)(
         parts.data_ptr(), n_ep, n, angles.data_ptr(), ranges.data_ptr(),
@@ -352,6 +375,40 @@ def beam_weights_stack_cuda(m: MazeMap, particles, scan: sensor.Scan,
 
 
 beam_weights_stack_cuda.launches = 0
+
+
+def cast_stats(m: MazeMap, particles, scan: sensor.Scan,
+               cfg: SensorModelConfig) -> dict:
+    """What the analytic kernel's schedule does on these inputs, from a
+    launch of its counting form (the same kernel with tallies; the
+    filter's launches keep none): particles [N, 3] (K1, as its one
+    episode) or [E, N, 3] (K1 batched, the map-stack form on a stack), on
+    CUDA.  Returns `slabs` evaluated (`lockstep_slabs` + `queued_slabs`),
+    `deferred` (pairs queued), `rounds` (queue rounds over every warp) and
+    `beams` (particles x beams), and adds slabs, deferred and rounds to
+    utils/profiling's counters k1.cast_slabs, k1.cast_deferred and
+    k1.cast_rounds."""
+    from ..utils import profiling
+
+    if cfg.ray_mode != "analytic":
+        raise ValueError("cast_stats counts the analytic cast's slabs, "
+                         f"not ray_mode={cfg.ray_mode!r}")
+    if particles.dim() == 2:
+        nb = scan.angles.shape[0]
+        particles = particles[None]
+        scan = sensor.Scan(angles=scan.angles,
+                           ranges=scan.ranges.expand(nb)[None],
+                           mask=scan.mask.expand(nb)[None])
+    stats = torch.zeros(4, dtype=torch.int64, device=particles.device)
+    _batched_launch(STATS_ENTRY, m, particles, scan, cfg, stats=stats)
+    lockstep, queued, deferred, rounds = stats.tolist()
+    out = dict(slabs=lockstep + queued, lockstep_slabs=lockstep,
+               queued_slabs=queued, deferred=deferred, rounds=rounds,
+               beams=particles.shape[0] * particles.shape[1]
+               * scan.angles.shape[0])
+    for name in ("slabs", "deferred", "rounds"):
+        profiling.count("k1.cast_" + name, out[name])
+    return out
 
 
 def beamsub_cuda(m: MazeMap, particles, scan: sensor.Scan,

@@ -25,9 +25,10 @@ from montecarlolocalisation_tpu_torch import interop
 from montecarlolocalisation_tpu_torch.interop import config_from
 from montecarlolocalisation_tpu_torch.maps import grid as tgrid
 from montecarlolocalisation_tpu_torch.models import sensor as tsensor
-from montecarlolocalisation_tpu_torch.ops import build
+from montecarlolocalisation_tpu_torch.ops import analytic, build
 from montecarlolocalisation_tpu_torch.ops import weights as tweights
 
+import k1_cast_mirror as mirror
 from torch_parity import maps, t, uniform_particles
 
 torch.set_num_threads(1)
@@ -269,3 +270,69 @@ def test_map_stack_index_across_the_chunk_boundary():
                 one, parts[e], tsensor.Scan(scan.angles, scan.ranges[e],
                                             scan.mask[e]), cfg)
             assert torch.equal(got[e], want), e
+
+
+# The analytic K1's cast schedule (csrc/weights.cu beam_weights_cast_kernel)
+# through its plain mirror (k1_cast_mirror), on the card test's hard cases.
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("kind", list(mirror.CASES))
+def test_cast_schedule_skips_only_slabs_that_cannot_lower_the_distance(
+        kind, quantize):
+    """Every slab the schedule never evaluates leaves the beam's distance
+    as it is: behind the origin and past the last line it has no hit in
+    the plain cast (its ok is false), and elsewhere no hit earlier than the
+    least the schedule found; and the schedule's distances are the ones
+    beam_weights_plain computes its likelihoods from, bit for bit."""
+    m, parts, scan, cfg = mirror.case(kind, 300, "cpu", seed=4,
+                                      quantize=quantize)
+    s = mirror.schedule(m, parts, scan, cfg)
+    n_cand = s["hit"].shape[-1]
+    cand = torch.arange(n_cand)
+    inb = s["inb"][..., None, None].expand(s["hit"].shape)
+    skipped = ~s["evaluated"] & inb
+    behind = cand < s["first"][..., None]
+    assert (s["hit"][skipped & behind] == analytic.INF).all()
+    assert (s["hit"][skipped] >= s["px"][..., None, None].expand(
+        s["hit"].shape)[skipped]).all()
+    assert (s["evaluated"].sum((-1, -2)) >= 2)[s["inb"][..., 0]].all()
+    want = tsensor.expected_ranges(m, parts, scan.angles, cfg)
+    assert torch.equal(s["dist"][0], want)
+    assert s["lockstep_slabs"] == 2 * int(s["inb"].sum()) * len(scan.angles)
+    assert s["queued_slabs"] == int(s["items"].sum())
+
+
+def test_cast_schedule_constants_match_the_kernel():
+    """The mirror's chunks and the wrapper's shared-memory count read the
+    kernel's constants (csrc/weights.cu): CAST_CHUNK beams a chunk, a
+    warp's queue of CAST_QUEUE pairs, a word each."""
+    import os
+    import re
+
+    with open(os.path.join(build.CSRC, "weights.cu")) as f:
+        src = f.read()
+    const = lambda name: int(re.search(
+        rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("kChunk") == tweights.CAST_CHUNK
+    assert const("kQueue") == tweights.CAST_QUEUE
+    shared = re.search(r"struct CastShared \{(.*?)\};", src, re.S).group(1)
+    assert shared.split() == [
+        "float", "dist[kChunk][kThreads];", "float", "gx[kThreads],",
+        "gy[kThreads];", "int", "queue[kWarps][kQueue];"]
+    assert tweights.CAST_WORDS == (tweights.CAST_CHUNK + 2) * 256 \
+        + 8 * tweights.CAST_QUEUE
+    assert mirror.chunks(34) == [(0, 17), (17, 34)]
+    assert mirror.chunks(16) == [(0, 16)]
+
+
+def test_cast_stats_needs_the_analytic_cast_on_the_card():
+    """cast_stats counts the analytic kernel's schedule: fixed mode has no
+    slabs, and on the CPU there is no kernel to count (the mirror is)."""
+    import dataclasses
+
+    m, parts, scan, cfg = mirror.case("uniform", 64, "cpu")
+    with pytest.raises(ValueError, match="analytic"):
+        tweights.cast_stats(m, parts, scan,
+                            dataclasses.replace(cfg, ray_mode="fixed"))
+    with pytest.raises(ValueError, match="CUDA"):
+        tweights.cast_stats(m, parts, scan, cfg)
