@@ -18,8 +18,12 @@ same random stream, and the numbers below compare the two:
              that center; 99 where one side publishes a pose and the
              other the (-1, -1, -1) sentinel with the confidence clear of
              the threshold;
-  conf_gap   the widest gap of a published confidence.
+  conf_gap   the widest gap of a published confidence;
+  weights_gap the widest gap of a particle's weight, times N, at the
+             ends of the units (the ESS gate carries weights from tick
+             to tick; resampling every tick leaves them uniform).
 
+A number is compared where the traffic mix's `limits` names it.
 Diagnostics, not compared: songs_off (songs that differ, outside ticks
 whose confidence sits within CONF_MARGIN of its threshold) and gen_off
 (units after which the program's generator state differs from the
@@ -54,6 +58,7 @@ class Unit:
     best_pose: torch.Tensor         # [E, T, 3] each tick's best pose
     after: Optional[torch.Tensor]   # [E, N, 3] particles at the end
     gen_after: Optional[torch.Tensor] = None
+    weights_after: Optional[torch.Tensor] = None   # [E, N] at the end
 
 
 def wrap(a):
@@ -103,7 +108,7 @@ def pose_gaps(best, out: ref.Output):
 def check(world, units: list) -> dict:
     """The compared numbers and the diagnostics over `units`."""
     rows = rows_off = 0
-    pose_gap = conf_gap = 0.0
+    pose_gap = conf_gap = weights_gap = 0.0
     songs_off = gen_off = 0
     answers = 0
     for u in units:
@@ -126,9 +131,14 @@ def check(world, units: list) -> dict:
                                              - st.particles[..., 2])))
             rows += d.numel()
             rows_off += int((d > ROW_TOL).sum())
+        if u.weights_after is not None:
+            w = u.weights_after.to(st.weights)
+            weights_gap = max(weights_gap, float(
+                torch.abs(w - st.weights).max()) * w.shape[-1])
         if u.gen_after is not None:
             gen_off += int(not torch.equal(gen.get_state(), u.gen_after))
     return dict(rows_off=rows_off / max(rows, 1), pose_gap=pose_gap,
-                conf_gap=conf_gap, songs_off=songs_off, gen_off=gen_off,
+                conf_gap=conf_gap, weights_gap=weights_gap,
+                songs_off=songs_off, gen_off=gen_off,
                 units=len(units), answers=answers, rows=rows,
                 rows_off_count=rows_off)

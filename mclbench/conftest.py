@@ -1,10 +1,18 @@
 """Test settings of the benchmark's own tests (mclbench/tests)."""
+import os
+
 import pytest
 
 
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "card: needs a CUDA card; skips without one")
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        # Workers that each spread torch's CPU ops over every core slow
+        # each other down many times over: one thread a worker.
+        import torch
+
+        torch.set_num_threads(1)
 
 
 @pytest.fixture

@@ -17,7 +17,8 @@ over the window's length.
 
 For the check, the driver keeps, for the sampled segments, the state the
 call started from (the previous call's result, or the pass's seed), its
-generator's state, the answers and the state it returned.
+generator's state, the answers and the state it returned (its
+particles and weights, and its generator's state).
 """
 from __future__ import annotations
 
@@ -189,7 +190,8 @@ def _unit(world, k: dict, enc, ranges) -> Unit:
     return Unit(start=start, gen_state=gen, seed=k["seed"],
                 enc=enc[:, t0:t0 + n], ranges=ranges[:, t0:t0 + n],
                 confidence=a["confidence"], song=a["song"], best_pose=best,
-                after=after.particles, gen_after=gen_after)
+                after=after.particles, gen_after=gen_after,
+                weights_after=after.weights)
 
 
 def _bounds(world, states, episodes: int) -> dict:

@@ -11,9 +11,10 @@ Marks are the device operations whose names contain "mcl_mark_": empty
 kernels that a CUDA graph replays in stream order with the tick's
 operations.  A replay's extent runs from its `begin` mark to its `end`
 mark.  Inside an extent an operation belongs to the stage that the last
-mark before it opened; `begin` and `emit` open the bookkeeping (the
-draws, the hysteresis, publishing, the state's assembly and the output
-slab's copies).  The marks' own time belongs to no stage, and the
+mark before it opened: a mark `mcl_mark_<name>` opens the stage <name>,
+but `begin` and `emit` open the bookkeeping (the draws, the hysteresis,
+publishing, the state's assembly and the output slab's copies) and `end`
+closes the extent.  The marks' own time belongs to no stage, and the
 operations outside every extent are outside the graph (the calls'
 copy-ins, the mask fill, the output stacking).
 
@@ -32,12 +33,12 @@ import re
 from .drivers import nearest_rank
 from .trace import covered_ns, union
 
-MARK = re.compile(r"mcl_mark_([a-z]+)")
+MARK = re.compile(r"mcl_mark_([a-z][a-z0-9_]*)")
+# The stages every split reports; a trace's other marks add their own.
 STAGES = ("motion", "weights", "resample", "cluster", "bookkeeping")
-# The mark -> the stage it opens (None: it closes the extent).
-OPENS = dict(begin="bookkeeping", motion="motion", weights="weights",
-             resample="resample", cluster="cluster", emit="bookkeeping",
-             end=None)
+# The marks that open another stage than their name (None: it closes the
+# extent).
+OPENS = dict(begin="bookkeeping", emit="bookkeeping", end=None)
 
 
 def recorded():
@@ -53,9 +54,10 @@ def recorded():
 
 def stage_split(r):
     """The traced device time by stage, as ms a tick, for r.ops: each of
-    STAGES, `outside` (outside every extent), `marks` (the marks' own
-    time), and `idle_in_graph_share` (% of r.window_s idle inside the
-    extents).  None where the trace holds no mark."""
+    STAGES and every other stage a mark opened, `outside` (outside every
+    extent), `marks` (the marks' own time), and `idle_in_graph_share` (%
+    of r.window_s idle inside the extents).  None where the trace holds
+    no mark."""
     intervals = {k: [] for k in STAGES + ("outside", "marks")}
     extents = []
     stage = None
@@ -72,7 +74,9 @@ def stage_split(r):
         elif which == "end" and opened is not None:
             extents.append((opened, e))
             opened = None
-        stage = OPENS.get(which, stage)
+        stage = OPENS.get(which, which)
+        if stage is not None:
+            intervals.setdefault(stage, [])
     if not intervals["marks"] or not r.ticks:
         return None
     out = {k: covered_ns(v) * 1e-6 / r.ticks for k, v in intervals.items()}
@@ -93,8 +97,10 @@ def stage_split(r):
 
 
 def stage_ms(r, key: str):
+    """stage_split's `key`; None where the trace holds no mark, or no mark
+    opened that stage."""
     split = stage_split(r)
-    return None if split is None else split[key]
+    return None if split is None else split.get(key)
 
 
 def fleet_frames(r):

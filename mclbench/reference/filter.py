@@ -9,7 +9,8 @@ executeParticleFilter) on a batch of independent filters (particles
      the thresholds;
   2. the previous best pose is published, with its cell;
   3. odometry from the encoders, one noisy (rot1, trans, rot2) a filter,
-     every particle moved by it;
+     every particle moved by it, then, where refine.iters > 0, the
+     gradient refinement (reference/refine.py);
   4. beam weights: a ray per beam from 0.1 m ahead of the particle along
      the negated beam angle, a truncated Gaussian on |observed -
      expected| plus the max-range term, summed beam after beam, zero off
@@ -18,15 +19,18 @@ executeParticleFilter) on a batch of independent filters (particles
      and decides injection) or systematic ((k + u0) / N against the CDF,
      separate injection uniforms), with the dual-rate averages' injection
      of fresh uniform particles, capped first come, and the regime's
-     jitter;
+     jitter; where resample.ess_threshold is set, the ESS gate
+     (`ess_gate`) decides by filter whether the pass's result or the
+     carried importance weights are kept;
   6. k-means (K = 3, at most 20 Lloyd iterations, early exit, empty
      clusters reseeded) on the resampled cloud: the heaviest cluster's
      mean and circular mean heading, and the share of particles within
-     0.4 m of it.
+     0.4 m of it (under the ESS gate, importance-weighted).
 
 Random numbers: a tick draws, from one torch.Generator and in this order,
 the motion normals, the resampling uniforms, the jitter, the fresh
-particles and the k-means indices (`draw_tick`); the initial cloud is
+particles and the k-means indices (`draw_tick`), whether or not the ESS
+gate fires; refinement draws nothing; the initial cloud is
 drawn from the same generator seeded with the filter's seed (`init`).
 That is the seeded stream the program's filter states carry, so the
 reference replays a program's filter from its seed, or from a copy of
@@ -215,10 +219,11 @@ def gauss(diff, sensor: dict):
 
 
 def weights(mz: Maze, parts, ranges, mask, angles, sensor: dict,
-            block: int = 1 << 22):
+            block: int = 1 << 22, cast=caster.cast):
     """Beam weights [E, N] of particles [E, N, 3] against ranges and mask
     [E, B] on the beam table angles [B], in blocks of about `block`
-    rays."""
+    rays; `cast` is the caster (the configured one, or the refinement's
+    differentiable one)."""
     e, n = parts.shape[:2]
     nb = angles.shape[0]
     out = torch.empty((e, n), dtype=parts.dtype, device=parts.device)
@@ -234,7 +239,7 @@ def weights(mz: Maze, parts, ranges, mask, angles, sensor: dict,
             ox = (x + off * torch.cos(th))[..., None]
             oy = (y + off * torch.sin(th))[..., None]
             ray = th[..., None] + sign * angles.to(q.dtype)
-            expected = caster.cast(mz, ox, oy, ray, sensor)
+            expected = cast(mz, ox, oy, ray, sensor)
             obs = ranges[e0:e0 + rows, None, :].to(q.dtype)
             p_hit = sensor["w_hit"] * gauss(torch.abs(obs - expected),
                                             sensor)
@@ -253,20 +258,30 @@ def weights(mz: Maze, parts, ranges, mask, angles, sensor: dict,
 
 
 def _regime(was_lost, rc: dict) -> dict:
+    """The regime's parameters; under the ESS gate the averages' rates
+    are clamped to at most 1."""
     def sel(a, b):
         return torch.where(was_lost, float(a), float(b))
 
+    def rate(a):
+        return a if rc["ess_threshold"] is None else min(float(a), 1.0)
+
     return dict(max_injection=sel(rc["lost_max_injection"],
                                   rc["conf_max_injection"]),
-                alpha_slow=sel(rc["lost_alpha_slow"], rc["conf_alpha_slow"]),
-                alpha_fast=sel(rc["lost_alpha_fast"], rc["conf_alpha_fast"]),
+                alpha_slow=sel(rate(rc["lost_alpha_slow"]),
+                               rate(rc["conf_alpha_slow"])),
+                alpha_fast=sel(rate(rc["lost_alpha_fast"]),
+                               rate(rc["conf_alpha_fast"])),
                 jitter_xy=sel(rc["lost_jitter_xy"], rc["conf_jitter_xy"]),
                 jitter_theta=sel(rc["lost_jitter_theta"],
                                  rc["conf_jitter_theta"]))
 
 
-def resample(st: State, parts, w, was_lost, draws: dict, cfg: dict):
-    """Returns (particles, uniform weights, w_slow, w_fast, n_injected)."""
+def resample(st: State, parts, w, was_lost, draws: dict, cfg: dict,
+             draw_w=None):
+    """The full pass: this tick's likelihood `w` feeds the averages,
+    `draw_w` (default `w`) the draw.  Returns (particles, uniform
+    weights, w_slow, w_fast, n_injected, p_inject)."""
     rc = cfg["resample"]
     n = parts.shape[-2]
     p = _regime(was_lost, rc)
@@ -276,8 +291,9 @@ def resample(st: State, parts, w, was_lost, draws: dict, cfg: dict):
     w_fast = st.w_fast + p["alpha_fast"] * (w_avg - st.w_fast)
     p_inject = torch.where(w_slow > 0.0,
                            torch.clamp(1.0 - w_fast / w_slow, min=0.0), 0.0)
-    tot = torch.sum(w, dim=-1, keepdim=True)
-    cdf = torch.cumsum(torch.where(tot > 0.0, w / tot, 1.0 / n).double(),
+    dw = w if draw_w is None else draw_w
+    tot = torch.sum(dw, dim=-1, keepdim=True)
+    cdf = torch.cumsum(torch.where(tot > 0.0, dw / tot, 1.0 / n).double(),
                        dim=-1).float()
     if rc["method"] == "multinomial":
         inject_r = draws["u"]
@@ -304,7 +320,27 @@ def resample(st: State, parts, w, was_lost, draws: dict, cfg: dict):
     new = torch.where(inject[..., None], draws["fresh"], drawn)
     uni = torch.full(parts.shape[:-1], 1.0 / n, dtype=torch.float32,
                      device=parts.device)
-    return new, uni, w_slow, w_fast, torch.sum(inject, dim=-1)
+    return new, uni, w_slow, w_fast, torch.sum(inject, dim=-1), p_inject
+
+
+def ess_gate(st: State, parts, w, was_lost, draws: dict, cfg: dict):
+    """The ESS-gated pass: the carried weights times this tick's
+    likelihood, normalized (uniform where they sum to 0), decide the
+    draw; the full pass runs on every filter, and a filter keeps its
+    result where its ESS = 1 / sum(w^2) is below ess_threshold * N or the
+    averages ask for injection, else its particles and the normalized
+    carried weights, with nothing injected.  Returns resample's tuple."""
+    n = parts.shape[-2]
+    combined = st.weights * w
+    total = torch.sum(combined, dim=-1, keepdim=True)
+    norm = torch.where(total > 0.0, combined / total, 1.0 / n)
+    ess = 1.0 / torch.sum(norm * norm, dim=-1)
+    new, uni, w_slow, w_fast, n_inj, p_inject = resample(
+        st, parts, w, was_lost, draws, cfg, draw_w=norm)
+    fire = (ess < cfg["resample"]["ess_threshold"] * n) | (p_inject > 0.0)
+    return (torch.where(fire[:, None, None], new, parts),
+            torch.where(fire[:, None], uni, norm), w_slow, w_fast,
+            torch.where(fire, n_inj, 0), p_inject)
 
 
 def kmeans(xy, init_idx, reseed_idx):
@@ -348,8 +384,16 @@ def kmeans(xy, init_idx, reseed_idx):
     return centers, assign
 
 
-def confidence(parts, w, threshold, draws: dict, cc: dict):
-    """(confidence [E], best pose [E, 3] or the -1 sentinel, centers)."""
+def confidence(parts, w, threshold, draws: dict, cc: dict,
+               weighted: bool = False):
+    """(confidence [E], best pose [E, 3] or the -1 sentinel, centers
+    [E, K, 2]).  The heaviest cluster by the weights `w` is the best.
+    Unweighted: the share of particles within near_radius of its k-means
+    center, and that center with its members' circular mean heading.
+    `weighted` (the ESS gate's carried weights): the share of the weight
+    within near_radius of the best cluster's weighted mean, and that mean
+    with the weighted circular mean; the centers are then every
+    cluster's weighted mean, the best one's the pose's."""
     x, y = parts[..., 0], parts[..., 1]
     centers, assign = kmeans(parts[..., :2], draws["kmeans_init"],
                              draws["kmeans_reseed"])
@@ -357,15 +401,32 @@ def confidence(parts, w, threshold, draws: dict, cc: dict):
     cluster_w = torch.stack([torch.sum(torch.where(assign == i, w, 0.0),
                                        dim=-1) for i in range(k)], dim=-1)
     best = torch.argmax(cluster_w, dim=-1)
+    th = parts[..., 2]
+    r2 = cc["near_radius"] ** 2
+    if weighted:
+        means = []
+        for i in range(k):
+            mw = (assign == i).to(torch.float32) * w
+            mw_sum = torch.clamp(torch.sum(mw, dim=-1), min=1e-30)
+            means.append(torch.stack([torch.sum(mw * x, dim=-1) / mw_sum,
+                                      torch.sum(mw * y, dim=-1) / mw_sum],
+                                     dim=-1))
+        centers = torch.stack(means, dim=-2)
     cx = torch.take_along_dim(centers[..., 0], best[:, None], dim=-1)[:, 0]
     cy = torch.take_along_dim(centers[..., 1], best[:, None], dim=-1)[:, 0]
     member = (assign == best[:, None]).to(torch.float32)
-    th = parts[..., 2]
-    theta = torch.atan2((torch.sin(th) * member).sum(-1),
-                        (torch.cos(th) * member).sum(-1))
     d2 = (x - cx[:, None]) ** 2 + (y - cy[:, None]) ** 2
-    ratio = torch.sum((d2 <= cc["near_radius"] ** 2).to(torch.float32),
-                      dim=-1) * recip(parts.shape[1])
+    if weighted:
+        mw = member * w
+        theta = torch.atan2((torch.sin(th) * mw).sum(-1),
+                            (torch.cos(th) * mw).sum(-1))
+        ratio = torch.sum(torch.where(d2 <= r2, w, 0.0), dim=-1) / (
+            torch.clamp(torch.sum(w, dim=-1), min=1e-30))
+    else:
+        theta = torch.atan2((torch.sin(th) * member).sum(-1),
+                            (torch.cos(th) * member).sum(-1))
+        ratio = torch.sum((d2 <= r2).to(torch.float32),
+                          dim=-1) * recip(parts.shape[1])
     pose = torch.where((ratio > threshold)[:, None],
                        torch.stack([cx, cy, theta], dim=-1), -1.0)
     return ratio, pose, centers
@@ -421,14 +482,20 @@ def tick(st: State, enc, ranges, mask, angles, mz: Maze, cfg: dict,
     cell = cell_pose(exact, mz.cell_meters)
     odom, parts = motion(st, enc[:, 0], enc[:, 1], draws["normals"],
                          cfg["motion"], dtype)
+    if cfg["refine"]["iters"] > 0:
+        from . import refine  # it imports this module's weights
+
+        parts = refine.refine(mz, parts, ranges, mask, angles, cfg)
     w = weights(mz, parts, ranges, mask, angles, cfg["sensor"]).to(
         torch.float32)
     parts = parts.to(torch.float32)
-    parts, uni, w_slow, w_fast, n_inj = resample(st, parts, w, was_lost,
-                                                 draws, cfg)
-    ratio, pose, centers = confidence(parts, uni, conf_thr, draws,
-                                      cfg["cluster"])
-    new = State(particles=parts, weights=uni, odom=odom, w_slow=w_slow,
+    gated = cfg["resample"]["ess_threshold"] is not None
+    step = ess_gate if gated else resample
+    parts, new_w, w_slow, w_fast, n_inj, _ = step(st, parts, w, was_lost,
+                                                  draws, cfg)
+    ratio, pose, centers = confidence(parts, new_w, conf_thr, draws,
+                                      cfg["cluster"], weighted=gated)
+    new = State(particles=parts, weights=new_w, odom=odom, w_slow=w_slow,
                 w_fast=w_fast, confidence=ratio, was_lost=was_lost,
                 cluster_threshold=cluster_thr,
                 confident_threshold=conf_thr, best_pose=pose)

@@ -11,8 +11,13 @@ counters (mclbench/program_telemetry.py), each on a synthetic reading.
 - graph_setup_s sums the capture and instantiation counters.
 - Every reader gives None where there is nothing to read: a trace with
   no mark (the parent's program), a port with no recorder.
+- A mark of any other name opens a stage of that name: a `refine` mark
+  between `motion` and `weights` takes its time from `motion`; on traces
+  of today's marks the split is the one the fixed set of marks gave.
 """
 from __future__ import annotations
+
+import random
 
 import pytest
 
@@ -86,6 +91,77 @@ def test_idle_in_graph_is_the_gaps_inside_the_extents():
     got = _read("idle_in_graph_share.replay", r)
     assert got == pytest.approx(want)
     assert got < _read("idle_share.replay", r)
+
+
+def test_a_mark_of_another_name_opens_its_own_stage():
+    """Each motion op is followed by a refine op, with and without a
+    refine mark before it: with the mark, the refine stage takes the
+    refine ops' time from the motion stage."""
+    def trace(mark):
+        out = []
+        for name, s, e in _replay_ops():
+            if name == "motion_op":
+                out += [("motion_op", s, s + 4)]
+                if mark:
+                    out.append(("mcl_mark_refine", s + 4, s + 5))
+                out.append(("refine_op", s + 5, s + 10))
+            else:
+                out.append((name, s, e))
+        return _replay_reading(out)
+
+    before = program_telemetry.stage_split(trace(False))
+    r = trace(True)
+    split = program_telemetry.stage_split(r)
+    per_tick = 1e-6 / 4
+    assert "refine" not in before
+    assert before["motion"] == pytest.approx(4 * 9 * per_tick)
+    assert split["motion"] == pytest.approx(4 * 4 * per_tick)
+    assert split["refine"] == pytest.approx(4 * 5 * per_tick)
+    assert program_telemetry.stage_ms(r, "refine") == split["refine"]
+    for k in ("weights", "resample", "cluster", "bookkeeping", "outside"):
+        assert split[k] == before[k]
+    assert list(split)[:7] == list(program_telemetry.STAGES) + [
+        "outside", "marks"]
+    # A stage that no mark opened reads nothing.
+    assert program_telemetry.stage_ms(trace(False), "refine") is None
+
+
+def _mixed_trace(seed=5, n=400):
+    """Today's seven marks among kernels, in a random order, with random
+    lengths and overlaps."""
+    rng = random.Random(seed)
+    names = ([f"mcl_mark_{m}" for m in ("begin", "motion", "weights",
+                                        "resample", "cluster", "emit",
+                                        "end")]
+             + ["op_a", "beam_weights_batched_kernel",
+                "void kmeans_kernel<3>", "Memcpy HtoD"] * 3)
+    ops, t = [], 1000
+    for _ in range(n):
+        d = rng.randint(1, 40)
+        ops.append((rng.choice(names), t, t + d))
+        t += d + rng.randint(0, 30) - 8
+    return ops
+
+
+def test_todays_marks_split_as_before():
+    """The splits the fixed set of marks gave, to the bit."""
+    split = program_telemetry.stage_split(_replay_reading(_replay_ops()))
+    assert split == {
+        "motion": 9.999999999999999e-06, "weights": 9.999999999999999e-06,
+        "resample": 9.999999999999999e-06, "cluster": 9.999999999999999e-06,
+        "bookkeeping": 1.9999999999999998e-05,
+        "outside": 9.999999999999999e-06, "marks": 5.9999999999999995e-05,
+        "idle_in_graph_share": 12.742382271468143}
+    ops = _mixed_trace()
+    r = Reading(ops=ops, spans=[], window=(ops[0][1],
+                                           max(e for _, _, e in ops)),
+                ticks=7)
+    assert program_telemetry.stage_split(r) == {
+        "motion": 9.728571428571428e-05, "weights": 7.328571428571429e-05,
+        "resample": 8.685714285714285e-05,
+        "cluster": 0.00010285714285714284, "bookkeeping": 0.000247,
+        "outside": 0.00010957142857142857, "marks": 0.00044399999999999995,
+        "idle_in_graph_share": 4.783908670834466}
 
 
 def test_replay_metrics_read_nothing_without_marks():

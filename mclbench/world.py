@@ -18,8 +18,9 @@ SUPPORTED = {
     ("sensor", "quantize_ray_deg"): (False,),
     ("motion", "shared_noise"): (True,),
     ("resample", "method"): ("multinomial", "systematic"),
-    ("resample", "ess_threshold"): (None,),
-    ("refine", "iters"): (0,),
+    ("resample", "ess_threshold"): (None, 0.5),
+    ("refine", "iters"): (0, 1, 2),
+    ("refine", "ray_mode"): ("dda",),
     ("cluster", "impl"): ("auto",),
     ("init", "partial_map_cells"): ("uniform",),
     ("dtype",): ("float32",),
