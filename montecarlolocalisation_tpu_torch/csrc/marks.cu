@@ -17,6 +17,9 @@ extern "C" __global__ void mcl_mark_resample() {}
 extern "C" __global__ void mcl_mark_cluster() {}
 extern "C" __global__ void mcl_mark_emit() {}
 extern "C" __global__ void mcl_mark_end() {}
+extern "C" __global__ void mcl_mark_refine() {}
+extern "C" __global__ void mcl_mark_refine_grad() {}
+extern "C" __global__ void mcl_mark_refine_score() {}
 
 // Launches mark `which`, in the order of ops/marks.py's MARKS, on
 // `stream`: one block of one thread.
@@ -30,6 +33,9 @@ extern "C" int mcl_mark(int which, void* stream) {
     case 4: mcl_mark_cluster<<<1, 1, 0, s>>>(); break;
     case 5: mcl_mark_emit<<<1, 1, 0, s>>>(); break;
     case 6: mcl_mark_end<<<1, 1, 0, s>>>(); break;
+    case 7: mcl_mark_refine<<<1, 1, 0, s>>>(); break;
+    case 8: mcl_mark_refine_grad<<<1, 1, 0, s>>>(); break;
+    case 9: mcl_mark_refine_score<<<1, 1, 0, s>>>(); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

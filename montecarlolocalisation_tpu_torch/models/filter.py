@@ -267,14 +267,17 @@ def mcl_step(
     cell_pose = cell_pose_msg(state.best_pose, m.cell_meters)
 
     # 3-4. Odometry + propagate.  Each stage follows its mark
-    # (utils/profiling.mark); the opt-in refinement falls under `motion`.
+    # (utils/profiling.mark).
     profiling.mark("motion", dev)
     odom, particles = motion.motion_update(
         state.particles, state.odom, encoder_left, encoder_right,
         cfg.motion, draws.motion_normals)
 
-    # 4b. Opt-in gradient refinement (no reference counterpart).
-    particles = refine.refine_particles(m, particles, scan, cfg)
+    # 4b. Opt-in gradient refinement (no reference counterpart), under
+    #     marks of its own where it is on (models/refine).
+    if cfg.refine.iters > 0:
+        profiling.mark("refine", dev)
+        particles = refine.refine_particles(m, particles, scan, cfg)
 
     # 5. Weights + resample (jitter regime = was_lost after hysteresis,
     #    monte_carlo.cpp:1087).

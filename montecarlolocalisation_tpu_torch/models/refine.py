@@ -15,6 +15,18 @@ included) on the dense torch path, as the JAX package scores on its XLA
 path (refine.py:101-109): the gradient guides, the filter's likelihood
 decides.  The whole module is plain torch on every device, where the JAX
 package runs XLA; the caster's arithmetic is the dense path's.
+
+Telemetry (utils/profiling).  models/filter's `refine` mark opens the
+refinement and its first scoring; each round then runs under two stage
+marks, `refine_grad` (the differentiable caster's dense forward and its
+backward, and the step) and `refine_score` (the proposal scored by the
+filter's own caster, and the acceptance).  Each call with iters > 0 adds
+1 to the counter `refine.calls` and E x N x B x (1 + 2 iters) to
+`refine.rays`, the rays its castings score: the start, then a gradient
+and a proposal a round.  Under a CUDA graph the counters count the
+ticks that were captured, not the replays, so their ratio is the rays a
+tick.  They count the castings, not how they run: an implementation
+that fuses them records the same numbers.
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ import torch
 
 from ..config import FilterConfig, RefineConfig, SensorModelConfig
 from ..maps.grid import MazeMap
+from ..utils import profiling
 from ..utils.angles import normalize_angle
 from . import sensor
 
@@ -55,6 +68,10 @@ def refine_particles(m: MazeMap, particles, scan: sensor.Scan,
     rcfg = cfg.refine
     if rcfg.iters <= 0:
         return particles
+    dev = particles.device
+    profiling.count("refine.calls")
+    profiling.count("refine.rays", particles[..., 0].numel()
+                    * scan.ranges.shape[-1] * (1 + 2 * rcfg.iters))
     acc_cfg = dataclasses.replace(cfg.sensor, lookup_mode="auto")
 
     def value(p):
@@ -65,6 +82,7 @@ def refine_particles(m: MazeMap, particles, scan: sensor.Scan,
     p = particles
     w = value(p)
     for _ in range(rcfg.iters):
+        profiling.mark("refine_grad", dev)
         _, g = likelihood_and_grad(m, p, scan, cfg.sensor, rcfg,
                                    cfg.valid_pos_offset)
         gx, gy, gt = g[..., 0], g[..., 1], g[..., 2]
@@ -74,6 +92,7 @@ def refine_particles(m: MazeMap, particles, scan: sensor.Scan,
         dt = rcfg.step_theta * torch.sign(gt)
         prop = torch.stack([p[..., 0] + dx, p[..., 1] + dy,
                             normalize_angle(p[..., 2] + dt)], dim=-1)
+        profiling.mark("refine_score", dev)
         w_prop = value(prop)
         better = (w_prop > w)[..., None]
         p = torch.where(better, prop, p)

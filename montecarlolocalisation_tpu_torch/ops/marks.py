@@ -9,7 +9,11 @@ from . import build
 # The marks, in the order of the C entry's index: `begin` and `end` open
 # and close a graph's replay (models/compiled), the others precede the
 # filter tick's stages, and `emit` follows the last (models/filter).
-MARKS = ("begin", "motion", "weights", "resample", "cluster", "emit", "end")
+# `refine` opens the refinement (models/filter), `refine_grad` each
+# round's gradient and `refine_score` each round's scoring and acceptance
+# (models/refine).
+MARKS = ("begin", "motion", "weights", "resample", "cluster", "emit", "end",
+         "refine", "refine_grad", "refine_score")
 _INDEX = {name: i for i, name in enumerate(MARKS)}
 
 

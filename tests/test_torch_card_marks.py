@@ -3,8 +3,11 @@
 A profiled replay of a captured 8-tick graph runs the mark kernels in
 stage order, five a tick and `begin` and `end` once, and the recorder's
 span around the replay begins, on the profiler's clock, before the
-replay's `begin` mark.  The suite's conftest imports JAX, which a card's
-host may lack, so run this file alone there:
+replay's `begin` mark.  Under the production schedule (ESS 0.5, two
+rounds of refinement) the replay also runs `refine` after `motion`, then
+`refine_grad` and `refine_score` once a round, inside the graph.  The
+suite's conftest imports JAX, which a card's host may lack, so run this
+file alone there:
 
     python -m pytest --noconftest -p no:cacheprovider -m card \\
         tests/test_torch_card_marks.py
@@ -28,7 +31,10 @@ def card():
     return torch.device("cuda")
 
 
-def test_replay_runs_the_marks_in_stage_order(card):
+def _replay_marks(card, **schedule):
+    """The mark kernels that one profiled replay of a captured graph ran,
+    in device order, and the start of the recorder's `graph.replay` span
+    around it."""
     from torch.profiler import ProfilerActivity, profile
 
     from montecarlolocalisation_tpu_torch import presets
@@ -36,8 +42,7 @@ def test_replay_runs_the_marks_in_stage_order(card):
     from montecarlolocalisation_tpu_torch.sim import robot
     from montecarlolocalisation_tpu_torch.utils import profiling
 
-    world = presets.make_world(num_particles=1500, num_beams=34,
-                               device=card)
+    world = presets.make_world(num_beams=34, device=card, **schedule)
     gen = torch.Generator(device=card)
     gen.manual_seed(0)
     enc, ranges, _ = robot.generate_wander_episode(
@@ -63,10 +68,28 @@ def test_replay_runs_the_marks_in_stage_order(card):
                    for e in prof.profiler.kineto_results.events()
                    if "CUDA" in str(e.device_type())
                    and e.name().startswith("mcl_mark_"))
-    stages = ["motion", "weights", "resample", "cluster", "emit"]
-    assert [n for _, n in marks] == (
-        ["mcl_mark_begin"] + [f"mcl_mark_{s}" for s in stages] * TICKS
-        + ["mcl_mark_end"])
     (span,) = [s for s in profiling.recorded()[0]
                if s.name == "graph.replay" and s.start >= t0]
-    assert span.start < marks[0][0]
+    return marks, span.start
+
+
+def _expected(motion):
+    stages = motion + ["weights", "resample", "cluster", "emit"]
+    return (["mcl_mark_begin"] + [f"mcl_mark_{s}" for s in stages] * TICKS
+            + ["mcl_mark_end"])
+
+
+def test_replay_runs_the_marks_in_stage_order(card):
+    marks, span_start = _replay_marks(card, num_particles=1500)
+    assert [n for _, n in marks] == _expected(["motion"])
+    assert span_start < marks[0][0]
+
+
+def test_replay_runs_the_refine_marks_inside_the_graph(card):
+    marks, span_start = _replay_marks(
+        card, num_particles=500, resample_method="systematic",
+        refine_iters=2, ess_threshold=0.5)
+    rounds = ["refine_grad", "refine_score"] * 2
+    assert [n for _, n in marks] == _expected(["motion", "refine"]
+                                              + rounds)
+    assert span_start < marks[0][0]

@@ -11,12 +11,16 @@ the CPU.
   program span's name; the `telemetry` command replies with the counters
   and the spans' quantiles.
 - An episode call's spans share its id.
-- mcl_step marks motion, weights, resample, cluster, emit in order;
-  TickGraph marks begin and end once a call; on the CPU no mark loads
-  the kernel library.
+- mcl_step marks motion, weights, resample, cluster, emit in order,
+  and where refinement is on, refine after motion, then refine_grad and
+  refine_score a round; TickGraph marks begin and end once a call; on
+  the CPU no mark loads the kernel library.
+- refine.calls and refine.rays add 1 and E x N x B x (1 + 2 iters) a
+  refinement call, and nothing where refinement is off.
 - graph.builds and graph.capture_s survive GraphCache.clear(), whose
   stats() counts the graphs gone.
 """
+import dataclasses
 import json
 import os
 import time
@@ -222,14 +226,45 @@ def test_episode_call_spans_share_its_id(world):
             "episode.copy_out"} <= set(names)
 
 
-def test_mcl_step_marks_the_stages_in_order(world, monkeypatch):
+def _refining(cfg, iters):
+    return dataclasses.replace(cfg, refine=dataclasses.replace(
+        cfg.refine, iters=iters))
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2])
+def test_mcl_step_marks_the_stages_in_order(world, monkeypatch, iters):
     seen = []
     monkeypatch.setattr(profiling, "mark",
                         lambda name, device: seen.append(name))
-    st = tfilter.init_state(world.maze, world.cfg, seed=0)
+    cfg = _refining(world.cfg, iters)
+    st = tfilter.init_state(world.maze, cfg, seed=0)
     scan = sensor.make_scan(world.angles, torch.ones(BEAMS))
-    tfilter.mcl_step(st, 0.1, 0.1, scan, world.maze, world.cfg)
-    assert seen == ["motion", "weights", "resample", "cluster", "emit"]
+    tfilter.mcl_step(st, 0.1, 0.1, scan, world.maze, cfg)
+    refine = (["refine"] + ["refine_grad", "refine_score"] * iters
+              if iters else [])
+    assert seen == (["motion"] + refine
+                    + ["weights", "resample", "cluster", "emit"])
+
+
+@pytest.mark.parametrize("iters", [0, 1, 2])
+def test_refine_counts_its_calls_and_rays(world, iters):
+    cfg = _refining(world.cfg, iters)
+    e = 3
+    st = tfilter.init_state(world.maze, cfg, seed=0, batch=e)
+    scan = sensor.make_scan(world.angles, torch.ones(e, BEAMS))
+    before = profiling.recorded()[1]
+    for _ in range(2):
+        st, _ = tfilter.mcl_step(st, torch.full((e,), 0.1),
+                                 torch.full((e,), 0.1), scan, world.maze,
+                                 cfg)
+    after = profiling.recorded()[1]
+
+    def added(name):
+        return after.get(name, 0) - before.get(name, 0)
+
+    calls = 2 if iters else 0
+    assert added("refine.calls") == calls
+    assert added("refine.rays") == calls * e * N * BEAMS * (1 + 2 * iters)
 
 
 def test_tick_graph_marks_begin_and_end_once_a_call(monkeypatch):
