@@ -227,11 +227,13 @@ from montecarlolocalisation_tpu_torch.maps.grid import (
 )
 from montecarlolocalisation_tpu_torch.models import filter as mcl
 from montecarlolocalisation_tpu_torch.models import (
-    calibrate, compiled, mapping, motion, refine, resample, sensor, slam,
+    calibrate, compiled, mapping, motion, raycast, refine, resample, sensor,
+    slam,
 )
 from montecarlolocalisation_tpu_torch.models.raycast import march_steps
 from montecarlolocalisation_tpu_torch.ops import analytic, build, expand
 from montecarlolocalisation_tpu_torch.ops import kmeans, weights
+from montecarlolocalisation_tpu_torch.ops import refine as refine_kernels
 from montecarlolocalisation_tpu_torch.parallel import episodes
 from montecarlolocalisation_tpu_torch.planning import bfs
 from montecarlolocalisation_tpu_torch.sim import (
@@ -349,6 +351,14 @@ KERNELS = {
     "beam_weights_beamsub": dict(
         fn=weights.beamsub_cuda, source=f"{PKG}/csrc/weights.cu",
         replaces=f"{TPU}/weights_pallas.py:576"),
+    # Refinement's kernels replace none: the JAX package runs jax.grad on
+    # XLA there (montecarlolocalisation_tpu/models/refine.py).
+    "refine_grad": dict(
+        fn=refine_kernels.refine_grad_cuda, source=f"{PKG}/csrc/refine.cu",
+        replaces="none: jax.grad on XLA"),
+    "refine_score": dict(
+        fn=refine_kernels.refine_score_cuda,
+        source=f"{PKG}/csrc/refine.cu", replaces="none: jax.grad on XLA"),
 }
 
 
@@ -1798,6 +1808,176 @@ def batched_time_phase(m, gen) -> dict:
     return times
 
 
+# -- R1 and R2: refinement's kernels at the production shapes -------------
+
+# Float operations of refinement beyond K1's count (BEAM_FLOPS a beam,
+# PARTICLE_FLOPS a particle): a ray's DDA set-up and each DDA step, a hit
+# beam's closed-form derivative, and a particle's gradient sums, step and
+# angle wrap.
+DDA_SETUP_FLOPS, DDA_STEP_FLOPS = 12, 4
+HIT_GRAD_FLOPS, PARTICLE_STEP_FLOPS = 25, 20
+REFINE_SEED = 8
+
+
+def refine_inputs(dev):
+    """The production cell's shapes (SWEEP_E x SWEEP_N x SWEEP_B, fixed
+    march, 2 rounds): in each episode a cloud about a free pose, the scan
+    from that pose with a dead lane (lane 1), and the configuration."""
+    world = presets.make_world(num_particles=SWEEP_N, num_beams=SWEEP_B,
+                               ray_mode="fixed",
+                               resample_method="systematic",
+                               refine_iters=2, ess_threshold=ESS, device=dev)
+    m, cfg = world.maze, world.cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(REFINE_SEED)
+    truth = resample.sample_uniform_particles(gen, m, SWEEP_E)
+    spread = torch.tensor([0.15, 0.15, 0.2], device=dev)
+    parts = truth[:, None, :] + spread * torch.randn(
+        (SWEEP_E, SWEEP_N, 3), generator=gen, device=dev)
+    scan = sensor.simulate_scan(m, truth, world.angles, cfg.sensor, gen=gen,
+                                noise_sigma=0.02)
+    mask = torch.ones((SWEEP_E, SWEEP_B), dtype=torch.bool, device=dev)
+    mask[:, 1] = False
+    return m, parts, sensor.Scan(angles=scan.angles, ranges=scan.ranges,
+                                 mask=mask), cfg
+
+
+def refine_plain(m, parts, scan, cfg):
+    """What R1 and R2 compute, in plain torch: (the proposals of
+    models/refine.closed_form_grad and propose, the likelihood of the
+    particles by beam_weights_dense, the acceptance's rows and
+    likelihood by torch.where and torch.maximum)."""
+    acc = dataclasses.replace(cfg.sensor, lookup_mode="auto")
+    off = cfg.valid_pos_offset
+    _, g = refine.closed_form_grad(m, parts, scan, cfg.sensor, cfg.refine,
+                                   off)
+    prop = refine.propose(parts, g, cfg.refine)
+    w = sensor.beam_weights_dense(m, parts, scan, acc, off)
+    w_prop = sensor.beam_weights_dense(m, prop, scan, acc, off)
+    return (prop, w, torch.where((w_prop > w)[..., None], prop, parts),
+            torch.maximum(w_prop, w))
+
+
+def check_refine(dev) -> dict:
+    """R1's proposals and R2's likelihood and acceptance in place against
+    refine_plain on the same inputs: bit for bit (max-abs error 0), or a
+    raise."""
+    m, parts, scan, cfg = refine_inputs(dev)
+    want_prop, want_w, want_p, want_w2 = refine_plain(m, parts, scan, cfg)
+    p, ang, ranges, mask = refine_kernels.beam_inputs(parts, scan, cfg)
+    w = refine_kernels.refine_score_cuda(m, p, ang, ranges, mask, cfg)
+    err_w = (w - want_w).abs().max().item()
+    prop = refine_kernels.refine_grad_cuda(m, p, ang, ranges, mask, cfg)
+    err_prop = (prop - want_prop).abs().max().item()
+    refine_kernels.refine_score_cuda(m, p, ang, ranges, mask, cfg, w, prop)
+    err_accept = max((p - want_p).abs().max().item(),
+                     (w - want_w2).abs().max().item())
+    moved = (p != parts).any(-1).float().mean().item()
+    say("check", kernel="refine", shape=[SWEEP_E, SWEEP_N, SWEEP_B],
+        grad_max_abs_err=err_prop, score_max_abs_err=err_w,
+        accept_max_abs_err=err_accept, accepted_share=moved,
+        scored_share=(want_w > 0).float().mean().item())
+    if err_prop or err_w or err_accept or not 0.0 < moved < 1.0:
+        raise AssertionError(f"refinement's kernels: proposals {err_prop}, "
+                             f"likelihood {err_w}, acceptance {err_accept} "
+                             f"from the plain versions; accepted {moved}")
+    return dict(refine_grad=dict(max_abs_err=err_prop),
+                refine_score=dict(max_abs_err=max(err_w, err_accept)))
+
+
+def dda_steps(m, parts, angles, cfg) -> tuple:
+    """(DDA steps, hit rays) the data needs: every ray steps until it
+    enters a wall pixel, leaves the map or passes max_range (raycast's
+    traversal, restated to count), and hits where a step entered a wall
+    pixel."""
+    x, y, th = parts[..., 0], parts[..., 1], parts[..., 2]
+    ox = (x + cfg.laser_offset * torch.cos(th))[..., None]
+    oy = (y + cfg.laser_offset * torch.sin(th))[..., None]
+    sign = -1.0 if cfg.negate_beam_angle else 1.0
+    ox, oy, ray = torch.broadcast_tensors(ox, oy, th[..., None]
+                                          + sign * angles)
+    walk = raycast.dda_walk(m, ox, oy, ray, cfg)
+    ix = torch.floor((ox - m.origin_x) * m.inv_resolution).to(torch.int32)
+    iy = torch.floor((oy - m.origin_y) * m.inv_resolution).to(torch.int32)
+    sx = torch.where(walk.dx >= 0, 1, -1).to(torch.int32)
+    sy = torch.where(walk.dy >= 0, 1, -1).to(torch.int32)
+    tx, ty = walk.lead_x * walk.inv_dx, walk.lead_y * walk.inv_dy
+    inb = lambda a, b: (a >= 0) & (b >= 0) & (a < m.width) & (b < m.height)
+    done = lookup(m.occ, ix, iy, m.episode_maps) | ~inb(ix, iy)
+    steps = 0
+    for _ in range(raycast.dda_iters(m, cfg)):
+        steps += int((~done).sum())
+        take = tx < ty
+        t = torch.where(take, tx, ty)
+        nix = torch.where(take, ix + sx, ix)
+        niy = torch.where(take, iy, iy + sy)
+        done = done | ~inb(nix, niy) | (t >= cfg.max_range) | lookup(
+            m.occ, nix, niy, m.episode_maps)
+        ix, iy = torch.where(done, ix, nix), torch.where(done, iy, niy)
+        tx = torch.where(done | ~take, tx, tx + m.resolution * walk.inv_dx)
+        ty = torch.where(done | take, ty, ty + m.resolution * walk.inv_dy)
+    return steps, int(walk.hit.sum())
+
+
+def refine_bounds(m, parts, angles, cfg) -> dict:
+    """R1 and R2: the particles, the scan and both rasters read once, the
+    outputs written once (R1 the proposals; R2 reads the proposals and
+    the likelihood too, and writes both back); operations as K1's a beam
+    and a particle, R1's DDA steps and hit derivatives as these inputs
+    need them and a particle's step, R2's march samples as K1's."""
+    n = parts.numel() // 3
+    rays = n * angles.shape[-1]
+    n_ep = parts.shape[0]
+    common = 8 * n_ep * angles.shape[-1] + 2 * m.height * m.width
+    base = rays * BEAM_FLOPS + n * PARTICLE_FLOPS
+    steps, hits = dda_steps(m, parts, angles, cfg.sensor)
+    grad = bound(24 * n + common, base + rays * DDA_SETUP_FLOPS
+                 + DDA_STEP_FLOPS * steps + HIT_GRAD_FLOPS * hits
+                 + PARTICLE_STEP_FLOPS * n)
+    score = bound(32 * n + common, base + MARCH_SAMPLE_FLOPS
+                  * march_samples(m, parts, angles, cfg.sensor))
+    return dict(refine_grad=dict(grad, dda_steps_per_ray=steps / rays,
+                                 hit_share=hits / rays),
+                refine_score=score)
+
+
+def refine_time(dev) -> dict:
+    """R1 and R2 at the production shapes against refine_plain's parts on
+    the card (turns), with their bounds: R2 timed as a round's scoring
+    and acceptance (the proposals are accepted by the first call, so
+    later calls score them and write nothing)."""
+    m, parts, scan, cfg = refine_inputs(dev)
+    p, ang, ranges, mask = refine_kernels.beam_inputs(parts, scan, cfg)
+    w = refine_kernels.refine_score_cuda(m, p, ang, ranges, mask, cfg)
+    prop = refine_kernels.refine_grad_cuda(m, p, ang, ranges, mask, cfg)
+    acc = dataclasses.replace(cfg.sensor, lookup_mode="auto")
+    off = cfg.valid_pos_offset
+    shaped = prop.reshape(parts.shape)
+    pc, wc = p.clone(), w.clone()
+
+    def grad_plain():
+        _, g = refine.closed_form_grad(m, parts, scan, cfg.sensor,
+                                       cfg.refine, off)
+        return refine.propose(parts, g, cfg.refine)
+
+    def score_plain():
+        w_prop = sensor.beam_weights_dense(m, shaped, scan, acc, off)
+        return (torch.where((w_prop > w)[..., None], shaped, parts),
+                torch.maximum(w_prop, w))
+
+    bounds = refine_bounds(m, parts, scan.angles, cfg)
+    times = dict(
+        refine_grad=dict(**turns(lambda: refine_kernels.refine_grad_cuda(
+            m, p, ang, ranges, mask, cfg), grad_plain)),
+        refine_score=dict(**turns(lambda: refine_kernels.refine_score_cuda(
+            m, pc, ang, ranges, mask, cfg, wc, prop), score_plain)))
+    for name, t in times.items():
+        t.update(bounds[name], library_ms=None,
+                 shape=[SWEEP_E, SWEEP_N, SWEEP_B])
+        say("time", kernel=name, **t)
+    return times
+
+
 # -- phase 3c: F1, the beam weight kernels on rasters past shared memory --
 
 def random_maze(rows, cols, dev, seed):
@@ -2026,7 +2206,7 @@ def production_sweep_phase(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak_sweep = torch.cuda.max_memory_allocated() - base
-    launched = counts()
+    launched, replayed = counts(), replay_counts()
     check_k2_device_launches("production sweep",
                              expand.device_launches() - k2_before,
                              launched["systematic_expand_batched"], SWEEP_N,
@@ -2070,12 +2250,19 @@ def production_sweep_phase(dev) -> dict:
     if short:
         raise AssertionError(f"production sweep: kernels launched < "
                              f"{SWEEP_T} times: {short}")
+    # A tick refines once: 2 rounds, so R1 twice and R2 three times.
+    calls = launched["beam_weights_batched"]
+    if (launched["refine_grad"], launched["refine_score"]) != (2 * calls,
+                                                               3 * calls):
+        raise AssertionError(f"production sweep: refinement's kernels "
+                             f"launched other than 2 and 3 times a tick's "
+                             f"{calls}: {launched}")
     if not (metrics["converged_frac"] >= 0.95
             and metrics["alias_converged_frac"] >= 0.95
             and metrics["alias_rmse_xy"] <= 0.15):
         raise AssertionError(f"production sweep: below 0.95 / 0.95 / "
                              f"0.15 m: {metrics}")
-    return launched
+    return launched, replayed
 
 
 # -- phase 8c: path (b), the elastic server --------------------------------
@@ -2606,7 +2793,8 @@ GRAPH_FRAMES = 30
 DEVICE_KERNELS = ("beam_weights_kernel", "beam_weights_batched_kernel",
                   "beam_weights_cast_kernel",
                   "pack_kernel", "expand_block_kernel", "expand_scan_kernel",
-                  "expand_copy_kernel", "kmeans_kernel", "beamsub_kernel")
+                  "expand_copy_kernel", "kmeans_kernel", "beamsub_kernel",
+                  "refine_grad_kernel", "refine_score_kernel")
 
 
 @contextlib.contextmanager
@@ -2698,6 +2886,8 @@ LAUNCH_AUDIT = (
     (("expand_block_kernel", "expand_copy_kernel"),
      ("systematic_expand", "systematic_expand_batched")),
     (("kmeans_kernel",), ("kmeans", "kmeans_batched")),
+    (("refine_grad_kernel",), ("refine_grad",)),
+    (("refine_score_kernel",), ("refine_score",)),
 )
 # The C entries' device launch counters and the kernels each counts.
 DEVICE_AUDIT = (
@@ -4559,7 +4749,8 @@ TOOL_RUNS = (
     ("convergence_study", ["--batch", "64", "--ticks", "60", "--particles",
                            "500"], TOOL_BATCHED),
     ("convergence_study", ["--batch", "8", "--ticks", "60", "--particles",
-                           "500", "--refine-iters", "2"], TOOL_BATCHED),
+                           "500", "--refine-iters", "2"],
+     TOOL_BATCHED + ("refine_grad", "refine_score")),
     # Multinomial (the JAX tool's default) on a partial map: the weights
     # are plain torch in both packages, so K3 batched alone.
     ("reloc_sweep", ["--seeds", "7", "--replicas", "8", "--ticks", "100"],
@@ -4579,6 +4770,10 @@ TOOL_RUNS = (
                     "--iters", "4"], ()),
     ("coverage_bound", ["--ticks", "2400"], ()),
 )
+# Launches a tick of a kernel on a tool's path: one, but refinement's at
+# --refine-iters 2 (a gradient a round; the start's scoring and one a
+# round).
+TOOL_PER_TICK = dict(refine_grad=2, refine_score=3)
 # bench_matrix's rows that no earlier phase runs as a whole tick, one
 # dispatch each through the port's bench, and the kernels each launches.
 MATRIX_ROWS = (("full fidelity: 10k x 360 analytic",
@@ -4758,11 +4953,11 @@ def tools_phase(dev) -> tuple:
             at_s=time.perf_counter() - t0,
             launches=launched, numbers=len(nums), audit=audited,
             **tool_checks(name, lines, nums))
-        if sorted(launched) != sorted(kernels) or len(
-                set(launched.values())) > 1:
+        ticks = {v / TOOL_PER_TICK.get(k, 1) for k, v in launched.items()}
+        if sorted(launched) != sorted(kernels) or len(ticks) > 1:
             raise AssertionError(f"tools {name}: launched {launched}, its "
-                                 f"path's kernels are {kernels}, each once "
-                                 f"a tick")
+                                 f"path's kernels are {kernels}, each as "
+                                 f"often a tick as TOOL_PER_TICK says")
     configs = dict(matrix.CONFIGS)
     for row, kernels in MATRIX_ROWS:
         argv = list(configs[row])
@@ -4819,6 +5014,7 @@ def main() -> None:
         errs[name]["max_abs_err"] = max(errs[name]["max_abs_err"], err)
     check_f2(gen)
     errs["beam_weights_stack"] = check_stack(gen)
+    errs.update(check_refine(dev))
 
     # Each path is driven with every count set to 0 just before it and
     # read just after: one filter (serve), a batch (sweep, fleet), K4
@@ -4835,7 +5031,7 @@ def main() -> None:
     sweep_launched, sweep_replayed = sweep_phase(dev)
     multimap_row_phase(dev)
     multimap_launched, multimap_replayed = multimap_phase(dev)
-    production_sweep_phase(dev)
+    prod_launched, prod_replayed = production_sweep_phase(dev)
     elastic_phase(dev)
     serve_phase(dev, ess=ESS)
     fleet_phase(dev)
@@ -4854,6 +5050,7 @@ def main() -> None:
     ab_launched = ab_phase(m, gen)
     times.update(batched_time_phase(m, gen))
     times["beam_weights_stack"] = stack_time(gen)
+    times.update(refine_time(dev))
     f1_time(gen)
     launches = {name: launched[name] for name in SINGLE}
     replays = {name: replayed[name] for name in SINGLE}
@@ -4865,6 +5062,9 @@ def main() -> None:
     replays["beam_weights_stack"] = multimap_replayed["beam_weights_stack"]
     launches["beam_weights_beamsub"] = ab_launched["beam_weights_beamsub"]
     replays["beam_weights_beamsub"] = 0    # on no filter path
+    for name in ("refine_grad", "refine_score"):
+        launches[name] = prod_launched[name]
+        replays[name] = prod_replayed[name]
     if not all(replays[k] for k in KERNELS if k != "beam_weights_beamsub"):
         raise AssertionError(f"a kernel of a filter path never ran inside a "
                              f"CUDA graph replay: {replays}")

@@ -18,6 +18,7 @@ behind `quantize_ray_deg`.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -58,6 +59,48 @@ def raycast_fixed(m: MazeMap, ox, oy, angle, cfg: SensorModelConfig):
 def raycast_dda(m: MazeMap, ox, oy, angle, cfg: SensorModelConfig):
     """Exact grid traversal; returns the distance to the entered wall cell
     (bounded-iteration Amanatides-Woo, every lane the same iterations)."""
+    return _dda(m, ox, oy, angle, cfg, track=False)
+
+
+def dda_iters(m: MazeMap, cfg: SensorModelConfig) -> int:
+    """The bounded traversal's steps: enough for any ray of max_range."""
+    return int(math.ceil(cfg.max_range / m.resolution)) * 2 + 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DDAWalk:
+    """The bounded DDA's walk of each ray, and what the distance's
+    derivative reads.  The distance is t_max + k * t_delta on the axis of
+    the step that entered the wall pixel (k earlier steps along that axis,
+    the float adds of the traversal), so it is differentiable only where
+    that step exists (`hit`): nowhere on a wall origin, off the map, or at
+    max_range."""
+
+    dist: torch.Tensor      # distance (m)
+    hit: torch.Tensor       # bool: a step entered a wall pixel
+    axis_x: torch.Tensor    # bool: that step crossed a vertical pixel edge
+    steps: torch.Tensor     # int32: earlier steps along that axis
+    angle: torch.Tensor     # the ray angle as cast (quantized if set)
+    dx: torch.Tensor
+    dy: torch.Tensor
+    lead_x: torch.Tensor    # frac_x * res, the first crossing's factor
+    lead_y: torch.Tensor
+    inv_dx: torch.Tensor
+    inv_dy: torch.Tensor
+
+
+def dda_walk(m: MazeMap, ox, oy, angle, cfg: SensorModelConfig) -> DDAWalk:
+    """raycast_dda's traversal of every ray (its distance, bit for bit),
+    recording each ray's hit axis and its steps along it.  csrc/refine.cu
+    walks each ray with the same arithmetic and leaves the loop where the
+    ray is done."""
+    return _dda(m, ox, oy, angle, cfg, track=True)
+
+
+def _dda(m: MazeMap, ox, oy, angle, cfg: SensorModelConfig, track: bool):
+    """The bounded traversal for dda_iters steps, each value frozen once
+    its ray is done: the distance, or with `track` the DDAWalk (the
+    bookkeeping only where asked, so raycast_dda pays for none of it)."""
     angle = maybe_quantize(angle, cfg)
     res = m.resolution
     eps = 1e-9
@@ -72,10 +115,10 @@ def raycast_dda(m: MazeMap, ox, oy, angle, cfg: SensorModelConfig):
     step_y = torch.where(dy >= 0, 1, -1).to(torch.int32)
     inv_dx = torch.abs(1.0 / torch.where(torch.abs(dx) < eps, eps, dx))
     inv_dy = 1.0 / torch.abs(torch.where(torch.abs(dy) < eps, eps, dy))
-    frac_x = torch.where(dx >= 0, 1.0 - (gx - ix), gx - ix)
-    frac_y = torch.where(dy >= 0, 1.0 - (gy - iy), gy - iy)
-    t_max_x = frac_x * res * inv_dx
-    t_max_y = frac_y * res * inv_dy
+    lead_x = torch.where(dx >= 0, 1.0 - (gx - ix), gx - ix) * res
+    lead_y = torch.where(dy >= 0, 1.0 - (gy - iy), gy - iy) * res
+    t_max_x = lead_x * inv_dx
+    t_max_y = lead_y * inv_dy
     t_delta_x = res * inv_dx
     t_delta_y = res * inv_dy
 
@@ -85,8 +128,12 @@ def raycast_dda(m: MazeMap, ox, oy, angle, cfg: SensorModelConfig):
     start_hit = lookup(m.occ, ix, iy, m.episode_maps)
     dist = torch.where(start_hit, 0.0, cfg.max_range)
     done = start_hit | ~in_bounds(ix, iy)
-    iters = int(math.ceil(cfg.max_range / m.resolution)) * 2 + 2
-    for _ in range(iters):
+    if track:
+        hit_any = torch.zeros_like(done)
+        axis_x = torch.zeros_like(done)
+        kx = torch.zeros_like(ix)
+        ky = torch.zeros_like(iy)
+    for _ in range(dda_iters(m, cfg)):
         take_x = t_max_x < t_max_y
         t = torch.where(take_x, t_max_x, t_max_y)
         nix = torch.where(take_x, ix + step_x, ix)
@@ -97,12 +144,57 @@ def raycast_dda(m: MazeMap, ox, oy, angle, cfg: SensorModelConfig):
                & (t < cfg.max_range))
         out = (~in_bounds(nix, niy) | (t >= cfg.max_range)) & ~done
         dist = torch.where(hit, t, dist)
+        if track:
+            hit_any = hit_any | hit
+            axis_x = torch.where(hit, take_x, axis_x)
         done = done | hit | out
         ix = torch.where(done, ix, nix)
         iy = torch.where(done, iy, niy)
         t_max_x = torch.where(done, t_max_x, n_t_max_x)
         t_max_y = torch.where(done, t_max_y, n_t_max_y)
-    return dist
+        if track:
+            kx = kx + (~done & take_x).to(torch.int32)
+            ky = ky + (~done & ~take_x).to(torch.int32)
+    if not track:
+        return dist
+    return DDAWalk(dist=dist, hit=hit_any, axis_x=axis_x,
+                   steps=torch.where(axis_x, kx, ky), angle=angle, dx=dx,
+                   dy=dy, lead_x=lead_x, lead_y=lead_y, inv_dx=inv_dx,
+                   inv_dy=inv_dy)
+
+
+def dda_vjp(m: MazeMap, walk: DDAWalk, grad, cfg: SensorModelConfig):
+    """(d/d ox, d/d oy, d/d angle) of the distance times `grad` (the
+    upstream derivative of each ray), in closed form, applied in the
+    order autograd's backward through `raycast_dda` applies it: `grad`
+    reaches the hit axis's first crossing t_max = lead * inv_d once and
+    its t_delta = res * inv_d once for each earlier step (summed one
+    after another), then flows through inv_d = |1 / d| into the
+    direction (zero under the eps clamp) and through lead into the
+    origin.  A quantized angle has no derivative (round's is zero)."""
+    res, inv = m.resolution, m.inv_resolution
+    g_t = torch.where(walk.hit, grad, 0.0)
+    zero = torch.zeros_like(g_t)
+
+    def axis(on, lead, inv_d, d):
+        g = torch.where(on, g_t, zero)
+        g_delta = zero
+        for k in range(dda_iters(m, cfg)):
+            g_delta = torch.where(walk.steps > k, g_delta + g, g_delta)
+        g_inv = g * lead + g_delta * res
+        clamped = torch.where(torch.abs(d) < 1e-9, 1e-9, d)
+        r = 1.0 / clamped
+        g_d = -(g_inv * torch.sign(clamped)) * (r * r)
+        g_d = torch.where(torch.abs(d) < 1e-9, 0.0, g_d)
+        g_lead = g * inv_d * res
+        return g_d, torch.where(d >= 0, -g_lead, g_lead) * inv
+
+    g_dx, g_ox = axis(walk.axis_x, walk.lead_x, walk.inv_dx, walk.dx)
+    g_dy, g_oy = axis(~walk.axis_x, walk.lead_y, walk.inv_dy, walk.dy)
+    g_angle = g_dx * -torch.sin(walk.angle) + g_dy * torch.cos(walk.angle)
+    if cfg.quantize_ray_deg:
+        g_angle = torch.zeros_like(g_angle)
+    return g_ox, g_oy, g_angle
 
 
 def raycast_analytic(m: MazeMap, ox, oy, angle, cfg: SensorModelConfig):

@@ -68,6 +68,16 @@ SIGNATURES = {
     "mcl_kmeans_device_launches": [],
     # mark index (ops/marks.MARKS), stream
     "mcl_mark": [_I, _P],
+    # particles, E x N, N, signed angles, ranges, mask, B, occ, dil, H, W,
+    # fparams, iparams, proposals out, then the likelihood, gradient and
+    # distances out (null, or all three), device raster form, stream
+    "mcl_refine_grad": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P,
+                        _P, _P, _P, _P, _I, _P],
+    # particles, proposals (null: score the particles), weights, E x N, N,
+    # signed angles, ranges, mask, B, occ, dil, H, W, fparams, iparams,
+    # device raster form, stream
+    "mcl_refine_score": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I,
+                         _P, _P, _I, _P],
 }
 
 _lib = None

@@ -1,0 +1,213 @@
+"""Gradient refinement's kernels (csrc/refine.cu): wrappers and launch
+counts.
+
+- `refine_grad_cuda`: one round's proposals [E, N, 3] of particles
+  [E, N, 3]: the gradient of sum log(w + eps) under the DDA caster, in
+  closed form, and the step (what models/refine.closed_form_grad and
+  propose compute).
+- `refine_score_cuda`: the fixed march's likelihood [E, N] of the
+  particles (sensor.beam_weights_dense's), or, given proposals and the
+  current likelihood, the acceptance in place: where a proposal scores
+  strictly higher, its row and its likelihood replace the particle's.
+
+Both take the signed beam table angles [B] (the beam angles negated where
+the sensor negates them) and ranges and mask [E, B] (mask as 0/1
+floats), as `beam_inputs` lays them out, on a CUDA device; any other
+device raises.  `kernels_take` is models/refine's dispatch rule: CUDA
+particles under the configurations the kernels implement; everything
+else runs models/refine's dense path.  The kernels replace no TPU kernel
+(the JAX package runs jax.grad on XLA here); csrc/refine.cu says why
+they exist and what bounds them.
+
+`raster_form` stages a raster whose bit words fit beside the beam table
+in a block's default shared memory, and reads a larger one byte by byte
+from device memory; both read the same pixels, so both give the same
+bits.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..config import FilterConfig
+from ..maps.grid import MazeMap, f32_reciprocal
+from ..models import raycast, sensor
+from . import build
+
+# A block's shared memory without an opt-in: the beam table and the
+# raster's bit words up to this many bytes, else the device-memory form.
+SHARED_BYTES = 48 * 1024
+# torch's CUDA reduction (ATen/native/cuda/Reduce.cuh, setReduceConfig,
+# as of torch 2.11): at most this many threads a block, and a warp's width.
+REDUCE_THREADS = 512
+WARP = 32
+
+
+def kernels_take(m: MazeMap, particles, cfg: FilterConfig) -> bool:
+    """Whether the kernels run this refinement: CUDA particles
+    [..., N, 3], the "dda" objective, the fixed march scoring in sum mode,
+    one map (not a stack), validity at one pixel of offset.  The rule reads
+    the particles' device and the configuration and the map's form
+    alone."""
+    s = cfg.sensor
+    return (particles.is_cuda and particles.dim() >= 2
+            and cfg.refine.ray_mode == "dda"
+            and s.ray_mode == "fixed" and s.beam_combine == "sum"
+            and not m.is_stack
+            and abs(cfg.valid_pos_offset - m.resolution) < 1e-9)
+
+
+def reduce_width(nb: int, outputs: int) -> int:
+    """The threads that share one output when torch's CUDA sum reduces a
+    contiguous last dim of nb values for `outputs` outputs
+    (ATen/native/cuda/Reduce.cuh: setReduceConfig and
+    ReduceConfig.set_block_dimension, below the 128 values from which it
+    vectorizes the loads).  Lane t of them adds values t, t + width, ...
+    into four accumulators in turn and adds those in order; then the lanes
+    meet in a halving tree, lane t taking lane t + width / 2, then t +
+    width / 4, ... (block_x_reduce).  refine_grad_kernel sums the beams
+    in that order, the order of autograd's sum over them on the card.
+    The heuristic is torch's private code, read from torch 2.11
+    (2.11.0+cu128): should another version reduce in another order, the
+    card test's bit-for-bit check against autograd at the production
+    shape (tests/test_torch_card_refine.py) fails."""
+    def last_pow2(v):
+        return max(1, 1 << (max(v, 1).bit_length() - 1))
+
+    d0 = last_pow2(nb) if nb < REDUCE_THREADS else REDUCE_THREADS
+    d1 = last_pow2(outputs) if outputs < REDUCE_THREADS else REDUCE_THREADS
+    height = min(d1, REDUCE_THREADS // min(d0, WARP))
+    return min(d0, REDUCE_THREADS // height)
+
+
+def beam_inputs(particles, scan: sensor.Scan, cfg: FilterConfig):
+    """(particles [E, N, 3], signed angles [B], ranges [E, B], mask [E, B]
+    as floats) of particles [..., N, 3], contiguous, the particles a copy
+    that the acceptance may write in place."""
+    n, nb = particles.shape[-2], scan.angles.shape[-1]
+    lead = particles.shape[:-2]
+    sign = -1.0 if cfg.sensor.negate_beam_angle else 1.0
+    parts = particles.reshape(-1, n, 3).to(torch.float32).clone(
+        memory_format=torch.contiguous_format)
+    ranges = scan.ranges.expand(lead + (nb,)).reshape(-1, nb)
+    mask = scan.mask.expand(lead + (nb,)).reshape(-1, nb)
+    return (parts, (sign * scan.angles).to(torch.float32).contiguous(),
+            ranges.to(torch.float32).contiguous(),
+            mask.to(torch.float32).contiguous())
+
+
+def raster_form(m: MazeMap, nb: int) -> str:
+    """"shared" where the beam table and the raster's bit words fit in
+    SHARED_BYTES, else "device"."""
+    words = m.height * -(-m.width // 32)
+    return "shared" if 4 * (nb + words) <= SHARED_BYTES else "device"
+
+
+def _params(m: MazeMap, cfg: FilterConfig, nb: int, outputs: int):
+    s, rc = cfg.sensor, cfg.refine
+    width = reduce_width(nb, outputs)
+    fp = [m.origin_x, m.origin_y, m.inv_resolution, m.resolution,
+          m.extent_x, m.extent_y, s.laser_offset, s.max_range, s.ray_step,
+          s.w_hit, s.w_rand, s.gauss_max_diff,
+          f32_reciprocal(2.0 * s.sigma * s.sigma),
+          f32_reciprocal(s.sigma * math.sqrt(2.0 * math.pi)),
+          s.rand_window, 180.0 / math.pi, math.pi / 180.0, rc.eps,
+          rc.step_xy, rc.step_theta]
+    ip = [int(s.quantize_ray_deg), s.num_ray_steps,
+          raycast.dda_iters(m, s), width, width.bit_length() - 1]
+    return build.floats(fp), build.ints(ip)
+
+
+def _check(m: MazeMap, parts, angles, ranges, mask, what: str):
+    if not parts.is_cuda or m.device != parts.device:
+        raise ValueError(f"{what} needs particles and map on the same CUDA "
+                         f"device, got {parts.device} and {m.device}")
+    if m.is_stack:
+        raise ValueError(f"{what} takes one map, not a map stack")
+    if parts.dtype != torch.float32 or parts.dim() != 3 \
+            or parts.shape[-1] != 3 or not parts.is_contiguous():
+        raise ValueError("particles must be contiguous float32 [E, N, 3], "
+                         f"got {parts.dtype} {tuple(parts.shape)}")
+    nb = angles.shape[-1]
+    for name, v, shape in (("angles", angles, (nb,)),
+                           ("ranges", ranges, (parts.shape[0], nb)),
+                           ("mask", mask, (parts.shape[0], nb))):
+        if v.device != parts.device or v.dtype != torch.float32 \
+                or tuple(v.shape) != shape or not v.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous float32 "
+                             f"{shape} on {parts.device}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+
+
+def _rasters(m: MazeMap):
+    return m.occ.contiguous(), m.occ_dilated.contiguous()
+
+
+def refine_grad_cuda(m: MazeMap, parts, angles, ranges, mask,
+                     cfg: FilterConfig, detail: bool = False):
+    """Launch refine_grad_kernel: the proposals [E, N, 3]; with `detail`,
+    (proposals, the DDA likelihood [E, N], its gradient [E, N, 3], the
+    walks' distances [E, N, B]) from the same launch."""
+    _check(m, parts, angles, ranges, mask, "refine_grad_cuda")
+    lib = build.library()
+    n_ep, n, nb = parts.shape[0], parts.shape[1], angles.shape[0]
+    occ, dil = _rasters(m)
+    prop = torch.empty_like(parts)
+    more = ((torch.empty((n_ep, n), dtype=torch.float32,
+                         device=parts.device), torch.empty_like(parts),
+             torch.empty((n_ep, n, nb), dtype=torch.float32,
+                         device=parts.device)) if detail else ())
+    fp, ip = _params(m, cfg, nb, n_ep * n)
+    err = lib.mcl_refine_grad(
+        parts.data_ptr(), n_ep * n, n, angles.data_ptr(), ranges.data_ptr(),
+        mask.data_ptr(), nb, occ.data_ptr(), dil.data_ptr(), m.height,
+        m.width, ctypes.addressof(fp), ctypes.addressof(ip),
+        prop.data_ptr(), *([t.data_ptr() for t in more] or [None] * 3),
+        int(raster_form(m, nb) == "device"),
+        build.stream_handle(parts.device))
+    build.check(err, "mcl_refine_grad")
+    refine_grad_cuda.launches += 1
+    return (prop, *more) if detail else prop
+
+
+refine_grad_cuda.launches = 0
+
+
+def refine_score_cuda(m: MazeMap, parts, angles, ranges, mask,
+                      cfg: FilterConfig, weights=None, prop=None):
+    """Launch refine_score_kernel: without `prop`, the likelihood [E, N] of
+    `parts` (into `weights` where given); with it, the acceptance in place
+    into `parts` and `weights`.  Returns the likelihood."""
+    _check(m, parts, angles, ranges, mask, "refine_score_cuda")
+    n_ep, n, nb = parts.shape[0], parts.shape[1], angles.shape[0]
+    if weights is None:
+        if prop is not None:
+            raise ValueError("the acceptance needs the current likelihood")
+        weights = torch.empty((n_ep, n), dtype=torch.float32,
+                              device=parts.device)
+    if weights.dtype != torch.float32 or tuple(weights.shape) != (n_ep, n) \
+            or not weights.is_contiguous():
+        raise ValueError(f"weights must be contiguous float32 {(n_ep, n)}")
+    if prop is not None and (prop.shape != parts.shape
+                             or prop.dtype != torch.float32
+                             or not prop.is_contiguous()):
+        raise ValueError("proposals must be contiguous float32 like the "
+                         "particles")
+    lib = build.library()
+    occ, dil = _rasters(m)
+    fp, ip = _params(m, cfg, nb, n_ep * n)
+    err = lib.mcl_refine_score(
+        parts.data_ptr(), None if prop is None else prop.data_ptr(),
+        weights.data_ptr(), n_ep * n, n, angles.data_ptr(),
+        ranges.data_ptr(), mask.data_ptr(), nb, occ.data_ptr(),
+        dil.data_ptr(), m.height, m.width, ctypes.addressof(fp),
+        ctypes.addressof(ip), int(raster_form(m, nb) == "device"),
+        build.stream_handle(parts.device))
+    build.check(err, "mcl_refine_score")
+    refine_score_cuda.launches += 1
+    return weights
+
+
+refine_score_cuda.launches = 0

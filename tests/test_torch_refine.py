@@ -18,6 +18,16 @@ the gradient (under 1e-19 there, or 0 where it underflows) points where
 the last bits of either package's sums send it.  The likelihood rtol
 1e-5; the gradients of >= 99.9 % of rows within rtol 1e-3 + atol 1e-3 of
 the row's scale.
+
+The port's gradient on the "dda" objective is closed-form (models/refine
+closed_form_grad over raycast.dda_walk and dda_vjp), so the tests above
+hold the closed form against jax.grad.  Against the port's own autograd
+through raycast.raycast_dda, on the hard cases of tests/refine_cases.py:
+the distances exactly, each ray's derivative in (ox, oy, angle) within
+rtol 1e-6 + atol 1e-9; the whole objective's likelihood and gradient bit
+for bit (the closed form sums over the beams with torch's own sum, as
+autograd's backward does).  CPU particles never take the kernels: their
+refine_particles is the dense loop, bit for bit.
 """
 import dataclasses
 
@@ -33,10 +43,14 @@ from montecarlolocalisation_tpu.config import (
 from montecarlolocalisation_tpu.models import refine as jrefine
 from montecarlolocalisation_tpu.models import sensor as jsensor
 from montecarlolocalisation_tpu_torch.interop import config_from
+from montecarlolocalisation_tpu_torch.maps import grid as tgrid
+from montecarlolocalisation_tpu_torch.models import raycast as traycast
 from montecarlolocalisation_tpu_torch.models import refine as trefine
 from montecarlolocalisation_tpu_torch.models import sensor as tsensor
+from montecarlolocalisation_tpu_torch.ops import refine as trefine_ops
 from montecarlolocalisation_tpu_torch.utils.angles import normalize_angle
 
+import refine_cases as cases
 from torch_parity import maps, t
 
 torch.set_num_threads(1)
@@ -187,3 +201,163 @@ def test_zero_iters_is_the_identity():
     p = torch.rand(16, 3)
     scan = tsensor.make_scan(np.zeros(4, np.float32), np.ones(4, np.float32))
     assert trefine.refine_particles(tm, p, scan, cfg) is p
+
+
+def _autograd_dda(m, ox, oy, ang, cfg):
+    """raycast_dda's distance and autograd's derivative in (ox, oy, ang)."""
+    leaves = [v.clone().requires_grad_(True) for v in (ox, oy, ang)]
+    with torch.enable_grad():
+        d = traycast.raycast_dda(m, *leaves, cfg)
+        grads = torch.autograd.grad(d.sum(), leaves)
+    return d.detach(), torch.stack(grads, dim=-1)
+
+
+def _closed_form_dda(m, ox, oy, ang, cfg):
+    """dda_walk's distance and dda_vjp's derivative in (ox, oy, ang)."""
+    walk = traycast.dda_walk(m, ox, oy, ang, cfg)
+    grads = traycast.dda_vjp(m, walk, torch.ones_like(walk.dist), cfg)
+    return walk.dist, torch.stack(grads, dim=-1)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_dda_closed_form_derivative_matches_autograd(kind, quantize):
+    _, tm = maps()
+    cfg = config_from(SensorModelConfig(ray_mode="dda",
+                                        quantize_ray_deg=quantize))
+    ox, oy, ang = (t(v) for v in cases.rays(tm, 4000, kind, seed=3))
+    want_d, want_g = _autograd_dda(tm, ox, oy, ang, cfg)
+    got_d, got_g = _closed_form_dda(tm, ox, oy, ang, cfg)
+    assert torch.equal(got_d, want_d)
+    np.testing.assert_allclose(got_g.numpy(), want_g.numpy(), rtol=1e-6,
+                               atol=1e-9)
+    walk = traycast.dda_walk(tm, ox, oy, ang, cfg)
+    hit = walk.hit.numpy()
+    if kind in ("walls", "off_map"):
+        assert not hit.any() and not got_g.numpy().any()
+    else:
+        assert hit.mean() > 0.2 and (~hit).any()
+        # |d dist / d ox| is 1 / |cos| >= 1 where x takes the hit.
+        assert np.abs(got_g.numpy()[hit]).max() >= 0.99
+    if kind == "axes":            # sin(0) = 0: the eps clamp on y
+        assert (walk.dy == 0).any()
+
+
+@pytest.mark.parametrize("combine", ["sum", "log"])
+def test_closed_form_grad_matches_autograd(combine):
+    _, tm = maps()
+    cfg = config_from(SensorModelConfig(beam_combine=combine))
+    rc = config_from(RefineConfig(iters=2))
+    nb, e = 24, 3
+    parts = np.stack([np.concatenate([cases.particles(tm, 150, k, seed=i)
+                                      for k in cases.KINDS])
+                      for i in range(e)])
+    ranges, mask = cases.scan_arrays(nb, e, seed=5)
+    scan = tsensor.make_scan(cases.beam_table(nb), ranges, mask)
+    p = t(parts)
+    w, g = trefine.closed_form_grad(tm, p, scan, cfg, rc, 0.1)
+    dcfg = dataclasses.replace(cfg, ray_mode="dda")
+    with torch.enable_grad():
+        q = p.clone().requires_grad_(True)
+        want_w = tsensor.beam_weights_dense(tm, q, scan, dcfg, 0.1)
+        (want_g,) = torch.autograd.grad(
+            torch.sum(torch.log(want_w + rc.eps)), q)
+    assert torch.equal(w, want_w.detach())
+    assert torch.equal(g, want_g)
+    assert (want_g != 0).any(-1).float().mean() > 0.2   # real gradients
+    assert (w == 0).any() and (w > 0).any()         # gated and scored rows
+
+
+@pytest.mark.parametrize("nb,outputs,width", [
+    (24, 512_000, 16), (34, 1_500, 32), (24, 3, 16), (7, 100, 4),
+    (1, 10, 1), (200, 4, 128), (100, 10_000, 32),
+])
+def test_reduce_width_follows_torchs_reduce_config(nb, outputs, width):
+    """The lanes of torch's CUDA sum over a contiguous last dim
+    (Reduce.cuh setReduceConfig: the largest power of two <= nb, at most a
+    warp while the outputs fill a 512-thread block)."""
+    assert trefine_ops.reduce_width(nb, outputs) == width
+
+
+def _dense_loop(m, particles, scan, cfg):
+    """refine_particles' rounds as the dense path runs them:
+    likelihood_and_grad, the step, the dense scoring, torch.where and
+    torch.maximum."""
+    acc = dataclasses.replace(cfg.sensor, lookup_mode="auto")
+
+    def value(q):
+        return tsensor.beam_weights_dense(m, q, scan, acc,
+                                          cfg.valid_pos_offset)
+
+    p, w = particles, value(particles)
+    for _ in range(cfg.refine.iters):
+        _, g = trefine.likelihood_and_grad(m, p, scan, cfg.sensor,
+                                           cfg.refine, cfg.valid_pos_offset)
+        prop = trefine.propose(p, g, cfg.refine)
+        w_prop = value(prop)
+        p = torch.where((w_prop > w)[..., None], prop, p)
+        w = torch.maximum(w_prop, w)
+    return p
+
+
+def test_cpu_particles_run_the_dense_loop():
+    """On CPU tensors refine_particles never takes the kernels: it is the
+    dense loop bit for bit, one filter and a batch, and launches
+    nothing."""
+    _, tm = maps()
+    cfg = config_from(_cfg())
+    nb = 24
+    launches = (trefine_ops.refine_grad_cuda.launches,
+                trefine_ops.refine_score_cuda.launches)
+    for lead in ((), (3,)):
+        e = int(np.prod(lead)) if lead else 1
+        parts = np.stack([np.concatenate(
+            [cases.particles(tm, 120, k, seed=7 + i) for k in cases.KINDS])
+            for i in range(e)]).reshape(*lead, -1, 3)
+        ranges, mask = cases.scan_arrays(nb, e, seed=9)
+        if not lead:
+            ranges, mask = ranges[0], mask[0]
+        scan = tsensor.make_scan(cases.beam_table(nb), ranges, mask)
+        assert not trefine_ops.kernels_take(tm, t(parts), cfg)
+        got = trefine.refine_particles(tm, t(parts), scan, cfg)
+        assert torch.equal(got, _dense_loop(tm, t(parts), scan, cfg))
+        assert (got != t(parts)).any(-1).float().mean() > 0.1
+    assert launches == (trefine_ops.refine_grad_cuda.launches,
+                        trefine_ops.refine_score_cuda.launches)
+
+
+class _OnCard:
+    """Stands for CUDA particles of a given rank: kernels_take reads only
+    the device and the rank."""
+
+    is_cuda = True
+
+    def __init__(self, rank):
+        self.rank = rank
+
+    def dim(self):
+        return self.rank
+
+
+def test_kernels_take_only_what_they_implement():
+    _, tm = maps()
+    cfg = config_from(_cfg())
+    p = torch.zeros(2, 5, 3)
+    assert trefine_ops.kernels_take(tm, _OnCard(3), cfg)
+    assert trefine_ops.kernels_take(tm, _OnCard(2), cfg)
+    assert not trefine_ops.kernels_take(tm, p, cfg)        # CPU particles
+    off = [dataclasses.replace(cfg, sensor=dataclasses.replace(
+               cfg.sensor, beam_combine="log")),
+           dataclasses.replace(cfg, sensor=dataclasses.replace(
+               cfg.sensor, ray_mode="analytic")),
+           dataclasses.replace(cfg, refine=dataclasses.replace(
+               cfg.refine, ray_mode="analytic")),
+           dataclasses.replace(cfg, valid_pos_offset=0.15)]
+    for c in off:
+        assert not trefine_ops.kernels_take(tm, _OnCard(3), c)
+    stack = tgrid.stack_maps([tm, tm])
+    assert not trefine_ops.kernels_take(stack, _OnCard(3), cfg)
+    assert not trefine_ops.kernels_take(tm, _OnCard(1), cfg)
+    with pytest.raises(ValueError):
+        trefine_ops.refine_grad_cuda(tm, p, p[0, :, 0], p[..., 0],
+                                     p[..., 0], cfg)
