@@ -218,7 +218,6 @@ from montecarlolocalisation_tpu_torch.io.fleet import (
 )
 from montecarlolocalisation_tpu_torch.io.logs import EpisodeLog
 from montecarlolocalisation_tpu_torch.io.server import MCLServer, SLAMServer
-from montecarlolocalisation_tpu_torch.kernel_ab import device_ms, forced_plan
 from montecarlolocalisation_tpu_torch.maps import (
     from_walls, generator, pgm, repeat_maps, select_maps, stack_maps,
 )
@@ -240,6 +239,7 @@ from montecarlolocalisation_tpu_torch.sim import (
     align_sim, closed_loop, frontier, plan_exec, robot,
 )
 from montecarlolocalisation_tpu_torch.utils import profiling
+from montecarlolocalisation_tpu_torch.utils.profiling import device_ms
 
 SERVE_N, SERVE_B, SERVE_TICKS = 1_048_576, 34, 20
 ENTRY_N, ENTRY_B, ENTRY_TICKS = 65_536, 12, 50
@@ -1284,6 +1284,13 @@ def batched_cases(m):
                     yield maze, 64, 500, 24, mode, comb, kind
 
 
+def forced_plan(parts, t: int) -> tuple:
+    """K4's C entry arguments (threads a particle, particles a block) with
+    T = t forced on particles [E, n, 3]."""
+    plan = weights.BeamsubPlan.for_threads(parts.shape[0], parts.shape[1], t)
+    return plan.threads, plan.per_block
+
+
 def check_k4(maze, parts, scan, cfg) -> tuple:
     """K4 against beamsub_plain, and K4 with each T of 1, 2, 4 and 8
     threads a particle forced (through the C entry, not counted) against
@@ -1713,7 +1720,7 @@ def profile_phase(dev) -> None:
 
 def ab_phase(m, gen) -> dict:
     """K1 batched (one thread a particle) against K4 (its plan's T threads
-    a particle) in device time, the profiler's per call (kernel_ab's
+    a particle) in device time, the profiler's per call (utils/profiling's
     device_ms), timed in turns (row, beamsub, beamsub, row): at E = 64, n
     in AB_SIZES, B = 24, at the fleet's 64 x 1500 x 34 and at the CLI
     serve's 1 x 1500 x 24, analytic and fixed.  K4 runs only here: the
@@ -2077,7 +2084,7 @@ def check_f1(gen) -> dict:
 
 def f1_time(gen) -> None:
     """The device-memory form against the shared-memory form in device time
-    (kernel_ab.device_ms, in turns shared, device, device, shared) on the
+    (profiling.device_ms, in turns shared, device, device, shared) on the
     default maze, on random square mazes of F1_TIME_CELLS and on the
     largest that fits both forms: K1 at 1M x 34 and K1 batched at the
     sweep's 1024 x 500 x 24."""
@@ -2512,7 +2519,7 @@ def check_stack(gen) -> dict:
 def stack_time(gen) -> dict:
     """The map-stack form at the full-width sweep's shape (512 mixed maps,
     2 episodes a map, 500 x 24, fixed): CUDA events in turns against its
-    plain version, and device time (kernel_ab.device_ms) in turns against
+    plain version, and device time (profiling.device_ms) in turns against
     the single-map K1 batched on the stack's first map with the same
     inputs."""
     dev = gen.device

@@ -41,8 +41,8 @@
 //   step_theta along sign(d/dtheta), theta wrapped by atan2: the proposal.
 //
 // refine_score_kernel: the fixed march's likelihood of the particle (the
-// start) or of its proposal, in K1's arithmetic (csrc/weights.cu: the same
-// march, the same per-beam terms in beam order, the same gate), and for a
+// start) or of its proposal, in K1's arithmetic (sensor_model.cuh: K1's
+// march, per-beam term and gate, the beams in order), and for a
 // proposal the acceptance in place: where w_prop > w, the proposal's row
 // and w_prop are written (torch.where and torch.maximum of the dense
 // path, so a tie keeps the particle).
@@ -56,18 +56,20 @@
 // its necessary steps; the derivative adds about 60 operations a beam.
 //
 // Layout: one thread per particle with the beam loop inside, as K1; the
-// signed beam table and, where it fits (ops/refine.raster_form), the
-// raster as one bit a pixel are staged in each block's shared memory;
-// a larger raster is read byte by byte through the read-only cache.  The
-// episodes' ranges and masks are read from device memory, a warp's
-// particles mostly sharing one episode.  Built with -fmad=false, every
-// float operation rounds as the plain torch operation does.
+// signed beam table in each block's shared memory; the raster one bit a
+// pixel, in K1's two forms by K1's rule (sensor_model.cuh), read by the
+// walk and the march through one pixel lookup.  The episodes' ranges and
+// masks are read from device memory, a warp's particles mostly sharing one
+// episode.  Built with -fmad=false, every float operation rounds as the
+// plain torch operation does.
 //
 // Names: none contains beam_weights, expand_ or kmeans, which the
 // benchmark's trace readers match to K1, K2 and K3.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sensor_model.cuh"
 
 namespace {
 
@@ -77,116 +79,30 @@ constexpr float kNormEps = 1e-20f;  // models/refine.NORM_EPS
 constexpr int kCache = 32;          // beams a thread keeps between passes
 constexpr int kMaxLevels = 10;      // the lane tree's stack: width <= 512
 
-struct Params {
-  float origin_x, origin_y, inv_res, res, extent_x, extent_y;
-  float laser_offset, max_range, ray_step, w_hit, w_rand, gauss_max_diff;
-  float inv_two_sigma2, inv_denom, rand_window, rad2deg, deg2rad;
+// The sensor's parameters, then the objective's eps, the steps, the DDA's
+// iterations and the beams' reduction width and its levels.
+struct Params : SensorParams {
   float eps, step_xy, step_theta;
-  int quantize, num_steps, dda_iters, width, levels;
-};
-static_assert(sizeof(Params) == 25 * 4, "Params is 20 floats then 5 ints");
-
-void unpack(const float* fp, const int* ip, Params* P) {
-  float* f = &P->origin_x;
-  for (int i = 0; i < 20; ++i) f[i] = fp[i];
-  int* n = &P->quantize;
-  for (int i = 0; i < 5; ++i) n[i] = ip[i];
-}
-
-// The occupancy raster as the kernels read it: bit words in shared memory
-// (row my, word mx / 32), or (G) the byte raster through the read-only
-// cache.
-struct Raster {
-  const uint32_t* words;
-  const uint8_t* bytes;
-  int w, h, wpr;
+  int dda_iters, width, levels;
 };
 
-__device__ __forceinline__ bool in_map(const Raster& R, int mx, int my) {
-  return mx >= 0 && my >= 0 && mx < R.w && my < R.h;
-}
-
-template <bool G>
-__device__ __forceinline__ bool occupied(const Raster& R, int mx, int my) {
-  if (!in_map(R, mx, my)) return false;
-  if constexpr (G) return __ldg(R.bytes + (size_t)my * R.w + mx) != 0;
-  return (R.words[my * R.wpr + (mx >> 5)] >> (mx & 31)) & 1u;
+void unpack(const float* fparams, const int* iparams, Params* P) {
+  unpack_sensor(fparams, iparams, P);
+  float* pf = &P->eps;
+  for (int t = 0; t < 3; ++t) pf[t] = fparams[kSensorFloats + t];
+  int* pi = &P->dda_iters;
+  for (int t = 0; t < 3; ++t) pi[t] = iparams[kSensorInts + t];
 }
 
 // Stage the signed beam table and, in the shared form, the raster's bit
-// words (one warp ballot a word); the caller synchronizes.
+// words, one bit a pixel; the caller synchronizes.
 template <bool G>
-__device__ Raster stage(float* smem, const float* angles, int nb,
-                        const uint8_t* occ, int h, int w) {
+__device__ Bits stage(float* smem, const float* angles, int nb,
+                      const uint8_t* occ, const uint32_t* gwords, int h,
+                      int w) {
   for (int t = threadIdx.x; t < nb; t += blockDim.x) smem[t] = angles[t];
-  Raster R;
-  R.w = w;
-  R.h = h;
-  R.wpr = (w + 31) / 32;
-  R.bytes = occ;
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem + nb);
-  R.words = words;
-  if constexpr (!G) {
-    const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-    const int total = h * R.wpr;
-    for (int q = threadIdx.x >> 5; q < total; q += nwarps) {
-      const int row = q / R.wpr, col = (q - row * R.wpr) * 32 + lane;
-      const uint32_t bits = __ballot_sync(
-          0xffffffffu, col < w && occ[(size_t)row * w + col] != 0);
-      if (lane == 0) words[q] = bits;
-    }
-  }
-  return R;
-}
-
-// Sum mode's gate: isValidPos at one pixel of offset, the dilated raster
-// at the particle's truncated pixel, and the world extent.
-__device__ __forceinline__ bool valid_pos(float x, float y,
-                                          const uint8_t* dil,
-                                          const Params& P, int h, int w) {
-  const int mx = (int)((x - P.origin_x) * P.inv_res);
-  const int my = (int)((y - P.origin_y) * P.inv_res);
-  const bool inside = x >= P.origin_x && x < P.extent_x &&
-                      y >= P.origin_y && y < P.extent_y;
-  const bool wall = mx >= 0 && my >= 0 && mx < w && my < h &&
-                    __ldg(dil + (size_t)my * w + mx) != 0;
-  return inside && !wall;
-}
-
-// p_b = w_hit * N(|z - d|; sigma), truncated at gauss_max_diff, + w_rand *
-// 1[|z - max_range| < window] (sensor.per_beam_likelihood).
-__device__ __forceinline__ float beam_term(float obs, float dist,
-                                           const Params& P) {
-  const float diff = fabsf(obs - dist);
-  const float pdf = expf(-(diff * diff) * P.inv_two_sigma2) * P.inv_denom;
-  const float gauss =
-      (diff >= 0.0f && diff <= P.gauss_max_diff) ? pdf : 0.0f;
-  const float p_rand = fabsf(obs - P.max_range) < P.rand_window ? 1.0f : 0.0f;
-  return P.w_hit * gauss + P.w_rand * p_rand;
-}
-
-__device__ __forceinline__ float ray_angle(float th, float angle,
-                                           const Params& P) {
-  float ray = th + angle;
-  if (P.quantize) ray = rintf(ray * P.rad2deg) * P.deg2rad;
-  return ray;
-}
-
-// The reference march (raycast_fixed; K1's march): the first occupied
-// sample, stopping at the first sample off the map.
-template <bool G>
-__device__ float march(float ox, float oy, float dx, float dy,
-                       const Raster& R, const Params& P) {
-  for (int s = 0; s < P.num_steps; ++s) {
-    const float r = (float)s * P.ray_step;
-    const float px = ox + r * dx;
-    const float py = oy + r * dy;
-    const int mx = (int)((px - P.origin_x) * P.inv_res);
-    const int my = (int)((py - P.origin_y) * P.inv_res);
-    if (!in_map(R, mx, my)) break;
-    if (occupied<G>(R, mx, my)) return fminf(P.max_range, r);
-  }
-  return P.max_range;
+  return stage_bits<G>(reinterpret_cast<uint32_t*>(smem + nb), gwords, occ,
+                       pixel_layout(h, w));
 }
 
 // One particle's origin in pixels, and each axis's first-crossing
@@ -219,7 +135,7 @@ struct Walk {
 
 // raycast_dda's traversal of one ray, stopped where the ray is done.
 template <bool G>
-__device__ Walk walk(const Origin& o, float dx, float dy, const Raster& R,
+__device__ Walk walk(const Origin& o, float dx, float dy, const Bits& B,
                      const Params& P) {
   const int sx = dx >= 0.0f ? 1 : -1, sy = dy >= 0.0f ? 1 : -1;
   const float inv_dx = fabsf(1.0f / (fabsf(dx) < kEps ? kEps : dx));
@@ -229,23 +145,23 @@ __device__ Walk walk(const Origin& o, float dx, float dy, const Raster& R,
   const float ddx = P.res * inv_dx, ddy = P.res * inv_dy;
   Walk out{P.max_range, -1};
   int ix = o.ix, iy = o.iy;
-  if (occupied<G>(R, ix, iy)) {
+  if (occupied<G>(B, ix, iy)) {
     out.dist = 0.0f;
     return out;
   }
-  if (!in_map(R, ix, iy)) return out;
+  if (!in_map(B, ix, iy)) return out;
   int kx = 0, ky = 0;
   for (int s = 0; s < P.dda_iters; ++s) {
     const bool take_x = tx < ty;
     const float t = take_x ? tx : ty;
     const int nix = take_x ? ix + sx : ix;
     const int niy = take_x ? iy : iy + sy;
-    if (occupied<G>(R, nix, niy) && t < P.max_range) {
+    if (occupied<G>(B, nix, niy) && t < P.max_range) {
       out.dist = t;
       out.code = take_x ? (kx << 1) | 1 : ky << 1;
       return out;
     }
-    if (!in_map(R, nix, niy) || t >= P.max_range) return out;
+    if (!in_map(B, nix, niy) || t >= P.max_range) return out;
     ix = nix;
     iy = niy;
     if (take_x) {
@@ -317,6 +233,7 @@ __global__ void refine_grad_kernel(const float* __restrict__ parts,
                                    const float* __restrict__ ranges,
                                    const float* __restrict__ mask, int nb,
                                    const uint8_t* __restrict__ occ,
+                                   const uint32_t* __restrict__ gwords,
                                    const uint8_t* __restrict__ dil, int h,
                                    int w, Params P,
                                    float* __restrict__ prop,
@@ -324,7 +241,7 @@ __global__ void refine_grad_kernel(const float* __restrict__ parts,
                                    float* __restrict__ grad,
                                    float* __restrict__ dists) {
   extern __shared__ float smem[];
-  const Raster R = stage<G>(smem, angles, nb, occ, h, w);
+  const Bits B = stage<G>(smem, angles, nb, occ, gwords, h, w);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
@@ -345,7 +262,7 @@ __global__ void refine_grad_kernel(const float* __restrict__ parts,
   for (int b = 0; b < nb; ++b) {
     float dx, dy;
     sincosf(ray_angle(th, smem[b], P), &dy, &dx);
-    const Walk wk = walk<G>(o, dx, dy, R, P);
+    const Walk wk = walk<G>(o, dx, dy, B, P);
     if (b < kCache) {
       dist[b] = wk.dist;
       code[b] = wk.code;
@@ -372,7 +289,7 @@ __global__ void refine_grad_kernel(const float* __restrict__ parts,
       float dx, dy;
       sincosf(ray_angle(th, smem[b], P), &dy, &dx);
       const Walk wk = b < kCache ? Walk{dist[b], code[b]}
-                                 : walk<G>(o, dx, dy, R, P);
+                                 : walk<G>(o, dx, dy, B, P);
       return beam_terms(g_prob, __ldg(msk + b), __ldg(obs + b), wk, o, dx,
                         dy, P);
     };
@@ -424,10 +341,11 @@ __global__ void refine_score_kernel(float* __restrict__ parts,
                                     const float* __restrict__ ranges,
                                     const float* __restrict__ mask, int nb,
                                     const uint8_t* __restrict__ occ,
+                                    const uint32_t* __restrict__ gwords,
                                     const uint8_t* __restrict__ dil, int h,
                                     int w, Params P, bool accept) {
   extern __shared__ float smem[];
-  const Raster R = stage<G>(smem, angles, nb, occ, h, w);
+  const Bits B = stage<G>(smem, angles, nb, occ, gwords, h, w);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
@@ -443,7 +361,7 @@ __global__ void refine_score_kernel(float* __restrict__ parts,
   for (int b = 0; b < nb; ++b) {
     float dx, dy;
     sincosf(ray_angle(th, smem[b], P), &dy, &dx);
-    prob = prob + beam_term(__ldg(obs + b), march<G>(ox, oy, dx, dy, R, P),
+    prob = prob + beam_term(__ldg(obs + b), march<G>(ox, oy, dx, dy, B, P),
                             P) * __ldg(msk + b);
   }
   const float wv = valid_pos(x, y, dil, P, h, w) ? prob : 0.0f;
@@ -457,8 +375,14 @@ __global__ void refine_score_kernel(float* __restrict__ parts,
   }
 }
 
-size_t smem_bytes(int nb, int h, int w, bool G) {
-  return 4 * ((size_t)nb + (G ? 0 : (size_t)h * ((w + 31) / 32)));
+// A launch's shared memory (the beam table and, in the shared form, the
+// raster's words) into smem, after the device form's pack where gwords is
+// given; the first CUDA error.
+cudaError_t prepare(const uint8_t* occ, uint32_t* gwords, int h, int w,
+                    int nb, cudaStream_t s, size_t* smem) {
+  const Layout L = pixel_layout(h, w);
+  *smem = 4 * ((size_t)nb + (gwords != nullptr ? 0 : (size_t)L.words()));
+  return gwords == nullptr ? cudaSuccess : pack_global(gwords, occ, L, s);
 }
 
 }  // namespace
@@ -469,15 +393,16 @@ size_t smem_bytes(int nb, int h, int w, bool G) {
 // (ops/refine._params), prop [total, 3] out; lik [total], grad [total, 3]
 // and dists [total, nb], null or all three given, receive the DDA
 // likelihood, its gradient and the walks' distances (for the tests);
-// device_form: read the raster from device memory instead of staging it
-// in shared memory.
+// gwords: null for the shared-memory raster form, else h * ((w + 31) / 32)
+// ints of device scratch for the device-memory form, which the entry packs
+// on the stream before the launch (ops/weights.raster_form, K1's rule).
 extern "C" int mcl_refine_grad(const float* parts, int total, int n,
                                const float* angles, const float* ranges,
                                const float* mask, int nb, const uint8_t* occ,
                                const uint8_t* dil, int h, int w,
                                const float* fparams, const int* iparams,
                                float* prop, float* lik, float* grad,
-                               float* dists, int device_form, void* stream) {
+                               float* dists, uint32_t* gwords, void* stream) {
   Params P;
   unpack(fparams, iparams, &P);
   if (P.levels > kMaxLevels || P.width != (1 << P.levels) ||
@@ -486,16 +411,13 @@ extern "C" int mcl_refine_grad(const float* parts, int total, int n,
     return (int)cudaErrorInvalidValue;
   if (total <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (total + kThreads - 1) / kThreads;
-  const size_t smem = smem_bytes(nb, h, w, device_form != 0);
-  if (device_form)
-    refine_grad_kernel<true><<<blocks, kThreads, smem, s>>>(
-        parts, total, n, angles, ranges, mask, nb, occ, dil, h, w, P, prop,
-        lik, grad, dists);
-  else
-    refine_grad_kernel<false><<<blocks, kThreads, smem, s>>>(
-        parts, total, n, angles, ranges, mask, nb, occ, dil, h, w, P, prop,
-        lik, grad, dists);
+  size_t smem;
+  const cudaError_t err = prepare(occ, gwords, h, w, nb, s, &smem);
+  if (err != cudaSuccess) return (int)err;
+  auto* kernel = gwords ? refine_grad_kernel<true> : refine_grad_kernel<false>;
+  kernel<<<(total + kThreads - 1) / kThreads, kThreads, smem, s>>>(
+      parts, total, n, angles, ranges, mask, nb, occ, gwords, dil, h, w, P,
+      prop, lik, grad, dists);
   return (int)cudaGetLastError();
 }
 
@@ -509,22 +431,18 @@ extern "C" int mcl_refine_score(float* parts, const float* prop,
                                 const float* mask, int nb, const uint8_t* occ,
                                 const uint8_t* dil, int h, int w,
                                 const float* fparams, const int* iparams,
-                                int device_form, void* stream) {
+                                uint32_t* gwords, void* stream) {
   Params P;
   unpack(fparams, iparams, &P);
   if (total <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (total + kThreads - 1) / kThreads;
-  const size_t smem = smem_bytes(nb, h, w, device_form != 0);
-  const bool accept = prop != nullptr;
-  const float* cand = accept ? prop : parts;
-  if (device_form)
-    refine_score_kernel<true><<<blocks, kThreads, smem, s>>>(
-        parts, cand, weights, total, n, angles, ranges, mask, nb, occ, dil,
-        h, w, P, accept);
-  else
-    refine_score_kernel<false><<<blocks, kThreads, smem, s>>>(
-        parts, cand, weights, total, n, angles, ranges, mask, nb, occ, dil,
-        h, w, P, accept);
+  size_t smem;
+  const cudaError_t err = prepare(occ, gwords, h, w, nb, s, &smem);
+  if (err != cudaSuccess) return (int)err;
+  auto* kernel =
+      gwords ? refine_score_kernel<true> : refine_score_kernel<false>;
+  kernel<<<(total + kThreads - 1) / kThreads, kThreads, smem, s>>>(
+      parts, prop ? prop : parts, weights, total, n, angles, ranges, mask, nb,
+      occ, gwords, dil, h, w, P, prop != nullptr);
   return (int)cudaGetLastError();
 }

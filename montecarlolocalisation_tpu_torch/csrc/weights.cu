@@ -18,14 +18,16 @@
 // ("analytic", gridline rasters only); p_b = w_hit * N(|z_b - d|; sigma),
 // truncated at gauss_max_diff, + w_rand * 1[|z_b - max_range| < window].
 // Sum mode sums mask * p_b and gates with the dilated raster and the world
-// extent; log mode writes the raw sum of mask * log(max(p_b, 1e-6)).
+// extent; log mode writes the raw sum of mask * log(max(p_b, 1e-6)).  The
+// parameters, p_b, the ray angle, the gate, the march and the raster's bit
+// words are sensor_model.cuh's, which refinement's kernels read too.
 //
 // What bounds it on the H100: issue slots.  A particle reads 12 bytes and
 // writes 4, and a beam needs ~15 float operations plus ~10 for each
 // candidate slab its cast needs, so the bound is ~0.016 ms at 1M x 34; the
 // pixel-scan kernel this design replaced took ~1 ms, nine tenths of it in
 // the analytic cast (PERF.md: that kernel timed with one cost removed at a
-// time, by montecarlolocalisation_tpu_torch/kernel_ab.py).  Of the cast, the band
+// time).  Of the cast, the band
 // scan pixel by pixel, whose data-dependent trip count makes a warp wait
 // for its longest lane, was a third on uniform particles and a fifth on
 // filtered ones; the rest is the exact float arithmetic of the candidate
@@ -54,22 +56,14 @@
 //   a beam costs about 2.0 slab evaluations instead of 6 (cast_stats;
 //   PERF.md, section 6).  The pairs that stop provably miss nothing, and the
 //   distance is a minimum, whatever the order, so the bits are the
-//   all-candidate kernels'.  K4 and fixed mode keep evaluating every
-//   candidate with selects (axis_hits), their source unchanged.
+//   all-candidate kernels'.  K4 keeps evaluating every candidate with
+//   selects (axis_hits); K1 and K1 batched in fixed mode only march
+//   (march_weight), with no cast state.
 // - The fixed march reads a raster packed one bit a pixel (300 bytes for the
 //   49 x 49 maze, 7.3 KB for 241 x 241).  A sample costs a shift and a mask
 //   more than a byte raster's: 5 to 7 % of K1 batched's time.
-// - Two raster forms, one arithmetic.  A small raster (at most 1 KB of
-//   words, ops/weights.raster_form; the default maze's is 392 bytes) is
-//   packed by each block into shared memory.  A larger one is packed once a
-//   call into a device buffer by pack_kernel (the same words, the same
-//   ballots) and the kernels read it through __ldg: read-only, L1- and
-//   L2-resident (2 MB holds a 4096 x 4096 one-bit raster).  Every block
-//   packing a large raster costs in proportion to it and holds the SM's
-//   shared memory: at the largest raster that fits a block, the shared form
-//   ran 29 to 55 times slower (PERF.md, section 6).  The template flag G
-//   picks the form; the search, the march and the sums are the same code,
-//   so both forms give the plain version's bits.
+// - Two raster forms, one arithmetic, by one rule (sensor_model.cuh says
+//   why); the template flag G picks the form.
 // - The two axes share 1/dx and 1/dy; sincosf gives both directions (equal
 //   to sinf and cosf bit for bit on the card, PERF.md); particle rows come
 //   in through shared memory, coalesced.
@@ -84,7 +78,7 @@
 // K1 batched: a 2-D grid, x over particle blocks of one episode and y over
 // episodes, so no block straddles two episodes; each block stages its
 // episode's ranges and mask next to the shared beam table and the raster.
-// The per-particle body is K1's own (particle_weight; in analytic mode
+// The per-particle body is K1's own (march_weight; in analytic mode
 // both launch beam_weights_cast_kernel, K1 as its one episode), so each
 // episode's weights equal K1's on that episode bit for bit.  Its map-stack form
 // (mcl_beam_weights_stack) is the same kernel reading one raster per
@@ -118,55 +112,36 @@
 
 #include <algorithm>
 
+#include "sensor_model.cuh"
+
 namespace {
 
 constexpr int kFixed = 0;
-constexpr int kCellPx = 8;
 constexpr float kEps = 1e-9f;
 constexpr float kInf = 3e38f;
 constexpr int kThreads = 256;
 constexpr int kLanes = 8;      // K4: lane sums a particle
 constexpr int kPrepWords = 10;  // K4: a prepared particle in shared memory
 
-struct Params {
-  float origin_x, origin_y, inv_res, res, extent_x, extent_y;
-  float laser_offset, max_range, ray_step, w_hit, w_rand, gauss_max_diff;
-  float inv_two_sigma2, inv_denom, rand_window, smax, rad2deg, deg2rad;
-  int mode, log_mode, quantize, num_steps, n_cand, span, n_v, n_h;
-};
-static_assert(sizeof(Params) == 26 * 4, "Params is 18 floats then 8 ints");
-
-// The gridlines perpendicular to one axis, as bit words: line k's pixel r
-// is bit r % 32 of words[k * wpl + r / 32].
-struct Lines {
-  const uint32_t* words;
-  int wpl, length, n_lines;
+// The sensor's parameters, then the cast's (smax, n_cand and span:
+// ops/analytic.cast_constants; the gridlines n_v and n_h), the ray mode
+// and the log mode.
+struct Params : SensorParams {
+  float smax;
+  int mode, log_mode, n_cand, span, n_v, n_h;
 };
 
-// The raster as the kernels read it from shared memory: gridline words
-// (analytic) or one bit a pixel, row by row (fixed).
-struct Bits {
-  Lines v, h;
-  const uint32_t* map;
-  int wpr, w, h_px;
-};
-
-__host__ __device__ inline int raster_words(const Params& P, int h, int w) {
-  const int wv = (h + 31) / 32, wh = (w + 31) / 32;
-  return P.mode == kFixed ? h * wh : P.n_v * wv + P.n_h * wh;
+void unpack(const float* fparams, const int* iparams, Params* P) {
+  unpack_sensor(fparams, iparams, P);
+  P->smax = fparams[kSensorFloats];
+  int* pi = &P->mode;
+  for (int t = 0; t < 6; ++t) pi[t] = iparams[kSensorInts + t];
 }
 
-__device__ __forceinline__ bool pixel(const uint8_t* t, int w, int h, int mx,
-                                      int my) {
-  return mx >= 0 && my >= 0 && mx < w && my < h && t[my * w + mx] != 0;
-}
-
-// A raster word: from shared memory, or (G) from the device buffer through
-// the read-only cache.
-template <bool G>
-__device__ __forceinline__ uint32_t word(const uint32_t* p) {
-  if constexpr (G) return __ldg(p);
-  return *p;
+// The raster's words as the mode reads them: the gridlines for the
+// analytic cast, one bit a pixel for the march.
+__host__ __device__ inline Layout layout(const Params& P, int h, int w) {
+  return Layout{h, w, P.mode != kFixed, P.n_v, P.n_h};
 }
 
 template <bool G>
@@ -283,24 +258,6 @@ __device__ float axis_hits(float gu, float gv, float du, float dv,
   return best;
 }
 
-// The reference march (monte_carlo.cpp:350-390): first occupied sample,
-// stopping at the first out-of-map sample.
-template <bool G>
-__device__ float march(float ox, float oy, float dx, float dy, const Bits& B,
-                       const Params& P) {
-  for (int s = 0; s < P.num_steps; ++s) {
-    float r = (float)s * P.ray_step;
-    float px = ox + r * dx;
-    float py = oy + r * dy;
-    int mx = (int)((px - P.origin_x) * P.inv_res);
-    int my = (int)((py - P.origin_y) * P.inv_res);
-    if (!(mx >= 0 && my >= 0 && mx < B.w && my < B.h_px)) break;
-    if ((word<G>(B.map + my * B.wpr + (mx >> 5)) >> (mx & 31)) & 1u)
-      return fminf(P.max_range, r);
-  }
-  return P.max_range;
-}
-
 // Direction-independent state of one particle, hoisted out of the beam
 // loop.
 struct Particle {
@@ -333,16 +290,14 @@ __device__ __forceinline__ Particle prepare(float x, float y, float th,
   return q;
 }
 
-// p_b of one beam: the cast, then the truncated Gaussian plus the
-// max-range term.
+// K4's p_b of one beam: the march or the cast with every candidate, then
+// the per-beam term.
 template <bool G>
 __device__ __forceinline__ float beam_prob(const Particle& q, float angle,
                                            float obs, const Bits& B,
                                            const Params& P) {
-  float ray = q.th + angle;
-  if (P.quantize) ray = rintf(ray * P.rad2deg) * P.deg2rad;
   float dx, dy;
-  sincosf(ray, &dy, &dx);
+  sincosf(ray_angle(q.th, angle, P), &dy, &dx);
   float dist;
   if (P.mode == kFixed) {
     dist = march<G>(q.ox, q.oy, dx, dy, B, P);
@@ -358,11 +313,7 @@ __device__ __forceinline__ float beam_prob(const Particle& q, float angle,
                             small_x, B.h, q.ph, P.smax, P.n_cand, P.span);
     dist = fminf(fminf(sv, sh), P.smax) * P.res;
   }
-  float diff = fabsf(obs - dist);
-  float pdf = expf(-(diff * diff) * P.inv_two_sigma2) * P.inv_denom;
-  float gauss = (diff >= 0.0f && diff <= P.gauss_max_diff) ? pdf : 0.0f;
-  float p_rand = fabsf(obs - P.max_range) < P.rand_window ? 1.0f : 0.0f;
-  return P.w_hit * gauss + P.w_rand * p_rand;
+  return beam_term(obs, dist, P);
 }
 
 __device__ __forceinline__ float accumulate(float prob, float per_beam,
@@ -371,117 +322,35 @@ __device__ __forceinline__ float accumulate(float prob, float per_beam,
   return prob + per_beam * mask;
 }
 
-// Sum mode: isValidPos at one pixel of offset, the dilated raster at the
-// particle's own (truncated) pixel, and the world extent.  Log mode: the
-// raw log-sum.
-__device__ __forceinline__ float gate(const Particle& q, float prob,
+// Sum mode: the validity gate at (x, y).  Log mode: the raw log-sum.
+__device__ __forceinline__ float gate(float x, float y, float prob,
                                       const uint8_t* dil, const Params& P,
                                       int h, int w) {
   if (P.log_mode) return prob;
-  int mx = (int)((q.x - P.origin_x) * P.inv_res);
-  int my = (int)((q.y - P.origin_y) * P.inv_res);
-  bool inside = q.x >= P.origin_x && q.x < P.extent_x &&
-                q.y >= P.origin_y && q.y < P.extent_y;
-  return (!inside || pixel(dil, w, h, mx, my)) ? 0.0f : prob;
+  return valid_pos(x, y, dil, P, h, w) ? prob : 0.0f;
 }
 
-// One particle's weight over all beams, in beam order.
+// One particle's weight over all beams, in beam order, by the fixed march
+// (K1 and K1 batched in fixed mode).
 template <bool G>
-__device__ float particle_weight(const float* row, const float* s_ang,
-                                 const float* s_obs, const float* s_msk,
-                                 int nb, const Bits& B, const uint8_t* dil,
-                                 const Params& P) {
-  Particle q = prepare<G>(row[0], row[1], row[2], B, P);
+__device__ float march_weight(const float* row, const float* s_ang,
+                              const float* s_obs, const float* s_msk, int nb,
+                              const Bits& B, const uint8_t* dil,
+                              const Params& P) {
+  const float x = row[0], y = row[1], th = row[2];
+  float s, c;
+  sincosf(th, &s, &c);
+  const float ox = x + P.laser_offset * c;
+  const float oy = y + P.laser_offset * s;
   float prob = 0.0f;
-  for (int b = 0; b < nb; ++b)
-    prob = accumulate(prob, beam_prob<G>(q, s_ang[b], s_obs[b], B, P),
-                      s_msk[b], P);
-  return gate(q, prob, dil, P, B.h_px, B.w);
-}
-
-// Pack `n_lines` lines of `wpl` words each: one warp ballot a word, a
-// lane's loads for kPack words issued before their ballots.  Warps warp,
-// warp + nwarps, ... of the caller's set take part (a block's warps for
-// shared memory, the grid's for the device buffer).
-constexpr int kPack = 8;
-
-__device__ void pack(uint32_t* dst, const uint8_t* occ, int n_lines,
-                     int wpl, int stride_line, int stride_px, int length,
-                     int warp, int nwarps) {
-  const int lane = threadIdx.x & 31;
-  const int total = n_lines * wpl;
-  for (int q0 = warp; q0 < total; q0 += kPack * nwarps) {
-    bool on[kPack];
-#pragma unroll
-    for (int u = 0; u < kPack; ++u) {
-      const int q = q0 + u * nwarps;
-      const int k = q / wpl;
-      const int r = (q - k * wpl) * 32 + lane;
-      on[u] = q < total && r < length &&
-              occ[(size_t)k * stride_line + (size_t)r * stride_px] != 0;
-    }
-#pragma unroll
-    for (int u = 0; u < kPack; ++u) {
-      const uint32_t bits = __ballot_sync(0xffffffffu, on[u]);
-      if (lane == 0 && q0 + u * nwarps < total) dst[q0 + u * nwarps] = bits;
-    }
+  for (int b = 0; b < nb; ++b) {
+    float dx, dy;
+    sincosf(ray_angle(th, s_ang[b], P), &dy, &dx);
+    prob = accumulate(
+        prob, beam_term(s_obs[b], march<G>(ox, oy, dx, dy, B, P), P),
+        s_msk[b], P);
   }
-}
-
-// The raster's bit words at `words`: gridlines (analytic) or one bit a
-// pixel, row by row (fixed).
-__device__ Bits bits_at(const uint32_t* words, int h, int w,
-                        const Params& P) {
-  Bits B;
-  const int wv = (h + 31) / 32, wh = (w + 31) / 32;
-  B.w = w;
-  B.h_px = h;
-  B.wpr = wh;
-  B.map = words;
-  B.v = Lines{words, wv, h, P.n_v};
-  B.h = Lines{words + P.n_v * wv, wh, w, P.n_h};
-  return B;
-}
-
-// Pack the raster's words into `words` with the given warps.
-__device__ void pack_raster(uint32_t* words, const uint8_t* occ, int h, int w,
-                            const Params& P, int warp, int nwarps) {
-  const int wv = (h + 31) / 32, wh = (w + 31) / 32;
-  if (P.mode == kFixed) {
-    pack(words, occ, h, wh, w, 1, w, warp, nwarps);
-  } else {
-    pack(words, occ, P.n_v, wv, kCellPx, w, h, warp, nwarps);
-    pack(words + P.n_v * wv, occ, P.n_h, wh, kCellPx * w, 1, w, warp,
-         nwarps);
-  }
-}
-
-// The bits a block reads: packed into its shared `words`, or (G) the
-// device buffer `gwords` packed before the launch.  The caller
-// synchronizes before reading them.
-template <bool G>
-__device__ Bits stage_bits(uint32_t* words, const uint32_t* gwords,
-                           const uint8_t* occ, int h, int w,
-                           const Params& P) {
-  if constexpr (G) {
-    return bits_at(gwords, h, w, P);
-  } else {
-    pack_raster(words, occ, h, w, P, threadIdx.x >> 5, blockDim.x >> 5);
-    return bits_at(words, h, w, P);
-  }
-}
-
-// The device-memory form's one pass: every warp of a grid row packs
-// words of one map of the stack (rows stride over the maps), map m's
-// raster at occ + m * h * w and its words at words + m * raster_words.
-__global__ void pack_kernel(uint32_t* __restrict__ words,
-                            const uint8_t* __restrict__ occ, int h, int w,
-                            int maps, Params P) {
-  const size_t rw = raster_words(P, h, w), hw = (size_t)h * w;
-  for (int m = blockIdx.y; m < maps; m += gridDim.y)
-    pack_raster(words + m * rw, occ + m * hw, h, w, P,
-                (blockIdx.x * blockDim.x + threadIdx.x) >> 5,
-                (gridDim.x * blockDim.x) >> 5);
+  return gate(x, y, prob, dil, P, B.h_px, B.w);
 }
 
 // Stage the beam table (angles [nb], ranges [nb], mask [nb]), the block's
@@ -491,7 +360,7 @@ template <bool G>
 __device__ Bits stage(float* smem, const float* ang, const float* obs,
                       const float* msk, int nb, const float* p0, int rows,
                       int rows_max, const uint8_t* occ,
-                      const uint32_t* gwords, int h, int w, const Params& P) {
+                      const uint32_t* gwords, const Layout& L) {
   for (int t = threadIdx.x; t < nb; t += blockDim.x) {
     smem[t] = ang[t];
     smem[nb + t] = obs[t];
@@ -499,13 +368,13 @@ __device__ Bits stage(float* smem, const float* ang, const float* obs,
   }
   float* s_parts = smem + 3 * nb;
   for (int t = threadIdx.x; t < 3 * rows; t += blockDim.x) s_parts[t] = p0[t];
-  Bits B = stage_bits<G>(
-      reinterpret_cast<uint32_t*>(s_parts + 3 * rows_max), gwords, occ, h, w,
-      P);
+  Bits B = stage_bits<G>(reinterpret_cast<uint32_t*>(s_parts + 3 * rows_max),
+                         gwords, occ, L);
   __syncthreads();
   return B;
 }
 
+// K1 in fixed mode.
 template <bool G>
 __global__ void beam_weights_kernel(const float* __restrict__ parts, int n,
                                     const float* __restrict__ beam_tab,
@@ -518,19 +387,20 @@ __global__ void beam_weights_kernel(const float* __restrict__ parts, int n,
   const int i0 = blockIdx.x * blockDim.x;
   const int rows = min((int)blockDim.x, n - i0);
   Bits B = stage<G>(smem, beam_tab, beam_tab + nb, beam_tab + 2 * nb, nb,
-                    parts + 3 * (size_t)i0, rows, blockDim.x, occ, gwords, h,
-                    w, P);
+                    parts + 3 * (size_t)i0, rows, blockDim.x, occ, gwords,
+                    pixel_layout(h, w));
   if ((int)threadIdx.x >= rows) return;
   out[i0 + threadIdx.x] =
-      particle_weight<G>(smem + 3 * nb + 3 * threadIdx.x, smem, smem + nb,
-                         smem + 2 * nb, nb, B, dil, P);
+      march_weight<G>(smem + 3 * nb + 3 * threadIdx.x, smem, smem + nb,
+                      smem + 2 * nb, nb, B, dil, P);
 }
 
-// Episode e = blockIdx.y of this launch's episodes; its particles [n, 3]
-// start at e * n (the entry offsets the pointers of each chunk).  A map
-// stack (map_idx not null): episode e reads map map_idx[e], whose raster
-// and dilated raster start at m * h * w and whose device-form words at
-// m * raster_words; the single-map form reads map 0.
+// K1 batched in fixed mode.  Episode e = blockIdx.y of this launch's
+// episodes; its particles [n, 3] start at e * n (the entry offsets the
+// pointers of each chunk).  A map stack (map_idx not null): episode e
+// reads map map_idx[e], whose raster and dilated raster start at m * h * w
+// and whose device-form words at m * h * wpr; the single-map form reads
+// map 0.
 template <bool G>
 __global__ void beam_weights_batched_kernel(
     const float* __restrict__ parts, int n, const float* __restrict__ ang,
@@ -545,14 +415,14 @@ __global__ void beam_weights_batched_kernel(
   const size_t k0 = e * (size_t)n + i0;
   const size_t m = map_idx == nullptr ? 0 : (size_t)map_idx[e];
   const size_t hw = (size_t)h * w;
-  const uint32_t* words = G ? gwords + m * raster_words(P, h, w) : gwords;
+  const Layout L = pixel_layout(h, w);
+  const uint32_t* words = G ? gwords + m * L.words() : gwords;
   Bits B = stage<G>(smem, ang, obs + e * nb, msk + e * nb, nb,
-                    parts + 3 * k0, rows, blockDim.x, occ + m * hw, words,
-                    h, w, P);
+                    parts + 3 * k0, rows, blockDim.x, occ + m * hw, words, L);
   if ((int)threadIdx.x >= rows) return;
   out[k0 + threadIdx.x] =
-      particle_weight<G>(smem + 3 * nb + 3 * threadIdx.x, smem, smem + nb,
-                         smem + 2 * nb, nb, B, dil + m * hw, P);
+      march_weight<G>(smem + 3 * nb + 3 * threadIdx.x, smem, smem + nb,
+                      smem + 2 * nb, nb, B, dil + m * hw, P);
 }
 
 // -- The analytic cast, scheduled by ray (K1 and K1 batched, analytic) ----
@@ -598,10 +468,8 @@ struct AxisRay {
 __device__ __forceinline__ void cast_rays(float th, float angle,
                                           const Params& P, AxisRay& rv,
                                           AxisRay& rh) {
-  float ray = th + angle;
-  if (P.quantize) ray = rintf(ray * P.rad2deg) * P.deg2rad;
   float dx, dy;
-  sincosf(ray, &dy, &dx);
+  sincosf(ray_angle(th, angle, P), &dy, &dx);
   const bool small_x = fabsf(dx) < kEps, small_y = fabsf(dy) < kEps;
   const float inv_dx = 1.0f / (small_x ? kEps : dx);
   const float inv_dy = 1.0f / (small_y ? kEps : dy);
@@ -726,17 +594,6 @@ __device__ __forceinline__ void cast_round(CastShared& S, int* queue,
   push(queue, count, again, tag);
 }
 
-// p_b from the beam's distance (m): the truncated Gaussian plus the
-// max-range term.
-__device__ __forceinline__ float cast_prob(float dist, float obs,
-                                           const Params& P) {
-  float diff = fabsf(obs - dist);
-  float pdf = expf(-(diff * diff) * P.inv_two_sigma2) * P.inv_denom;
-  float gauss = (diff >= 0.0f && diff <= P.gauss_max_diff) ? pdf : 0.0f;
-  float p_rand = fabsf(obs - P.max_range) < P.rand_window ? 1.0f : 0.0f;
-  return P.w_hit * gauss + P.w_rand * p_rand;
-}
-
 // One particle's weight over all beams with the cast scheduled by ray, the
 // whole warp taking part.  Chunk by chunk of beams: the lockstep pass
 // evaluates each axis's first candidate for every beam, with no exchange
@@ -815,7 +672,7 @@ __device__ float cast_weight(const float* s_rows, bool live,
     if (live)
       for (int b = b0; b < b1; ++b)
         prob = accumulate(prob,
-                          cast_prob(S.dist[b - b0][t] * P.res, s_obs[b], P),
+                          beam_term(s_obs[b], S.dist[b - b0][t] * P.res, P),
                           s_msk[b], P);
     __syncwarp();  // read before the next chunk's distances overwrite them
   }
@@ -825,7 +682,7 @@ __device__ float cast_weight(const float* s_rows, bool live,
       if (lane == 0) atomicAdd(stats + i, (unsigned long long)v);
     }
   }
-  return gate(q, prob, dil, P, B.h_px, B.w);
+  return gate(q.x, q.y, prob, dil, P, B.h_px, B.w);
 }
 
 // K1 and K1 batched in analytic mode, both raster forms and the map stack:
@@ -846,12 +703,12 @@ __global__ void __launch_bounds__(kThreads) beam_weights_cast_kernel(
   const size_t k0 = e * (size_t)n + i0;
   const size_t m = map_idx == nullptr ? 0 : (size_t)map_idx[e];
   const size_t hw = (size_t)h * w;
-  const uint32_t* words = G ? gwords + m * raster_words(P, h, w) : gwords;
+  const Layout L = layout(P, h, w);
+  const uint32_t* words = G ? gwords + m * L.words() : gwords;
   Bits B = stage<G>(smem, ang, obs + e * nb, msk + e * nb, nb,
-                    parts + 3 * k0, rows, blockDim.x, occ + m * hw, words,
-                    h, w, P);
+                    parts + 3 * k0, rows, blockDim.x, occ + m * hw, words, L);
   CastShared& S = *reinterpret_cast<CastShared*>(
-      smem + 3 * nb + 3 * kThreads + (G ? 0 : raster_words(P, h, w)));
+      smem + 3 * nb + 3 * kThreads + (G ? 0 : L.words()));
   const int t = threadIdx.x;
   if ((t & ~31) >= rows) return;  // a warp with no particle
   const float wgt = cast_weight<G, Count>(
@@ -929,9 +786,10 @@ __global__ void __launch_bounds__(kThreads) beamsub_kernel(
   float* s_prep = smem + 3 * nb;
   uint32_t* words =
       reinterpret_cast<uint32_t*>(s_prep + (T > 1 ? kPrepWords * per : 0));
-  int& s_item = reinterpret_cast<int*>(words)[G ? 0 : raster_words(P, h, w)];
+  int& s_item =
+      reinterpret_cast<int*>(words)[G ? 0 : layout(P, h, w).words()];
   for (int t = threadIdx.x; t < nb; t += blockDim.x) s_ang[t] = ang[t];
-  const Bits B = stage_bits<G>(words, gwords, occ, h, w, P);
+  const Bits B = stage_bits<G>(words, gwords, occ, layout(P, h, w));
   const int chunks = (n + per - 1) / per;
   const int items = episodes * chunks;
   const bool more = items > (int)gridDim.x;
@@ -991,27 +849,20 @@ __global__ void __launch_bounds__(kThreads) beamsub_kernel(
       for (int s = 0; s < kLanes; ++s)
         prob += __shfl_sync(0xffffffffu, acc[s / T], s % T, T);
     }
-    if (live && r == 0) out[k0 + j] = gate(q, prob, dil, P, h, w);
+    if (live && r == 0) out[k0 + j] = gate(q.x, q.y, prob, dil, P, h, w);
     if (!more) break;  // one item a block
     __syncthreads();   // the item is read and s_item is set
     f = s_item;
   }
 }
 
-void unpack(const float* fparams, const int* iparams, Params* P) {
-  float* pf = &P->origin_x;
-  for (int t = 0; t < 18; ++t) pf[t] = fparams[t];
-  int* pi = &P->mode;
-  for (int t = 0; t < 8; ++t) pi[t] = iparams[t];
-}
-
 // Shared memory of a block: the beam table, `extra` words (particle rows,
 // K4's prepared particles and item) and, in the shared-memory form, the
 // raster's words; raises the kernel's limit past 48 KB where needed.
-cudaError_t smem_for(const void* kernel, const Params& P, int nb, int extra,
-                     int h, int w, bool global_raster, size_t* bytes) {
+cudaError_t smem_for(const void* kernel, const Layout& L, int nb, int extra,
+                     bool global_raster, size_t* bytes) {
   *bytes = 4 * (3 * (size_t)nb + (size_t)extra +
-                (global_raster ? 0 : (size_t)raster_words(P, h, w)));
+                (global_raster ? 0 : (size_t)L.words()));
   int dev, optin;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1022,21 +873,6 @@ cudaError_t smem_for(const void* kernel, const Params& P, int nb, int extra,
   if (*bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
-}
-
-// The most episodes one launch's grid y dimension holds.
-constexpr int kMaxGridY = 65535;
-
-// The device-memory form's pass: the rasters' words of `maps` maps into
-// `gwords` (maps * raster_words(P, h, w) of them) on the stream.
-cudaError_t pack_global(uint32_t* gwords, const uint8_t* occ, int h, int w,
-                        const Params& P, cudaStream_t stream, int maps = 1) {
-  const long long warps = (raster_words(P, h, w) + kPack - 1) / kPack;
-  const dim3 grid((int)std::min(
-      std::max((warps * 32 + kThreads - 1) / kThreads, 1ll), 4096ll),
-      std::min(maps, kMaxGridY));
-  pack_kernel<<<grid, kThreads, 0, stream>>>(gwords, occ, h, w, maps, P);
-  return cudaGetLastError();
 }
 
 // The analytic kernel over `episodes` episodes of n particles (K1: one),
@@ -1056,13 +892,14 @@ cudaError_t launch_cast(const float* particles, int episodes, int n,
                           : beam_weights_cast_kernel<false, false>)
                      : (G ? beam_weights_cast_kernel<true, true>
                           : beam_weights_cast_kernel<false, true>);
+  const Layout L = layout(P, h, w);
   size_t smem;
-  cudaError_t err = smem_for((const void*)kernel, P, nb,
-                             3 * kThreads + kCastWords, h, w, G, &smem);
+  cudaError_t err = smem_for((const void*)kernel, L, nb,
+                             3 * kThreads + kCastWords, G, &smem);
   if (err != cudaSuccess) return err;
   if (maps < 1) return cudaErrorInvalidValue;
   if (n <= 0 || episodes <= 0) return cudaGetLastError();
-  if (G && (err = pack_global(gwords, occ, h, w, P, s, maps)) != cudaSuccess)
+  if (G && (err = pack_global(gwords, occ, L, s, maps)) != cudaSuccess)
     return err;
   for (int e0 = 0; e0 < episodes; e0 += kMaxGridY) {
     const dim3 grid((n + kThreads - 1) / kThreads,
@@ -1082,7 +919,7 @@ cudaError_t launch_cast(const float* particles, int episodes, int n,
 // particles [n, 3] f32; beam_tab [3, nb] f32 (signed angles, ranges,
 // mask); occ, dil [h, w] u8; fparams/iparams host arrays in Params order;
 // out [n] f32.  gwords: null for the shared-memory raster form, else
-// raster_words(P, h, w) ints of device scratch for the device-memory form,
+// layout(P, h, w).words() ints of device scratch for the device-memory form,
 // which the entry packs on the stream before the launch.  Returns the
 // first CUDA error.
 extern "C" int mcl_beam_weights(const float* particles, int n,
@@ -1100,12 +937,13 @@ extern "C" int mcl_beam_weights(const float* particles, int n,
   const bool G = gwords != nullptr;
   const void* kernel = G ? (const void*)beam_weights_kernel<true>
                          : (const void*)beam_weights_kernel<false>;
+  const Layout L = pixel_layout(h, w);
   size_t smem;
-  cudaError_t err = smem_for(kernel, P, nb, 3 * kThreads, h, w, G, &smem);
+  cudaError_t err = smem_for(kernel, L, nb, 3 * kThreads, G, &smem);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (G && (err = pack_global(gwords, occ, h, w, P, s)) != cudaSuccess)
+  if (G && (err = pack_global(gwords, occ, L, s)) != cudaSuccess)
     return (int)err;
   const int blocks = (n + kThreads - 1) / kThreads;
   if (G)
@@ -1138,12 +976,13 @@ cudaError_t launch_batched(const float* particles, int episodes, int n,
   const bool G = gwords != nullptr;
   const void* kernel = G ? (const void*)beam_weights_batched_kernel<true>
                          : (const void*)beam_weights_batched_kernel<false>;
+  const Layout L = pixel_layout(h, w);
   size_t smem;
-  cudaError_t err = smem_for(kernel, P, nb, 3 * kThreads, h, w, G, &smem);
+  cudaError_t err = smem_for(kernel, L, nb, 3 * kThreads, G, &smem);
   if (err != cudaSuccess) return err;
   if (maps < 1) return cudaErrorInvalidValue;
   if (n <= 0 || episodes <= 0) return cudaGetLastError();
-  if (G && (err = pack_global(gwords, occ, h, w, P, s, maps)) != cudaSuccess)
+  if (G && (err = pack_global(gwords, occ, L, s, maps)) != cudaSuccess)
     return err;
   for (int e0 = 0; e0 < episodes; e0 += kMaxGridY) {
     const dim3 grid((n + kThreads - 1) / kThreads,
@@ -1183,7 +1022,7 @@ extern "C" int mcl_beam_weights_batched(
 // K1 batched, map-stack form: the arguments of mcl_beam_weights_batched
 // with occ, dil [maps, h, w] u8 and map_idx [episodes] i32 (each in
 // [0, maps)), episode e reading map map_idx[e].  gwords: null for the
-// shared-memory form, else maps * raster_words(P, h, w) ints of scratch,
+// shared-memory form, else maps * layout(P, h, w).words() ints of scratch,
 // which one pack pass fills for every map before the launches.  Returns
 // the first CUDA error.
 extern "C" int mcl_beam_weights_stack(
@@ -1238,9 +1077,8 @@ cudaError_t launch_beamsub(const float* particles, int episodes, int n,
   const void* kernel = (const void*)beamsub_kernel<T, G>;
   const int threads = per * T;
   size_t smem;
-  cudaError_t err = smem_for(kernel, P, nb,
-                             (T > 1 ? kPrepWords * per : 0) + 1, h, w, G,
-                             &smem);
+  cudaError_t err = smem_for(kernel, layout(P, h, w), nb,
+                             (T > 1 ? kPrepWords * per : 0) + 1, G, &smem);
   int dev, sms, resident;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1272,7 +1110,7 @@ cudaError_t launch_beamsub_form(const float* particles, int episodes, int n,
     return launch_beamsub<T, false>(particles, episodes, n, angles, ranges,
                                     mask, nb, occ, gwords, dil, h, w, P, per,
                                     next, out, stream);
-  cudaError_t err = pack_global(gwords, occ, h, w, P, stream);
+  cudaError_t err = pack_global(gwords, occ, layout(P, h, w), stream);
   if (err != cudaSuccess) return err;
   return launch_beamsub<T, true>(particles, episodes, n, angles, ranges, mask,
                                  nb, occ, gwords, dil, h, w, P, per, next,

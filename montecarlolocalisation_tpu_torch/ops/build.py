@@ -70,14 +70,14 @@ SIGNATURES = {
     "mcl_mark": [_I, _P],
     # particles, E x N, N, signed angles, ranges, mask, B, occ, dil, H, W,
     # fparams, iparams, proposals out, then the likelihood, gradient and
-    # distances out (null, or all three), device raster form, stream
+    # distances out (null, or all three), raster words, stream
     "mcl_refine_grad": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P,
-                        _P, _P, _P, _P, _I, _P],
+                        _P, _P, _P, _P, _P, _P],
     # particles, proposals (null: score the particles), weights, E x N, N,
     # signed angles, ranges, mask, B, occ, dil, H, W, fparams, iparams,
-    # device raster form, stream
+    # raster words, stream
     "mcl_refine_score": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I,
-                         _P, _P, _I, _P],
+                         _P, _P, _P, _P],
 }
 
 _lib = None
@@ -109,19 +109,38 @@ def _library_path():
     return os.path.join(BUILD_DIR, f"libmcl_kernels_{h.hexdigest()[:16]}.so")
 
 
-def _run_all(cmds):
-    """Run the commands in parallel; raise with the first failure's
-    output."""
+def _run_all(cmds) -> list:
+    """Run the commands in parallel and return their standard errors;
+    raise with the first failure's output."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    failed = None
+    failed, errs = None, []
     for p in procs:
         out, err = p.communicate()
+        errs.append(err)
         if p.returncode != 0 and failed is None:
             failed = f"nvcc failed ({p.returncode}):\n{out}\n{err}"
     if failed is not None:
         raise RuntimeError(failed)
+    return errs
+
+
+def _nvcc() -> str:
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): the CUDA "
+            "kernels are compiled from csrc/ at first use")
+    return nvcc
+
+
+def _compile_all(nvcc, cu, tmpdir, extra=()) -> tuple:
+    """Compile each source into an object under tmpdir, all in parallel;
+    the objects' paths and nvcc's standard errors."""
+    objs = [os.path.join(tmpdir, os.path.basename(c) + ".o") for c in cu]
+    return objs, _run_all([[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", o, c]
+                           for c, o in zip(cu, objs)])
 
 
 def build() -> str:
@@ -132,23 +151,47 @@ def build() -> str:
     out = _library_path()
     if os.path.isfile(out):
         return out
-    nvcc = find_nvcc()
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): the CUDA "
-            "kernels are compiled from csrc/ at first use")
+    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     cu = [s for s in sources() if s.endswith(".cu")]
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        objs = [os.path.join(tmpdir, os.path.basename(c) + ".o") for c in cu]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, c]
-                  for c, o in zip(cu, objs)])
+        objs, _ = _compile_all(nvcc, cu, tmpdir)
         tmp = os.path.join(tmpdir, "lib.so")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
+
+
+def ptxas_usage(stderr: str) -> dict:
+    """{kernel's mangled name: {registers, stack, spill_stores,
+    spill_loads}} (bytes but registers) from nvcc's `-Xptxas -v` output."""
+    usage, entry, props = {}, None, None
+    for ln in stderr.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            usage[entry] = {}
+        elif "Function properties for" in ln:
+            props = ln.split("Function properties for", 1)[1].strip()
+        elif props in usage and "bytes stack frame" in ln:
+            n = [int(t) for t in ln.replace(",", " ").split() if t.isdigit()]
+            usage[props].update(stack=n[0], spill_stores=n[1],
+                                spill_loads=n[2])
+        elif entry is not None and "Used" in ln and "registers" in ln:
+            usage[entry]["registers"] = int(
+                ln.split("Used", 1)[1].split()[0])
+    return usage
+
+
+def ptxas_report() -> dict:
+    """{source file: ptxas_usage} of each csrc/*.cu compiled with NVCC_FLAGS
+    and `-Xptxas -v` into a temporary directory: the library is neither
+    built nor renamed.  Needs nvcc."""
+    cu = [s for s in sources() if s.endswith(".cu")]
+    with tempfile.TemporaryDirectory() as tmpdir:
+        _, errs = _compile_all(_nvcc(), cu, tmpdir, ("-Xptxas", "-v"))
+    return {os.path.basename(c): ptxas_usage(e) for c, e in zip(cu, errs)}
 
 
 def loaded() -> bool:

@@ -22,7 +22,7 @@ from . import build
 
 # One block an episode up to SMALL_N sources (csrc/expand.cu kBlockMaxN:
 # 4 bytes of shared memory a source, 32 KB), else two launches over source
-# tiles (kernel_ab's expand_paths times both paths up to the limit).
+# tiles (both paths were timed on an H100 up to the limit: CHANGES.md).
 SMALL_N = 8192
 SCAN_CHUNK = 4096     # csrc/expand.cu kScanChunk: a source tile's multiple
 

@@ -19,26 +19,23 @@ else runs models/refine's dense path.  The kernels replace no TPU kernel
 (the JAX package runs jax.grad on XLA here); csrc/refine.cu says why
 they exist and what bounds them.
 
-`raster_form` stages a raster whose bit words fit beside the beam table
-in a block's default shared memory, and reads a larger one byte by byte
-from device memory; both read the same pixels, so both give the same
-bits.
+The raster, one bit a pixel, takes K1's form by K1's rule
+(ops/weights.raster_form and _raster_buffer): at most 1 KB of words in
+each block's shared memory, else a device buffer that the C entry packs
+once a call; both read the same words, so both give the same bits.
 """
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 from ..config import FilterConfig
-from ..maps.grid import MazeMap, f32_reciprocal
+from ..maps.grid import MazeMap
 from ..models import raycast, sensor
 from . import build
+from .weights import _raster_buffer, sensor_prefix
 
-# A block's shared memory without an opt-in: the beam table and the
-# raster's bit words up to this many bytes, else the device-memory form.
-SHARED_BYTES = 48 * 1024
 # torch's CUDA reduction (ATen/native/cuda/Reduce.cuh, setReduceConfig,
 # as of torch 2.11): at most this many threads a block, and a warp's width.
 REDUCE_THREADS = 512
@@ -98,34 +95,25 @@ def beam_inputs(particles, scan: sensor.Scan, cfg: FilterConfig):
             mask.to(torch.float32).contiguous())
 
 
-def raster_form(m: MazeMap, nb: int) -> str:
-    """"shared" where the beam table and the raster's bit words fit in
-    SHARED_BYTES, else "device"."""
-    words = m.height * -(-m.width // 32)
-    return "shared" if 4 * (nb + words) <= SHARED_BYTES else "device"
-
-
 def _params(m: MazeMap, cfg: FilterConfig, nb: int, outputs: int):
-    s, rc = cfg.sensor, cfg.refine
+    rc = cfg.refine
     width = reduce_width(nb, outputs)
-    fp = [m.origin_x, m.origin_y, m.inv_resolution, m.resolution,
-          m.extent_x, m.extent_y, s.laser_offset, s.max_range, s.ray_step,
-          s.w_hit, s.w_rand, s.gauss_max_diff,
-          f32_reciprocal(2.0 * s.sigma * s.sigma),
-          f32_reciprocal(s.sigma * math.sqrt(2.0 * math.pi)),
-          s.rand_window, 180.0 / math.pi, math.pi / 180.0, rc.eps,
-          rc.step_xy, rc.step_theta]
-    ip = [int(s.quantize_ray_deg), s.num_ray_steps,
-          raycast.dda_iters(m, s), width, width.bit_length() - 1]
-    return build.floats(fp), build.ints(ip)
+    fp, ip = sensor_prefix(m, cfg.sensor)
+    return (build.floats(fp + [rc.eps, rc.step_xy, rc.step_theta]),
+            build.ints(ip + [raycast.dda_iters(m, cfg.sensor), width,
+                             width.bit_length() - 1]))
 
 
-def _check(m: MazeMap, parts, angles, ranges, mask, what: str):
+def _check(m: MazeMap, parts, angles, ranges, mask, cfg: FilterConfig,
+           what: str):
     if not parts.is_cuda or m.device != parts.device:
         raise ValueError(f"{what} needs particles and map on the same CUDA "
                          f"device, got {parts.device} and {m.device}")
     if m.is_stack:
         raise ValueError(f"{what} takes one map, not a map stack")
+    if cfg.sensor.ray_mode != "fixed":
+        raise ValueError(f"{what} reads the fixed march's raster, not "
+                         f"ray_mode={cfg.sensor.ray_mode!r}")
     if parts.dtype != torch.float32 or parts.dim() != 3 \
             or parts.shape[-1] != 3 or not parts.is_contiguous():
         raise ValueError("particles must be contiguous float32 [E, N, 3], "
@@ -141,31 +129,28 @@ def _check(m: MazeMap, parts, angles, ranges, mask, what: str):
                              f"{tuple(v.shape)} on {v.device}")
 
 
-def _rasters(m: MazeMap):
-    return m.occ.contiguous(), m.occ_dilated.contiguous()
-
-
 def refine_grad_cuda(m: MazeMap, parts, angles, ranges, mask,
                      cfg: FilterConfig, detail: bool = False):
     """Launch refine_grad_kernel: the proposals [E, N, 3]; with `detail`,
     (proposals, the DDA likelihood [E, N], its gradient [E, N, 3], the
     walks' distances [E, N, B]) from the same launch."""
-    _check(m, parts, angles, ranges, mask, "refine_grad_cuda")
+    _check(m, parts, angles, ranges, mask, cfg, "refine_grad_cuda")
     lib = build.library()
     n_ep, n, nb = parts.shape[0], parts.shape[1], angles.shape[0]
-    occ, dil = _rasters(m)
     prop = torch.empty_like(parts)
     more = ((torch.empty((n_ep, n), dtype=torch.float32,
                          device=parts.device), torch.empty_like(parts),
              torch.empty((n_ep, n, nb), dtype=torch.float32,
                          device=parts.device)) if detail else ())
     fp, ip = _params(m, cfg, nb, n_ep * n)
+    occ, dil = m.occ.contiguous(), m.occ_dilated.contiguous()
+    words = _raster_buffer(m, cfg.sensor)
     err = lib.mcl_refine_grad(
         parts.data_ptr(), n_ep * n, n, angles.data_ptr(), ranges.data_ptr(),
         mask.data_ptr(), nb, occ.data_ptr(), dil.data_ptr(), m.height,
         m.width, ctypes.addressof(fp), ctypes.addressof(ip),
         prop.data_ptr(), *([t.data_ptr() for t in more] or [None] * 3),
-        int(raster_form(m, nb) == "device"),
+        None if words is None else words.data_ptr(),
         build.stream_handle(parts.device))
     build.check(err, "mcl_refine_grad")
     refine_grad_cuda.launches += 1
@@ -180,7 +165,7 @@ def refine_score_cuda(m: MazeMap, parts, angles, ranges, mask,
     """Launch refine_score_kernel: without `prop`, the likelihood [E, N] of
     `parts` (into `weights` where given); with it, the acceptance in place
     into `parts` and `weights`.  Returns the likelihood."""
-    _check(m, parts, angles, ranges, mask, "refine_score_cuda")
+    _check(m, parts, angles, ranges, mask, cfg, "refine_score_cuda")
     n_ep, n, nb = parts.shape[0], parts.shape[1], angles.shape[0]
     if weights is None:
         if prop is not None:
@@ -196,14 +181,15 @@ def refine_score_cuda(m: MazeMap, parts, angles, ranges, mask,
         raise ValueError("proposals must be contiguous float32 like the "
                          "particles")
     lib = build.library()
-    occ, dil = _rasters(m)
     fp, ip = _params(m, cfg, nb, n_ep * n)
+    occ, dil = m.occ.contiguous(), m.occ_dilated.contiguous()
+    words = _raster_buffer(m, cfg.sensor)
     err = lib.mcl_refine_score(
         parts.data_ptr(), None if prop is None else prop.data_ptr(),
-        weights.data_ptr(), n_ep * n, n, angles.data_ptr(),
-        ranges.data_ptr(), mask.data_ptr(), nb, occ.data_ptr(),
-        dil.data_ptr(), m.height, m.width, ctypes.addressof(fp),
-        ctypes.addressof(ip), int(raster_form(m, nb) == "device"),
+        weights.data_ptr(), n_ep * n, n, angles.data_ptr(), ranges.data_ptr(),
+        mask.data_ptr(), nb, occ.data_ptr(), dil.data_ptr(), m.height,
+        m.width, ctypes.addressof(fp), ctypes.addressof(ip),
+        None if words is None else words.data_ptr(),
         build.stream_handle(parts.device))
     build.check(err, "mcl_refine_score")
     refine_score_cuda.launches += 1

@@ -33,7 +33,8 @@ Every kernel takes any raster, as the TPU kernel takes any concrete one
 words in each block's shared memory, which every block packs itself, and
 a larger one in a device buffer that the C entry packs once a call and
 the kernels read through the read-only cache.  The two forms run the same
-arithmetic, so both give the plain version's bits.
+arithmetic, so both give the plain version's bits.  Refinement's kernels
+(ops/refine) take their raster by the same rule.
 Any number of episodes takes one call: the C entries split a batch into
 launches where the grid needs it.
 """
@@ -168,20 +169,27 @@ def beamsub_plan(n_ep: int, n: int, nb: int, sms: int) -> BeamsubPlan:
     return BeamsubPlan.for_threads(n_ep, n, t)
 
 
-def _params(m: MazeMap, cfg: SensorModelConfig):
-    smax, n_cand, span = analytic.cast_constants(m, cfg.max_range)
-    denom = cfg.sigma * math.sqrt(2.0 * math.pi)
+def sensor_prefix(m: MazeMap, cfg: SensorModelConfig):
+    """(floats, ints): the parameters that K1, K4 and refinement's kernels
+    all read, in the order of csrc/sensor_model.cuh's SensorParams, which
+    each family's own parameters follow."""
     fp = [m.origin_x, m.origin_y, m.inv_resolution, m.resolution,
           m.extent_x, m.extent_y, cfg.laser_offset, cfg.max_range,
           cfg.ray_step, cfg.w_hit, cfg.w_rand, cfg.gauss_max_diff,
-          f32_reciprocal(2.0 * cfg.sigma * cfg.sigma), f32_reciprocal(denom),
-          cfg.rand_window, smax, 180.0 / math.pi, math.pi / 180.0]
-    ip = [0 if cfg.ray_mode == "fixed" else 1,
-          int(cfg.beam_combine == "log"), int(cfg.quantize_ray_deg),
-          cfg.num_ray_steps, n_cand, span,
-          (m.width - 1) // analytic.CELL_PX + 1,
-          (m.height - 1) // analytic.CELL_PX + 1]
-    return build.floats(fp), build.ints(ip)
+          f32_reciprocal(2.0 * cfg.sigma * cfg.sigma),
+          f32_reciprocal(cfg.sigma * math.sqrt(2.0 * math.pi)),
+          cfg.rand_window, 180.0 / math.pi, math.pi / 180.0]
+    return fp, [int(cfg.quantize_ray_deg), cfg.num_ray_steps]
+
+
+def _params(m: MazeMap, cfg: SensorModelConfig):
+    smax, n_cand, span = analytic.cast_constants(m, cfg.max_range)
+    fp, ip = sensor_prefix(m, cfg)
+    ip += [0 if cfg.ray_mode == "fixed" else 1,
+           int(cfg.beam_combine == "log"), n_cand, span,
+           (m.width - 1) // analytic.CELL_PX + 1,
+           (m.height - 1) // analytic.CELL_PX + 1]
+    return build.floats(fp + [smax]), build.ints(ip)
 
 
 def _check_particles(m: MazeMap, particles, rank: int, what: str,

@@ -29,7 +29,7 @@ def bench_one(m, n_robots: int, particles: int, beams: int, ticks: int,
     fed the scan from (1.25, 1.25, 0) and encoders 0.1."""
     from ..config import FilterConfig, SensorModelConfig
     from ..io.fleet import MCLFleetServer
-    from ..kernel_ab import device_ms
+    from ..utils.profiling import device_ms
     from ..models import sensor
 
     cfg = FilterConfig(num_particles=particles, sensor=SensorModelConfig())

@@ -24,7 +24,8 @@ reference times its hot loops with chrono spans logged to ROS_INFO
     operations after a mark, up to the next, are that stage's.  On the
     CPU it does nothing.
   * time_fn: mean wall seconds a call after a warm-up, the card
-    synchronized around the timed calls;
+    synchronized around the timed calls; device_ms: the card's busy time
+    a call, from the profiler;
   * trace: a context manager over torch.profiler that writes a Chrome
     trace of the host, the card and the recorder's spans into a
     directory;
@@ -179,6 +180,29 @@ def time_fn(fn: Callable, *args, iters: int = 20, warmup: int = 1) -> float:
         fn(*args)
     _sync()
     return (time.perf_counter() - t0) / iters
+
+
+def device_ms(fn: Callable, reps: int = 20, tries: int = 3) -> float:
+    """Device ms of one call of fn() on the card: every kernel and copy
+    the profiler sees over `reps` calls after a warm-up, over reps.  A
+    window with no device activity is taken again, up to `tries` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                total += getattr(ev, "self_device_time_total",
+                                 None) or ev.self_cuda_time_total
+        if total > 0.0:
+            return total / 1e3 / reps
+    raise RuntimeError("the profiler recorded no device time")
 
 
 # The Chrome trace's track of the recorder's spans.

@@ -5,7 +5,10 @@ At N = 1000 particles (no multiple of a block or a warp), on one filter
 [N, 3] and on a batch of 4, over the hard cases of tests/refine_cases.py
 (origins on and within 1e-6 of pixel edges, rays along each axis, origins
 on wall pixels and off the map, rays that reach max_range, masked beams,
-invalid poses), with and without quantize_ray_deg, in both raster forms:
+invalid poses), with and without quantize_ray_deg, in both raster forms
+(ops/weights.raster_form, K1's rule: the default maze's 392 bytes of words
+in shared memory, or forced into the device form; and a generated maze
+past 1 KB of words, which takes the device form unforced):
 
 - refine_score_kernel's likelihood against beam_weights_dense (the fixed
   march, sum mode) bit for bit, and its acceptance against
@@ -42,6 +45,9 @@ N = 1000        # no multiple of a block (256 threads) or a warp (32)
 EPISODES = 4
 BEAMS = 24
 MAP = "montecarlolocalisation_tpu/maps/default_map.txt"
+# A generated maze of LARGE x LARGE cells: 129 x 129 px, 645 words (2,580
+# bytes) one bit a pixel, past ops/weights.SHARED_RASTER_BYTES.
+LARGE = 16
 
 
 @pytest.fixture
@@ -63,12 +69,15 @@ def _cfg(quantize=False, iters=2):
         resample=ResampleConfig(method="systematic", ess_threshold=0.5))
 
 
-def _case(card, episodes, seed, quantize):
-    """(map, particles [N, 3] or [E, N, 3] mixing every kind, scan, cfg)."""
-    from montecarlolocalisation_tpu_torch.maps import grid
+def _case(card, episodes, seed, quantize, cells=None):
+    """(map, particles [N, 3] or [E, N, 3] mixing every kind, scan, cfg)
+    on the default maze, or on a generated maze of cells x cells."""
+    from montecarlolocalisation_tpu_torch.maps import generator, grid
     from montecarlolocalisation_tpu_torch.models import sensor
 
-    m = grid.from_map_file(MAP, device=card)
+    m = (grid.from_map_file(MAP, device=card) if cells is None else
+         grid.from_walls(generator.generate_maze(cells, cells, seed=cells),
+                         device=card))
     e = episodes or 1
     per = -(-N // len(cases.KINDS))
     parts = np.stack([np.concatenate(
@@ -117,19 +126,23 @@ def _dense_refine(m, parts, scan, cfg):
     return p
 
 
-@pytest.mark.parametrize("form", ["shared", "device"])
+@pytest.mark.parametrize("form,cells", [
+    pytest.param("shared", None, id="shared"),
+    pytest.param("device", None, id="device"),
+    pytest.param("device", LARGE, id="device_past_1kb")])
 @pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("episodes", [0, EPISODES])
-def test_kernels_equal_the_dense_path(card, episodes, quantize, form,
+def test_kernels_equal_the_dense_path(card, episodes, quantize, form, cells,
                                       monkeypatch):
     from montecarlolocalisation_tpu_torch.models import refine, sensor
     from montecarlolocalisation_tpu_torch.ops import refine as kref
+    from montecarlolocalisation_tpu_torch.ops import weights
 
-    if form == "device":
-        monkeypatch.setattr(kref, "SHARED_BYTES", 0)
+    if form == "device" and cells is None:
+        monkeypatch.setattr(weights, "SHARED_RASTER_BYTES", 0)
     m, parts, scan, cfg = _case(card, episodes, seed=1 + episodes,
-                                quantize=quantize)
-    assert kref.raster_form(m, BEAMS) == form
+                                quantize=quantize, cells=cells)
+    assert weights.raster_form(m, cfg.sensor) == form
     lead = parts.shape[:-1]
     p, ang, ranges, mask = kref.beam_inputs(parts, scan, cfg)
 

@@ -166,6 +166,60 @@ def test_failed_build_raises(monkeypatch, tmp_path):
                 if f.endswith(".so")]
 
 
+PTXAS_SAMPLE = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Function properties for _Z9first_setv
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Compiling entry function '_Z2k1v' for 'sm_90a'
+ptxas info    : Function properties for _Z2k1v
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z2k2v' for 'sm_90a'
+ptxas info    : Function properties for _Z2k2v
+    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_without_nvcc_raises(monkeypatch, tmp_path):
+    _isolate_build(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.ptxas_report()
+
+
+def test_ptxas_report_reads_each_kernel_under_the_library_flags(
+        monkeypatch, tmp_path):
+    """Each source compiled alone with NVCC_FLAGS and -Xptxas -v; a
+    kernel's registers, stack and spills read from what ptxas says (a
+    device function's properties are not a kernel's); the library's name
+    (its flags' and sources' hash) unchanged, and nothing built."""
+    _isolate_build(monkeypatch, tmp_path)
+    (tmp_path / "bin").mkdir()
+    (tmp_path / "sample.txt").write_text(PTXAS_SAMPLE)
+    fake = tmp_path / "bin" / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\nimport sys\n"
+        f"open({str(tmp_path / 'args.txt')!r}, 'a').write("
+        f"' '.join(sys.argv[1:]) + '\\n')\n"
+        f"sys.stderr.write(open({str(tmp_path / 'sample.txt')!r}).read())\n")
+    fake.chmod(0o755)
+    name = build._library_path()
+    report = build.ptxas_report()
+    cu = sorted(f for f in os.listdir(build.CSRC) if f.endswith(".cu"))
+    assert sorted(report) == cu and "refine.cu" in cu
+    want = {"_Z2k1v": dict(registers=40, stack=0, spill_stores=0,
+                           spill_loads=0),
+            "_Z2k2v": dict(registers=255, stack=16, spill_stores=12,
+                           spill_loads=8)}
+    assert all(r == want for r in report.values())
+    args = (tmp_path / "args.txt").read_text().splitlines()
+    assert len(args) == len(cu)
+    assert all(a.startswith(" ".join(build.NVCC_FLAGS) + " -Xptxas -v -c")
+               for a in args)
+    assert build._library_path() == name and build._lib is None
+    assert not (tmp_path / "build").exists()
+
+
 def _smoke(cwd):
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
                        capture_output=True, text=True, timeout=300,

@@ -325,6 +325,45 @@ def test_cast_schedule_constants_match_the_kernel():
     assert mirror.chunks(16) == [(0, 16)]
 
 
+def _c_fields(src: str, head: str) -> dict:
+    """{"float": n, "int": n}: the fields of the C struct `head { ... };`
+    in src, by type."""
+    import re
+
+    body = re.search(re.escape(head) + r" \{(.*?)\};", src, re.S).group(1)
+    count = {"float": 0, "int": 0}
+    for kind, names in re.findall(r"(float|int) ([^;]*);", body):
+        count[kind] += len(names.split(","))
+    return count
+
+
+@pytest.mark.parametrize("family", ["weights", "refine"])
+def test_params_follow_the_c_structs(family):
+    """Both families' host parameters begin with sensor_prefix, which fills
+    csrc/sensor_model.cuh's SensorParams field for field, and add as many
+    floats and ints as the family's own Params declares after it."""
+    import os
+
+    from montecarlolocalisation_tpu_torch.config import FilterConfig
+    from montecarlolocalisation_tpu_torch.ops import refine as trefine
+
+    def read(name):
+        with open(os.path.join(build.CSRC, name)) as f:
+            return f.read()
+
+    m, cfg = maps()[1], FilterConfig()
+    fp0, ip0 = tweights.sensor_prefix(m, cfg.sensor)
+    assert _c_fields(read("sensor_model.cuh"), "struct SensorParams") == {
+        "float": len(fp0), "int": len(ip0)}
+    fp, ip = (tweights._params(m, cfg.sensor) if family == "weights"
+              else trefine._params(m, cfg, 24, 1000))
+    assert list(fp)[:len(fp0)] == list(build.floats(fp0))
+    assert list(ip)[:len(ip0)] == ip0
+    own = _c_fields(read(family + ".cu"), "struct Params : SensorParams")
+    assert own == {"float": len(fp) - len(fp0), "int": len(ip) - len(ip0)}
+    assert min(own.values()) > 0
+
+
 def test_cast_stats_needs_the_analytic_cast_on_the_card():
     """cast_stats counts the analytic kernel's schedule: fixed mode has no
     slabs, and on the CPU there is no kernel to count (the mirror is)."""
