@@ -33,10 +33,10 @@
 //   three paths in the order autograd's engine adds them.  So the
 //   gradient, and the proposal, are autograd's on the card to the last
 //   bit (below 128 beams, from which torch vectorizes that reduction and
-//   the last bits may differ).  Each ray is walked once: a thread keeps
-//   its first kCache beams' distances and hit axes in local memory
-//   between the likelihood pass and the derivative pass, which needs w
-//   first, and walks any further beams again.
+//   the last bits may differ).  Each ray is walked once: the block keeps
+//   its threads' first kRecords beams' Walks (distance, hit code) in
+//   shared memory between the likelihood pass and the derivative pass,
+//   which needs w first; a thread walks any further beams again.
 // - the step: step_xy along the xy gradient over its norm (+ 1e-20),
 //   step_theta along sign(d/dtheta), theta wrapped by atan2: the proposal.
 //
@@ -49,19 +49,35 @@
 //
 // What bounds them on the H100: issue slots, in the walk.  A ray takes up
 // to 22 traversal steps at the production shapes (1 m at 0.1 m pixels),
-// about 20 instructions each with a bit lookup in shared memory, and a
-// warp waits for its longest ray; a particle reads 12 bytes and writes 12.
-// The dense path ran every step for every ray, kept it, and read it back
-// in the backward.  One pass a ray, stopped at the hit, keeps the walk to
-// its necessary steps; the derivative adds about 60 operations a beam.
+// with a bit lookup in shared memory each; a particle reads 12 bytes and
+// writes 12.  The dense path ran every step for every ray, kept it, and
+// read it back in the backward.  One pass a ray, stopped at the hit, keeps
+// the walk to its necessary steps; the derivative adds about 60 operations
+// a beam.  A step is 25 instructions (raycast_dda's loop written out took
+// 39): one exit, the pixel's word read without a branch, the row's first
+// word as state, the loop's constants in registers.
 //
-// Layout: one thread per particle with the beam loop inside, as K1; the
-// signed beam table in each block's shared memory; the raster one bit a
-// pixel, in K1's two forms by K1's rule (sensor_model.cuh), read by the
-// walk and the march through one pixel lookup.  The episodes' ranges and
-// masks are read from device memory, a warp's particles mostly sharing one
-// episode.  Built with -fmad=false, every float operation rounds as the
-// plain torch operation does.
+// The schedule: one thread a particle, its beams in order, the walk a
+// loop of its own, so a warp steps each beam until its longest ray ends
+// and its lanes whose rays ended wait (ops/refine.walk_stats counts the
+// steps and the lane-steps: 74 % of the lane-steps are steps over a sweep
+// of the production cell, 50 to 54 % on the uniform cloud it starts from,
+// PERF.md).  Pooling a warp's rays to raise that share measured slower in
+// every form tried, each bit-exact (PERF.md, section 6): lockstep steps
+// with a vote a step and a queue of the warp (as K1's cast schedules its
+// slabs), lanes refilled from the pool (persistent threads), a vote every
+// 2 to 6 steps, capped walks with the tails queued, and tails donated to a
+// queue without a vote.  The votes, the queue's state and the refetched
+// ray set-ups cost more than the idle lanes did.
+//
+// Layout: one thread per particle with the beam loop inside, as K1, in
+// blocks of kGradThreads (the records' shared memory: 18 KB at 24 beams);
+// the signed beam table in each block's shared memory; the raster one bit
+// a pixel, in K1's two forms by K1's rule (sensor_model.cuh), read by the
+// walk and the march.  The episodes' ranges and masks are read from device
+// memory, a warp's particles mostly sharing one episode.  Built with
+// -fmad=false, every float operation rounds as the plain torch operation
+// does.
 //
 // Names: none contains beam_weights, expand_ or kmeans, which the
 // benchmark's trace readers match to K1, K2 and K3.
@@ -76,8 +92,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr float kEps = 1e-9f;       // raycast_dda's direction clamp
 constexpr float kNormEps = 1e-20f;  // models/refine.NORM_EPS
-constexpr int kCache = 32;          // beams a thread keeps between passes
+constexpr int kGradThreads = 128;   // refine_grad_kernel's block
+constexpr int kRecords = 48;        // beams a block's records hold
 constexpr int kMaxLevels = 10;      // the lane tree's stack: width <= 512
+constexpr int kMaxIters = 16384;    // a code in 16 bits: (k << 1) | 1
+constexpr int kWalkStats = 2;       // the counting form's tallies
 
 // The sensor's parameters, then the objective's eps, the steps, the DDA's
 // iterations and the beams' reduction width and its levels.
@@ -133,37 +152,49 @@ struct Walk {
   int code;
 };
 
-// raycast_dda's traversal of one ray, stopped where the ray is done.
+// raycast_dda's traversal of one ray, stopped where the ray is done (a
+// wall pixel entered, the map left, max_range reached or its dda_iters
+// steps taken), so every distance is raycast_dda's, which freezes each
+// value once the ray is done; `steps` receives the steps it took.  One
+// exit, no branch around the pixel's word (read only on the map, 0 off
+// it), the row's first word index as state and the loop's constants held
+// in registers: 25 instructions a step where raycast_dda's loop written
+// out took 39 (PERF.md, section 6).
 template <bool G>
-__device__ Walk walk(const Origin& o, float dx, float dy, const Bits& B,
-                     const Params& P) {
+__device__ __forceinline__ Walk walk(const Origin& o, float dx, float dy,
+                                     const Bits& B, const Params& P,
+                                     int& steps) {
   const int sx = dx >= 0.0f ? 1 : -1, sy = dy >= 0.0f ? 1 : -1;
   const float inv_dx = fabsf(1.0f / (fabsf(dx) < kEps ? kEps : dx));
   const float inv_dy = 1.0f / fabsf(fabsf(dy) < kEps ? kEps : dy);
   float tx = ((dx >= 0.0f ? o.fx_pos : o.fx_neg) * P.res) * inv_dx;
   float ty = ((dy >= 0.0f ? o.fy_pos : o.fy_neg) * P.res) * inv_dy;
   const float ddx = P.res * inv_dx, ddy = P.res * inv_dy;
-  Walk out{P.max_range, -1};
-  int ix = o.ix, iy = o.iy;
-  if (occupied<G>(B, ix, iy)) {
-    out.dist = 0.0f;
-    return out;
-  }
-  if (!in_map(B, ix, iy)) return out;
-  int kx = 0, ky = 0;
-  for (int s = 0; s < P.dda_iters; ++s) {
+  const float max_range = P.max_range;
+  steps = 0;
+  if (occupied<G>(B, o.ix, o.iy)) return Walk{0.0f, -1};
+  if (!in_map(B, o.ix, o.iy) || P.dda_iters <= 0) return Walk{max_range, -1};
+  int last = P.dda_iters - 1;
+  unsigned w = B.w, rows = (unsigned)(B.h_px * B.wpr);
+  float max_r = max_range;
+  // Opaque to the compiler, so the loop keeps them in registers: ptxas
+  // otherwise reloads each from the constant bank at every step.
+  asm volatile("" : "+r"(last), "+r"(w), "+r"(rows), "+f"(max_r));
+  const int drow = sy * B.wpr;
+  int ix = o.ix, row = o.iy * B.wpr, kx = 0, ky = 0;
+  for (;;) {
     const bool take_x = tx < ty;
     const float t = take_x ? tx : ty;
-    const int nix = take_x ? ix + sx : ix;
-    const int niy = take_x ? iy : iy + sy;
-    if (occupied<G>(B, nix, niy) && t < P.max_range) {
-      out.dist = t;
-      out.code = take_x ? (kx << 1) | 1 : ky << 1;
-      return out;
+    ix = take_x ? ix + sx : ix;
+    row = take_x ? row : row + drow;
+    const bool inside = (unsigned)ix < w && (unsigned)row < rows;
+    const uint32_t wd = inside ? word<G>(B.map + row + (ix >> 5)) : 0u;
+    const bool hit = ((wd >> (ix & 31)) & 1u) && t < max_r;
+    if (hit || !inside || t >= max_r || kx + ky >= last) {
+      steps = kx + ky + 1;
+      return hit ? Walk{t, take_x ? (kx << 1) | 1 : ky << 1}
+                 : Walk{max_range, -1};
     }
-    if (!in_map(B, nix, niy) || t >= P.max_range) return out;
-    ix = nix;
-    iy = niy;
     if (take_x) {
       tx = tx + ddx;
       ++kx;
@@ -172,7 +203,6 @@ __device__ Walk walk(const Origin& o, float dx, float dy, const Bits& B,
       ++ky;
     }
   }
-  return out;
 }
 
 __device__ __forceinline__ float sgn(float v) {
@@ -226,22 +256,41 @@ __device__ __forceinline__ Terms add(Terms a, Terms b) {
   return Terms{a.ox + b.ox, a.oy + b.oy, a.ang + b.ang};
 }
 
-template <bool G>
-__global__ void refine_grad_kernel(const float* __restrict__ parts,
-                                   int total, int n,
-                                   const float* __restrict__ angles,
-                                   const float* __restrict__ ranges,
-                                   const float* __restrict__ mask, int nb,
-                                   const uint8_t* __restrict__ occ,
-                                   const uint32_t* __restrict__ gwords,
-                                   const uint8_t* __restrict__ dil, int h,
-                                   int w, Params P,
-                                   float* __restrict__ prop,
-                                   float* __restrict__ lik,
-                                   float* __restrict__ grad,
-                                   float* __restrict__ dists) {
+// Each ray's Walk in the block's shared memory, [beam][thread], for the
+// first `nr` beams: the distance, and the code in 16 bits (the C entry
+// bounds dda_iters).
+struct Records {
+  float* dist;
+  short* code;
+
+  __device__ void put(int b, Walk wk) const {
+    dist[b * kGradThreads + threadIdx.x] = wk.dist;
+    code[b * kGradThreads + threadIdx.x] = (short)wk.code;
+  }
+  __device__ Walk get(int b) const {
+    return Walk{dist[b * kGradThreads + threadIdx.x],
+                code[b * kGradThreads + threadIdx.x]};
+  }
+};
+
+// Count: the counting form (ops/refine.walk_stats), which adds to stats
+// the DDA steps its rays took and the lane-steps its warps spent walking,
+// 32 a warp's step, a warp stepping until its longest ray of the beam
+// ends.
+template <bool G, bool Count>
+__global__ void __launch_bounds__(kGradThreads) refine_grad_kernel(
+    const float* __restrict__ parts, int total, int n,
+    const float* __restrict__ angles, const float* __restrict__ ranges,
+    const float* __restrict__ mask, int nb, int nr,
+    const uint8_t* __restrict__ occ, const uint32_t* __restrict__ gwords,
+    const uint8_t* __restrict__ dil, int h, int w, Params P,
+    float* __restrict__ prop, float* __restrict__ lik,
+    float* __restrict__ grad, float* __restrict__ dists,
+    unsigned long long* __restrict__ stats) {
   extern __shared__ float smem[];
   const Bits B = stage<G>(smem, angles, nb, occ, gwords, h, w);
+  float* rec = smem + nb + (G ? 0 : pixel_layout(h, w).words());
+  const Records R{rec, reinterpret_cast<short*>(rec + nr * kGradThreads)};
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
@@ -254,21 +303,34 @@ __global__ void refine_grad_kernel(const float* __restrict__ parts,
   const float ox = x + P.laser_offset * c_th;
   const float oy = y + P.laser_offset * s_th;
   const Origin o = origin_of(ox, oy, P);
+  // The warp's lanes with a particle (all but in the grid's last warp).
+  const int held = total - (i - (int)(threadIdx.x & 31));
+  const unsigned lanes = held >= 32 ? 0xffffffffu : (1u << held) - 1u;
+  unsigned tally[kWalkStats] = {0u, 0u};
 
-  // Pass 1: the walks and the DDA likelihood.
-  float dist[kCache];
-  int code[kCache];
+  // Pass 1: the walks and the DDA likelihood; the first nr beams' Walks
+  // into the records.
   float prob = 0.0f;
   for (int b = 0; b < nb; ++b) {
     float dx, dy;
     sincosf(ray_angle(th, smem[b], P), &dy, &dx);
-    const Walk wk = walk<G>(o, dx, dy, B, P);
-    if (b < kCache) {
-      dist[b] = wk.dist;
-      code[b] = wk.code;
+    int steps;
+    const Walk wk = walk<G>(o, dx, dy, B, P, steps);
+    if (b < nr) R.put(b, wk);
+    if constexpr (Count) {
+      // Beams past the records are walked again in pass 2.
+      const unsigned longest = __reduce_max_sync(lanes, (unsigned)steps);
+      tally[0] += steps;
+      if ((threadIdx.x & 31) == 0) tally[1] += (b < nr ? 32 : 64) * longest;
     }
     if (dists != nullptr) dists[(size_t)i * nb + b] = wk.dist;
     prob = prob + beam_term(__ldg(obs + b), wk.dist, P) * __ldg(msk + b);
+  }
+  if constexpr (Count) {
+    for (int k = 0; k < kWalkStats; ++k) {
+      const unsigned v = __reduce_add_sync(lanes, tally[k]);
+      if ((threadIdx.x & 31) == 0) atomicAdd(stats + k, (unsigned long long)v);
+    }
   }
   const bool valid = valid_pos(x, y, dil, P, h, w);
   const float wv = valid ? prob : 0.0f;
@@ -288,8 +350,8 @@ __global__ void refine_grad_kernel(const float* __restrict__ parts,
     auto term = [&](int b) {
       float dx, dy;
       sincosf(ray_angle(th, smem[b], P), &dy, &dx);
-      const Walk wk = b < kCache ? Walk{dist[b], code[b]}
-                                 : walk<G>(o, dx, dy, B, P);
+      int steps;
+      const Walk wk = b < nr ? R.get(b) : walk<G>(o, dx, dy, B, P, steps);
       return beam_terms(g_prob, __ldg(msk + b), __ldg(obs + b), wk, o, dx,
                         dy, P);
     };
@@ -385,6 +447,45 @@ cudaError_t prepare(const uint8_t* occ, uint32_t* gwords, int h, int w,
   return gwords == nullptr ? cudaSuccess : pack_global(gwords, occ, L, s);
 }
 
+// refine_grad_kernel's launch: shared memory for the beam table, the
+// raster's words in the shared form and the records of min(nb, kRecords)
+// beams; stats null, or the counting form's tallies.
+int launch_grad(const float* parts, int total, int n, const float* angles,
+                const float* ranges, const float* mask, int nb,
+                const uint8_t* occ, const uint8_t* dil, int h, int w,
+                const float* fparams, const int* iparams, float* prop,
+                float* lik, float* grad, float* dists, uint32_t* gwords,
+                unsigned long long* stats, void* stream) {
+  Params P;
+  unpack(fparams, iparams, &P);
+  if (P.levels > kMaxLevels || P.width != (1 << P.levels) ||
+      P.dda_iters > kMaxIters || (lik == nullptr) != (grad == nullptr) ||
+      (lik == nullptr) != (dists == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (total <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  size_t smem;
+  const cudaError_t err = prepare(occ, gwords, h, w, nb, s, &smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nr = nb < kRecords ? nb : kRecords;
+  smem += (size_t)nr * kGradThreads * (sizeof(float) + sizeof(short));
+  const bool g = gwords != nullptr;
+  auto* kernel = stats != nullptr
+                     ? (g ? refine_grad_kernel<true, true>
+                          : refine_grad_kernel<false, true>)
+                     : (g ? refine_grad_kernel<true, false>
+                          : refine_grad_kernel<false, false>);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<(total + kGradThreads - 1) / kGradThreads, kGradThreads, smem,
+           s>>>(parts, total, n, angles, ranges, mask, nb, nr, occ, gwords,
+                dil, h, w, P, prop, lik, grad, dists, stats);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // One round's proposals: particles [total, 3] (episode i / n of row i),
@@ -403,22 +504,26 @@ extern "C" int mcl_refine_grad(const float* parts, int total, int n,
                                const float* fparams, const int* iparams,
                                float* prop, float* lik, float* grad,
                                float* dists, uint32_t* gwords, void* stream) {
-  Params P;
-  unpack(fparams, iparams, &P);
-  if (P.levels > kMaxLevels || P.width != (1 << P.levels) ||
-      (lik == nullptr) != (grad == nullptr) ||
-      (lik == nullptr) != (dists == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (total <= 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  size_t smem;
-  const cudaError_t err = prepare(occ, gwords, h, w, nb, s, &smem);
-  if (err != cudaSuccess) return (int)err;
-  auto* kernel = gwords ? refine_grad_kernel<true> : refine_grad_kernel<false>;
-  kernel<<<(total + kThreads - 1) / kThreads, kThreads, smem, s>>>(
-      parts, total, n, angles, ranges, mask, nb, occ, gwords, dil, h, w, P,
-      prop, lik, grad, dists);
-  return (int)cudaGetLastError();
+  return launch_grad(parts, total, n, angles, ranges, mask, nb, occ, dil, h,
+                     w, fparams, iparams, prop, lik, grad, dists, gwords,
+                     nullptr, stream);
+}
+
+// The counting form of mcl_refine_grad's launch (ops/refine.walk_stats),
+// its proposals into prop: the same arguments, then stats, two unsigned
+// 64-bit tallies of device memory that the launch adds to (the caller
+// zeroes them): the DDA steps the rays took, and the lane-steps the warps
+// spent walking.
+extern "C" int mcl_refine_walk_stats(
+    const float* parts, int total, int n, const float* angles,
+    const float* ranges, const float* mask, int nb, const uint8_t* occ,
+    const uint8_t* dil, int h, int w, const float* fparams,
+    const int* iparams, float* prop, unsigned long long* stats,
+    uint32_t* gwords, void* stream) {
+  if (stats == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_grad(parts, total, n, angles, ranges, mask, nb, occ, dil, h,
+                     w, fparams, iparams, prop, nullptr, nullptr, nullptr,
+                     gwords, stats, stream);
 }
 
 // The fixed march's scoring: with prop null, the likelihood of parts

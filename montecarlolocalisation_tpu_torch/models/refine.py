@@ -45,7 +45,10 @@ x B x (1 + 2 iters) to `refine.rays`, the rays its castings score: the
 start, then a gradient and a proposal a round.  Under a CUDA graph the
 counters count the ticks that were captured, not the replays, so their
 ratio is the rays a tick.  They count the castings, not how they run:
-the kernels record the same numbers.
+the kernels record the same numbers.  What the kernel's DDA walks cost, a
+tick's steps and the lane-steps its warps spend on them, is counted apart
+from the filter's launches, by ops/refine.walk_stats into the counters
+`refine.walk_steps` and `refine.walk_slots`.
 """
 from __future__ import annotations
 

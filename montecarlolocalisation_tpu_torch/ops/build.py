@@ -73,6 +73,10 @@ SIGNATURES = {
     # distances out (null, or all three), raster words, stream
     "mcl_refine_grad": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P,
                         _P, _P, _P, _P, _P, _P],
+    # mcl_refine_grad's arguments to the proposals, then the two tallies,
+    # raster words, stream
+    "mcl_refine_walk_stats": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I,
+                              _P, _P, _P, _P, _P, _P],
     # particles, proposals (null: score the particles), weights, E x N, N,
     # signed angles, ranges, mask, B, occ, dil, H, W, fparams, iparams,
     # raster words, stream

@@ -9,6 +9,10 @@ counts.
   particles (sensor.beam_weights_dense's), or, given proposals and the
   current likelihood, the acceptance in place: where a proposal scores
   strictly higher, its row and its likelihood replace the particle's.
+- `walk_stats`: what refine_grad_kernel's DDA walks cost on given inputs,
+  from a counting launch of the same kernel: the steps the rays took and
+  the lane-steps the warps spent (counters refine.walk_steps and
+  refine.walk_slots; tests/refine_walk_mirror is its plain mirror).
 
 Both take the signed beam table angles [B] (the beam angles negated where
 the sensor negates them) and ranges and mask [E, B] (mask as 0/1
@@ -158,6 +162,42 @@ def refine_grad_cuda(m: MazeMap, parts, angles, ranges, mask,
 
 
 refine_grad_cuda.launches = 0
+
+
+def walk_stats(m: MazeMap, particles, scan: sensor.Scan,
+               cfg: FilterConfig) -> dict:
+    """What refine_grad_kernel's DDA walks cost on these inputs, from a
+    launch of its counting form (the same kernel with tallies; the
+    filter's launches keep none): particles [..., N, 3] and a scan as
+    refine_particles takes them, on CUDA.  Returns `steps` (the DDA steps
+    the rays took), `slots` (the lane-steps the warps spent walking: 32 a
+    step of a warp, which steps until the longest of its 32 rays of a
+    beam ends; beams past the records twice), `rays` and `lane_share`
+    (steps over slots), and adds steps and slots to utils/profiling's
+    counters refine.walk_steps and refine.walk_slots."""
+    from ..utils import profiling
+
+    p, angles, ranges, mask = beam_inputs(particles, scan, cfg)
+    _check(m, p, angles, ranges, mask, cfg, "walk_stats")
+    n_ep, n, nb = p.shape[0], p.shape[1], angles.shape[0]
+    prop = torch.empty_like(p)
+    stats = torch.zeros(2, dtype=torch.int64, device=p.device)
+    fp, ip = _params(m, cfg, nb, n_ep * n)
+    occ, dil = m.occ.contiguous(), m.occ_dilated.contiguous()
+    words = _raster_buffer(m, cfg.sensor)
+    err = build.library().mcl_refine_walk_stats(
+        p.data_ptr(), n_ep * n, n, angles.data_ptr(), ranges.data_ptr(),
+        mask.data_ptr(), nb, occ.data_ptr(), dil.data_ptr(), m.height,
+        m.width, ctypes.addressof(fp), ctypes.addressof(ip), prop.data_ptr(),
+        stats.data_ptr(), None if words is None else words.data_ptr(),
+        build.stream_handle(p.device))
+    build.check(err, "mcl_refine_walk_stats")
+    steps, slots = stats.tolist()
+    out = dict(steps=steps, slots=slots, rays=n_ep * n * nb,
+               lane_share=steps / max(slots, 1))
+    for name in ("steps", "slots"):
+        profiling.count("refine.walk_" + name, out[name])
+    return out
 
 
 def refine_score_cuda(m: MazeMap, parts, angles, ranges, mask,

@@ -17,11 +17,17 @@ past 1 KB of words, which takes the device form unforced):
   likelihood against the dense path's bit for bit, its gradient against
   torch.autograd.grad through the dense DDA within rtol 1e-5 of each
   row's scale on >= 99.99 % of rows (the rest listed), its proposals
-  against models/refine.closed_form_grad and propose bit for bit;
+  against models/refine.closed_form_grad and propose bit for bit; at 24
+  beams, 34 and a count past the beams its records hold;
+- the same walks, likelihood and proposals on particle orders that load
+  a warp's walks differently (a uniform cloud, tight warps, rays that all
+  run to max range, origins on wall pixels and off the map), and
+  ops/refine.walk_stats equal to tests/refine_walk_mirror's counts;
 - refine_particles at the production shapes (1024 x 500 x 24) against the
   dense path with autograd: the rows equal (the share that differs
   reported), `iters` launches of refine_grad_kernel and 1 + iters of
-  refine_score_kernel a call, and no torch.autograd;
+  refine_score_kernel a call, and no torch.autograd; walk_stats equal to
+  the mirror's counts there;
 - a TickGraph replay of the production schedule equal to its ticks run
   eagerly on the graph's buffers.
 
@@ -38,6 +44,7 @@ import pytest
 import torch
 
 import refine_cases as cases
+import refine_walk_mirror as walk_mirror
 
 pytestmark = pytest.mark.card
 
@@ -48,6 +55,9 @@ MAP = "montecarlolocalisation_tpu/maps/default_map.txt"
 # A generated maze of LARGE x LARGE cells: 129 x 129 px, 645 words (2,580
 # bytes) one bit a pixel, past ops/weights.SHARED_RASTER_BYTES.
 LARGE = 16
+# The production scan, the reference robot's, and a count past the beams
+# refine_grad_kernel's records hold (walked again in pass 2).
+BEAM_COUNTS = (BEAMS, 34, walk_mirror.RECORDS + 12)
 
 
 @pytest.fixture
@@ -69,7 +79,7 @@ def _cfg(quantize=False, iters=2):
         resample=ResampleConfig(method="systematic", ess_threshold=0.5))
 
 
-def _case(card, episodes, seed, quantize, cells=None):
+def _case(card, episodes, seed, quantize, cells=None, beams=BEAMS):
     """(map, particles [N, 3] or [E, N, 3] mixing every kind, scan, cfg)
     on the default maze, or on a generated maze of cells x cells."""
     from montecarlolocalisation_tpu_torch.maps import generator, grid
@@ -83,10 +93,10 @@ def _case(card, episodes, seed, quantize, cells=None):
     parts = np.stack([np.concatenate(
         [cases.particles(m, per, k, seed=seed + 10 * i)
          for k in cases.KINDS])[:N] for i in range(e)])
-    ranges, mask = cases.scan_arrays(BEAMS, e, seed=seed)
+    ranges, mask = cases.scan_arrays(beams, e, seed=seed)
     if not episodes:
         parts, ranges, mask = parts[0], ranges[0], mask[0]
-    scan = sensor.make_scan(cases.beam_table(BEAMS), ranges, mask,
+    scan = sensor.make_scan(cases.beam_table(beams), ranges, mask,
                             device=card)
     return m, cases.as_tensor(parts, card), scan, _cfg(quantize)
 
@@ -126,6 +136,7 @@ def _dense_refine(m, parts, scan, cfg):
     return p
 
 
+@pytest.mark.parametrize("beams", BEAM_COUNTS)
 @pytest.mark.parametrize("form,cells", [
     pytest.param("shared", None, id="shared"),
     pytest.param("device", None, id="device"),
@@ -133,7 +144,7 @@ def _dense_refine(m, parts, scan, cfg):
 @pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("episodes", [0, EPISODES])
 def test_kernels_equal_the_dense_path(card, episodes, quantize, form, cells,
-                                      monkeypatch):
+                                      beams, monkeypatch):
     from montecarlolocalisation_tpu_torch.models import refine, sensor
     from montecarlolocalisation_tpu_torch.ops import refine as kref
     from montecarlolocalisation_tpu_torch.ops import weights
@@ -141,7 +152,7 @@ def test_kernels_equal_the_dense_path(card, episodes, quantize, form, cells,
     if form == "device" and cells is None:
         monkeypatch.setattr(weights, "SHARED_RASTER_BYTES", 0)
     m, parts, scan, cfg = _case(card, episodes, seed=1 + episodes,
-                                quantize=quantize, cells=cells)
+                                quantize=quantize, cells=cells, beams=beams)
     assert weights.raster_form(m, cfg.sensor) == form
     lead = parts.shape[:-1]
     p, ang, ranges, mask = kref.beam_inputs(parts, scan, cfg)
@@ -192,6 +203,100 @@ def test_kernels_equal_the_dense_path(card, episodes, quantize, form, cells,
     assert (p != prop).any() and (p == prop).all(-1).any()
 
 
+def _stats_equal_the_mirror(m, parts, scan, cfg):
+    """ops/refine.walk_stats on these inputs equals the mirror's counts of
+    the same walks, whose distances are the kernel's."""
+    from montecarlolocalisation_tpu_torch.ops import refine as kref
+
+    p, ang, ranges, mask = kref.beam_inputs(parts, scan, cfg)
+    mirror = walk_mirror.walks(m, p, ang, cfg.sensor)
+    _, _, _, dists = kref.refine_grad_cuda(m, p, ang, ranges, mask, cfg,
+                                           detail=True)
+    assert torch.equal(dists, mirror["dist"])
+    got = kref.walk_stats(m, parts, scan, cfg)
+    want = walk_mirror.counts(mirror["steps"])
+    assert {k: got[k] for k in want} == want
+    assert got["rays"] == p.shape[0] * p.shape[1] * ang.shape[0]
+    print(f"walk lane share {got['lane_share']:.4f} "
+          f"({got['steps']} steps of {got['slots']} lane-steps)")
+    return got
+
+
+def _order(card, kind, beams, seed=11):
+    """(map, particles [E, N, 3], scan, cfg) of one particle order: a
+    uniform cloud; tight warps (32 rows within 5 cm and 0.05 rad of a
+    pose); rays that all run to max range (cell centres, a 0.15 m range);
+    origins on wall pixels and off the map."""
+    from montecarlolocalisation_tpu_torch.maps import grid
+    from montecarlolocalisation_tpu_torch.models import resample, sensor
+
+    m = grid.from_map_file(MAP, device=card)
+    cfg = _cfg()
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    if kind == "uniform":
+        parts = resample.sample_uniform_particles(gen, m, EPISODES * N)
+    elif kind == "tight":
+        centre = cases.particles(m, EPISODES * N // 32 + 1, "cloud",
+                                 seed=seed)
+        parts = cases.as_tensor(np.repeat(centre, 32, 0)[:EPISODES * N]
+                                + rng.normal(0.0, [0.05, 0.05, 0.05],
+                                             (EPISODES * N, 3)), card)
+    elif kind == "max_range":
+        cells = rng.integers(0, 6, (EPISODES * N, 2))
+        th = rng.uniform(-np.pi, np.pi, EPISODES * N)
+        parts = cases.as_tensor(np.stack([0.4 + 0.8 * cells[:, 0],
+                                          0.4 + 0.8 * cells[:, 1], th], -1),
+                                card)
+        cfg = dataclasses.replace(cfg, sensor=dataclasses.replace(
+            cfg.sensor, max_range=0.15))
+    else:
+        half = EPISODES * N // 2
+        parts = cases.as_tensor(np.concatenate([
+            cases.particles(m, half, "walls", seed=seed),
+            cases.particles(m, EPISODES * N - half, "off_map",
+                            seed=seed + 1)]), card)
+    ranges, mask = cases.scan_arrays(beams, EPISODES, seed=seed,
+                                     max_range=cfg.sensor.max_range)
+    scan = sensor.make_scan(cases.beam_table(beams), ranges, mask,
+                            device=card)
+    return m, parts.reshape(EPISODES, N, 3), scan, cfg
+
+
+@pytest.mark.parametrize("beams", BEAM_COUNTS)
+@pytest.mark.parametrize("kind", ["uniform", "tight", "max_range",
+                                  "walls_off_map"])
+def test_walks_on_particle_orders(card, kind, beams):
+    """On each particle order the walks equal raycast_dda's, the DDA
+    likelihood the dense path's and the proposals closed_form_grad's and
+    propose's, bit for bit; walk_stats equals the mirror's counts."""
+    from montecarlolocalisation_tpu_torch.models import refine, sensor
+    from montecarlolocalisation_tpu_torch.ops import refine as kref
+
+    m, parts, scan, cfg = _order(card, kind, beams)
+    p, ang, ranges, mask = kref.beam_inputs(parts, scan, cfg)
+    prop, lik, _, dists = kref.refine_grad_cuda(m, p, ang, ranges, mask,
+                                                cfg, detail=True)
+    dcfg = dataclasses.replace(cfg.sensor, ray_mode="dda",
+                               lookup_mode="auto")
+    want_d = sensor.expected_ranges(m, parts, scan.angles, dcfg)
+    assert torch.equal(dists, want_d)
+    if kind == "max_range":
+        assert (want_d == cfg.sensor.max_range).all()
+    if kind == "walls_off_map":
+        assert ((want_d == 0) | (want_d == cfg.sensor.max_range)).all()
+    want_lik, closed = refine.closed_form_grad(
+        m, parts, scan, cfg.sensor, cfg.refine, cfg.valid_pos_offset)
+    assert torch.equal(lik, want_lik)
+    assert torch.equal(prop, refine.propose(parts, closed, cfg.refine))
+    got = _stats_equal_the_mirror(m, parts, scan, cfg)
+    if kind == "walls_off_map":
+        assert got["steps"] == got["slots"] == 0
+    else:
+        assert 0 < got["steps"] < got["slots"]
+
+
 def _production(card, seed=7):
     """The production cell's shapes: 1024 filters of 500 particles about
     a simulated pose each, a noisy scan of 24 beams from it."""
@@ -238,6 +343,7 @@ def test_refine_particles_at_production_shapes(card, monkeypatch):
           f"{float(same.float().mean()):.6f} of {same.numel()}")
     assert bool(same.all())
     assert (got != parts).any(-1).float().mean() > 0.3     # the climb moved
+    _stats_equal_the_mirror(m, parts, scan, cfg)
 
 
 def test_tickgraph_replay_equals_eager_ticks(card, monkeypatch):

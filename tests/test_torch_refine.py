@@ -51,6 +51,7 @@ from montecarlolocalisation_tpu_torch.ops import refine as trefine_ops
 from montecarlolocalisation_tpu_torch.utils.angles import normalize_angle
 
 import refine_cases as cases
+import refine_walk_mirror as walk_mirror
 from torch_parity import maps, t
 
 torch.set_num_threads(1)
@@ -361,3 +362,75 @@ def test_kernels_take_only_what_they_implement():
     with pytest.raises(ValueError):
         trefine_ops.refine_grad_cuda(tm, p, p[0, :, 0], p[..., 0],
                                      p[..., 0], cfg)
+
+
+# -- refine_grad_kernel's walks: their plain mirror (refine_walk_mirror) --
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_walk_mirror_follows_the_dda_walk(kind, quantize):
+    """The mirror walks each ray as raycast's DDA does: its distances are
+    raycast_dda's bit for bit and its codes dda_walk's hit, axis and steps
+    along the axis; a ray takes at least one step more than its hit axis
+    records, at most dda_iters, and none from a wall pixel or off the
+    map."""
+    _, tm = maps()
+    cfg = config_from(SensorModelConfig(ray_mode="dda",
+                                        quantize_ray_deg=quantize))
+    parts = t(cases.particles(tm, 600, kind, seed=5))
+    angles = -t(cases.beam_table(BEAMS))      # the sensor negates them
+    got = walk_mirror.walks(tm, parts, angles, cfg)
+    x, y, th = parts[:, 0], parts[:, 1], parts[:, 2]
+    ox, oy, ray = torch.broadcast_tensors(
+        (x + cfg.laser_offset * torch.cos(th))[:, None],
+        (y + cfg.laser_offset * torch.sin(th))[:, None], th[:, None] + angles)
+    want = traycast.dda_walk(tm, ox, oy, ray, cfg)
+    assert torch.equal(got["dist"], traycast.raycast_dda(tm, ox, oy, ray,
+                                                         cfg))
+    assert torch.equal(got["dist"], want.dist)
+    code, steps = got["code"], got["steps"]
+    assert torch.equal(code >= 0, want.hit)
+    assert torch.equal((code & 1).bool()[want.hit], want.axis_x[want.hit])
+    assert torch.equal((code >> 1)[want.hit], want.steps[want.hit])
+    assert (steps[want.hit] > want.steps[want.hit]).all()
+    assert int(steps.max()) <= traycast.dda_iters(tm, cfg)
+    ix = torch.floor((ox - tm.origin_x) * tm.inv_resolution).to(torch.int32)
+    iy = torch.floor((oy - tm.origin_y) * tm.inv_resolution).to(torch.int32)
+    on_map = (ix >= 0) & (iy >= 0) & (ix < tm.width) & (iy < tm.height)
+    assert torch.equal(steps == 0, tgrid.lookup(tm.occ, ix, iy) | ~on_map)
+    if kind in ("walls", "off_map"):
+        assert not want.hit.any() and not steps.any()
+    else:
+        assert want.hit.float().mean() > 0.2 and (steps > 4).any()
+
+
+def test_walk_counts_take_each_warps_longest_ray():
+    """A warp of 32 consecutive rows walks a beam until its longest ray
+    ends: 32 lane-steps a step, twice past the records; the grid's last
+    warp may hold fewer rows, and its lanes still count."""
+    gen = torch.Generator().manual_seed(7)
+    nb = walk_mirror.RECORDS + 3
+    steps = torch.randint(0, 23, (2, 45, nb), generator=gen,
+                          dtype=torch.int32)
+    got = walk_mirror.counts(steps)
+    flat = steps.reshape(90, nb).tolist()
+    slots = 0
+    for w0 in range(0, 90, 32):
+        for b in range(nb):
+            longest = max(row[b] for row in flat[w0:w0 + 32])
+            slots += 32 * longest * (2 if b >= walk_mirror.RECORDS else 1)
+    assert got == dict(steps=int(steps.sum()), slots=slots)
+    assert got["steps"] < got["slots"]
+
+
+def test_walk_stats_needs_the_card():
+    """walk_stats counts the kernel's walks: CPU particles have no kernel
+    to count (the mirror is their count); the records hold the kernel's
+    kRecords beams."""
+    _, tm = maps()
+    cfg = config_from(_cfg())
+    scan = tsensor.make_scan(cases.beam_table(BEAMS), np.ones(BEAMS,
+                                                               np.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        trefine_ops.walk_stats(tm, torch.zeros(4, 3), scan, cfg)
+    assert walk_mirror.RECORDS == 48
