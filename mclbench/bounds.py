@@ -1,6 +1,6 @@
-"""The least time an H100 could take for the beam-weight kernel (K1) and
-the k-means kernel (K3) on given inputs: the yardstick of the roofline
-metrics.
+"""The least time an H100 could take for the beam-weight kernel (K1), the
+k-means kernel (K3), and SLAM's map update (the inverse sensor model) and
+likelihood field, on given inputs: the yardstick of the roofline metrics.
 
 A bound is the larger of the bytes the call must move over the card's
 memory rate and the float32 operations it must do over the card's float32
@@ -9,14 +9,15 @@ tensor cores, at 700 W).  Each input is read once and each output written
 once; the work that depends on the data is counted for these inputs: the
 march samples up to each beam's first hit, the analytic cast's candidate
 slabs up to each axis's first hit, and the Lloyd iterations the k-means
-early exit lets run.  The count is the same whatever implements the
-kernel.
+early exit lets run, and the (pixel, beam) pairs a scan's beams reach.
+The count is the same whatever implements the kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from .reference import caster
+from .reference import slam as ref_slam
 from .reference.maze import CELL_PX, Maze
 
 PEAK_BYTES_PER_S = 3.35e12
@@ -28,6 +29,15 @@ BEAM_FLOPS, PARTICLE_FLOPS = 15, 16
 MARCH_SAMPLE_FLOPS = 8     # a sample's world point and its pixel
 SLAB_FLOPS = 10            # one candidate slab of one axis
 KMEANS_POINT_FLOPS = 26    # a point's K = 3 distances, argmin and sums
+# SLAM: a (pixel, beam) pair of the inverse sensor model (the distance
+# along the beam and across it, the band tests, the count); a pixel's
+# wallness (the sigmoid and its rebase); one tap of the separable blur on
+# one axis (a multiply-add); a bilinear sample (its pixel coordinate, the
+# four weights and the blend) with the log term it feeds.
+ISM_PAIR_FLOPS = 10
+WALL_PIXEL_FLOPS = 8
+BLUR_TAP_FLOPS = 2
+SAMPLE_FLOPS = 20
 
 
 def bound(n_bytes: float, flops: float) -> dict:
@@ -178,3 +188,40 @@ def k3_bound(xy, c0, rs) -> dict:
     n_bytes = 8 * n + 4 * n + 2 * c0.numel() * 4 + rs.numel() * 4
     return bound(n_bytes, KMEANS_POINT_FLOPS * xy.shape[-2]
                  * kmeans_iterations(xy, c0, rs))
+
+
+def ism_bound(poses, ranges, mask, angles, mapped, cfg: dict) -> dict:
+    """SLAM's map update in one tick: the pixels that the scans of the
+    mapped filters (mapped [...]) reach, each read once and written once,
+    and the operations of every (pixel, beam) pair a beam reaches (within
+    half_width of it, short of its return or in its hit band), counted
+    on these poses [..., P, 3] and scans (ranges and mask [..., B])."""
+    sel = mapped.reshape(-1)
+    if not bool(sel.any()):
+        return bound(0.0, 0.0)
+    p = poses.shape[-2]
+    flat = poses.reshape((-1, p, 3))[sel]
+    rb = ranges.reshape((-1, ranges.shape[-1]))[sel]
+    mb = mask.reshape((-1, mask.shape[-1]))[sel]
+    hits, frees = ref_slam.ism_counts(flat, rb, mb, angles, cfg)
+    pairs = hits + frees
+    n_bytes = 8 * int((pairs > 0).sum()) + flat.numel() * 4 \
+        + rb.numel() * 4
+    return bound(n_bytes, ISM_PAIR_FLOPS * float(pairs.sum()))
+
+
+def slam_field_bound(filters: int, cfg: dict, beams: int) -> dict:
+    """SLAM's likelihood field and scan likelihood in one tick of
+    `filters` filters: every particle's map read once; its wallness and
+    the separable blur's taps on both axes (2 radius + 1 a pixel each, as
+    many as the map holds); P B (1 + free_samples) bilinear samples a
+    filter."""
+    mp = cfg["mapping"]
+    h, w = mp["height"], mp["width"]
+    taps = min(2 * cfg["field_radius_px"] + 1, h) + min(
+        2 * cfg["field_radius_px"] + 1, w)
+    maps = filters * cfg["num_particles"]
+    samples = maps * beams * (1 + cfg["free_samples"])
+    flops = (maps * h * w * (WALL_PIXEL_FLOPS + BLUR_TAP_FLOPS * taps)
+             + SAMPLE_FLOPS * samples)
+    return bound(4.0 * maps * h * w, flops)

@@ -28,6 +28,29 @@ Diagnostics, not compared: songs_off (songs that differ, outside ticks
 whose confidence sits within CONF_MARGIN of its threshold) and gen_off
 (units after which the program's generator state differs from the
 reference's, i.e. it drew other random numbers than the stream gives).
+
+A SLAM check unit (`SLAMUnit`) is a stretch of ticks of E x K SLAM
+filters (E episodes, K replicas): the program's SLAM state and generator
+at its start (or the pass's seed and start poses), the encoders and
+ranges handed over, each tick's published weighted-mean pose, and the
+state at its end.  The SLAM reference (reference/slam.py) runs it, and:
+
+  rows_off    the share of particle poses at the units' ends off the
+              reference's by more than ROW_TOL (m, rad);
+  weights_gap the widest gap of a particle's weight, times P, at the ends;
+  pose_gap    the widest gap of a published mean pose from the
+              reference's: the larger of the xy distance (m) and the
+              heading difference (rad), every tick;
+  map_off     the share of map pixels, over every particle's map at the
+              units' ends, more than MAP_TOL log-odds from the reference's;
+  evidence_gap the widest gap of a filter's log evidence at the ends (the
+              replicas' race is decided on it).
+
+Its diagnostics: kf_off and resample_off (filters whose last keyframe
+pose, or whose weights' being uniform after the last tick, differ at the
+units' ends: the keyframe and resampling decisions), chosen_off (episodes
+whose winner at a pass's end differs from the reference's argmax) and
+gen_off.
 """
 from __future__ import annotations
 
@@ -38,8 +61,10 @@ from typing import Optional
 import torch
 
 from .reference import filter as ref
+from .reference import slam as ref_slam
 
 ROW_TOL = 1e-4
+MAP_TOL = 1e-3
 CONF_MARGIN = 0.02
 SENTINEL_GAP = 99.0
 
@@ -59,6 +84,22 @@ class Unit:
     after: Optional[torch.Tensor]   # [E, N, 3] particles at the end
     gen_after: Optional[torch.Tensor] = None
     weights_after: Optional[torch.Tensor] = None   # [E, N] at the end
+
+
+@dataclasses.dataclass
+class SLAMUnit:
+    """One stretch of ticks of E x K SLAM filters (module docstring)."""
+
+    start: Optional[ref_slam.State]   # None: from `seed` at start_pose
+    gen_state: Optional[torch.Tensor]
+    seed: int
+    start_pose: torch.Tensor          # [E, 3]
+    enc: torch.Tensor                 # [E, T, 2], shared by the replicas
+    ranges: torch.Tensor              # [E, T, B]
+    pose: torch.Tensor                # [E, K, T, 3] published mean poses
+    after: ref_slam.State             # the program's state at the end
+    gen_after: Optional[torch.Tensor] = None
+    chosen: Optional[torch.Tensor] = None   # [E] winners, at a pass's end
 
 
 def wrap(a):
@@ -107,6 +148,8 @@ def pose_gaps(best, out: ref.Output):
 
 def check(world, units: list) -> dict:
     """The compared numbers and the diagnostics over `units`."""
+    if world.slam is not None:
+        return check_slam(world, units)
     rows = rows_off = 0
     pose_gap = conf_gap = weights_gap = 0.0
     songs_off = gen_off = 0
@@ -142,3 +185,76 @@ def check(world, units: list) -> dict:
                 songs_off=songs_off, gen_off=gen_off,
                 units=len(units), answers=answers, rows=rows,
                 rows_off_count=rows_off)
+
+
+def run_slam_reference(world, u: SLAMUnit, dtype=torch.float32):
+    """The SLAM reference over a unit: (State, [Output a tick],
+    generator)."""
+    dev = world.device
+    k = u.pose.shape[1]
+    batch = (u.enc.shape[0], k)
+    if u.start is None:
+        st, gen = ref_slam.init(world.slam, u.seed,
+                                u.start_pose.to(dev)[:, None, :], batch)
+    else:
+        st = ref_slam.State(**{f: v.to(dev)
+                               for f, v in vars(u.start).items()})
+        gen = torch.Generator(device=dev)
+        gen.set_state(u.gen_state)
+    enc = u.enc.to(dev)[:, None].expand(batch + u.enc.shape[1:])
+    ranges = u.ranges.to(dev)[:, None].expand(batch + u.ranges.shape[1:])
+    mask = torch.ones(ranges.shape, dtype=torch.bool, device=dev)
+    st, outs = ref_slam.run(st, gen, enc, ranges, mask, world.angles,
+                            world.slam, dtype)
+    return st, outs, gen
+
+
+def _pose_gap(a, b):
+    """max(xy distance, |heading difference|) of poses [..., 3]."""
+    return torch.maximum(torch.hypot(a[..., 0] - b[..., 0],
+                                     a[..., 1] - b[..., 1]),
+                         torch.abs(wrap(a[..., 2] - b[..., 2])))
+
+
+def check_slam(world, units: list) -> dict:
+    """The compared numbers and the diagnostics over SLAM units."""
+    rows = rows_off = pixels = map_off = 0
+    pose_gap = weights_gap = evidence_gap = 0.0
+    kf_off = resample_off = chosen_off = gen_off = filters = answers = 0
+    for u in units:
+        st, outs, gen = run_slam_reference(world, u)
+        for t, o in enumerate(outs):
+            pose_gap = max(pose_gap, float(_pose_gap(
+                u.pose[:, :, t].to(o.pose), o.pose).max()))
+            answers += o.pose[..., 0].numel()
+        a = ref_slam.State(**{f: v.to(st.poses.device)
+                              for f, v in vars(u.after).items()})
+        d = _pose_gap(a.poses, st.poses)
+        rows += d.numel()
+        rows_off += int((d > ROW_TOL).sum())
+        p = a.weights.shape[-1]
+        weights_gap = max(weights_gap, float(
+            torch.abs(a.weights - st.weights).max()) * p)
+        off = torch.abs(a.logodds - st.logodds) > MAP_TOL
+        pixels += off.numel()
+        map_off += int(off.sum())
+        evidence_gap = max(evidence_gap, float(
+            torch.abs(a.log_evidence - st.log_evidence).max()))
+        filters += a.log_evidence.numel()
+        kf_off += int((_pose_gap(a.kf_pose, st.kf_pose) > ROW_TOL).sum())
+        uniform = (a.weights == a.weights[..., :1]).all(-1)
+        resample_off += int((uniform != (st.weights == st.weights[
+            ..., :1]).all(-1)).sum())
+        if u.chosen is not None:
+            chosen_off += int((u.chosen.to(st.log_evidence.device)
+                               != torch.argmax(st.log_evidence,
+                                               dim=-1)).sum())
+        if u.gen_after is not None:
+            gen_off += int(not torch.equal(gen.get_state(), u.gen_after))
+    return dict(rows_off=rows_off / max(rows, 1), pose_gap=pose_gap,
+                weights_gap=weights_gap, map_off=map_off / max(pixels, 1),
+                evidence_gap=evidence_gap, kf_off=kf_off,
+                resample_off=resample_off, chosen_off=chosen_off,
+                gen_off=gen_off, units=len(units), answers=answers,
+                rows=rows, rows_off_count=rows_off, filters=filters,
+                map_off_count=map_off)

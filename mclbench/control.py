@@ -1,8 +1,9 @@
 """The control: the plain reference put in the program's place, computed
 in the nearest precision below the configuration's (float32): the
-particles' move and the beam weights in bfloat16.  Its runs have to come
-out as not correct; the limits lie between the program's readings and
-the control's.
+particles' move and the beam weights in bfloat16 (for SLAM: the move,
+the likelihood field, the scan likelihood and the maps' sums).  Its runs
+have to come out as not correct; the limits lie between the program's
+readings and the control's.
 
     python3 -m mclbench.control --workload NAME --seeds 1,2,3 --seconds S
         [--which program,control]
@@ -22,12 +23,14 @@ import sys
 import torch
 
 from .reference import filter as ref
+from .reference import slam as ref_slam
 
 CONTROL_DTYPE = torch.bfloat16
 
 
-def _ref_state(st: ref.State) -> ref.State:
-    return ref.State(**{k: v.clone() for k, v in vars(st).items()})
+def _ref_state(st):
+    """A copy of a reference State (the filter's or SLAM's)."""
+    return type(st)(**{k: v.clone() for k, v in vars(st).items()})
 
 
 class RefFleetServer:
@@ -74,7 +77,7 @@ class FleetControl:
         return _ref_state(s.state), s.gen.get_state()
 
 
-class _RefReplayState:
+class _RefState:
     def __init__(self, st, gen):
         self.st, self.gen = st, gen
 
@@ -89,11 +92,11 @@ class ReplayControl:
     def segment(self, state, seed: int, enc, ranges):
         w = self.world
         if state is None:
-            state = _RefReplayState(*ref.init(w.mz, w.filter, seed, self.e))
+            state = _RefState(*ref.init(w.mz, w.filter, seed, self.e))
         mask = torch.ones(ranges.shape, dtype=torch.bool, device=w.device)
         st, outs = ref.run(state.st, state.gen, enc, ranges, mask,
                            w.angles, w.mz, w.filter, self.dtype)
-        return _RefReplayState(st, state.gen), outs
+        return _RefState(st, state.gen), outs
 
     def snapshot(self, state):
         return _ref_state(state.st), state.gen.get_state()
@@ -105,8 +108,40 @@ class ReplayControl:
             song=torch.stack([o.song for o in outs], dim=1))
 
 
+class SLAMControl:
+    """run_slam_episode over [E, K] filters on the reference tick."""
+
+    def __init__(self, world, episodes: int, replicas: int,
+                 dtype=CONTROL_DTYPE):
+        self.world, self.dtype = world, dtype
+        self.batch = (episodes, replicas)
+
+    def segment(self, state, seed: int, start, enc, ranges):
+        w = self.world
+        if state is None:
+            state = _RefState(*ref_slam.init(
+                w.slam, seed, start[:, None, :], self.batch))
+        shape = self.batch + enc.shape[1:2]
+        en = enc[:, None].expand(shape + (2,))
+        rg = ranges[:, None].expand(shape + ranges.shape[-1:])
+        mask = torch.ones(rg.shape, dtype=torch.bool, device=rg.device)
+        st, outs = ref_slam.run(state.st, state.gen, en, rg, mask, w.angles,
+                                w.slam, self.dtype)
+        return (_RefState(st, state.gen),
+                torch.stack([o.pose for o in outs], dim=2))
+
+    @staticmethod
+    def winners(state):
+        return torch.argmax(state.st.log_evidence, dim=-1)
+
+    @staticmethod
+    def snapshot(state):
+        return _ref_state(state.st), state.gen.get_state()
+
+
 def factory(driver: str):
-    return FleetControl if driver == "fleet" else ReplayControl
+    return dict(fleet=FleetControl, slam=SLAMControl).get(driver,
+                                                          ReplayControl)
 
 
 def main(argv=None) -> int:

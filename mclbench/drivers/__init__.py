@@ -1,5 +1,6 @@
 """The general drivers a traffic mix names: `fleet` (an open-loop fleet
-server) and `replay` (log replays through an episode entry)."""
+server), `replay` (log replays through an episode entry) and `slam` (log
+replays through RBPF SLAM over episodes and replicas)."""
 from __future__ import annotations
 
 import dataclasses

@@ -6,7 +6,12 @@ Each robot starts at its own pose (a random cell, an offset of up to
 tick and, when the ray straight ahead meets a wall within `obstacle_stop`,
 turns in place toward the freer of the +-60 degree probe rays for a
 random number of ticks.  Encoders accumulate wheel radians as the filter
-expects them (arc = delta * wheel_size / 2); every tick's scan is the
+expects them (arc = delta * wheel_size / 2).  With `slip`, each wheel's
+arc on the ground is the commanded arc times (1 + slip N(0, 1)): the robot
+moves by the slipped arcs while the encoders record the commanded ones
+(the encoders lie), and the LIDAR casts from the true pose; the slip's
+normals are drawn after every other draw, so a log without slip is the
+same with or without the option.  Every tick's scan is the
 exact ray cast from the laser, 0.1 m ahead, along the negated beam angles,
 plus Gaussian range noise, clamped to [0, max_range].  The same seed gives
 the same logs on the same device.
@@ -36,6 +41,7 @@ class Wander:
     turn_ticks: int = 10
     scan_noise: float = 0.02
     start_offset: float = 0.2
+    slip: float = 0.0
 
 
 class Walls:
@@ -141,7 +147,8 @@ def wander(mz: Maze, angles, sensor: dict, motion: dict, start, d: dict,
     [E, T, 2], ranges [E, T, B], poses [E, T, 3]).  `sensor` gives the
     max range, laser offset and beam sign; `cast(mz, ox, oy, angle,
     sensor)` casts the rays (default: the reference's caster of the
-    sensor's ray_mode)."""
+    sensor's ray_mode); d["slip"] [E, T, 2], where w.slip is set, the
+    wheels' slip normals."""
     cast = cast or caster.cast
     dev = mz.device
     angles = angles.to(dev)
@@ -171,8 +178,15 @@ def wander(mz: Maze, angles, sensor: dict, motion: dict, start, d: dict,
         is_turning = turning > 0
         d_left = torch.where(is_turning, tsign * turn_arc, w.speed)
         d_right = torch.where(is_turning, -tsign * turn_arc, w.speed)
-        d_center = 0.5 * (d_left + d_right)
-        d_theta = (d_left - d_right) * recip(motion["wheel_space"])
+        if w.slip:
+            # The ground takes the slipped arcs; the encoders, below,
+            # record the commanded ones.
+            g_left = d_left * (1.0 + w.slip * d["slip"][:, t, 0])
+            g_right = d_right * (1.0 + w.slip * d["slip"][:, t, 1])
+        else:
+            g_left, g_right = d_left, d_right
+        d_center = 0.5 * (g_left + g_right)
+        d_theta = (g_left - g_right) * recip(motion["wheel_space"])
         x = x + d_center * torch.cos(th + 0.5 * d_theta)
         y = y + d_center * torch.sin(th + 0.5 * d_theta)
         th = torch.atan2(torch.sin(th + d_theta), torch.cos(th + d_theta))
@@ -198,10 +212,24 @@ def logs(seed: int, mz: Maze, angles, sensor: dict, motion: dict,
     """Every robot's log for a run's seed: (encoders [E, T, 2], ranges
     [E, T, B], true poses [E, T, 3]), every ray cast exactly (Walls)
     whatever the filter casts with."""
-    gen = torch.Generator(device=mz.device)
-    gen.manual_seed(seeds(seed, 1)[0])
+    gen = _generator(seed, mz)
     start = start_poses(gen, mz, robots, w.start_offset)
     d = draws(gen, robots, ticks, angles.shape[0], w.turn_ticks, mz.device)
+    if w.slip:
+        d["slip"] = torch.randn((robots, ticks, 2), generator=gen,
+                                device=mz.device)
     walls = Walls(mz)
     return wander(mz, angles, sensor, motion, start, d, w,
                   cast=lambda _mz, ox, oy, a, s: walls.cast(ox, oy, a, s))
+
+
+def _generator(seed: int, mz: Maze):
+    gen = torch.Generator(device=mz.device)
+    gen.manual_seed(seeds(seed, 1)[0])
+    return gen
+
+
+def starts(seed: int, mz: Maze, robots: int, w: Wander = Wander()):
+    """[E, 3] the poses the robots of `logs(seed, ...)` start from, before
+    their first tick."""
+    return start_poses(_generator(seed, mz), mz, robots, w.start_offset)

@@ -4,11 +4,12 @@ A cell (BENCHMARK.json `workloads`) names a configuration and a traffic
 mix.  The harness finds everything by name:
 
   * the configuration's file, as BENCHMARK.json `configs` gives it
-    (mclbench/configs/<config>.json: the filter's settings, the beam table,
-    the map);
+    (mclbench/configs/<config>.json: the filter's or SLAM's settings, the
+    beam table, the map);
   * the traffic mix, mclbench/traffic/<traffic>.json: its parameters and
     the driver that reads them (mclbench/drivers/<driver>.py: `fleet` for
-    the open-loop fleet server, `replay` for log replays);
+    the open-loop fleet server, `replay` for log replays, `slam` for log
+    replays through RBPF SLAM);
   * each per-layer metric, mclbench/metrics/<metric>.py: a reader of the
     traced run's device operations, spans and counts.
 

@@ -1,7 +1,8 @@
 """motion_ms_per_tick.replay: device time a tick (ms) of the motion stage,
 the operations after each `motion` mark up to the next mark
-(mclbench/program_telemetry.py): odometry, propagation and, where it is
-on, the refinement."""
+(mclbench/program_telemetry.py): odometry and propagation (refinement,
+where it is on, opens stages of its own: `refine`, `refine_grad`,
+`refine_score`)."""
 from mclbench import program_telemetry
 
 

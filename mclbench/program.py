@@ -1,9 +1,9 @@
 """The system under test: the port's entry points, as the drivers call
 them.  Only this module imports the port.
 
-Each adapter also reads the port's filter state back (`snapshot`) and the
-answers of a replay (`answers`) in the reference's form, for the check
-that follows the window.
+Each adapter also reads the port's filter or SLAM state back
+(`snapshot`) and the answers of a replay (`answers`) in the reference's
+form, for the check that follows the window.
 """
 from __future__ import annotations
 
@@ -12,25 +12,35 @@ import dataclasses
 import torch
 
 from .reference import filter as ref
+from .reference import slam as ref_slam
+
+
+def _build(cls, values: dict):
+    """cls from a dict of its fields (nested dataclasses from nested
+    dicts); keys that are no field of cls are left out."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in values:
+            continue
+        v = values[f.name]
+        if dataclasses.is_dataclass(f.default):
+            v = _build(type(f.default), v)
+        kw[f.name] = v
+    return cls(**kw)
 
 
 def filter_config(d: dict):
     """The port's FilterConfig from a configuration's `filter` dict."""
     from montecarlolocalisation_tpu_torch import config as pc
 
-    def build(cls, values):
-        kw = {}
-        for f in dataclasses.fields(cls):
-            if f.name not in values:
-                continue
-            v = values[f.name]
-            default = f.default
-            if dataclasses.is_dataclass(default):
-                v = build(type(default), v)
-            kw[f.name] = v
-        return cls(**kw)
+    return _build(pc.FilterConfig, d)
 
-    return build(pc.FilterConfig, d)
+
+def slam_config(d: dict):
+    """The port's SLAMConfig from a configuration's `slam` dict."""
+    from montecarlolocalisation_tpu_torch import config as pc
+
+    return _build(pc.SLAMConfig, d)
 
 
 class PortWorld:
@@ -111,6 +121,46 @@ class ReplayProgram:
     def free(self) -> None:
         """Drop the graphs this program's calls captured, and their memory
         pools."""
+        from montecarlolocalisation_tpu_torch.models import compiled
+
+        compiled.graphs.clear()
+
+
+class SLAMProgram:
+    """models.slam.run_slam_episode over [E, K] filters: E episodes, K
+    replicas of each racing on evidence, one call a segment of a log; a
+    pass's winners are the replicas' argmax of the log evidence, as
+    run_slam_replicas picks them."""
+
+    def __init__(self, world, episodes: int, replicas: int):
+        from montecarlolocalisation_tpu_torch.models import slam
+
+        self._slam = slam
+        self.cfg = slam_config(world.slam)
+        self.angles = world.angles
+        self.batch = (episodes, replicas)
+
+    def segment(self, state, seed: int, start, enc, ranges):
+        """The next ticks of a pass: enc [E, n, 2], ranges [E, n, B], each
+        episode's log shared by its replicas; `state` None starts the pass
+        from the filter seed `seed` at the start poses [E, 3].  Returns
+        (state, weighted-mean poses [E, K, n, 3])."""
+        return self._slam.run_slam_episode(
+            seed, enc[:, None], ranges[:, None], self.angles, self.cfg,
+            start[:, None, :], state0=state, batch=self.batch,
+            device=enc.device)
+
+    @staticmethod
+    def winners(state):
+        """[E] each episode's replica with the most log evidence."""
+        return torch.argmax(state.log_evidence, dim=-1)
+
+    @staticmethod
+    def snapshot(state):
+        """(reference SLAM State, generator state), copies."""
+        return ref_slam.from_program(state), state.gen.get_state()
+
+    def free(self) -> None:
         from montecarlolocalisation_tpu_torch.models import compiled
 
         compiled.graphs.clear()

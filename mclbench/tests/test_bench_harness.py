@@ -53,7 +53,8 @@ def test_tiny_run_prints_the_contract_line(root, workload, trace):
             assert line["metrics"][m["name"]]["unit"] == m["unit"]
     tail = err.getvalue().strip().splitlines()
     for k, c in line["checks"].items():
-        assert any(t.startswith(f"check {k} = ") for t in tail[-4:])
+        assert any(t.startswith(f"check {k} = ")
+                   for t in tail[-(len(line["checks"]) + 1):])
         assert c["value"] <= c["limit"]
 
 
