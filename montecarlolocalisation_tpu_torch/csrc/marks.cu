@@ -20,6 +20,10 @@ extern "C" __global__ void mcl_mark_end() {}
 extern "C" __global__ void mcl_mark_refine() {}
 extern "C" __global__ void mcl_mark_refine_grad() {}
 extern "C" __global__ void mcl_mark_refine_score() {}
+extern "C" __global__ void mcl_mark_slam_motion() {}
+extern "C" __global__ void mcl_mark_slam_field() {}
+extern "C" __global__ void mcl_mark_slam_resample() {}
+extern "C" __global__ void mcl_mark_slam_map() {}
 
 // Launches mark `which`, in the order of ops/marks.py's MARKS, on
 // `stream`: one block of one thread.
@@ -36,6 +40,10 @@ extern "C" int mcl_mark(int which, void* stream) {
     case 7: mcl_mark_refine<<<1, 1, 0, s>>>(); break;
     case 8: mcl_mark_refine_grad<<<1, 1, 0, s>>>(); break;
     case 9: mcl_mark_refine_score<<<1, 1, 0, s>>>(); break;
+    case 10: mcl_mark_slam_motion<<<1, 1, 0, s>>>(); break;
+    case 11: mcl_mark_slam_field<<<1, 1, 0, s>>>(); break;
+    case 12: mcl_mark_slam_resample<<<1, 1, 0, s>>>(); break;
+    case 13: mcl_mark_slam_map<<<1, 1, 0, s>>>(); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -28,6 +28,27 @@ A tick's random numbers come from the state's torch.Generator, or from
 `draws` (SLAMDraws), so a caller can replay the JAX package's draws.
 Episodes run their ticks in CUDA graphs (models/compiled); on CUDA a
 tick is captured or the call raises.
+
+Telemetry (utils/profiling).  On CUDA a stage mark precedes each of the
+tick's four stages and `emit` follows the last, as in the filter tick
+(ops/marks.py):
+  * `slam_motion`: odometry, the proposal's noise and propagation (with
+    proposal_candidates > 1, the candidates too);
+  * `slam_field`: the field windows, the likelihood field and its blur,
+    the scan's bilinear samples (and the scan matcher, where
+    refine_iters > 0), the weights' normalisation and the evidence: the
+    work mclbench's `slam_field_bound` counts;
+  * `slam_resample`: the ESS gate, the gathers of poses, maps and
+    scores, the weighted mean pose, the keyframe criterion and the
+    closure;
+  * `slam_map`: the inverse sensor model (mapping.update_map), the
+    keyframe select, kf_pose and the best pose: the work mclbench's
+    `ism_bound` counts.
+The draws, before `slam_motion`, follow `begin` or the last tick's
+`emit` and so belong to the bookkeeping.  Each call adds 1 to the
+counter `slam.calls` and E x K x P x B (the filters' particles times the
+beams) to `slam.rays`; under a CUDA graph the captured ticks count, not
+the replays, so their ratio is the rays a tick.  Marks change no value.
 """
 from __future__ import annotations
 
@@ -39,6 +60,7 @@ import numpy as np
 import torch
 
 from ..config import SLAMConfig
+from ..utils import profiling
 from ..utils.angles import normalize_angle
 from . import compiled, mapping, motion
 from .resample import systematic_indices
@@ -507,8 +529,13 @@ def slam_step(state: SLAMState, encoder_left, encoder_right, ranges,
     mask = _on_device(mask, dev)
     ranges = ranges.expand(batch + ranges.shape[-1:])
     mask = mask.expand(ranges.shape)
+    profiling.count("slam.calls")
+    profiling.count("slam.rays", state.poses[..., 0].numel()
+                    * ranges.shape[-1])
 
     # 1. Motion proposal: shared encoder integration, per-particle noise.
+    # Each stage follows its mark (module docstring).
+    profiling.mark("slam_motion", dev)
     # With trans ~ 0 the split between rot1 and rot2 is unobservable and
     # the reference's rot1 = atan2(~0, ~0) - theta is garbage: rot1 = 0,
     # rot2 = the whole turn.
@@ -546,6 +573,7 @@ def slam_step(state: SLAMState, encoder_left, encoder_right, ranges,
         center = motion.propagate_particles(state.poses, rot1[..., None],
                                             trans[..., None],
                                             rot2[..., None])
+        profiling.mark("slam_field", dev)
         win, offsets = field_windows(state.logodds, center, cfg)
         field = hit_field(win, cfg)
         ll = scan_loglik_multi(field, cand, ranges, angles, mask, cfg,
@@ -565,6 +593,7 @@ def slam_step(state: SLAMState, encoder_left, encoder_right, ranges,
         # The field of each particle's pre-update map, shared by the scan
         # matcher and the weights (a window around the proposal on large
         # maps).
+        profiling.mark("slam_field", dev)
         win, offsets = field_windows(state.logodds, poses, cfg)
         field = hit_field(win, cfg)
         if cfg.refine_iters > 0:
@@ -581,6 +610,7 @@ def slam_step(state: SLAMState, encoder_left, encoder_right, ranges,
     # 4. ESS-gated systematic resampling: both branches, a per-filter
     # select.  The CDF accumulates in float64, so the card's sum does not
     # change from run to run.
+    profiling.mark("slam_resample", dev)
     ess = 1.0 / torch.sum(w * w, dim=-1)
     resampled = ess < cfg.ess_threshold * p_count
     cdf = torch.cumsum(w.double(), dim=-1).to(f32)
@@ -642,6 +672,7 @@ def slam_step(state: SLAMState, encoder_left, encoder_right, ranges,
 
     # 5. Map update: each particle folds the scan into its map at its
     # pose, keyframe-gated.
+    profiling.mark("slam_map", dev)
     do_paint = (moved & ~fired) if crit else ~fired
     updated = mapping.update_map(logodds, poses, ranges[..., None, :],
                                  angles, mask[..., None, :], cfg.mapping,
@@ -660,6 +691,7 @@ def slam_step(state: SLAMState, encoder_left, encoder_right, ranges,
                                                dim=-2)[..., 0, :],
                 ess=ess, resampled=resampled, mapped=do_paint,
                 closure_delta=closure_delta, log_evidence=log_evidence)
+    profiling.mark("emit", dev)
     new_state = SLAMState(poses=poses, logodds=logodds, weights=w,
                           scores=scores, odom=new_odom, gen=state.gen,
                           kf_pose=kf_pose, closure_cool=closure_cool,

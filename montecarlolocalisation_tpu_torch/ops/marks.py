@@ -11,9 +11,18 @@ from . import build
 # filter tick's stages, and `emit` follows the last (models/filter).
 # `refine` opens the refinement (models/filter), `refine_grad` each
 # round's gradient and `refine_score` each round's scoring and acceptance
-# (models/refine).
+# (models/refine).  RBPF SLAM's tick (models/slam.slam_step) runs four
+# stages of its own, each after its mark, and `emit` after the last:
+# `slam_motion` (odometry, noise, propagation, the proposal's
+# candidates), `slam_field` (the likelihood field, its blur, the scan's
+# bilinear samples and the weights' normalisation: the work
+# mclbench/bounds.slam_field_bound counts), `slam_resample` (the ESS gate,
+# the gathers of poses and maps, the mean pose, the keyframe criterion,
+# the closure) and `slam_map` (the inverse sensor model and the keyframe
+# select: the work bounds.ism_bound counts).
 MARKS = ("begin", "motion", "weights", "resample", "cluster", "emit", "end",
-         "refine", "refine_grad", "refine_score")
+         "refine", "refine_grad", "refine_score", "slam_motion",
+         "slam_field", "slam_resample", "slam_map")
 _INDEX = {name: i for i, name in enumerate(MARKS)}
 
 

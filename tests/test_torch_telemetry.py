@@ -17,6 +17,10 @@ the CPU.
   the CPU no mark loads the kernel library.
 - refine.calls and refine.rays add 1 and E x N x B x (1 + 2 iters) a
   refinement call, and nothing where refinement is off.
+- slam_step marks slam_motion, slam_field, slam_resample, slam_map and
+  emit in order, with one or three proposal candidates and with the
+  closure on or off; slam.calls and slam.rays add 1 and E x K x P x B a
+  call, and nothing on filter ticks.
 - graph.builds and graph.capture_s survive GraphCache.clear(), whose
   stats() counts the graphs gone.
 """
@@ -29,10 +33,12 @@ import pytest
 import torch
 
 from montecarlolocalisation_tpu_torch import presets
+from montecarlolocalisation_tpu_torch.config import SLAMConfig
 from montecarlolocalisation_tpu_torch.io.fleet import MCLFleetServer
 from montecarlolocalisation_tpu_torch.models import compiled
 from montecarlolocalisation_tpu_torch.models import filter as tfilter
 from montecarlolocalisation_tpu_torch.models import sensor
+from montecarlolocalisation_tpu_torch.models import slam as tslam
 from montecarlolocalisation_tpu_torch.ops import build
 from montecarlolocalisation_tpu_torch.parallel import episodes
 from montecarlolocalisation_tpu_torch.sim import robot
@@ -335,3 +341,60 @@ def test_trace_writes_the_program_spans(tmp_path):
     assert outer["ts"] - eps <= inner["ts"] <= op["ts"] + eps
     assert op["ts"] + op["dur"] <= inner["ts"] + inner["dur"] + eps
     assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"] + eps
+
+
+def _slam(world, batch, **fields):
+    """A SLAM config of 8 particles on the default 49 x 49 grid with the
+    world's sensor and motion, a fresh state of leading dims `batch`, and
+    a tick's inputs: encoders [*batch] and ranges [*batch, B]."""
+    cfg = SLAMConfig(num_particles=8, sensor=world.cfg.sensor,
+                     motion=world.cfg.motion, **fields)
+    st = tslam.init_slam(0, torch.tensor([1.25, 1.25, 0.0]), cfg, batch,
+                         "cpu")
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    ranges = 0.2 + 0.8 * torch.rand(batch + (BEAMS,), generator=gen)
+    enc = torch.full(batch, 0.3)
+    return cfg, st, enc, ranges
+
+
+@pytest.mark.parametrize("closure", [False, True])
+@pytest.mark.parametrize("candidates", [1, 3])
+def test_slam_step_marks_the_stages_in_order(world, monkeypatch, candidates,
+                                             closure):
+    seen = []
+    monkeypatch.setattr(profiling, "mark",
+                        lambda name, device: seen.append(name))
+    cfg, st, enc, ranges = _slam(world, (2,),
+                                 proposal_candidates=candidates,
+                                 closure=closure, keyframe_trans=0.15,
+                                 keyframe_rot=0.5)
+    mask = torch.ones(ranges.shape, dtype=torch.bool)
+    for _ in range(2):
+        st, _ = tslam.slam_step(st, enc, enc + 0.1, ranges, world.angles,
+                                mask, cfg)
+    assert seen == ["slam_motion", "slam_field", "slam_resample", "slam_map",
+                    "emit"] * 2
+    assert not build.loaded()
+
+
+def test_slam_counts_its_calls_and_rays(world):
+    e, k = 2, 3
+    cfg, st, enc, ranges = _slam(world, (e, k))
+    mask = torch.ones(ranges.shape, dtype=torch.bool)
+    before = profiling.recorded()[1]
+    for _ in range(2):
+        st, _ = tslam.slam_step(st, enc, enc + 0.1, ranges, world.angles,
+                                mask, cfg)
+    mid = profiling.recorded()[1]
+    fst = tfilter.init_state(world.maze, world.cfg, seed=0, batch=e)
+    scan = sensor.make_scan(world.angles, torch.ones(e, BEAMS))
+    for _ in range(2):
+        fst, _ = tfilter.mcl_step(fst, torch.full((e,), 0.1),
+                                  torch.full((e,), 0.1), scan, world.maze,
+                                  world.cfg)
+    after = profiling.recorded()[1]
+    for name, want in (("slam.calls", 2),
+                       ("slam.rays", 2 * e * k * 8 * BEAMS)):
+        assert mid.get(name, 0) - before.get(name, 0) == want
+        assert after.get(name, 0) == mid.get(name, 0)
