@@ -60,11 +60,15 @@ the filter through the entry points a user calls:
   episodes x 4 replicas x 128 particles x 1000 ticks at 24 beams, 8 %
   slip, keyframes 0.15 m / 0.5 rad, as one [16, 4] state (explored-edge
   F1 0.798 to 0.853 and 12 to 15 of 16 episodes beating dead reckoning on
-  the TPU; raises below a mean F1 of 0.75 or 10 of 16), and the inverse
-  sensor model's share of its tick; (b) a [4] x 128 state with K = 3
-  candidates, keyframes and the closure: 16 ticks through the graphs
-  equal to the same ticks eager bit for bit, no host sync in an eager
-  tick, the beam-accumulated map update equal to the one-shot form; (c)
+  the TPU; raises below a mean F1 of 0.75 or 10 of 16, or unless the
+  inverse sensor model's kernel (csrc/ism.cu) replayed once a tick), the
+  ISM's share of its tick, and at the row's shape the kernel equal to
+  the plain torch form bit for bit with every map painted and the
+  keyframe gate mixed and closed, its input untouched, and timed against
+  it; (b) a [4] x 128 state with K = 3 candidates, keyframes and the
+  closure: 16 ticks through the graphs equal to the same ticks eager bit
+  for bit, no host sync in an eager tick, the beam-accumulated map
+  update equal to the one-shot form and to the kernel; (c)
   run_mapping (8 x 600 from true poses, raises below F1 0.95; and from
   dead-reckoned poses at 3 % slip) and run_slam at the CLI's defaults
   with the mission, K3 batched replayed once a reloc and track tick and
@@ -99,7 +103,7 @@ the filter through the entry points a user calls:
   make_sharded_step_batched at 1024 x 500 x 24 (fixed, systematic) for 16
   ticks against run_episode_batch, K1 batched once a tick; (c)
   slam_step_sharded at 128 particles x 49 x 49 px for 16 ticks against
-  slam_step; (d) run_multihost_episode_batch at 1024 x 500 x 24 x 300
+  slam_step, the ISM kernel once a tick; (d) run_multihost_episode_batch at 1024 x 500 x 24 x 300
   from its own draws, bit for bit equal to run_episode_batch from the
   same seed (raises below 0.65 converged), K1, K2 and K3 batched
   replayed once a tick; (e) the production configuration (ESS
@@ -113,7 +117,8 @@ the filter through the entry points a user calls:
   buffers: 3 graphs built), bench_fleet (64 robots), bench_slam,
   bench_mapping, slam_scale and coverage_bound; every number they print
   finite, each kernel family audited against the profiler on the first
-  run that launches it, the SLAM tools launching none; then
+  run that launches it, the SLAM and mapping tools the ISM kernel alone;
+  then
   bench_matrix's 10k x 360 analytic and 4M x
   34 rows, one dispatch each, after K1 at 360 beams (0.0 max-abs error),
   K2 at 4,000,000 rows (bit-exact) and K3 at 4,000,000 points (centers
@@ -231,7 +236,7 @@ from montecarlolocalisation_tpu_torch.models import (
 )
 from montecarlolocalisation_tpu_torch.models.raycast import march_steps
 from montecarlolocalisation_tpu_torch.ops import analytic, build, expand
-from montecarlolocalisation_tpu_torch.ops import kmeans, weights
+from montecarlolocalisation_tpu_torch.ops import ism, kmeans, weights
 from montecarlolocalisation_tpu_torch.ops import refine as refine_kernels
 from montecarlolocalisation_tpu_torch.parallel import episodes
 from montecarlolocalisation_tpu_torch.planning import bfs
@@ -359,6 +364,11 @@ KERNELS = {
     "refine_score": dict(
         fn=refine_kernels.refine_score_cuda,
         source=f"{PKG}/csrc/refine.cu", replaces="none: jax.grad on XLA"),
+    # The ISM's replaces none: XLA fuses the JAX package's _ism_delta.
+    "ism_update": dict(
+        fn=ism.ism_update_cuda, source=f"{PKG}/csrc/ism.cu",
+        replaces="none: XLA-fused _ism_delta "
+                 "(montecarlolocalisation_tpu/models/mapping.py:61)"),
 }
 
 
@@ -2801,7 +2811,8 @@ DEVICE_KERNELS = ("beam_weights_kernel", "beam_weights_batched_kernel",
                   "beam_weights_cast_kernel",
                   "pack_kernel", "expand_block_kernel", "expand_scan_kernel",
                   "expand_copy_kernel", "kmeans_kernel", "beamsub_kernel",
-                  "refine_grad_kernel", "refine_score_kernel")
+                  "refine_grad_kernel", "refine_score_kernel",
+                  "ism_update_kernel")
 
 
 @contextlib.contextmanager
@@ -2895,6 +2906,7 @@ LAUNCH_AUDIT = (
     (("kmeans_kernel",), ("kmeans", "kmeans_batched")),
     (("refine_grad_kernel",), ("refine_grad",)),
     (("refine_score_kernel",), ("refine_score",)),
+    (("ism_update_kernel",), ("ism_update",)),
 )
 # The C entries' device launch counters and the kernels each counts.
 DEVICE_AUDIT = (
@@ -3689,9 +3701,10 @@ def slam_row_phase(dev) -> dict:
     tools/slam_sweep.py:200-238 scores it: per episode the final-quarter
     error of the winner's estimate against dead reckoning's, and the
     explored-edge F1 of the winner's best map.  Raises below a mean F1 of
-    SLAM_F1_FLOOR or SLAM_BEATS_FLOOR episodes beating dead reckoning.
-    Then the ISM's share of the tick: one replay's device time against
-    update_map's alone at the row's shape, and its bound."""
+    SLAM_F1_FLOOR or SLAM_BEATS_FLOOR episodes beating dead reckoning, or
+    unless the ISM kernel (csrc/ism.cu) replayed once a tick and no other
+    kernel launched (every count set to 0 just before the run).  Then the
+    ISM at the row's shape (ism_share)."""
     world = presets.make_world(num_beams=SLAM_B, device=dev)
     m = world.maze
     cfg = slam_config(m)
@@ -3702,11 +3715,13 @@ def slam_row_phase(dev) -> dict:
         start_pose=SLAM_START, slip_noise=SLAM_SLIP, explore=True)
     before = {id(g) for g in compiled.graphs.entries()}
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     final, est, info = slam.run_slam_replicas(
         100, enc, scans, world.angles, cfg, SLAM_START, replicas=SLAM_K)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launched, replayed = counts(), replay_counts()
     stats = new_entries(before)
     dr = mapping.dead_reckon_poses(enc, SLAM_START, world.cfg.motion)
     tail = max(SLAM_T // 4, 1)
@@ -3734,6 +3749,8 @@ def slam_row_phase(dev) -> dict:
                mean_dead_reckoning_err_m=float(dr_err.mean()),
                wall_s=wall, ms_per_tick=1e3 * wall / SLAM_T,
                chosen=info["chosen"].tolist(), **stats,
+               ism_launches=launched["ism_update"],
+               ism_replayed=replayed["ism_update"],
                published=dict(mean_f1=[0.798, 0.853], beats=[12, 15],
                               pose_err_m=[0.215, 0.348]))
     say("slam", row="published", **row)
@@ -3741,6 +3758,11 @@ def slam_row_phase(dev) -> dict:
         raise AssertionError(f"SLAM row: mean F1 {row['mean_f1']} (floor "
                              f"{SLAM_F1_FLOOR}) or beats {beats}/{SLAM_E} "
                              f"(floor {SLAM_BEATS_FLOOR})")
+    others = [k for k, n in launched.items() if n and k != "ism_update"]
+    if replayed["ism_update"] != SLAM_T or others:
+        raise AssertionError(f"SLAM row: the ISM kernel replayed "
+                             f"{replayed['ism_update']} times in {SLAM_T} "
+                             f"ticks, or {others} launched")
     row.update(ism_share(world, cfg, enc, scans))
     compiled.graphs.clear()
     torch.cuda.empty_cache()
@@ -3757,7 +3779,8 @@ def ism_share(world, cfg, enc, scans) -> dict:
     after the episodes' first graph) profiled against update_map alone at
     the row's shape: device ms of each, the ISM's share of the tick, and
     the ISM's bound (its maps read and written once; about 20 float ops a
-    pixel a beam)."""
+    pixel a beam).  On that state, update_map (the kernel) against
+    update_map_plain (check_ism), and the two timed in turns."""
     k = compiled.TICKS_PER_GRAPH
     b = (SLAM_E, SLAM_K)
     angles = torch.as_tensor(world.angles, device=enc.device)
@@ -3782,7 +3805,46 @@ def ism_share(world, cfg, enc, scans) -> dict:
                ism_device_ms=ism_ms, ism_share=ism_ms / tick_ms,
                ism_bound_ms=bnd["bound_ms"], ism_bound_by=bnd["bound_by"])
     say("slam", what="ISM share of the row's tick", **out)
+    args = (state.logodds, state.poses, r[..., 0, None, :], angles,
+            ones[..., 0, None, :], cfg.mapping, cfg.sensor)
+    out["ism_max_abs_err"] = check_ism(args)
+    t = turns(lambda: mapping.update_map(*args),
+              lambda: mapping.update_map_plain(*args))
+    t.update(bnd, library_ms=None,
+             shape=list(state.logodds.shape) + [SLAM_B])
+    say("time", kernel="ism_update", **t)
+    out["ism_time"] = t
     return out
+
+
+def check_ism(args) -> float:
+    """update_map(*args) (csrc/ism.cu) against update_map_plain(*args) at
+    the row's shape, [SLAM_E, SLAM_K, SLAM_P] maps: every map painted, the
+    keyframe gate [SLAM_E, SLAM_K, 1] mixed (by filter, as slam_step gives
+    it) and closed; bit for bit, the input maps unchanged, or a raise.
+    Returns the max-abs error (0)."""
+    maps = args[0]
+    keep = maps.clone()
+    filters = torch.arange(SLAM_E * SLAM_K, device=maps.device).reshape(
+        SLAM_E, SLAM_K, 1)
+    gates = dict(every=None, mixed=filters % 3 == 0,
+                 closed=torch.zeros_like(filters, dtype=torch.bool))
+    err, bad = 0.0, []
+    for name, paint in gates.items():
+        got = mapping.update_map(*args, paint=paint)
+        want = mapping.update_map_plain(*args, paint=paint)
+        err = max(err, (got - want).abs().max().item())
+        if not torch.equal(got, want):
+            bad.append(name)
+    untouched = bool(torch.equal(maps, keep))
+    say("check", kernel="ism_update", shape=list(maps.shape) + [SLAM_B],
+        gates=list(gates), max_abs_err=err, unequal=bad,
+        input_unchanged=untouched)
+    if bad or not untouched:
+        raise AssertionError(f"the ISM kernel differs from update_map_plain "
+                             f"under the gates {bad}, or wrote its input "
+                             f"maps (unchanged: {untouched})")
+    return err
 
 
 def slam_invariants_phase(dev) -> dict:
@@ -3790,7 +3852,8 @@ def slam_invariants_phase(dev) -> dict:
     the closure: INV_T ticks through the graphs against the same ticks
     eager (every state tensor, the generator, every info field, bit for
     bit); no host sync in an eager slam_step; the beam-accumulated ISM
-    equal to the one-shot form on [ISM_MAPS] maps."""
+    equal to the one-shot form, and the ISM kernel (csrc/ism.cu) equal to
+    both, on [ISM_MAPS] maps."""
     world = presets.make_world(num_beams=SLAM_B, device=dev)
     m = world.maze
     cfg = slam_config(m, proposal_candidates=3, closure=True,
@@ -3831,18 +3894,19 @@ def slam_invariants_phase(dev) -> dict:
     torch.cuda.synchronize()
     maps = start.logodds.reshape(-1, m.height, m.width)[:ISM_MAPS]
     poses = start.poses.reshape(-1, 3)[:ISM_MAPS]
-    one = mapping.update_map(maps, poses, scans[0, 40], angles,
-                             ones[0, 40], cfg.mapping, cfg.sensor,
-                             beam_chunk=SLAM_B)
-    acc = mapping.update_map(maps, poses, scans[0, 40], angles,
-                             ones[0, 40], cfg.mapping, cfg.sensor,
-                             beam_chunk=1)
+    args = (maps, poses, scans[0, 40], angles, ones[0, 40], cfg.mapping,
+            cfg.sensor)
+    kernel = mapping.update_map(*args)
+    one = mapping.update_map_plain(*args, beam_chunk=SLAM_B)
+    acc = mapping.update_map_plain(*args, beam_chunk=1)
     ism_equal = bool(torch.equal(one, acc))
+    kernel_equal = bool(torch.equal(kernel, one))
     say("slam", what="invariants", eager_tick_host_syncs=0,
-        ism_accumulated_equals_one_shot=ism_equal, ism_maps=ISM_MAPS)
-    if not ism_equal:
+        ism_accumulated_equals_one_shot=ism_equal,
+        ism_kernel_equals_plain=kernel_equal, ism_maps=ISM_MAPS)
+    if not (ism_equal and kernel_equal):
         raise AssertionError("SLAM: the beam-accumulated ISM differs from "
-                             "the one-shot form")
+                             "the one-shot form, or the kernel from both")
     compiled.graphs.clear()
     return row
 
@@ -4386,7 +4450,7 @@ def explore_stack_phase(dev) -> dict:
 DIST_T, DIST_LONG_T, DIST_TIMING_REPLAYS = 8, 16, 5
 # The kernels of each path that must replay once a tick.
 DIST_KERNELS = dict(
-    a=("beam_weights",), b=("beam_weights_batched",),
+    a=("beam_weights",), b=("beam_weights_batched",), c=("ism_update",),
     d=("beam_weights_batched", "systematic_expand_batched",
        "kmeans_batched"), e=("beam_weights",))
 DIST_FLOOR = 0.65          # PERF.md section 2's plain sweep limit
@@ -4581,8 +4645,8 @@ def batched_path(dev, mesh) -> dict:
 
 def slam_shard_path(dev, mesh) -> dict:
     """(c) slam_step_sharded at the SLAM row's width (128 particles, 49 x
-    49 maps, 24 beams) for 16 ticks against slam_step on the same draws;
-    ms a tick of both."""
+    49 maps, 24 beams) for 16 ticks against slam_step on the same draws,
+    the ISM kernel replayed once a tick; ms a tick of both."""
     from montecarlolocalisation_tpu_torch.parallel import distributed as sd
 
     w = presets.make_world(num_beams=SLAM_B, device=dev)
@@ -4606,7 +4670,9 @@ def slam_shard_path(dev, mesh) -> dict:
         return slam.run_slam_episode(46, enc, ranges, w.angles, cfg,
                                      SLAM_START, state0=state, draws=draws)
 
+    reset_counts()
     (got, infos), _ = timed(sharded)
+    launched = replayed_once_a_tick("c", DIST_KERNELS["c"], DIST_LONG_T, 1)
     (want, poses), _ = timed(single)
     _, sd_s = timed(sharded)
     _, one_s = timed(single)
@@ -4637,7 +4703,7 @@ def slam_shard_path(dev, mesh) -> dict:
     compiled.graphs.clear()
     del step
     torch.cuda.empty_cache()
-    return row
+    return dict(row, launches=launched)
 
 
 def multihost_path(dev) -> dict:
@@ -4749,7 +4815,8 @@ def distributed_phase(dev) -> dict:
 # -- the study tools ---------------------------------------------------------
 
 # Each study tool's main at full width and small depth: (tool, argv, the
-# kernels its path must launch).  The SLAM tools launch none.
+# kernels its path must launch).  The SLAM and mapping tools launch the
+# ISM kernel alone (csrc/ism.cu, in models/mapping.update_map).
 TOOL_BATCHED = ("beam_weights_batched", "systematic_expand_batched",
                 "kmeans_batched")
 TOOL_RUNS = (
@@ -4764,17 +4831,17 @@ TOOL_RUNS = (
      ("kmeans_batched",)),
     ("slam_sweep", ["--episodes", "2", "--ticks", "200", "--particles",
                     "128", "--replicas", "4", "--keyframe-trans", "0.15",
-                    "--keyframe-rot", "0.5"], ()),
+                    "--keyframe-rot", "0.5"], ("ism_update",)),
     ("explore_sweep", ["--maps", "2", "--seeds-per-map", "1", "--ticks",
-                       "480"], ()),
+                       "480"], ("ism_update",)),
     ("bench_fleet", ["--robots", "64", "--ticks", "5"],
      ("beam_weights_batched", "kmeans_batched")),
     ("bench_slam", ["--particles", "32", "128", "--ticks", "80", "--fleet",
-                    "4", "--iters", "1"], ()),
+                    "4", "--iters", "1"], ("ism_update",)),
     ("bench_mapping", ["--episodes", "32", "--ticks", "80", "--iters", "1"],
-     ()),
+     ("ism_update",)),
     ("slam_scale", ["--particles", "128", "--worlds", "6x6", "16x12",
-                    "--iters", "4"], ()),
+                    "--iters", "4"], ("ism_update",)),
     ("coverage_bound", ["--ticks", "2400"], ()),
 )
 # Launches a tick of a kernel on a tool's path: one, but refinement's at
@@ -4925,8 +4992,8 @@ def tools_phase(dev) -> tuple:
     tool's main once (TOOL_RUNS), every line finite and each tool's check
     held, each run's kernels launched alike (once a tick) and the first
     run of each kernel family audited against the profiler
-    (launch_audit), the SLAM tools launching none; then bench_matrix's
-    10k x 360 analytic and 4M x 34 rows, one dispatch each, after their
+    (launch_audit), the SLAM and mapping tools the ISM kernel alone; then
+    bench_matrix's 10k x 360 analytic and 4M x 34 rows, one dispatch each, after their
     kernels are held against their plain versions at those shapes.
     Returns (the launches of every run, counted from 0 before the first,
     the check's max-abs errors)."""
@@ -5046,7 +5113,7 @@ def main() -> None:
     cli_phase()
     replay_phase(dev)
     control_stack_phase(dev)
-    slam_stack_phase(dev)
+    slam_row = slam_stack_phase(dev)["row"]
     explore_stack_phase(dev)
     graphs_phase(dev)
     dist_launched = distributed_phase(dev)
@@ -5058,6 +5125,8 @@ def main() -> None:
     times.update(batched_time_phase(m, gen))
     times["beam_weights_stack"] = stack_time(gen)
     times.update(refine_time(dev))
+    times["ism_update"] = slam_row["ism_time"]
+    errs["ism_update"] = dict(max_abs_err=slam_row["ism_max_abs_err"])
     f1_time(gen)
     launches = {name: launched[name] for name in SINGLE}
     replays = {name: replayed[name] for name in SINGLE}
@@ -5072,6 +5141,8 @@ def main() -> None:
     for name in ("refine_grad", "refine_score"):
         launches[name] = prod_launched[name]
         replays[name] = prod_replayed[name]
+    launches["ism_update"] = slam_row["ism_launches"]
+    replays["ism_update"] = slam_row["ism_replayed"]
     if not all(replays[k] for k in KERNELS if k != "beam_weights_beamsub"):
         raise AssertionError(f"a kernel of a filter path never ran inside a "
                              f"CUDA graph replay: {replays}")

@@ -78,7 +78,7 @@ from typing import Callable, Hashable, Optional
 
 import torch
 
-from ..ops import build, expand, kmeans, refine, weights
+from ..ops import build, expand, ism, kmeans, refine, weights
 from ..utils import profiling
 
 # Ticks a graph for an episode: the JAX bench's default --scan-chunk
@@ -97,7 +97,8 @@ KERNEL_WRAPPERS = (
     weights.beam_weights_stack_cuda, weights.beamsub_cuda,
     expand.systematic_expand_cuda, expand.systematic_expand_batched_cuda,
     kmeans.kmeans_cuda, kmeans.kmeans_batched_cuda,
-    refine.refine_grad_cuda, refine.refine_score_cuda)
+    refine.refine_grad_cuda, refine.refine_score_cuda,
+    ism.ism_update_cuda)
 DEVICE_COUNTERS = (expand.device_launches, kmeans.device_launches)
 # The launches replays added, by wrapper: the part of each `launches`
 # counter that ran inside CUDA graphs (a caller resets both together).

@@ -14,17 +14,26 @@ angle is negated under the reference convention (monte_carlo.cpp:643-653).
 
 Leading dims stand in for the JAX package's vmaps: `update_map` takes
 log-odds [..., H, W] and poses [..., 3], one map a pose (particles in
-models/slam, robots in `map_episode`).  JAX fuses the [h, w, B]
-classification into one kernel; here the hit and free counts are summed
-over chunks of beams into [..., H, W] counters, so no [..., h, w, B]
-tensor exists at once (a CUDA graph would keep every one in its pool).
-The counts are small integers, exact in float32, so the chunking changes
-no bit (`beam_chunk`).
+models/slam, robots in `map_episode`), and an optional keyframe gate
+`paint` [...]: a map whose entry is False comes back unchanged.
 
 On maps whose side exceeds twice `sensor_window_px`, the classification
-runs on one window a map around the ray origin (border-clamped, gathered
-and scattered back in place), as the JAX package's dynamic_slice does;
-smaller maps, the default 49 px maze among them, take the dense grid.
+runs on one window a map around the ray origin (border-clamped), as the
+JAX package's dynamic_slice does; smaller maps, the default 49 px maze
+among them, take the dense grid.
+
+On the card (float32 maps on CUDA, ops/ism.kernel_takes) both forms run
+one hand-written kernel, csrc/ism.cu: each map's pixels against all the
+beams in registers, a closed gate's map copied, a fresh output.  The
+plain torch form (`update_map_plain`) is the definition: the CPU and
+other dtypes run it, the tests hold it against the JAX package, and the
+kernel gives its bits.  JAX fuses the [h, w, B] classification into one
+XLA kernel; the plain form sums the hit and free counts over chunks of
+beams into [..., H, W] counters, so no [..., h, w, B] tensor exists at
+once, and windowed maps gather their window and scatter it back.  The
+counts are small integers, exact in float32, so the chunking changes no
+bit (`beam_chunk`, at most ISM_ELEMENTS elements a chunk), and then
+`torch.where` applies the gate.
 
 Episodes (`map_episode`, `dead_reckon_poses`) run their ticks in CUDA
 graphs of compiled.TICKS_PER_GRAPH ticks, the JAX package's lax.scan.
@@ -40,6 +49,7 @@ import torch
 
 from ..config import (MappingConfig, MotionModelConfig, SensorModelConfig,
                       WALL_BOTTOM, WALL_LEFT, WALL_RIGHT, WALL_TOP)
+from ..ops import ism
 from . import compiled, motion
 
 # Elements of one [..., h, w, chunk] tensor of the classification: the
@@ -100,15 +110,10 @@ def _ism_delta(window, rows, cols, ox, oy, ray, ranges, valid, returned,
     return torch.clamp(window + delta, -cfg.clamp, cfg.clamp)
 
 
-def update_map(logodds, pose, ranges, angles, mask, cfg: MappingConfig,
-               sensor_cfg: SensorModelConfig,
-               beam_chunk: Optional[int] = None):
-    """One scan's inverse-sensor-model update of each map: logodds
-    [..., H, W], pose [..., 3], ranges and mask [B] or broadcastable to
-    [..., B], angles [B].  Beams at or past max_range carve free space
-    but deposit no hit; masked beams and beams past max_trusted_range add
-    nothing.  Maps larger than twice sensor_window_px update a window
-    around each ray origin, bit for bit the full-grid result."""
+def _scan_geometry(pose, ranges, angles, mask, cfg: MappingConfig,
+                   sensor_cfg: SensorModelConfig):
+    """(ox, oy [...], the ray origin; ray, r, valid, returned [..., B],
+    the beams' angles, ranges and 0/1 validity and return) of one scan."""
     x, y, theta = pose.unbind(-1)
     ox = x + sensor_cfg.laser_offset * torch.cos(theta)
     oy = y + sensor_cfg.laser_offset * torch.sin(theta)
@@ -118,29 +123,80 @@ def update_map(logodds, pose, ranges, angles, mask, cfg: MappingConfig,
     valid = mask.to(torch.float32) * (
         r <= cfg.max_trusted_range).to(torch.float32)
     returned = (r < sensor_cfg.max_range - 1e-6).to(torch.float32)
+    return ox, oy, ray, r, valid, returned
 
-    h, w = logodds.shape[-2], logodds.shape[-1]
+
+def _window(ox, oy, h: int, w: int, cfg: MappingConfig):
+    """None where the dense grid runs, else (rows0, cols0 [...], sh, sw):
+    each map's window around its ray origin, border-clamped."""
     s = sensor_window_px(cfg)
-    dev = logodds.device
     if 2 * s > min(h, w):
-        return _ism_delta(logodds, torch.arange(h, device=dev),
-                          torch.arange(w, device=dev), ox, oy, ray, r,
-                          valid, returned, cfg, beam_chunk)
+        return None
     sh, sw = min(s, h), min(s, w)
     ri = torch.floor((oy - cfg.origin_y) / cfg.resolution).to(torch.int64)
     ci = torch.floor((ox - cfg.origin_x) / cfg.resolution).to(torch.int64)
-    rows = (torch.clamp(ri - sh // 2, 0, h - sh)[..., None]
-            + torch.arange(sh, device=dev))                  # [..., sh]
-    cols = (torch.clamp(ci - sw // 2, 0, w - sw)[..., None]
-            + torch.arange(sw, device=dev))                  # [..., sw]
-    # One window a map, so each map's indices are distinct: the scatter
-    # has one writer a pixel.
-    idx = (rows[..., :, None] * w + cols[..., None, :]).flatten(-2)
-    flat = logodds.flatten(-2)
-    win = torch.gather(flat, -1, idx).unflatten(-1, (sh, sw))
-    new = _ism_delta(win, rows, cols, ox, oy, ray, r, valid, returned, cfg,
-                     beam_chunk)
-    return flat.scatter(-1, idx, new.flatten(-2)).unflatten(-1, (h, w))
+    return (torch.clamp(ri - sh // 2, 0, h - sh),
+            torch.clamp(ci - sw // 2, 0, w - sw), sh, sw)
+
+
+def _update(logodds, pose, ranges, angles, mask, cfg: MappingConfig,
+            sensor_cfg: SensorModelConfig, paint, beam_chunk: Optional[int],
+            kernel: bool):
+    """update_map (`kernel` True: csrc/ism.cu where ops/ism.kernel_takes)
+    or update_map_plain (`kernel` False)."""
+    ox, oy, ray, r, valid, returned = _scan_geometry(
+        pose, ranges, angles, mask, cfg, sensor_cfg)
+    h, w = logodds.shape[-2], logodds.shape[-1]
+    window = _window(ox, oy, h, w, cfg)
+    if kernel and ism.kernel_takes(logodds, pose, ray):
+        return ism.ism_update_cuda(logodds, ox, oy, ray, r, valid, returned,
+                                   cfg, window, paint)
+    dev = logodds.device
+    if window is None:
+        new = _ism_delta(logodds, torch.arange(h, device=dev),
+                         torch.arange(w, device=dev), ox, oy, ray, r,
+                         valid, returned, cfg, beam_chunk)
+    else:
+        rows0, cols0, sh, sw = window
+        rows = rows0[..., None] + torch.arange(sh, device=dev)  # [..., sh]
+        cols = cols0[..., None] + torch.arange(sw, device=dev)  # [..., sw]
+        # One window a map, so each map's indices are distinct: the
+        # scatter has one writer a pixel.
+        idx = (rows[..., :, None] * w + cols[..., None, :]).flatten(-2)
+        flat = logodds.flatten(-2)
+        win = torch.gather(flat, -1, idx).unflatten(-1, (sh, sw))
+        upd = _ism_delta(win, rows, cols, ox, oy, ray, r, valid, returned,
+                         cfg, beam_chunk)
+        new = flat.scatter(-1, idx, upd.flatten(-2)).unflatten(-1, (h, w))
+    if paint is None:
+        return new
+    return torch.where(paint[..., None, None], new, logodds)
+
+
+def update_map(logodds, pose, ranges, angles, mask, cfg: MappingConfig,
+               sensor_cfg: SensorModelConfig, paint=None):
+    """One scan's inverse-sensor-model update of each map: logodds
+    [..., H, W], pose [..., 3], ranges and mask [B] or broadcastable to
+    [..., B], angles [B]; `paint` None (every map) or bool [...]: a map
+    whose entry is False comes back unchanged (the keyframe gate).  Beams
+    at or past max_range carve free space but deposit no hit; masked
+    beams and beams past max_trusted_range add nothing.  Maps larger than
+    twice sensor_window_px update a window around each ray origin, bit
+    for bit the full-grid result.  Returns a new tensor; on the card
+    (ops/ism.kernel_takes) csrc/ism.cu computes it, elsewhere
+    `update_map_plain`, with the same bits."""
+    return _update(logodds, pose, ranges, angles, mask, cfg, sensor_cfg,
+                   paint, None, True)
+
+
+def update_map_plain(logodds, pose, ranges, angles, mask,
+                     cfg: MappingConfig, sensor_cfg: SensorModelConfig,
+                     beam_chunk: Optional[int] = None, paint=None):
+    """update_map in plain torch on any device: the hit and free counts
+    over chunks of `beam_chunk` beams (None: as many as ISM_ELEMENTS
+    allows), then the gate's torch.where."""
+    return _update(logodds, pose, ranges, angles, mask, cfg, sensor_cfg,
+                   paint, beam_chunk, False)
 
 
 def _map_tick(carry, x: dict, consts: dict, cfg: MappingConfig,

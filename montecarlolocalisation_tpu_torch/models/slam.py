@@ -15,7 +15,9 @@ over particles (logsumexp, the ESS, the weighted mean, the argmax of the
 scores) runs over the particle axis only.  What branches in JAX (the
 ESS-gated resample, the keyframe-gated map update, the closure) is a
 per-filter torch.where over both branches, as vmap turns lax.cond into a
-select: the tick never waits for the host.
+select (the map update's gate is mapping.update_map's `paint`, whose
+kernel on the card copies a closed gate's maps instead): the tick never
+waits for the host.
 
 The likelihood field's bilinear sample is a four-tap gather (the JAX
 package contracts tent weights on the MXU, a TPU workaround for
@@ -41,9 +43,9 @@ tick's four stages and `emit` follows the last, as in the filter tick
   * `slam_resample`: the ESS gate, the gathers of poses, maps and
     scores, the weighted mean pose, the keyframe criterion and the
     closure;
-  * `slam_map`: the inverse sensor model (mapping.update_map), the
-    keyframe select, kf_pose and the best pose: the work mclbench's
-    `ism_bound` counts.
+  * `slam_map`: the inverse sensor model with its keyframe gate
+    (mapping.update_map: on the card one kernel, csrc/ism.cu), kf_pose
+    and the best pose: the work mclbench's `ism_bound` counts.
 The draws, before `slam_motion`, follow `begin` or the last tick's
 `emit` and so belong to the bookkeeping.  Each call adds 1 to the
 counter `slam.calls` and E x K x P x B (the filters' particles times the
@@ -674,14 +676,10 @@ def slam_step(state: SLAMState, encoder_left, encoder_right, ranges,
     # pose, keyframe-gated.
     profiling.mark("slam_map", dev)
     do_paint = (moved & ~fired) if crit else ~fired
-    updated = mapping.update_map(logodds, poses, ranges[..., None, :],
-                                 angles, mask[..., None, :], cfg.mapping,
-                                 cfg.sensor)
-    if crit or cfg.closure:
-        logodds = torch.where(do_paint[..., None, None, None], updated,
-                              logodds)
-    else:
-        logodds = updated
+    logodds = mapping.update_map(
+        logodds, poses, ranges[..., None, :], angles, mask[..., None, :],
+        cfg.mapping, cfg.sensor,
+        paint=do_paint[..., None] if crit or cfg.closure else None)
     kf_pose = (torch.where(moved[..., None], mean_pose, state.kf_pose)
                if crit else mean_pose)
 

@@ -82,6 +82,10 @@ SIGNATURES = {
     # raster words, stream
     "mcl_refine_score": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I,
                          _P, _P, _P, _P],
+    # log-odds, out, ray origins, beam table, windows (null: dense), paint
+    # (null: every map), maps, H, W, window H, window W, B, fparams, stream
+    "mcl_ism_update": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P,
+                       _P],
 }
 
 _lib = None

@@ -972,15 +972,12 @@ def slam_step_sharded(state, encoder_left, encoder_right, ranges, angles,
     for i, c in enumerate(crit):
         moved = c if i == 0 else (moved | c)
     rb = ranges.expand(batch + ranges.shape[-1:])
-    updated = mapping.update_map(logodds, poses, rb[..., None, :], angles,
+    logodds = mapping.update_map(logodds, poses, rb[..., None, :], angles,
                                  mask.expand(rb.shape)[..., None, :],
-                                 cfg.mapping, cfg.sensor)
-    if crit:
-        logodds = torch.where(moved[..., None, None, None], updated, logodds)
-        kf_pose = torch.where(moved[..., None], mean_pose, state.kf_pose)
-    else:
-        logodds = updated
-        kf_pose = mean_pose
+                                 cfg.mapping, cfg.sensor,
+                                 paint=moved[..., None] if crit else None)
+    kf_pose = (torch.where(moved[..., None], mean_pose, state.kf_pose)
+               if crit else mean_pose)
 
     # The global MAP particle: one (score, pose) row a rank crosses.
     loc_best = torch.argmax(scores, dim=-1)

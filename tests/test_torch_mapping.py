@@ -10,6 +10,11 @@
 - Leading dims [E, P] against vmap(vmap(update_map)).
 - The hit and free counts summed over chunks of beams equal the one-shot
   sum bit for bit.
+- The keyframe gate: update_map(..., paint=m) equals torch.where(m,
+  update_map(...), logodds) bit for bit on [E, K, P] maps, dense and
+  windowed, the gate all open, all closed, mixed by filter and by map;
+  paint=None equals the plain form and an all-open gate; on the CPU the
+  kernel (ops/ism) never runs.
 - map_episode over 30 ticks and dead_reckon_poses within 1e-5.
 - fit_walls, wall_metrics and to_trinary equal on JAX's log-odds, and
   export_learned_map writes byte-equal files.
@@ -31,6 +36,8 @@ from montecarlolocalisation_tpu.models import sensor as jsensor
 from montecarlolocalisation_tpu.sim import robot as jrobot
 from montecarlolocalisation_tpu_torch import interop
 from montecarlolocalisation_tpu_torch.models import mapping as tmapping
+from montecarlolocalisation_tpu_torch.ops import ism as tism
+from montecarlolocalisation_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -173,11 +180,83 @@ def test_beam_chunks_equal_one_shot_bit_for_bit(which, chunk):
                              [0.3, 0.3, -2.0]], np.float32)
     args = (_t(lo), _t(poses), _t(ranges), _t(angles), _t(mask), tmc,
             TSENSOR)
-    one_shot = tmapping.update_map(*args, beam_chunk=len(ranges))
-    chunked = tmapping.update_map(*args, beam_chunk=chunk)
+    one_shot = tmapping.update_map_plain(*args, beam_chunk=len(ranges))
+    chunked = tmapping.update_map_plain(*args, beam_chunk=chunk)
     default = tmapping.update_map(*args)
     assert torch.equal(chunked, one_shot)
     assert torch.equal(default, one_shot)
+
+
+def _filters_case(which):
+    """Maps [E, K, P, H, W] with poses [E, K, P, 3] and one scan a filter
+    [E, K, 1, B] (as slam_step passes them), as torch tensors, and the
+    port's mapping config."""
+    m = _maze() if which == "dense" else _big()
+    mc = _mc(m)
+    rng = np.random.RandomState(11)
+    e, k, p, b = 2, 2, 3, 24
+    lo = rng.uniform(-8, 8, (e, k, p, mc.height, mc.width)).astype(np.float32)
+    lo[..., 0, 0] = 8.0
+    lo[..., 1, 1] = -0.0
+    poses = np.stack([
+        rng.uniform(-0.2, mc.width * mc.resolution + 0.2, (e, k, p)),
+        rng.uniform(-0.2, mc.height * mc.resolution + 0.2, (e, k, p)),
+        rng.uniform(-np.pi, np.pi, (e, k, p))], -1).astype(np.float32)
+    angles = np.deg2rad(np.linspace(-118, 118, b)).astype(np.float32)
+    ranges = rng.uniform(0.05, 1.1, (e, k, 1, b)).astype(np.float32)
+    ranges[..., 3] = SENSOR.max_range
+    ranges[..., 5] = 1.05
+    mask = (rng.uniform(size=(e, k, 1, b)) > 0.15).astype(np.float32)
+    return (interop.config_from(mc), _t(lo), _t(poses), _t(ranges),
+            _t(angles), _t(mask))
+
+
+def _ism_counts():
+    return (profiling.recorder.counters.get("ism.calls", 0),
+            profiling.recorder.counters.get("ism.maps", 0),
+            tism.ism_update_cuda.launches)
+
+
+@pytest.mark.parametrize("which", ["dense", "windowed"])
+@pytest.mark.parametrize("gate", ["open", "closed", "by_filter", "by_map"])
+def test_paint_equals_where_bit_for_bit(which, gate):
+    tmc, lo, poses, ranges, angles, mask = _filters_case(which)
+    lead = lo.shape[:-2]
+    rng = np.random.RandomState(5)
+    paint = torch.as_tensor({
+        "open": np.ones(lead[:2] + (1,), bool),
+        "closed": np.zeros(lead[:2] + (1,), bool),
+        "by_filter": np.array([[True, False], [False, True]])[..., None],
+        "by_map": rng.uniform(size=lead) > 0.5}[gate])
+    before, counts = lo.clone(), _ism_counts()
+    args = (lo, poses, ranges, angles, mask, tmc, TSENSOR)
+    got = tmapping.update_map(*args, paint=paint)
+    want = torch.where(paint[..., None, None], tmapping.update_map(*args),
+                       lo)
+    assert got.shape == lo.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(tmapping.update_map_plain(*args, paint=paint), got)
+    if gate == "closed":
+        assert torch.equal(got.view(torch.int32), lo.view(torch.int32))
+    else:
+        assert not torch.equal(got, lo)
+    assert torch.equal(lo.view(torch.int32), before.view(torch.int32))
+    assert _ism_counts() == counts
+
+
+@pytest.mark.parametrize("which", ["dense", "windowed"])
+def test_paint_none_is_every_map(which):
+    tmc, lo, poses, ranges, angles, mask = _filters_case(which)
+    counts = _ism_counts()
+    args = (lo, poses, ranges, angles, mask, tmc, TSENSOR)
+    got = tmapping.update_map(*args)
+    assert torch.equal(got.view(torch.int32),
+                       tmapping.update_map_plain(*args).view(torch.int32))
+    every = torch.ones(lo.shape[:-2], dtype=torch.bool)
+    assert torch.equal(got.view(torch.int32), tmapping.update_map(
+        *args, paint=every).view(torch.int32))
+    assert not tism.kernel_takes(lo, poses, poses[..., 2:])
+    assert _ism_counts() == counts
 
 
 def _episode(ticks=30, slip=0.05):
