@@ -51,6 +51,34 @@ pose, or whose weights' being uniform after the last tick, differ at the
 units' ends: the keyframe and resampling decisions), chosen_off (episodes
 whose winner at a pass's end differs from the reference's argmax) and
 gen_off.
+
+A closed-loop check unit (`ClosedLoopUnit`) is a stretch of ticks of E
+episodes in which each filter drives its own robot through the plan's
+waypoints: the program's closed-loop state at its start with both
+generators' states (or the pass's seed and start pose), the waypoints,
+each tick's true pose, estimate, confidence, waypoint index and wheel
+commands, and the state at its end.  The closed-loop reference
+(reference/closed_loop.py) follows the program's path one tick at a
+time (ref_cl.follow): each tick from the program's previous true pose
+and waypoint index, its controller on the program's published estimate,
+its robot moved by the program's command; its filter runs on from the
+unit's start, on the scans cast from the program's true poses and the
+encoders the program's commands turn.  Compared: rows_off, pose_gap,
+conf_gap and weights_gap as the filter's units define them (the
+program's best pose of a tick is the estimate the next tick publishes),
+and, each tick's against the reference's from the same inputs:
+
+  truth_gap  the widest gap of a true pose (the diff drive): the larger
+             of the xy distance (m) and the heading difference (rad);
+  cmd_gap    the widest gap of a wheel command (the controllers, the
+             wanderer's latch);
+  wp_off     the share of episode-ticks whose waypoint index (the
+             arrival test) differs.
+
+Its diagnostics: complete (episodes at the units' ends past the last
+waypoint, the program's), sim_gen_off and gen_off (units after which the
+simulator's or the filter's generator state differs from the
+reference's).
 """
 from __future__ import annotations
 
@@ -60,6 +88,7 @@ from typing import Optional
 
 import torch
 
+from .reference import closed_loop as ref_cl
 from .reference import filter as ref
 from .reference import slam as ref_slam
 
@@ -100,6 +129,25 @@ class SLAMUnit:
     after: ref_slam.State             # the program's state at the end
     gen_after: Optional[torch.Tensor] = None
     chosen: Optional[torch.Tensor] = None   # [E] winners, at a pass's end
+
+
+@dataclasses.dataclass
+class ClosedLoopUnit:
+    """One stretch of ticks of E closed-loop episodes (module
+    docstring)."""
+
+    start: Optional[ref_cl.State]     # None: from `seed` at start_pose
+    gen_state: Optional[tuple]        # (simulator's, filter's) states
+    seed: int
+    start_pose: tuple                 # (x, y, heading)
+    waypoints: torch.Tensor           # [n, 2]
+    true_pose: torch.Tensor           # [E, T, 3]
+    est_pose: torch.Tensor            # [E, T, 3]
+    confidence: torch.Tensor          # [E, T]
+    wp_idx: torch.Tensor              # [E, T]
+    wheel_cmd: torch.Tensor           # [E, T, 2]
+    after: ref_cl.State
+    gen_after: Optional[tuple] = None
 
 
 def wrap(a):
@@ -146,10 +194,19 @@ def pose_gaps(best, out: ref.Output):
     return torch.where((p_ok != r_ok) & ~near_thr, SENTINEL_GAP, gap)
 
 
+def _row_gaps(a, b):
+    """Gaps [...] of particle rows [..., 3]: the larger of the widest
+    coordinate difference (m) and the heading difference (rad)."""
+    return torch.maximum(torch.abs(a[..., :2] - b[..., :2]).amax(-1),
+                         torch.abs(wrap(a[..., 2] - b[..., 2])))
+
+
 def check(world, units: list) -> dict:
     """The compared numbers and the diagnostics over `units`."""
     if world.slam is not None:
         return check_slam(world, units)
+    if world.closed_loop is not None:
+        return check_closed_loop(world, units)
     rows = rows_off = 0
     pose_gap = conf_gap = weights_gap = 0.0
     songs_off = gen_off = 0
@@ -167,11 +224,7 @@ def check(world, units: list) -> dict:
                               & clear).sum())
             answers += o.song.numel()
         if u.after is not None:
-            a = u.after.to(st.particles.device)
-            d = torch.maximum(torch.abs(a[..., :2] - st.particles[..., :2])
-                              .amax(-1),
-                              torch.abs(wrap(a[..., 2]
-                                             - st.particles[..., 2])))
+            d = _row_gaps(u.after.to(st.particles.device), st.particles)
             rows += d.numel()
             rows_off += int((d > ROW_TOL).sum())
         if u.weights_after is not None:
@@ -258,3 +311,71 @@ def check_slam(world, units: list) -> dict:
                 gen_off=gen_off, units=len(units), answers=answers,
                 rows=rows, rows_off_count=rows_off, filters=filters,
                 map_off_count=map_off)
+
+
+def run_closed_loop_reference(world, u: ClosedLoopUnit):
+    """The closed-loop reference along a unit's path (ref_cl.follow):
+    (State, [Output a tick], (simulator's generator, filter's
+    generator))."""
+    dev = world.device
+    e = u.true_pose.shape[0]
+    if u.start is None:
+        st, sim_gen, filt_gen = ref_cl.init(world.mz, world.filter, u.seed,
+                                            e, u.start_pose)
+    else:
+        st = ref_cl.to(u.start, dev)
+        sim_gen = torch.Generator(device=dev)
+        sim_gen.set_state(u.gen_state[0])
+        filt_gen = torch.Generator(device=dev)
+        filt_gen.set_state(u.gen_state[1])
+    path = {f: getattr(u, f).to(dev) for f in ("true_pose", "est_pose",
+                                                "wp_idx", "wheel_cmd")}
+    st, outs = ref_cl.follow(st, sim_gen, filt_gen, u.waypoints.to(dev),
+                             path, world.angles, world.mz, world.filter,
+                             world.closed_loop)
+    return st, outs, (sim_gen, filt_gen)
+
+
+def check_closed_loop(world, units: list) -> dict:
+    """The compared numbers and the diagnostics over closed-loop units."""
+    rows = rows_off = wp_off = episode_ticks = 0
+    pose_gap = conf_gap = weights_gap = truth_gap = cmd_gap = 0.0
+    complete = episodes = sim_gen_off = gen_off = 0
+    for u in units:
+        st, outs, (sim_gen, filt_gen) = run_closed_loop_reference(world, u)
+        dev = st.robot.device
+        a = ref_cl.to(u.after, dev)
+        n = len(outs)
+        for t, o in enumerate(outs):
+            best = (u.est_pose[:, t + 1] if t + 1 < n
+                    else a.filt.best_pose)
+            pose_gap = max(pose_gap, float(pose_gaps(best, o.filt).max()))
+            conf_gap = max(conf_gap, float(torch.abs(
+                u.confidence[:, t].to(dev) - o.confidence).max()))
+            truth_gap = max(truth_gap, float(_pose_gap(
+                u.true_pose[:, t].to(dev), o.true_pose).max()))
+            cmd_gap = max(cmd_gap, float(torch.abs(
+                u.wheel_cmd[:, t].to(dev) - o.wheel_cmd).max()))
+            wp_off += int((u.wp_idx[:, t].to(dev) != o.wp_idx).sum())
+            episode_ticks += o.wp_idx.numel()
+        d = _row_gaps(a.filt.particles, st.filt.particles)
+        rows += d.numel()
+        rows_off += int((d > ROW_TOL).sum())
+        w = a.filt.weights
+        weights_gap = max(weights_gap, float(
+            torch.abs(w - st.filt.weights).max()) * w.shape[-1])
+        complete += int((a.wp_idx >= u.waypoints.shape[0]).sum())
+        episodes += a.wp_idx.numel()
+        if u.gen_after is not None:
+            sim_gen_off += int(not torch.equal(sim_gen.get_state(),
+                                               u.gen_after[0]))
+            gen_off += int(not torch.equal(filt_gen.get_state(),
+                                           u.gen_after[1]))
+    return dict(rows_off=rows_off / max(rows, 1), pose_gap=pose_gap,
+                conf_gap=conf_gap, weights_gap=weights_gap,
+                truth_gap=truth_gap, cmd_gap=cmd_gap,
+                wp_off=wp_off / max(episode_ticks, 1),
+                complete=complete / max(episodes, 1),
+                sim_gen_off=sim_gen_off, gen_off=gen_off, units=len(units),
+                answers=episode_ticks, rows=rows, rows_off_count=rows_off,
+                wp_off_count=wp_off)

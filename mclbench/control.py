@@ -1,7 +1,9 @@
 """The control: the plain reference put in the program's place, computed
 in the nearest precision below the configuration's (float32): the
 particles' move and the beam weights in bfloat16 (for SLAM: the move,
-the likelihood field, the scan likelihood and the maps' sums).  Its runs
+the likelihood field, the scan likelihood and the maps' sums; for the
+closed loop: the move, the beam weights, the P-drive and the diff
+drive).  Its runs
 have to come out as not correct; the limits lie between the program's
 readings and the control's.
 
@@ -22,6 +24,7 @@ import sys
 
 import torch
 
+from .reference import closed_loop as ref_cl
 from .reference import filter as ref
 from .reference import slam as ref_slam
 
@@ -139,9 +142,51 @@ class SLAMControl:
         return _ref_state(state.st), state.gen.get_state()
 
 
+class _RefLoop:
+    def __init__(self, st, sim_gen, filt_gen):
+        self.st, self.sim_gen, self.filt_gen = st, sim_gen, filt_gen
+
+
+class ClosedLoopControl:
+    """init_closed_loop and rollout on the reference's closed-loop
+    tick."""
+
+    def __init__(self, world, episodes: int, waypoints, start_pose,
+                 dtype=CONTROL_DTYPE):
+        self.world, self.e, self.dtype = world, episodes, dtype
+        self.waypoints, self.start = waypoints, start_pose
+
+    def segment(self, state, seed: int, n: int):
+        w = self.world
+        if state is None:
+            state = _RefLoop(*ref_cl.init(w.mz, w.filter, seed, self.e,
+                                          self.start))
+        st, outs = ref_cl.run(state.st, state.sim_gen, state.filt_gen,
+                              self.waypoints, n, w.angles, w.mz, w.filter,
+                              w.closed_loop, self.dtype)
+        return _RefLoop(st, state.sim_gen, state.filt_gen), outs
+
+    @staticmethod
+    def snapshot(state):
+        st = state.st
+        return (ref_cl.State(filt=_ref_state(st.filt), **{
+            k: v.clone() for k, v in vars(st).items() if k != "filt"}),
+                (state.sim_gen.get_state(), state.filt_gen.get_state()))
+
+    @staticmethod
+    def answers(outs) -> dict:
+        return {f: torch.stack([getattr(o, f) for o in outs], dim=1)
+                for f in ("true_pose", "est_pose", "confidence", "wp_idx",
+                          "wheel_cmd")}
+
+    @staticmethod
+    def progress(state):
+        return state.st.wp_idx.clone()
+
+
 def factory(driver: str):
-    return dict(fleet=FleetControl, slam=SLAMControl).get(driver,
-                                                          ReplayControl)
+    return dict(fleet=FleetControl, slam=SLAMControl,
+                closed_loop=ClosedLoopControl).get(driver, ReplayControl)
 
 
 def main(argv=None) -> int:

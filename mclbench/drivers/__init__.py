@@ -1,6 +1,7 @@
 """The general drivers a traffic mix names: `fleet` (an open-loop fleet
-server), `replay` (log replays through an episode entry) and `slam` (log
-replays through RBPF SLAM over episodes and replicas)."""
+server), `replay` (log replays through an episode entry), `slam` (log
+replays through RBPF SLAM over episodes and replicas) and `closed_loop`
+(filters driving their robots through a plan)."""
 from __future__ import annotations
 
 import dataclasses

@@ -9,7 +9,8 @@ mix.  The harness finds everything by name:
   * the traffic mix, mclbench/traffic/<traffic>.json: its parameters and
     the driver that reads them (mclbench/drivers/<driver>.py: `fleet` for
     the open-loop fleet server, `replay` for log replays, `slam` for log
-    replays through RBPF SLAM);
+    replays through RBPF SLAM, `closed_loop` for filters driving their
+    robots);
   * each per-layer metric, mclbench/metrics/<metric>.py: a reader of the
     traced run's device operations, spans and counts.
 

@@ -1,9 +1,9 @@
 """The system under test: the port's entry points, as the drivers call
 them.  Only this module imports the port.
 
-Each adapter also reads the port's filter or SLAM state back
-(`snapshot`) and the answers of a replay (`answers`) in the reference's
-form, for the check that follows the window.
+Each adapter also reads the port's filter, SLAM or closed-loop state back
+(`snapshot`) and the answers of a replay or a closed loop (`answers`) in
+the reference's form, for the check that follows the window.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 
+from .reference import closed_loop as ref_cl
 from .reference import filter as ref
 from .reference import slam as ref_slam
 
@@ -159,6 +160,63 @@ class SLAMProgram:
     def snapshot(state):
         """(reference SLAM State, generator state), copies."""
         return ref_slam.from_program(state), state.gen.get_state()
+
+    def free(self) -> None:
+        from montecarlolocalisation_tpu_torch.models import compiled
+
+        compiled.graphs.clear()
+
+
+class ClosedLoopProgram:
+    """sim/closed_loop over E episodes, each filter driving its own robot
+    through the waypoints [n, 2] from start_pose: init_closed_loop at a
+    pass's start, then rollout, one call a segment."""
+
+    def __init__(self, world, episodes: int, waypoints, start_pose):
+        from montecarlolocalisation_tpu_torch import config as pc
+        from montecarlolocalisation_tpu_torch.sim import closed_loop
+
+        self._cl = closed_loop
+        self.pw = PortWorld(world)
+        c = world.closed_loop
+        self.kw = dict(wcfg=_build(pc.WandererConfig, c["wanderer"]),
+                       base_speed=c["base_speed"],
+                       arrival_tol=c["arrival_tol"],
+                       scan_noise=c["scan_noise"])
+        self.known_start = c["known_start"]
+        self.waypoints = waypoints
+        self.start = start_pose
+        self.e = episodes
+
+    def segment(self, state, seed: int, n: int):
+        """The next n ticks of a pass; `state` None starts the pass from
+        the seed `seed`.  Returns (state, outputs [E, n, ...])."""
+        pw = self.pw
+        if state is None:
+            state = self._cl.init_closed_loop(pw.m, pw.cfg, self.start,
+                                              self.known_start, seed,
+                                              batch=self.e)
+        return self._cl.rollout(state, self.waypoints, pw.m, pw.cfg, n,
+                                pw.angles_dev, **self.kw)
+
+    @staticmethod
+    def snapshot(state):
+        """(reference closed-loop State, (the simulator's, the filter's
+        generator state))."""
+        return ref_cl.from_program(state), (state.gen.get_state(),
+                                            state.filt.gen.get_state())
+
+    @staticmethod
+    def answers(outs) -> dict:
+        """The published numbers [E, n, ...]."""
+        return {f: getattr(outs, f) for f in ("true_pose", "est_pose",
+                                              "confidence", "wp_idx",
+                                              "wheel_cmd")}
+
+    @staticmethod
+    def progress(state):
+        """[E] each episode's waypoint index (a copy)."""
+        return state.wp_idx.clone()
 
     def free(self) -> None:
         from montecarlolocalisation_tpu_torch.models import compiled

@@ -5,8 +5,10 @@ One 10 Hz tick of the reference node (monte_carlo.cpp
 executeParticleFilter) on a batch of independent filters (particles
 [E, N, 3], every per-filter scalar [E]):
 
-  1. hysteresis on the previous confidence: songs, wanderer commands and
-     the thresholds;
+  1. hysteresis on the previous confidence: songs, wanderer commands
+     (start on a fall into lost; stop on a recovery, or on a confident
+     tick after a confident one whose best pose lies in free space; else
+     none) and the thresholds;
   2. the previous best pose is published, with its cell;
   3. odometry from the encoders, one noisy (rot1, trans, rot2) a filter,
      every particle moved by it, then, where refine.iters > 0, the
@@ -55,6 +57,9 @@ from . import caster
 from .caster import recip
 from .maze import Maze
 
+# The hysteresis's wanderer commands (monte_carlo.cpp:243-246).
+WANDERER_NOOP, WANDERER_STOP, WANDERER_START = -1, 0, 1
+
 
 @dataclasses.dataclass
 class State:
@@ -77,9 +82,9 @@ class State:
 class Output:
     """One tick's numbers, [E, ...]: what it publishes (the previous
     best pose and its cell, the confidence, the song), this tick's best
-    pose, every k-means center, and the confidences and thresholds that
+    pose, every k-means center, the confidences and thresholds that
     decide the sentinel (this tick's) and the song (the previous
-    tick's)."""
+    tick's), and the wanderer command (WANDERER_*)."""
 
     exact_pose: torch.Tensor
     cell_pose: torch.Tensor     # int32 row, col, orientation
@@ -91,6 +96,7 @@ class Output:
     threshold: torch.Tensor
     prev_confidence: torch.Tensor
     prev_threshold: torch.Tensor
+    wanderer_cmd: torch.Tensor  # int32
 
 
 def wrap(angle):
@@ -478,6 +484,12 @@ def tick(st: State, enc, ranges, mask, angles, mz: Maze, cfg: dict,
     song = torch.where(to_lost, h["song_lost"],
                        torch.where(recovered, h["song_recovered"], 0)).to(
                            torch.int32)
+    conf_to_conf = ok & ~st.was_lost & valid(mz, st.best_pose[:, 0],
+                                             st.best_pose[:, 1])
+    wanderer_cmd = torch.where(
+        to_lost, WANDERER_START,
+        torch.where(recovered | conf_to_conf, WANDERER_STOP,
+                    WANDERER_NOOP)).to(torch.int32)
     exact = st.best_pose
     cell = cell_pose(exact, mz.cell_meters)
     odom, parts = motion(st, enc[:, 0], enc[:, 1], draws["normals"],
@@ -502,7 +514,8 @@ def tick(st: State, enc, ranges, mask, angles, mz: Maze, cfg: dict,
     return new, Output(exact_pose=exact, cell_pose=cell, confidence=ratio,
                        song=song, n_injected=n_inj, pose=pose,
                        centers=centers, threshold=conf_thr,
-                       prev_confidence=conf, prev_threshold=thr)
+                       prev_confidence=conf, prev_threshold=thr,
+                       wanderer_cmd=wanderer_cmd)
 
 
 def run(st: State, gen, encs, ranges, mask, angles, mz: Maze, cfg: dict,

@@ -2,10 +2,12 @@
 have, on the CPU at a tiny size: the harness runs as on the card (its look
 for a card skipped) with the timed path broken underneath.
 
-The faults, planted in the port's tick (models/filter.mcl_step, which
-every cell's entry runs): a step that returns its state unchanged; half
-of the batch (the filters, or one filter's particles) left unstepped; an
-answer altered where it is produced (filter 0's published confidence).
+The faults, planted in the tick that the cell's entry runs
+(models/filter.mcl_step for the filter's and the closed loop's cells,
+models/slam.slam_step for SLAM's): a step that returns its state
+unchanged; half of the batch (the filters, or one filter's particles; for
+SLAM the episodes) left unstepped; an answer altered where it is produced
+(filter 0's published confidence; episode 0's published SLAM poses).
 One card runs each cell, so no exchange between chips can be left out.
 """
 from __future__ import annotations
@@ -45,17 +47,42 @@ def _half(new, old):
         weights=mix(new.weights, old.weights))
 
 
-def _fault(kind):
-    from montecarlolocalisation_tpu_torch.models import filter as mcl
+def _half_episodes(new, old):
+    """A SLAM state with the second half of its episodes as in old."""
+    def mix(a, b):
+        h = a.shape[0] // 2
+        return torch.cat([a[:h], b[h:]])
 
-    real = mcl.mcl_step
+    return dataclasses.replace(new, **{
+        f: mix(getattr(new, f), getattr(old, f))
+        for f in ("poses", "logodds", "weights", "scores", "kf_pose",
+                  "log_evidence")})
+
+
+def _fault(kind, driver: str = "replay"):
+    """(module, name, the faulty step) for the tick the driver's entry
+    runs."""
+    if driver == "slam":
+        from montecarlolocalisation_tpu_torch.models import slam as module
+
+        name = "slam_step"
+    else:
+        from montecarlolocalisation_tpu_torch.models import filter as module
+
+        name = "mcl_step"
+    real = getattr(module, name)
 
     def step(state, *args, **kw):
         new, out = real(state, *args, **kw)
         if kind == "unchanged":
             return state, out
         if kind == "half":
-            return _half(new, state), out
+            half = _half_episodes if driver == "slam" else _half
+            return half(new, state), out
+        if driver == "slam":
+            pose = out["pose"].clone()
+            pose[0] = pose[0] + 0.25
+            return new, dict(out, pose=pose)
         conf = out.confidence.clone()
         if conf.dim():
             conf[0] = conf[0] + 0.25
@@ -63,7 +90,7 @@ def _fault(kind):
             conf = conf + 0.25
         return new, dataclasses.replace(out, confidence=conf)
 
-    return mcl, step
+    return module, name, step
 
 
 def _run(root, workload, program=None):
@@ -84,7 +111,8 @@ def test_the_control_is_not_correct(root, workload):
 @pytest.mark.parametrize("workload", tiny.cells())
 def test_a_fault_is_not_correct(root, workload, kind, monkeypatch):
     assert _run(root, workload)["correct"] is True
-    mcl, step = _fault(kind)
-    monkeypatch.setattr(mcl, "mcl_step", step)
+    cell = harness.load_cell(root, workload)
+    module, name, step = _fault(kind, cell.traffic["driver"])
+    monkeypatch.setattr(module, name, step)
     res = _run(root, workload)
     assert res["correct"] is False, res["checks"]

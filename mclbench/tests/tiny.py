@@ -32,6 +32,9 @@ def shrink_traffic(t: dict, robots: int = 2, episodes: int = 3,
     elif t["driver"] == "slam":
         t.update(episodes=slam_episodes, replicas=slam_replicas,
                  ticks=ticks)
+    elif t["driver"] == "closed_loop":
+        t.update(episodes=episodes, ticks=ticks,
+                 segment_ticks=min(t["segment_ticks"], 8))
     else:
         t["ticks"] = ticks
         if t["entry"] == "run_episode_batch":

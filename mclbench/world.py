@@ -1,6 +1,7 @@
 """A configuration as the harness and the reference read it: the filter's
-settings (a `filter` section) or RBPF SLAM's (a `slam` section), the
-reference maze and the beam table, on one device."""
+settings (a `filter` section, with a `closed_loop` section where the
+filter drives its robot) or RBPF SLAM's (a `slam` section), the reference
+maze and the beam table, on one device."""
 from __future__ import annotations
 
 import os
@@ -41,6 +42,19 @@ SUPPORTED_SLAM = {
 }
 
 
+# What the closed-loop reference implements (reference/closed_loop.py), by
+# field of the `closed_loop` section; the section holds these fields and
+# no others, `wanderer` with every field of WANDERER_FIELDS, and the
+# reference takes every other number as it is.
+SUPPORTED_CLOSED_LOOP = {
+    "known_start": (False,),
+}
+CLOSED_LOOP_FIELDS = ("base_speed", "arrival_tol", "scan_noise",
+                      "known_start", "wanderer")
+WANDERER_FIELDS = ("threshold", "forward_speed", "turn_speed", "turn_angle",
+                   "wheel_space", "wheel_size")
+
+
 def _check(name: str, settings: dict) -> None:
     """Raise where a setting ({label: (value, allowed)}) is outside what
     the reference implements."""
@@ -66,14 +80,34 @@ def _slam_settings(s: dict) -> dict:
         allowed) for key, allowed in SUPPORTED_SLAM.items()}
 
 
+def _check_closed_loop(name: str, cl: dict) -> None:
+    """Raise where the `closed_loop` section's fields are not exactly
+    CLOSED_LOOP_FIELDS (its wanderer's WANDERER_FIELDS), or a setting is
+    outside SUPPORTED_CLOSED_LOOP."""
+    for what, got, want in (("closed_loop", cl, CLOSED_LOOP_FIELDS),
+                            ("closed_loop.wanderer", cl.get("wanderer", {}),
+                             WANDERER_FIELDS)):
+        if set(got) != set(want):
+            raise ValueError(f"{name}: {what} has {sorted(got)}; the "
+                             f"reference reads {sorted(want)}")
+    _check(name, {k: (cl[k], allowed)
+                  for k, allowed in SUPPORTED_CLOSED_LOOP.items()})
+
+
 class World:
     def __init__(self, root: str, config: dict, device):
         self.config = config
         self.filter = config.get("filter")
         self.slam = config.get("slam")
+        self.closed_loop = config.get("closed_loop")
         if (self.filter is None) == (self.slam is None):
             raise ValueError(f"{config['name']}: a configuration has a "
                              f"`filter` or a `slam` section, one of them")
+        if self.closed_loop is not None and self.filter is None:
+            raise ValueError(f"{config['name']}: a `closed_loop` section "
+                             f"drives a `filter`")
+        if self.closed_loop is not None:
+            _check_closed_loop(config["name"], self.closed_loop)
         if self.filter is not None:
             _check(config["name"], _filter_settings(self.filter))
         else:
